@@ -1,0 +1,537 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port (``rwkv_tts_tpu_torch``).
+
+Run from the root of a checkout on a machine with one CUDA card:
+
+    python3 chip_smoke.py
+
+Phases, each fatal on failure:
+
+  build      compile every kernel of the main path from ``csrc/`` with
+             nvcc for sm_90a, one process per source, all at once;
+  kernels    each kernel's wrapper against its plain PyTorch version on
+             the card, with stated tolerances; decode must leave the other
+             layers of the state stack untouched; each kernel and plain
+             version timed at the main path's shapes (device time from
+             torch.profiler, and CUDA events per call);
+  goldens    the goldens model (2 layers × 128, weights rebuilt from the
+             JAX package's seeded numpy stream) on the card must emit
+             exactly the tokens of ``tests/goldens.json``;
+  main_path  8 property-controlled requests through
+             ``TtsPipeline.synthesize_batch`` at full width (32 × 2048 LM,
+             bf16 weights, f32 state; full-size BiCodec; random weights
+             from a fixed seed): valid tokens, finite waveforms of
+             len(semantic) × 320 samples, and kernel launch counts equal
+             to 32 × (decode steps) and 32 × (prefill chunks); then one
+             decode step profiled for its device busy share.
+
+Prints the card's name and power limit early, a ``{"kernels": [...]}``
+line second to last and ``{"ok": true, "device": {...}}`` last. Exits
+non-zero, printing no result line, when no card is present, when the
+package is missing, or when any phase fails.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import time
+
+SEED = 20261016
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
+F32_FLOPS_PER_S = 67e12        # H100 SXM, f32 outside the tensor cores
+TEXTS = (
+    "Hello, this is a smoke test of the speech pipeline.",
+    "你好，欢迎使用语音合成。",
+    "The quick brown fox jumps over the lazy dog.",
+    "今天天气很好，我们去公园散步吧。",
+    "Mixed 中英文 text for the synthesizer.",
+    "Numbers like 2026 and 3.14 are read aloud.",
+    "这是第七个请求。",
+    "Last request: short and sweet.",
+)
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(torch, fn, iters: int, warmup: int = 3) -> float:
+    """Mean device time of ``fn`` in ms, by CUDA events around ``iters``
+    calls after ``warmup`` calls."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, fn, iters: int) -> float:
+    """Device time per call of ``fn`` in ms: the summed duration of the
+    CUDA kernels it ran, from ``torch.profiler`` (CUPTI), over ``iters``
+    calls after a warmup call. Unlike ``cuda_ms`` it excludes the idle gaps
+    while the host prepares the next launch. NaN when the profiler saw no
+    device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            us += getattr(e, "self_device_time_total", 0.0)
+    return us / iters / 1e3 if us > 0 else float("nan")
+
+
+def rel_err(torch, got, want) -> float:
+    got, want = got.float(), want.float()
+    return float((got - want).abs().max() / want.abs().max().clamp(min=1e-30))
+
+
+def wkv_inputs(torch, shape, gen, masked_tail: int = 0):
+    """r, w, k, v, a, b of the magnitudes the model produces: w ≤ −0.5
+    (decay in (0.545, 1)), a = −kk and b = kk·iclr with kk unit-norm per
+    head. The last ``masked_tail`` positions are padding (w = −30,
+    k = b = 0), as the masked prefill feeds them."""
+    def randn(s=shape):
+        return torch.randn(s, generator=gen, device="cuda")
+    kk = torch.nn.functional.normalize(randn(), dim=-1)
+    r, k, v = randn(), 0.5 * randn(), randn()
+    w = -0.5 - torch.nn.functional.softplus(randn())
+    a, b = -kk, kk * torch.sigmoid(randn())
+    if masked_tail:
+        w[:, -masked_tail:] = -30.0
+        k[:, -masked_tail:] = 0.0
+        b[:, -masked_tail:] = 0.0
+    return [t.contiguous() for t in (r, w, k, v, a, b)]
+
+
+def check_decode(torch, W, B, H, N, L, dtype, gen, tol):
+    """Decode kernel vs plain on layer 2 of an L-layer stack; the other
+    layers must come back bit-identical. Returns the max abs error."""
+    r, w, k, v, a, b = wkv_inputs(torch, (B, H, N), gen)
+    stack = (0.1 * torch.randn((L, B, H, N, N), generator=gen,
+                               device="cuda")).to(dtype)
+    before = stack.clone()
+    layer = 2
+    y_ref, s_ref = W.wkv7_single(r, w, k, v, a, b, stack[layer])
+    y = W.wkv7_decode_(r, w, k, v, a, b, stack, layer)
+    torch.cuda.synchronize()
+    e_y = rel_err(torch, y, y_ref)
+    e_s = rel_err(torch, stack[layer], s_ref.to(dtype))
+    if e_y > 1e-4 or e_s > tol:
+        fail(f"decode B={B} {dtype}: rel err y {e_y:.3g}, state {e_s:.3g} "
+             f"(tolerance y 1e-4, state {tol})")
+    others = [i for i in range(L) if i != layer]
+    if not torch.equal(stack[others], before[others]):
+        fail(f"decode B={B} {dtype}: layers other than {layer} changed")
+    print(f"kernels: decode B={B} H={H} L={L} state={dtype}: rel err y "
+          f"{e_y:.3g} state {e_s:.3g}; other layers untouched", flush=True)
+    return max(float((y - y_ref).abs().max()),
+               float((stack[layer].float() - s_ref.to(dtype).float())
+                     .abs().max()))
+
+
+def check_prefill(torch, W, B, T, H, N, gen, masked_tail):
+    r, w, k, v, a, b = wkv_inputs(torch, (B, T, H, N), gen, masked_tail)
+    s0 = 0.1 * torch.randn((B, H, N, N), generator=gen, device="cuda")
+    y_ref, s_ref = W.wkv7_scan(r, w, k, v, a, b, s0)
+    y, s = W.wkv7_prefill(r, w, k, v, a, b, s0)
+    torch.cuda.synchronize()
+    e_y, e_s = rel_err(torch, y, y_ref), rel_err(torch, s, s_ref)
+    if e_y > 1e-4 or e_s > 1e-4:
+        fail(f"prefill B={B} T={T}: rel err y {e_y:.3g}, state {e_s:.3g} "
+             "(tolerance 1e-4)")
+    print(f"kernels: prefill B={B} T={T} H={H} (last {masked_tail} masked): "
+          f"rel err y {e_y:.3g} state {e_s:.3g}", flush=True)
+    return max(float((y - y_ref).abs().max()), float((s - s_ref).abs().max()))
+
+
+def bound(nbytes: float, flops: float):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_kernels(torch, W, lm_cfg):
+    """Correctness at B ∈ {1, 8} (decode, f32 and bf16 state) and
+    T ∈ {64, 61} (prefill), then timing at the main path's shapes:
+    decode at B = 8 on the full L-layer f32 stack (cycling the layers, as
+    the decode step does, so no slab stays in L2), prefill at B = 8,
+    T = 64 over four input sets (more than L2 holds)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    H, N, L = lm_cfg.n_head, lm_cfg.head_size, lm_cfg.n_layer
+    err = {"wkv7_decode": 0.0, "wkv7_prefill": 0.0}
+    for B in (1, 8):
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+            e = check_decode(torch, W, B, H, N, 4, dtype, gen, tol)
+            if B == 8 and dtype == torch.float32:
+                err["wkv7_decode"] = e
+    for T, tail in ((64, 5), (61, 0)):
+        e = check_prefill(torch, W, 8, T, H, N, gen, tail)
+        if T == 64:
+            err["wkv7_prefill"] = e
+
+    B = 8
+    ins = wkv_inputs(torch, (B, H, N), gen)
+    stack = torch.zeros((L, B, H, N, N), device="cuda")
+    it = {"i": 0}
+
+    def dec_kernel():
+        W.wkv7_decode_(*ins, stack, it["i"] % L)
+        it["i"] += 1
+
+    def dec_plain():
+        l = it["i"] % L
+        _, s = W.wkv7_single(*ins, stack[l])
+        stack[l].copy_(s)
+        it["i"] += 1
+
+    T = 64
+    sets = [(wkv_inputs(torch, (B, T, H, N), gen),
+             torch.zeros((B, H, N, N), device="cuda")) for _ in range(4)]
+
+    def pre(fn):
+        def run():
+            x, s0 = sets[it["i"] % 4]
+            fn(*x, s0)
+            it["i"] += 1
+        return run
+
+    slab, seq = B * H * N * N * 4, B * T * H * N * 4
+    cases = {
+        "wkv7_decode": (dec_kernel, dec_plain, 10 * L, 2 * L,
+                        bound(2 * slab + 7 * B * H * N * 4,
+                              9 * B * H * N * N)),
+        "wkv7_prefill": (pre(W.wkv7_prefill), pre(W.wkv7_scan), 40, 4,
+                         bound(7 * seq + 2 * B * H * N * N * 4,
+                               9 * B * T * H * N * N)),
+    }
+    out = {}
+    for name, (kern, plain, n_k, n_p, (b_ms, b_by)) in cases.items():
+        # device time (profiler) is the kernel's own time; the event time
+        # per call also holds the host's launch overhead between calls
+        call_ms, plain_call_ms = (cuda_ms(torch, kern, n_k),
+                                  cuda_ms(torch, plain, n_p))
+        dev_ms, plain_dev_ms = (device_ms(torch, kern, n_k),
+                                device_ms(torch, plain, n_p))
+        if dev_ms != dev_ms or plain_dev_ms != plain_dev_ms:   # NaN
+            print(f"kernels: {name}: the profiler saw no device time; "
+                  "reporting CUDA-event times per call", flush=True)
+            dev_ms, plain_dev_ms = call_ms, plain_call_ms
+        print(f"kernels: {name} at the main path's shape (B={B}, T="
+              f"{T if name == 'wkv7_prefill' else 1}): device {dev_ms:.5f} "
+              f"ms, plain {plain_dev_ms:.5f} ms, bound {b_ms:.5f} ms by "
+              f"{b_by}; per call with launch {call_ms:.5f} ms, plain "
+              f"{plain_call_ms:.5f} ms", flush=True)
+        out[name] = {"ms": dev_ms, "plain_ms": plain_dev_ms,
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "call_ms": call_ms, "plain_call_ms": plain_call_ms,
+                     "max_abs_err": err[name]}
+    return out
+
+
+# --------------------------------------------------------------------------
+# goldens: the JAX package's seeded init stream, rebuilt with numpy
+# --------------------------------------------------------------------------
+
+def goldens_params(cfg, seed: int):
+    """The parameters ``rwkv_tts_tpu.models.rwkv7.init_params(cfg,
+    PRNGKey(seed))`` makes (f32 layout): its host ``Initializer`` draws
+    ``default_rng(seed).standard_normal(shape) * scale`` in float64, in the
+    order of the dict literal, and casts to float32."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    L, C, H, N = cfg.n_layer, cfg.n_embd, cfg.n_head, cfg.head_size
+    V = cfg.padded_vocab_size
+
+    def normal(shape, scale):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    def dense(i, o, scale=None):
+        return normal((L, i, o), i ** -0.5 if scale is None else scale)
+
+    def full(shape, value):
+        return np.full(shape, value, np.float32)
+
+    emb = normal((V, C), 1e-4)
+    head = normal((C, V), C ** -0.5)
+    blocks = {}
+    for name in ("w_r", "w_k", "w_v", "w_o"):
+        blocks[name] = dense(C, C)
+    blocks["w1"] = dense(C, cfg.decay_lora, 0.0)
+    blocks["w2"] = dense(cfg.decay_lora, C, cfg.decay_lora ** -0.5)
+    blocks["a1"] = dense(C, cfg.a_lora, 0.0)
+    blocks["a2"] = dense(cfg.a_lora, C, cfg.a_lora ** -0.5)
+    blocks["v1"] = dense(C, cfg.v_lora, 0.0)
+    blocks["v2"] = dense(cfg.v_lora, C, cfg.v_lora ** -0.5)
+    blocks["g1"] = dense(C, cfg.gate_lora, 0.0)
+    blocks["g2"] = dense(cfg.gate_lora, C, cfg.gate_lora ** -0.5)
+    blocks["ffn_k"] = dense(C, cfg.ffn_mult * C)
+    blocks["ffn_v"] = dense(cfg.ffn_mult * C, C)
+    for name in ("ln1_w", "ln2_w", "k_a", "ln_x_w"):
+        blocks[name] = full((L, C), 1.0)
+    for name in ("ln1_b", "ln2_b", "x_r", "x_w", "x_k", "x_v", "x_a", "x_g",
+                 "a0", "v0", "ln_x_b", "ffn_x_k"):
+        blocks[name] = full((L, C), 0.0)
+    blocks["w0"] = full((L, C), -4.0)
+    blocks["k_k"] = full((L, C), 0.85)
+    blocks["r_k"] = full((L, H, N), 0.0)
+    return {"emb": emb, "head": head,
+            "ln0_w": full((C,), 1.0), "ln0_b": full((C,), 0.0),
+            "ln_out_w": full((C,), 1.0), "ln_out_b": full((C,), 0.0),
+            "blocks": blocks}
+
+
+GOLDENS_CFG = dict(n_layer=2, n_embd=128, head_size=64, vocab_size=77923,
+                   padded_vocab_size=78080, decay_lora=32, a_lora=32,
+                   v_lora=16, gate_lora=32, dtype="float32",
+                   param_dtype="float32")
+
+
+def goldens_requests(TtsArgs):
+    """The requests of tests/test_goldens.py."""
+    return {
+        "normal_seed42": TtsArgs(text="golden fixture text", seed=42,
+                                 max_tokens=16),
+        "normal_chinese": TtsArgs(text="你好世界", seed=7, max_tokens=16,
+                                  gender="male", emotion="HAPPY",
+                                  speed="fast"),
+        "zero_shot": TtsArgs(text="clone fixture", seed=3, zero_shot=True,
+                             max_tokens=16, ref_global_tokens=list(range(32)),
+                             ref_semantic_tokens=[1, 2, 3]),
+        "zero_shot_window": TtsArgs(text="w", seed=11, zero_shot=True,
+                                    max_tokens=48,
+                                    ref_global_tokens=[5] * 32),
+    }
+
+
+def run_goldens(device: str, root: str):
+    """Tokens of the goldens requests on ``device``; returns
+    {name: {"global": [...], "semantic": [...]}}."""
+    from rwkv_tts_tpu_torch.config import EngineConfig, RwkvConfig, TtsArgs
+    from rwkv_tts_tpu_torch.runtime.engine import TtsEngine
+    from rwkv_tts_tpu_torch.utils import bridge
+
+    cfg = RwkvConfig(**GOLDENS_CFG)
+    eng = TtsEngine(bridge.rwkv7_params(goldens_params(cfg, 1234), device),
+                    cfg, EngineConfig(prefill_buckets=(64, 128),
+                                      max_semantic_tokens=16),
+                    device=device)
+    out = {}
+    for name, req in goldens_requests(TtsArgs).items():
+        res = eng.generate(req)
+        out[name] = {"global": res.global_tokens,
+                     "semantic": res.semantic_tokens}
+    return out
+
+
+def phase_goldens(root: str) -> None:
+    with open(os.path.join(root, "tests", "goldens.json")) as f:
+        want = json.load(f)
+    got = run_goldens("cuda", root)
+    for name in want:
+        if got[name] != want[name]:
+            fail(f"goldens: {name} tokens differ from tests/goldens.json: "
+                 f"{got[name]} vs {want[name]}")
+    print(f"goldens: all {len(want)} requests emit the tokens of "
+          "tests/goldens.json", flush=True)
+
+
+# --------------------------------------------------------------------------
+# main path
+# --------------------------------------------------------------------------
+
+def main_path(torch, lm_cfg, bc_cfg, device: str, max_tokens: int,
+              engine_cfg=None, warmup: bool = True):
+    """8 property-controlled requests through TtsPipeline.synthesize_batch
+    on ``device``, with every check of the main path. Returns a summary."""
+    from rwkv_tts_tpu_torch.config import EngineConfig, TtsArgs
+    from rwkv_tts_tpu_torch.models import bicodec, rwkv7
+    from rwkv_tts_tpu_torch.ops import wkv7 as W
+    from rwkv_tts_tpu_torch.runtime.pipeline import TtsPipeline
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    t0 = time.perf_counter()
+    pipe = TtsPipeline(rwkv7.init_params(lm_cfg, gen, device), lm_cfg,
+                       bicodec.init_params(bc_cfg, gen, device), bc_cfg,
+                       engine_cfg=engine_cfg or EngineConfig(), device=device)
+    init_s = time.perf_counter() - t0
+    emotions = ("NEUTRAL", "HAPPY", "SAD", "EXCITED")
+    requests = [TtsArgs(text=t, seed=100 + i, max_tokens=max_tokens,
+                        gender=("female", "male")[i % 2],
+                        emotion=emotions[i % 4])
+                for i, t in enumerate(TEXTS)]
+    if warmup:
+        pipe.synthesize_batch([dataclasses.replace(r, max_tokens=4)
+                               for r in requests])
+
+    pipe.engine.counters = {k: 0 for k in pipe.engine.counters}
+    W.reset_launches()
+    t0 = time.perf_counter()
+    results = pipe.synthesize_batch(requests)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = dict(W.LAUNCHES)
+    counters = dict(pipe.engine.counters)
+
+    import numpy as np
+    for i, res in enumerate(results):
+        g, s = res.global_tokens, res.semantic_tokens
+        if len(g) != 32 or not all(0 <= t < 4096 for t in g):
+            fail(f"main_path: request {i}: bad global tokens {g}")
+        if not all(0 <= t < 8192 for t in s):
+            fail(f"main_path: request {i}: semantic token out of range")
+        want_len = len(s) * 320 if s else 16000
+        if res.audio.shape != (want_len,):
+            fail(f"main_path: request {i}: waveform {res.audio.shape}, "
+                 f"expected ({want_len},)")
+        if not np.all(np.isfinite(res.audio)):
+            fail(f"main_path: request {i}: waveform not finite")
+    L = lm_cfg.n_layer
+    want = {"wkv7_decode": L * counters["decode_steps"],
+            "wkv7_prefill": L * counters["prefill_chunks"]}
+    if device == "cuda" and launches != want:
+        fail(f"main_path: kernel launches {launches}, expected {want} "
+             f"(counters {counters})")
+    return {"results": results, "launches": launches, "counters": counters,
+            "wall_s": wall_s, "init_s": init_s, "pipe": pipe}
+
+
+def step_profile(torch, pipe, steps: int = 8):
+    """One decode step of the main path's LM at its batch: wall ms per step
+    (host clock, synchronized, no profiler attached), then, over as many
+    steps under torch.profiler, device busy ms per step (sum of CUDA kernel
+    time) and kernels launched per step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rwkv_tts_tpu_torch.models import rwkv7
+    from rwkv_tts_tpu_torch.runtime.engine import SEMANTIC_SLICE
+
+    eng = pipe.engine
+    B = eng.engine_cfg.batch_size
+    state = rwkv7.init_state(eng.cfg, B, device="cuda")
+    tok = torch.zeros(B, dtype=torch.int64, device="cuda")
+
+    def run():
+        for _ in range(steps):
+            rwkv7.step(eng.params, tok, state, eng.cfg,
+                       head_slice=SEMANTIC_SLICE)
+        torch.cuda.synchronize()
+
+    rwkv7.step(eng.params, tok, state, eng.cfg, head_slice=SEMANTIC_SLICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+    busy_us, kernels = 0.0, 0
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            busy_us += getattr(e, "self_device_time_total", 0.0)
+            kernels += e.count
+    return wall_ms, busy_us / steps / 1e3, kernels / steps
+
+
+def main() -> None:
+    root = os.path.dirname(os.path.abspath(__file__))
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script needs a card")
+    try:
+        import rwkv_tts_tpu_torch
+        from rwkv_tts_tpu_torch.config import BiCodecConfig, RwkvConfig
+        from rwkv_tts_tpu_torch.ops import _build
+        from rwkv_tts_tpu_torch.ops import wkv7 as W
+    except ImportError as e:
+        fail(f"the rwkv_tts_tpu_torch package is not importable: {e}")
+    # the kernels must build from this checkout's sources, not from a copy
+    # of the package installed elsewhere
+    pkg_dir = os.path.dirname(os.path.realpath(rwkv_tts_tpu_torch.__file__))
+    if pkg_dir != os.path.join(os.path.realpath(root), "rwkv_tts_tpu_torch"):
+        fail(f"rwkv_tts_tpu_torch imported from {pkg_dir}, not from the "
+             f"checkout at {root}")
+
+    print(card_line(), flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
+    t0 = time.perf_counter()
+    try:
+        _build.build()
+    except RuntimeError as e:
+        fail(str(e))
+    print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
+    for name, log in _build.build_log.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"build: {name}: {line.strip()}", flush=True)
+
+    lm_cfg, bc_cfg = RwkvConfig(), BiCodecConfig()
+    stats = phase_kernels(torch, W, lm_cfg)
+    phase_goldens(root)
+
+    out = main_path(torch, lm_cfg, bc_cfg, "cuda", max_tokens=64)
+    res = out["results"]
+    print(f"main_path: {len(res)} requests, {lm_cfg.n_layer} layers x "
+          f"{lm_cfg.n_embd}, init {out['init_s']:.2f} s, wall "
+          f"{out['wall_s']:.3f} s, counters {out['counters']}, launches "
+          f"{out['launches']}", flush=True)
+    print(f"main_path: stage timings (ms) {res[0].timings_ms}, batch RTF "
+          f"{res[0].rtf:.4f}, semantic lengths "
+          f"{[len(r.semantic_tokens) for r in res]}", flush=True)
+    wall_ms, busy_ms, kernels = step_profile(torch, out["pipe"])
+    print(f"main_path: decode step at batch "
+          f"{out['pipe'].engine.engine_cfg.batch_size}: wall {wall_ms:.3f} ms, "
+          f"device busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), "
+          f"{kernels:.0f} kernels per step", flush=True)
+
+    sources = {"wkv7_decode": ("rwkv_tts_tpu_torch/csrc/wkv7_decode.cu",
+                               "rwkv_tts_tpu/ops/wkv7.py:372"),
+               "wkv7_prefill": ("rwkv_tts_tpu_torch/csrc/wkv7_prefill.cu",
+                                "rwkv_tts_tpu/ops/wkv7.py:483")}
+    kernels = []
+    for name, (src, replaces) in sources.items():
+        s = stats[name]
+        kernels.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": replaces,
+                        "launches": out["launches"][name],
+                        "max_abs_err": s["max_abs_err"], "ms": s["ms"],
+                        "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
+                        "bound_by": s["bound_by"], "library_ms": None})
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,365 @@
+"""BiCodec decode side (SparkTTS) in PyTorch.
+
+Port of the detokenize path of ``rwkv_tts_tpu/models/bicodec.py``:
+global tokens [B, 32] + semantic tokens [B, S] → waveform [B, S·320] at
+16 kHz. Semantic codes → factorized-VQ codebook rows out-projected 8→1024
+(``fvq_detokenize``, :246); global codes → FSQ digits → speaker vector
+(``fsq_dequantize`` :280, ``speaker_detokenize`` :422); a Vocos prenet
+whose LayerNorms are AdaLN-conditioned on the speaker vector
+(``prenet_forward`` :447) plus the speaker vector; then a DAC-style wave
+generator of snake, transposed-conv upsampling and dilated residual units
+(``wave_generator`` :514). ``detokenize`` (:845) edge-pads the sequence to
+a bucket, at least the decoder's receptive field, and trims.
+
+Parameters are the JAX package's decode subtrees (``utils/bridge.py``) or
+``init_params`` below. The computation runs in float32 (the default
+``BiCodecConfig.dtype``); the convolutions are ``F.conv1d`` and
+``F.conv_transpose1d``, which the JAX package likewise left to its
+compiler. ``utils.device.resolve_device`` keeps cuDNN out of TF32.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..config import BiCodecConfig
+from ..utils.device import resolve_device
+
+Params = Dict[str, Any]
+
+DETOKENIZE_BUCKETS = (64, 128, 256, 512, 1024, 2048)
+
+
+# --------------------------------------------------------------------------
+# primitives
+# --------------------------------------------------------------------------
+
+def _ln(x, w, b, eps=1e-6):
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, correction=0)
+    return ((xf - mu) * torch.rsqrt(var + eps) * w.float()
+            + b.float()).to(x.dtype)
+
+
+def _ada_ln(p, x, cond, eps=1e-6):
+    """AdaLayerNorm: scale/shift regressed from the condition vector.
+    x [B, T, D], cond [B, C]."""
+    cf = cond.float()
+    scale = cf @ p["scale_w"].float() + p["scale_b"].float()
+    shift = cf @ p["shift_w"].float() + p["shift_b"].float()
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, correction=0)
+    xn = (xf - mu) * torch.rsqrt(var + eps)
+    return (xn * scale[:, None, :] + shift[:, None, :]).to(x.dtype)
+
+
+def _conv1d(x, w, b=None, dilation=1, groups=1, padding=0):
+    """x [B, C, T], w [O, I/groups, K], symmetric padding, stride 1."""
+    out = F.conv1d(x, w, None, 1, padding, dilation, groups)
+    if b is not None:
+        out = out + b.float()[None, :, None]
+    return out
+
+
+def _tconv1d(x, w, b=None, stride=1, padding=0):
+    """ConvTranspose1d, torch weight layout [I, O, K]."""
+    out = F.conv_transpose1d(x, w, None, stride, padding)
+    if b is not None:
+        out = out + b.float()[None, :, None]
+    return out
+
+
+def _snake(x, alpha):
+    """Snake activation (DAC): x + sin²(αx)/α, α per channel."""
+    a = alpha.float()[None, :, None]
+    return x + torch.sin(a * x) ** 2 / (a + 1e-9)
+
+
+# --------------------------------------------------------------------------
+# Vocos backbone (ConvNeXt-1D)
+# --------------------------------------------------------------------------
+
+def _convnext_block(p, x, cond=None):
+    """x [B, T, D] → [B, T, D]."""
+    h = _conv1d(x.transpose(1, 2), p["dw_w"], p["dw_b"], groups=x.shape[-1],
+                padding=p["dw_w"].shape[-1] // 2).transpose(1, 2)
+    if cond is not None:
+        h = _ada_ln(p["norm"], h, cond)
+    else:
+        h = _ln(h, p["norm_w"], p["norm_b"])
+    h = F.gelu(h @ p["pw1_w"] + p["pw1_b"])
+    h = h @ p["pw2_w"] + p["pw2_b"]
+    if p.get("gamma") is not None:
+        h = p["gamma"] * h
+    return x + h
+
+
+def _vocos_backbone(p, x, cond=None):
+    """x [B, C_in, T] → [B, T, dim]: embed conv k7, pre-norm (AdaLN when
+    conditioned), ConvNeXt blocks, final LN."""
+    h = _conv1d(x, p["embed_w"], p["embed_b"],
+                padding=p["embed_w"].shape[-1] // 2).transpose(1, 2)
+    if cond is not None:
+        h = _ada_ln(p["norm"], h, cond)
+    else:
+        h = _ln(h, p["norm_w"], p["norm_b"])
+    for blk in p["blocks"]:
+        h = _convnext_block(blk, h, cond)
+    return _ln(h, p["final_ln_w"], p["final_ln_b"])
+
+
+def _sampling_block(p, x, up: int = 1):
+    """The decode side's SamplingBlock: x [B, T, D] → [B, D, T·up]. A
+    ratio-1 block (the published config) is a transpose; ``up`` > 1 adds a
+    transposed-conv upsampling to the repeated sequence. (The encoder's
+    downsampling branch belongs to the encode path, not ported here.)"""
+    x = x.transpose(1, 2)
+    if up > 1:
+        rep = torch.repeat_interleave(x, up, dim=2)
+        dec = _tconv1d(F.leaky_relu(x, 0.2), p["up_w"], p["up_b"],
+                       stride=up, padding=up // 2 + up % 2)
+        x = rep + dec[..., :rep.shape[-1]]
+    return x
+
+
+# --------------------------------------------------------------------------
+# token → latent
+# --------------------------------------------------------------------------
+
+def fvq_detokenize(p, idx):
+    """indices [B, T] → z_q [B, D, T] (un-normalized codebook rows,
+    out-projected)."""
+    zq = p["codebook"][idx]                            # [B, T, 8]
+    return (zq @ p["out_w"] + p["out_b"]).transpose(1, 2)
+
+
+def fsq_dequantize(code, levels):
+    """codes [...] → normalized vectors [..., d]."""
+    lv = torch.tensor(levels, dtype=torch.int64, device=code.device)
+    basis = torch.cumprod(torch.cat([torch.ones_like(lv[:1]), lv[:-1]]), 0)
+    digits = (code[..., None].long() // basis) % lv
+    half_w = (lv // 2).float()
+    return (digits.float() - half_w) / half_w
+
+
+def speaker_detokenize(p, codes, cfg: BiCodecConfig):
+    """global tokens [B, 32] → speaker vector d [B, out_dim]; the quantized
+    latents flatten channel-major, as in the JAX package."""
+    q = fsq_dequantize(codes, cfg.fsq_levels)          # [B, 32, 6]
+    lat = q @ p["fsq_out_w"] + p["fsq_out_b"]          # [B, 32, latent]
+    flat = lat.transpose(1, 2).reshape(lat.shape[0], -1)
+    return flat @ p["proj_w"] + p["proj_b"]
+
+
+# --------------------------------------------------------------------------
+# decoder
+# --------------------------------------------------------------------------
+
+def prenet_forward(p, zq, cond, cfg: BiCodecConfig):
+    """z_q [B, 1024, S] + condition [B, 1024] → [B, 1024, S]."""
+    h = zq.transpose(1, 2) @ p["pre_w"] + p["pre_b"]
+    for ratio, stage in zip(cfg.prenet_ratios, p["stages"]):
+        h = _sampling_block(stage.get("sampler", {}), h, up=ratio)
+        h = _vocos_backbone(stage["vocos"], h)
+    h = _vocos_backbone(p["backbone"], h.transpose(1, 2), cond=cond)
+    h = h @ p["out_w"] + p["out_b"]
+    return h.transpose(1, 2)
+
+
+def _residual_unit(p, x, dilation):
+    k = p["w1"].shape[-1]
+    h = _conv1d(_snake(x, p["alpha1"]), p["w1"], p["b1"], dilation=dilation,
+                padding=(k - 1) * dilation // 2)
+    h = _conv1d(_snake(h, p["alpha2"]), p["w2"], p["b2"])
+    return x + h
+
+
+def wave_generator(p, x, cfg: BiCodecConfig):
+    """x [B, 1024, S] → wav [B, S·320] in (−1, 1)."""
+    h = _conv1d(x, p["in_w"], p["in_b"], padding=p["in_w"].shape[-1] // 2)
+    for blk, rate, k in zip(p["blocks"], cfg.dec_rates, cfg.dec_kernels):
+        h = _snake(h, blk["alpha"])
+        h = _tconv1d(h, blk["up_w"], blk["up_b"], stride=rate,
+                     padding=(k - rate) // 2)
+        for ru, d in zip(blk["res"], (1, 3, 9)):
+            h = _residual_unit(ru, h, d)
+    h = _snake(h, p["alpha_out"])
+    h = _conv1d(h, p["out_w"], p["out_b"], padding=p["out_w"].shape[-1] // 2)
+    return torch.tanh(h[:, 0, :])
+
+
+def decode(params: Params, global_tokens: torch.Tensor,
+           semantic_tokens: torch.Tensor, cfg: BiCodecConfig) -> torch.Tensor:
+    """global [B, 32] + semantic [B, S] → wav [B, S·320] f32:
+    prenet(z_q, d) + d, then the wave generator
+    (BiCodecDetokenize.onnx, ref_audio_utilities.rs:1259-1297)."""
+    if cfg.dtype != "float32":
+        raise NotImplementedError(f"BiCodec compute dtype {cfg.dtype!r}: "
+                                  "the port runs float32 only")
+    zq = fvq_detokenize(params["quantizer"], semantic_tokens)
+    d = speaker_detokenize(params["speaker"], global_tokens, cfg)
+    x = prenet_forward(params["prenet"], zq, d, cfg) + d[:, :, None]
+    return wave_generator(params["wavegen"], x, cfg)
+
+
+def receptive_latents(cfg: BiCodecConfig) -> int:
+    """Conservative one-sided receptive field of ``decode`` in latent frames
+    (drives the bucket padding margin)."""
+    def backbone(layers):
+        return 3 + 3 * layers          # embed k7 + k7 depthwise per block
+
+    r = backbone(cfg.prenet_layers)
+    r += sum(backbone(2) for _ in cfg.prenet_ratios)
+    r += 3                              # wave-generator input conv k7
+    f = 1
+    for rate, k in zip(cfg.dec_rates, cfg.dec_kernels):
+        f *= rate
+        r += -(-k // f) + 1             # transposed conv
+        r += -(-39 // f)                # res units: k7 at dil 1+3+9 → ±39
+    return r + 8                        # margin
+
+
+def _detok_bucket(n: int, buckets) -> int:
+    for b in buckets:
+        if n <= b:
+            return b
+    return -(-n // buckets[-1]) * buckets[-1]
+
+
+def detokenize(params: Params, global_tokens, semantic_tokens,
+               cfg: BiCodecConfig, bucket=DETOKENIZE_BUCKETS) -> np.ndarray:
+    """Host wrapper: edge-pads the semantic sequence (last token repeated)
+    by at least the receptive field up to a bucket, decodes on the
+    parameters' device, trims to S·320 samples → f32 numpy [B, S·320].
+    ``bucket`` is an int (fixed multiple) or a sequence of bucket sizes."""
+    dev = params["quantizer"]["codebook"].device
+    g = np.asarray(global_tokens, np.int64)
+    if g.ndim == 1:
+        g = g[None]
+    s = np.asarray(semantic_tokens, np.int64)
+    if s.ndim == 1:
+        s = s[None]
+    S = s.shape[1]
+    if S == 0:
+        return np.zeros((s.shape[0], 0), np.float32)
+    need = S + receptive_latents(cfg)
+    if isinstance(bucket, int):
+        padded = need + ((-need) % bucket)
+    else:
+        padded = _detok_bucket(need, tuple(bucket))
+    s_pad = np.pad(s, ((0, 0), (0, padded - S)), mode="edge")
+    wav = decode(params, torch.from_numpy(g).to(dev),
+                 torch.from_numpy(s_pad).to(dev), cfg)
+    return wav[:, :S * cfg.hop].cpu().numpy().astype(np.float32)
+
+
+# --------------------------------------------------------------------------
+# random parameters (decode subtrees)
+# --------------------------------------------------------------------------
+
+def init_params(cfg: BiCodecConfig, generator: Optional[torch.Generator] = None,
+                device=None) -> Params:
+    """Random decode-side parameters (quantizer, speaker projection, prenet,
+    wave generator) with the JAX package's shapes and init scales
+    (``bicodec.init_params``, :605), drawn on ``device`` from ``generator``
+    (seed 0 when None). Torch's draws, not the JAX package's stream."""
+    dev = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=dev)
+        generator.manual_seed(0)
+
+    def normal(shape, scale):
+        x = torch.randn(shape, generator=generator, dtype=torch.float32,
+                        device=dev)
+        return x.mul_(scale)
+
+    def lin(i, o, scale=None):
+        return normal((i, o), i ** -0.5 if scale is None else scale)
+
+    def zeros(*s):
+        return torch.zeros(s, dtype=torch.float32, device=dev)
+
+    def ones(*s):
+        return torch.ones(s, dtype=torch.float32, device=dev)
+
+    def conv(o, i, k):
+        return normal((o, i, k), (i * k) ** -0.5)
+
+    def ada(c, d):
+        return {"scale_w": lin(c, d, 0.02), "scale_b": ones(d),
+                "shift_w": lin(c, d, 0.02), "shift_b": zeros(d)}
+
+    def cnx_block(dim, inter, n_layers, cond_dim=None):
+        p = {"dw_w": conv(dim, 1, 7), "dw_b": zeros(dim),
+             "pw1_w": lin(dim, inter), "pw1_b": zeros(inter),
+             "pw2_w": lin(inter, dim), "pw2_b": zeros(dim),
+             "gamma": torch.full((dim,), 1.0 / n_layers, device=dev)}
+        if cond_dim is not None:
+            p["norm"] = ada(cond_dim, dim)
+        else:
+            p["norm_w"], p["norm_b"] = ones(dim), zeros(dim)
+        return p
+
+    def vocos(c_in, dim, inter, layers, cond_dim=None):
+        p = {"embed_w": conv(dim, c_in, 7), "embed_b": zeros(dim),
+             "blocks": [cnx_block(dim, inter, layers, cond_dim)
+                        for _ in range(layers)],
+             "final_ln_w": ones(dim), "final_ln_b": zeros(dim)}
+        if cond_dim is not None:
+            p["norm"] = ada(cond_dim, dim)
+        else:
+            p["norm_w"], p["norm_b"] = ones(dim), zeros(dim)
+        return p
+
+    quantizer = {
+        "in_w": lin(cfg.encoder_out, cfg.codebook_dim),
+        "in_b": zeros(cfg.codebook_dim),
+        "codebook": normal((cfg.semantic_codebook, cfg.codebook_dim), 1.0),
+        "out_w": lin(cfg.codebook_dim, cfg.encoder_out, 0.5),
+        "out_b": zeros(cfg.encoder_out),
+    }
+    pd, nf = cfg.spk_latent_dim, len(cfg.fsq_levels)
+    speaker = {
+        "fsq_out_w": lin(nf, pd, 0.5), "fsq_out_b": zeros(pd),
+        "proj_w": lin(pd * cfg.num_global_tokens, cfg.spk_out_dim),
+        "proj_b": zeros(cfg.spk_out_dim),
+    }
+    Dp = cfg.prenet_dim
+    prenet = {
+        "pre_w": lin(cfg.encoder_out, Dp), "pre_b": zeros(Dp),
+        "stages": [{"vocos": vocos(Dp, Dp, cfg.prenet_inter_dim, 2)}
+                   for _ in cfg.prenet_ratios],
+        "backbone": vocos(Dp, Dp, cfg.prenet_inter_dim, cfg.prenet_layers,
+                          cond_dim=cfg.spk_out_dim),
+        "out_w": lin(Dp, cfg.encoder_out), "out_b": zeros(cfg.encoder_out),
+    }
+    blocks = []
+    ch_in = cfg.dec_channels
+    for rate, k in zip(cfg.dec_rates, cfg.dec_kernels):
+        ch_out = ch_in // 2
+        blocks.append({
+            "alpha": ones(ch_in),
+            "up_w": normal((ch_in, ch_out, k), (ch_in * k) ** -0.5),
+            "up_b": zeros(ch_out),
+            "res": [{"alpha1": ones(ch_out),
+                     "w1": conv(ch_out, ch_out, 7), "b1": zeros(ch_out),
+                     "alpha2": ones(ch_out),
+                     "w2": conv(ch_out, ch_out, 1), "b2": zeros(ch_out)}
+                    for _ in range(3)],
+        })
+        ch_in = ch_out
+    wavegen = {
+        "in_w": conv(cfg.dec_channels, cfg.encoder_out, 7),
+        "in_b": zeros(cfg.dec_channels),
+        "blocks": blocks,
+        "alpha_out": ones(ch_in),
+        "out_w": conv(1, ch_in, 7), "out_b": zeros(1),
+    }
+    return {"quantizer": quantizer, "speaker": speaker, "prenet": prenet,
+            "wavegen": wavegen}

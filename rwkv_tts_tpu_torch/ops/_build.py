@@ -1,0 +1,100 @@
+"""Build the port's CUDA kernels at first use and load them with ctypes.
+
+Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a shared
+library with a plain C interface, under ``build/rwkv_tts_tpu_torch/`` at the
+root of the checkout, named by a hash of its source and flags, so an edited
+source rebuilds and an unchanged one loads at once. Sources build in
+parallel, one ``nvcc`` process each. A failed build raises; nothing falls
+back to another path.
+
+Nothing here runs at import time: the package imports where there is no
+``nvcc`` and no card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Iterable
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "rwkv_tts_tpu_torch"
+KERNELS = ("wkv7_decode", "wkv7_prefill")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# nvcc's output per kernel of the builds this process ran: ptxas reports
+# each kernel's registers, shared memory and spills
+build_log: Dict[str, str] = {}
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc() -> str:
+    cands = []
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home:
+        cands.append(os.path.join(home, "bin", "nvcc"))
+    on_path = shutil.which("nvcc")
+    if on_path:
+        cands.append(on_path)
+    cands.append("/usr/local/cuda/bin/nvcc")
+    for c in cands:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH): "
+                       "the port's CUDA kernels cannot be built")
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+
+
+def build(names: Iterable[str] = KERNELS) -> Dict[str, Path]:
+    """Compile every library of ``names`` not built yet, all at once;
+    returns each kernel's library path."""
+    paths = {n: library_path(n) for n in names}
+    missing = {n: p for n, p in paths.items() if not p.exists()}
+    if not missing:
+        return paths
+    cc = nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for n, p in missing.items():
+        # a private temporary name, renamed into place: a concurrent
+        # process never loads a half-written library
+        tmp = p.with_name(f"{p.name}.{os.getpid()}.tmp")
+        cmd = [cc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True),
+                    tmp, p)
+    failed = []
+    for n, (proc, tmp, p) in procs.items():
+        out, _ = proc.communicate()
+        build_log[n] = out
+        if proc.returncode:
+            failed.append(f"{n}: nvcc exited {proc.returncode}\n{out}")
+        else:
+            os.replace(tmp, p)
+    if failed:
+        raise RuntimeError("building the port's CUDA kernels failed:\n"
+                           + "\n".join(failed))
+    return paths
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The kernel's library, built first if needed."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build((name,))[name]))
+            _libs[name] = lib
+        return lib

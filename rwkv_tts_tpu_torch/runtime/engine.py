@@ -1,0 +1,320 @@
+"""TTS decode engine: prefill → global stage → semantic stage.
+
+Port of ``rwkv_tts_tpu/runtime/engine.py``. The stages keep the JAX
+engine's contracts, cited where they bind:
+
+  * prompt assembly   props + TAG_2 + text + TAG_0                (normal_mode_inference.rs:37-41)
+                      … + (ref_global+8196)* + TAG_1 for zero-shot (zero_shot_inference.rs:75-85)
+  * global stage      exactly 32 tokens from logits[0:4096), t=1.0/p=.95/k=20,
+                      fed back +8196                              (normal_mode_inference.rs:219-287)
+  * semantic stage    ≤ min(max_tokens, 2048) from logits[0:8193), tags masked,
+                      t=1.0/p=.95/k=80, stop at EOS 8192           (normal_mode_inference.rs:316-391)
+  * zero-shot gating  EOS forbidden before hard_min ≈ 1.8×|text|, accepted only
+                      if ≥70% of the last 12 draws were non-EOS, else resampled
+                      with EOS masked under key i + (1 << 20)       (zero_shot_inference.rs:127-149,219-309)
+  * stage RNG streams seed+1000 (global), seed+2000 (semantic); draws are
+                      uniform(fold_in(key, i)) — ``utils/threefry``, bit-equal to JAX
+
+The decode loop is a Python loop over ``rwkv7.step``. It asks the card
+whether every slot is done once per ``EngineConfig.decode_block`` steps
+instead of every step; steps after the last slot finished emit nothing, so
+the tokens are those of the JAX engine's per-step check.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .. import constants as C
+from ..config import EngineConfig, RwkvConfig, TtsArgs
+from ..models import rwkv7
+from ..ops.sampling import filtered_probs, sample_token
+from ..tokenizer import load_tokenizer
+from ..tokenizer.properties import convert_standard_properties_to_tokens
+from ..tokenizer.rwkv_tokenizer import CachedEncoder
+from ..utils import threefry
+from ..utils.device import resolve_device
+
+# both sampling domains are prefixes of the unified vocab, so the decode
+# step computes only these logits (semantic ids ≤ 8192, global ids < 4096)
+SEMANTIC_SLICE = 8320
+
+
+def _mask_semantic(logits):
+    """Semantic-domain mask over a sliced row: ids > EOS and the three tags
+    → -inf (normal_mode_inference.rs:332-350)."""
+    width = min(SEMANTIC_SLICE, logits.shape[-1])
+    s = logits[..., :width]
+    ids = torch.arange(width, device=logits.device)
+    bad = ((ids > C.TTS_EOS_TOKEN) | (ids == C.TTS_TAG_0)
+           | (ids == C.TTS_TAG_1) | (ids == C.TTS_TAG_2))
+    return s.masked_fill(bad, float("-inf"))
+
+
+def _mask_global(logits):
+    """Global-domain slice: only ids < 4096 are sampleable
+    (normal_mode_inference.rs:236-244)."""
+    return logits[..., :min(C.GLOBAL_VOCAB, logits.shape[-1])]
+
+
+def _sample(logits, u, preset):
+    probs = filtered_probs(logits, preset["temperature"], preset["top_p"],
+                           preset["top_k"])
+    return sample_token(probs, u)
+
+
+def zs_hard_min(text_len: int) -> int:
+    """Zero-shot hard minimum before EOS is allowed: clamp(1.8×|text|,
+    max(8, |text|/4)…64 lower bound, ≤ 0.9×2048)
+    (zero_shot_inference.rs:127-149)."""
+    min_len = min(max(text_len // 4, C.ZS_MIN_LEN_LO), C.ZS_MIN_LEN_HI)
+    est = int(np.ceil(text_len * C.ZS_HARD_MIN_FACTOR))
+    upper = int(C.MAX_SEMANTIC_TOKENS * C.ZS_UPPER_FRAC)
+    return min(upper, max(min_len, est))
+
+
+def global_stage(params, state, first_logits, base_keys, cfg: RwkvConfig
+                 ) -> Tuple[torch.Tensor, dict, torch.Tensor]:
+    """Exactly 32 global (speaker) tokens; each is fed back +8196.
+
+    base_keys: [B, 2] threefry keys (int64 words). Returns (tokens [B, 32],
+    state, logits after the last token). ``state`` is updated in place."""
+    gk = C.GLOBAL_SAMPLING
+    hs = min(SEMANTIC_SLICE, cfg.padded_vocab_size)
+    u = threefry.step_uniforms(base_keys, C.GLOBAL_TOKENS_SIZE)
+    logits = first_logits[..., :hs]
+    toks = []
+    for i in range(C.GLOBAL_TOKENS_SIZE):
+        tok = _sample(_mask_global(logits), u[:, i], gk)
+        logits, state = rwkv7.step(params, tok + C.GLOBAL_TOKEN_OFFSET, state,
+                                   cfg, head_slice=hs)
+        toks.append(tok)
+    return torch.stack(toks, dim=1), state, logits
+
+
+def semantic_stage(params, state, first_logits, base_keys, limits, hard_min,
+                   cfg: RwkvConfig, max_steps: int, zero_shot: bool,
+                   feed_tag1: bool = False, decode_block: int = 16):
+    """Semantic tokens until per-slot EOS or per-slot limit.
+
+    limits / hard_min: [B] int64 — per-request cap and the step before
+    which EOS is forbidden (0 in normal mode). ``feed_tag1`` consumes the
+    TAG_1 separator first (normal mode; ``first_logits`` is then unused).
+    Returns (tokens [B, max_steps], lengths [B], state, decode steps run);
+    ``state`` is updated in place."""
+    B = first_logits.shape[0]
+    dev = first_logits.device
+    sk = C.SEMANTIC_SAMPLING
+    hs = min(SEMANTIC_SLICE, cfg.padded_vocab_size)
+    n_steps = 0
+    if feed_tag1:
+        tag1 = torch.full((B,), C.TTS_TAG_1, dtype=torch.int64, device=dev)
+        first_logits, state = rwkv7.step(params, tag1, state, cfg,
+                                         head_slice=hs)
+        n_steps += 1
+    logits = first_logits[..., :hs]
+    u = threefry.step_uniforms(base_keys, max_steps)
+    if zero_shot:
+        u_resample = threefry.step_uniforms(base_keys, max_steps,
+                                            offset=1 << 20)
+
+    buf = torch.zeros((B, max_steps), dtype=torch.int64, device=dev)
+    done = torch.zeros((B,), dtype=torch.bool, device=dev)
+    lens = torch.zeros((B,), dtype=torch.int64, device=dev)
+    win = torch.zeros((B, C.ZS_EOS_WINDOW), dtype=torch.bool, device=dev)
+    nwin = torch.zeros((B,), dtype=torch.int64, device=dev)
+    width = min(SEMANTIC_SLICE, logits.shape[-1])
+    is_eos_col = torch.arange(width, device=dev) == C.TTS_EOS_TOKEN
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+
+    for i in range(max_steps):
+        masked = _mask_semantic(logits)
+        forbid_eos = (i < hard_min)[:, None] & is_eos_col[None, :]
+        masked = masked.masked_fill(forbid_eos, float("-inf"))
+        tok = _sample(masked, u[:, i], sk)
+        if zero_shot:
+            # EOS-window gate: accept EOS only if the window is full and
+            # ≥70% of it is non-EOS; otherwise resample with EOS masked.
+            # Both draws are computed and one is selected per slot — the
+            # same tokens as the JAX engine's gated second pass.
+            ratio = win.sum(dim=1) / nwin.clamp(min=1)
+            allow_eos = ((nwin >= C.ZS_EOS_WINDOW)
+                         & (ratio >= C.ZS_EOS_RATIO_THRESHOLD))
+            need_resample = (tok == C.TTS_EOS_TOKEN) & ~allow_eos
+            no_eos = masked.masked_fill(is_eos_col, float("-inf"))
+            tok = torch.where(need_resample,
+                              _sample(no_eos, u_resample[:, i], sk), tok)
+            win = torch.cat([win[:, 1:], (tok != C.TTS_EOS_TOKEN)[:, None]],
+                            dim=1)
+            nwin = (nwin + 1).clamp(max=C.ZS_EOS_WINDOW)
+
+        is_eos = tok == C.TTS_EOS_TOKEN
+        active = ~done & (i < limits)
+        emit = active & ~is_eos
+        feed = torch.where(emit, tok, zero)
+        buf[:, i] = feed
+        lens += emit
+        done = done | (active & is_eos) | (i + 1 >= limits)
+        # the raw token goes back (semantic ids are raw,
+        # normal_mode_inference.rs:389-390); done slots feed a harmless 0
+        logits, state = rwkv7.step(params, feed, state, cfg, head_slice=hs)
+        n_steps += 1
+        if (i + 1) % decode_block == 0 and bool(done.all()):
+            break
+    return buf, lens, state, n_steps
+
+
+@dataclasses.dataclass
+class GenerationResult:
+    global_tokens: List[int]
+    semantic_tokens: List[int]
+
+
+class TtsEngine:
+    """Owns the LM parameters; stateless across calls apart from
+    ``counters`` (prefill chunks and decode steps run so far)."""
+
+    def __init__(self, params, cfg: RwkvConfig,
+                 engine_cfg: EngineConfig = EngineConfig(), tokenizer=None,
+                 device=None):
+        self.device = resolve_device(device)
+        if params["emb"].device.type != self.device.type:
+            raise ValueError(f"parameters are on {params['emb'].device}, "
+                             f"the engine on {self.device}")
+        self.params = params
+        self.cfg = cfg
+        self.engine_cfg = engine_cfg
+        self.tokenizer = tokenizer or load_tokenizer()
+        # the live prompt is the raw text, not normalized
+        # (lightweight_tts_pipeline.rs:149-151)
+        self.encoder = CachedEncoder(self.tokenizer)
+        self.counters = {"prefill_chunks": 0, "decode_steps": 0}
+
+    def build_prompt(self, args: TtsArgs) -> Tuple[List[int], List[int]]:
+        """Returns (prompt_ids, text_ids). Zero-shot prompts embed the
+        reference global tokens and carry no property tokens; the reference
+        semantic tokens are not prefilled (zero_shot_inference.rs:86-91)."""
+        text_ids = self.encoder.encode(args.text)
+        props = [] if args.zero_shot else convert_standard_properties_to_tokens(
+            args.age, args.gender, args.emotion, args.pitch, args.speed)
+        prompt = list(props) + [C.TTS_TAG_2] + text_ids + [C.TTS_TAG_0]
+        if args.zero_shot:
+            ref_global = [min(max(int(t), 0), C.GLOBAL_VOCAB - 1)
+                          for t in (args.ref_global_tokens or [])]
+            prompt += [t + C.GLOBAL_TOKEN_OFFSET for t in ref_global]
+            prompt += [C.TTS_TAG_1]
+        return prompt, text_ids
+
+    def _bucket(self, n: int) -> int:
+        for b in self.engine_cfg.prefill_buckets:
+            if n <= b:
+                return b
+        return self.engine_cfg.prefill_buckets[-1]
+
+    def prefill(self, prompts, state):
+        """Masked prefill of right-padded variable-length prompts, in chunks
+        of the largest bucket with the state carried across chunks (the
+        reference's token_chunk_size, normal_mode_inference.rs:63)."""
+        B = len(prompts)
+        max_bucket = self.engine_cfg.prefill_buckets[-1]
+        remaining = [list(p) for p in prompts]
+        logits = None
+        while True:
+            chunk = [r[:max_bucket] for r in remaining]
+            remaining = [r[max_bucket:] for r in remaining]
+            lengths = np.array([len(c) for c in chunk], np.int64)
+            T = self._bucket(int(max(lengths.max(), 1)))
+            tok_mat = np.zeros((B, T), np.int64)
+            for i, c in enumerate(chunk):
+                tok_mat[i, :len(c)] = c
+            lengths_t = torch.from_numpy(lengths).to(self.device)
+            new_logits, state = rwkv7.forward(
+                self.params, torch.from_numpy(tok_mat).to(self.device), state,
+                self.cfg, lengths=lengths_t)
+            self.counters["prefill_chunks"] += 1
+            # keep each slot's logits from the chunk with its last real
+            # token (a zero-length chunk leaves state and logits alone)
+            if logits is None:
+                logits = new_logits
+            else:
+                logits = torch.where((lengths_t > 0)[:, None], new_logits,
+                                     logits)
+            if not any(remaining):
+                break
+        return logits, state
+
+    def _keys(self, seeds, offset: int) -> torch.Tensor:
+        keys = np.stack([threefry.raw_key(s + offset) for s in seeds])
+        return threefry.as_words(keys).to(self.device)
+
+    def generate_batch(self, requests: Sequence[TtsArgs]
+                       ) -> List[GenerationResult]:
+        """All requests must share a mode (zero-shot or not); the pipeline
+        groups mixed batches upstream."""
+        if not requests:
+            return []
+        # pow2 batch buckets, capped at the engine's batch size (batches
+        # above the cap run at their own size), as the JAX engine pads
+        B0 = len(requests)
+        Bp = 1 << (B0 - 1).bit_length()
+        if Bp > self.engine_cfg.batch_size:
+            Bp = self.engine_cfg.batch_size if B0 <= self.engine_cfg.batch_size else B0
+        if Bp != B0:
+            reqs = list(requests)
+            return self.generate_batch(reqs + [reqs[-1]] * (Bp - B0))[:B0]
+        zero_shot = requests[0].zero_shot
+        if any(r.zero_shot != zero_shot for r in requests):
+            raise ValueError("a batch must be all zero-shot or all normal")
+        B = len(requests)
+        cfg, ecfg, dev = self.cfg, self.engine_cfg, self.device
+
+        prompts, texts = zip(*(self.build_prompt(r) for r in requests))
+        seeds = [r.seed if r.seed is not None else
+                 int.from_bytes(os.urandom(4), "little") for r in requests]
+        limits = torch.tensor(
+            [min(r.max_tokens, C.MAX_SEMANTIC_TOKENS) for r in requests],
+            dtype=torch.int64, device=dev)
+        hard_min = torch.tensor(
+            [zs_hard_min(len(t)) if zero_shot else 0 for t in texts],
+            dtype=torch.int64, device=dev)
+        sem_keys = self._keys(seeds, C.SEMANTIC_SEED_OFFSET)
+
+        state = rwkv7.init_state(cfg, B, device=dev)
+        logits, state = self.prefill(prompts, state)
+        if zero_shot:
+            glob = None
+            sem, lens, _, n = semantic_stage(
+                self.params, state, logits, sem_keys, limits, hard_min, cfg,
+                ecfg.max_semantic_tokens, True,
+                decode_block=ecfg.decode_block)
+        else:
+            glob, state, logits = global_stage(
+                self.params, state, logits,
+                self._keys(seeds, C.GLOBAL_SEED_OFFSET), cfg)
+            self.counters["decode_steps"] += C.GLOBAL_TOKENS_SIZE
+            sem, lens, _, n = semantic_stage(
+                self.params, state, logits, sem_keys, limits, hard_min, cfg,
+                ecfg.max_semantic_tokens, False, feed_tag1=True,
+                decode_block=ecfg.decode_block)
+        self.counters["decode_steps"] += n
+
+        sem_np, len_np = sem.cpu().numpy(), lens.cpu().numpy()
+        glob_np = None if zero_shot else glob.cpu().numpy()
+        out = []
+        for i, r in enumerate(requests):
+            toks = [int(t) for t in sem_np[i, :len_np[i]]]
+            if zero_shot:
+                g = [min(max(int(t), 0), C.GLOBAL_VOCAB - 1)
+                     for t in (r.ref_global_tokens or [])]
+            else:
+                g = [int(t) for t in glob_np[i]]
+            out.append(GenerationResult(g, toks))
+        return out
+
+    def generate(self, args: TtsArgs) -> GenerationResult:
+        return self.generate_batch([args])[0]

@@ -1,0 +1,238 @@
+"""The port's BiCodec decode side against ``rwkv_tts_tpu/models/bicodec.py``
+at ``BiCodecConfig.tiny()`` on bridged weights.
+
+Every stage matches within 1e-4 absolute on the same input. Chained, the
+f32 reassociation differences (~1e-7 relative per op) grow about 5× per
+upsampling block of the random-init wave generator (each snake can double
+a perturbation): measured on the CPU, the whole decode differs from JAX by
+at most 8.8e-4 on a few percent of the samples and agrees within 1e-4 on
+the rest. The chain is therefore held to 2e-3 max absolute (2× the
+measured maximum, for other CPUs' reduction orders) and 1e-4 RMS.
+``test_decode_gap_is_f32_rounding`` shows that the gap is rounding and not
+a fault: the same chain in float64 lies as far from JAX's f32 output as
+from the port's.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from rwkv_tts_tpu_torch.config import BiCodecConfig
+from rwkv_tts_tpu_torch.models import bicodec as P
+from rwkv_tts_tpu_torch.utils import bridge
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """These shapes are tiny: one intra-op thread per test worker avoids
+    oversubscribing the cores when the suite runs in parallel."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+CFG = BiCodecConfig.tiny()
+STAGE_ATOL = 1e-4
+CHAIN_MAX_ABS, CHAIN_RMS = 2e-3, 1e-4
+
+
+@pytest.fixture(scope="module")
+def jax_codec():
+    jax = pytest.importorskip("jax")
+    from rwkv_tts_tpu.config import BiCodecConfig as JConfig
+    from rwkv_tts_tpu.models import bicodec as J
+
+    jcfg = JConfig.tiny()
+    return J, jcfg, J.init_params(jcfg, jax.random.PRNGKey(0))
+
+
+@pytest.fixture(scope="module")
+def params(jax_codec):
+    return bridge.bicodec_params(jax_codec[2], device="cpu")
+
+
+def tokens(S=40, B=2, seed=1):
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, 4096, (B, 32)), rng.integers(0, 8192, (B, S)))
+
+
+def close(got, want, atol=STAGE_ATOL):
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=0,
+                               atol=atol)
+
+
+def chain_close(got, want):
+    diff = np.asarray(got, np.float64) - np.asarray(want, np.float64)
+    assert np.abs(diff).max() <= CHAIN_MAX_ABS
+    assert np.sqrt(np.mean(diff ** 2)) <= CHAIN_RMS
+
+
+def test_fvq_and_speaker_detokenize_match_jax(jax_codec, params):
+    J, jcfg, jp = jax_codec
+    g, s = tokens()
+    close(P.fvq_detokenize(params["quantizer"], torch.from_numpy(s)),
+          J.fvq_detokenize(jp["quantizer"], s))
+    close(P.speaker_detokenize(params["speaker"], torch.from_numpy(g), CFG),
+          J.speaker_detokenize(jp["speaker"], g, jcfg))
+
+
+def test_fsq_dequantize_matches_jax_for_every_code(jax_codec):
+    J = jax_codec[0]
+    codes = np.arange(4096).reshape(64, 64)
+    np.testing.assert_array_equal(
+        P.fsq_dequantize(torch.from_numpy(codes), CFG.fsq_levels).numpy(),
+        np.asarray(J.fsq_dequantize(codes, CFG.fsq_levels)))
+
+
+def test_prenet_matches_jax(jax_codec, params):
+    J, jcfg, jp = jax_codec
+    g, s = tokens()
+    zq = np.array(J.fvq_detokenize(jp["quantizer"], s))
+    d = np.array(J.speaker_detokenize(jp["speaker"], g, jcfg))
+    close(P.prenet_forward(params["prenet"], torch.from_numpy(zq),
+                           torch.from_numpy(d), CFG),
+          J.prenet_forward(jp["prenet"], zq, d, jcfg))
+
+
+@pytest.mark.parametrize("block", range(len(CFG.dec_rates)))
+def test_wave_generator_block_matches_jax(jax_codec, params, block):
+    """One upsampling block (snake → transposed conv → three dilated
+    residual units) on the same input."""
+    J, jcfg, jp = jax_codec
+    pj, pt = jp["wavegen"]["blocks"][block], params["wavegen"]["blocks"][block]
+    rate, k = CFG.dec_rates[block], CFG.dec_kernels[block]
+    ch = pj["alpha"].shape[0]
+    x = (np.random.default_rng(block).standard_normal((2, ch, 24)) * 3.0
+         ).astype(np.float32)
+
+    def run(mod, p, h):
+        h = mod._snake(h, p["alpha"])
+        h = mod._tconv1d(h, p["up_w"], p["up_b"], stride=rate,
+                         padding=(k - rate) // 2)
+        for ru, d in zip(p["res"], (1, 3, 9)):
+            h = mod._residual_unit(ru, h, d)
+        return h
+
+    close(run(P, pt, torch.from_numpy(x)), run(J, pj, x))
+
+
+def test_wave_generator_ends_match_jax(jax_codec, params):
+    """Input conv, and output snake → conv → tanh, on the same inputs."""
+    J, _, jp = jax_codec
+    pj, pt = jp["wavegen"], params["wavegen"]
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((2, CFG.encoder_out, 16)).astype(np.float32)
+    close(P._conv1d(torch.from_numpy(x), pt["in_w"], pt["in_b"], padding=3),
+          J._conv1d(x, pj["in_w"], pj["in_b"], padding=3))
+    h = (3.0 * rng.standard_normal((2, pj["alpha_out"].shape[0], 64))
+         ).astype(np.float32)
+    want = np.tanh(np.asarray(J._conv1d(J._snake(h, pj["alpha_out"]),
+                                        pj["out_w"], pj["out_b"],
+                                        padding=3))[:, 0])
+    got = torch.tanh(P._conv1d(P._snake(torch.from_numpy(h), pt["alpha_out"]),
+                               pt["out_w"], pt["out_b"], padding=3)[:, 0])
+    close(got, want)
+
+
+def test_sampling_block_upsampling_matches_jax(jax_codec):
+    J = jax_codec[0]
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((2, 10, 8)).astype(np.float32)
+    p = {"up_w": (0.3 * rng.standard_normal((8, 8, 4))).astype(np.float32),
+         "up_b": rng.standard_normal(8).astype(np.float32)}
+    pt = {k: torch.from_numpy(v) for k, v in p.items()}
+    close(P._sampling_block(pt, torch.from_numpy(x), up=2),
+          J._sampling_block(p, x, up=2))
+    close(P._sampling_block({}, torch.from_numpy(x)), J._sampling_block({}, x))
+
+
+def test_decode_matches_jax(jax_codec, params):
+    J, jcfg, jp = jax_codec
+    g, s = tokens()
+    want = np.asarray(J.decode(jp, g.astype(np.int32), s.astype(np.int32),
+                               jcfg))
+    got = P.decode(params, torch.from_numpy(g), torch.from_numpy(s), CFG)
+    assert got.shape == (2, 40 * 320) and got.dtype == torch.float32
+    chain_close(got.numpy(), want)
+
+
+def test_decode_gap_is_f32_rounding(jax_codec, params, monkeypatch):
+    """Against the chain run in float64, JAX's f32 decode and the port's
+    are each off by about the same amount (measured on the CPU: up to
+    8.5e-4 and 6.7e-4), so neither is the one that strays. A fault in the
+    port would leave the port near its own float64 run and JAX far from
+    it; the factor 2 either way catches that."""
+    J, jcfg, jp = jax_codec
+    g, s = tokens()
+    jax32 = np.asarray(J.decode(jp, g.astype(np.int32), s.astype(np.int32),
+                                jcfg), np.float64)
+    port32 = P.decode(params, torch.from_numpy(g), torch.from_numpy(s),
+                      CFG).double().numpy()
+
+    def f64(tree):
+        if isinstance(tree, dict):
+            return {k: f64(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [f64(v) for v in tree]
+        return tree.double()
+
+    p64 = f64(params)
+    fsq = P.fsq_dequantize
+    monkeypatch.setattr(P, "fsq_dequantize", lambda c, lv: fsq(c, lv).double())
+    zq = P.fvq_detokenize(p64["quantizer"], torch.from_numpy(s))
+    d = P.speaker_detokenize(p64["speaker"], torch.from_numpy(g), CFG)
+    x = P.prenet_forward(p64["prenet"], zq, d, CFG) + d[:, :, None]
+    exact = P.wave_generator(p64["wavegen"], x, CFG).numpy()
+    e_jax = np.abs(jax32 - exact).max()
+    e_port = np.abs(port32 - exact).max()
+    assert e_jax > 0 and e_port > 0
+    assert e_port <= 2 * e_jax and e_jax <= 2 * e_port, (e_jax, e_port)
+
+
+def test_detokenize_matches_jax(jax_codec, params):
+    J, jcfg, jp = jax_codec
+    g, s = tokens(S=50, B=1, seed=2)
+    want = J.detokenize(jp, g[0], s[0], jcfg)
+    got = P.detokenize(params, g[0], s[0], CFG)
+    assert got.shape == want.shape == (1, 50 * 320)
+    chain_close(got, want)
+    assert P.detokenize(params, g[0], [], CFG).shape == (1, 0)
+
+
+@pytest.mark.parametrize("full", [False, True])
+def test_receptive_field_and_buckets_match_jax(jax_codec, full):
+    J = jax_codec[0]
+    from rwkv_tts_tpu.config import BiCodecConfig as JConfig
+
+    jcfg = JConfig() if full else JConfig.tiny()
+    cfg = BiCodecConfig() if full else BiCodecConfig.tiny()
+    assert P.receptive_latents(cfg) == J.receptive_latents(jcfg)
+    for n in (1, 64, 65, 300, 5000):
+        assert P._detok_bucket(n, P.DETOKENIZE_BUCKETS) == \
+            J._detok_bucket(n, J.DETOKENIZE_BUCKETS)
+
+
+def test_init_params_layout_matches_jax(params):
+    """init_params draws the decode subtrees with the JAX package's shapes:
+    every leaf it makes exists in the bridged JAX tree with that shape."""
+    def leaves(tree, pre=""):
+        if isinstance(tree, dict):
+            return {k: v for key, sub in tree.items()
+                    for k, v in leaves(sub, f"{pre}/{key}").items()}
+        if isinstance(tree, list):
+            return {k: v for i, sub in enumerate(tree)
+                    for k, v in leaves(sub, f"{pre}[{i}]").items()}
+        return {pre: tuple(tree.shape)}
+
+    mine, bridged = leaves(P.init_params(CFG, device="cpu")), leaves(params)
+    assert mine and all(bridged.get(k) == v for k, v in mine.items())
+
+
+def test_decode_refuses_bf16_policy(params):
+    g, s = tokens(S=4, B=1)
+    with pytest.raises(NotImplementedError):
+        P.decode(params, torch.from_numpy(g), torch.from_numpy(s),
+                 dataclasses.replace(CFG, dtype="bfloat16"))

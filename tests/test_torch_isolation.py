@@ -1,0 +1,166 @@
+"""The PyTorch port stands alone: nothing under ``rwkv_tts_tpu_torch/`` and
+not ``chip_smoke.py`` imports JAX or the JAX package; the package imports
+with no JAX, no nvcc and no card; entry points refuse to run on the CPU
+unless asked; its own copies of host-only modules equal the originals."""
+
+import ast
+import dataclasses
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """These shapes are tiny: one intra-op thread per test worker avoids
+    oversubscribing the cores when the suite runs in parallel."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "rwkv_tts_tpu_torch").rglob("*.py")) + \
+    [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "rwkv_tts_tpu")
+
+
+def imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_no_jax_imports(path):
+    for mod in imported_modules(path):
+        assert mod.split(".")[0] not in FORBIDDEN, f"{path}: imports {mod}"
+
+
+def _run(code, cwd=ROOT, env=None):
+    return subprocess.run([sys.executable, "-c", code], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_package_imports_without_jax_nvcc_or_card(tmp_path):
+    """Every module imports with JAX made unimportable and no nvcc on
+    PATH, and none pulls in the JAX package."""
+    code = (
+        "import sys, pkgutil, importlib\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['rwkv_tts_tpu'] = None\n"
+        "import rwkv_tts_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
+        "print('imported')\n")
+    env = dict(os.environ, PATH=str(tmp_path), CUDA_VISIBLE_DEVICES="")
+    env.pop("CUDA_HOME", None)
+    out = _run(code, env=env)
+    assert out.returncode == 0, out.stderr
+    assert "imported" in out.stdout
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_refuse_the_cpu_without_asking(no_card):
+    from rwkv_tts_tpu_torch.config import (BiCodecConfig, EngineConfig,
+                                           RwkvConfig)
+    from rwkv_tts_tpu_torch.models import bicodec, rwkv7
+    from rwkv_tts_tpu_torch.runtime.engine import TtsEngine
+    from rwkv_tts_tpu_torch.runtime.pipeline import TtsPipeline
+    from rwkv_tts_tpu_torch.utils import bridge
+
+    cfg = RwkvConfig(n_layer=1, n_embd=64, vocab_size=300,
+                     padded_vocab_size=384, decay_lora=8, a_lora=8,
+                     v_lora=8, gate_lora=8, dtype="float32",
+                     param_dtype="float32")
+    bcfg = BiCodecConfig.tiny()
+    lm = rwkv7.init_params(cfg, device="cpu")
+    bc = bicodec.init_params(bcfg, device="cpu")
+    for call in (lambda: TtsPipeline(lm, cfg, bc, bcfg),
+                 lambda: TtsEngine(lm, cfg, EngineConfig()),
+                 lambda: rwkv7.init_params(cfg),
+                 lambda: rwkv7.init_state(cfg, 1),
+                 lambda: bicodec.init_params(bcfg),
+                 lambda: bridge.rwkv7_params({"blocks": {}})):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+
+
+def test_chip_smoke_fails_without_a_card():
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
+                         env=dict(os.environ, CUDA_VISIBLE_DEVICES=""),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+def test_chip_smoke_fails_alone_in_a_directory(tmp_path):
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+def test_constants_copy_matches_jax_package():
+    pytest.importorskip("jax")
+    from rwkv_tts_tpu import constants as J
+
+    from rwkv_tts_tpu_torch import constants as P
+    names = {n for n in dir(J) if n.isupper()}
+    assert names == {n for n in dir(P) if n.isupper()}
+    for n in names:
+        assert getattr(P, n) == getattr(J, n), n
+
+
+def test_config_copies_match_jax_package():
+    pytest.importorskip("jax")
+    from rwkv_tts_tpu import config as J
+
+    from rwkv_tts_tpu_torch import config as P
+    for name in ("RwkvConfig", "SamplingConfig", "EngineConfig",
+                 "BiCodecConfig", "TtsArgs"):
+        mine = dataclasses.asdict(getattr(P, name)())
+        theirs = dataclasses.asdict(getattr(J, name)())
+        assert {k: v for k, v in theirs.items() if k in mine} == mine, name
+    assert dataclasses.asdict(P.BiCodecConfig.tiny()) == {
+        k: v for k, v in dataclasses.asdict(J.BiCodecConfig.tiny()).items()
+        if k != "conv_impl"}
+
+
+def test_property_tables_match_jax_package():
+    pytest.importorskip("jax")
+    from rwkv_tts_tpu.tokenizer import properties as J
+
+    from rwkv_tts_tpu_torch.tokenizer import properties as P
+    for table in ("SPEED_MAP", "PITCH_MAP", "AGE_MAP", "GENDER_MAP",
+                  "EMOTION_MAP"):
+        assert getattr(P, table) == getattr(J, table)
+
+
+def test_tokenizer_copy_matches_jax_package():
+    pytest.importorskip("jax")
+    from rwkv_tts_tpu.tokenizer import load_tokenizer as jload
+
+    from rwkv_tts_tpu_torch.tokenizer import load_tokenizer
+    texts = ["Hello, world!", "你好，世界。", "emoji 🎉 and ünïcödé",
+             "  tabs\tand\nnewlines ", "12345 67.89", ""]
+    mine, theirs = load_tokenizer(), jload()
+    for text in texts:
+        assert mine.encode(text) == theirs.encode(text), text
+        assert mine.decode(mine.encode(text)) == text

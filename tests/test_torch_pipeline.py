@@ -1,0 +1,139 @@
+"""The port's TtsPipeline against the JAX pipeline on the CPU: the same
+tokens, and waveforms within the BiCodec chain bound of
+test_torch_bicodec.py, for a mixed batch of property-controlled and
+direct-token requests; plus the port's voice chain, WAV writer and the
+chip smoke script's main path at tiny shapes."""
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from rwkv_tts_tpu_torch.config import (BiCodecConfig, EngineConfig,
+                                       RwkvConfig, TtsArgs)
+from rwkv_tts_tpu_torch.runtime.pipeline import TtsPipeline
+from rwkv_tts_tpu_torch.utils import bridge
+
+from test_torch_bicodec import chain_close
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """These shapes are tiny: one intra-op thread per test worker avoids
+    oversubscribing the cores when the suite runs in parallel."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+LM_CFG = RwkvConfig(**chip_smoke.GOLDENS_CFG)
+ECFG = EngineConfig(prefill_buckets=(64, 128), max_semantic_tokens=16)
+REQUESTS = [
+    TtsArgs(text="golden fixture text", seed=42, max_tokens=16),
+    TtsArgs(text="clone me", seed=5, max_tokens=12,
+            ref_global_tokens=list(range(0, 4096, 128))),
+    TtsArgs(text="你好世界", seed=7, max_tokens=16, gender="male",
+            emotion="HAPPY", speed="fast"),
+    TtsArgs(text="short", seed=9, max_tokens=8, age="elderly",
+            pitch="low_pitch"),
+]
+
+
+@pytest.fixture(scope="module")
+def jax_weights():
+    jax = pytest.importorskip("jax")
+    from rwkv_tts_tpu.config import BiCodecConfig as JBConfig
+    from rwkv_tts_tpu.config import RwkvConfig as JConfig
+    from rwkv_tts_tpu.models import bicodec, rwkv7
+
+    return (rwkv7.init_params(JConfig(**chip_smoke.GOLDENS_CFG),
+                              jax.random.PRNGKey(1234)),
+            bicodec.init_params(JBConfig.tiny(), jax.random.PRNGKey(0)))
+
+
+@pytest.fixture(scope="module")
+def pipe(jax_weights):
+    lm, bc = jax_weights
+    return TtsPipeline(bridge.rwkv7_params(lm, "cpu"), LM_CFG,
+                       bridge.bicodec_params(bc, "cpu"), BiCodecConfig.tiny(),
+                       engine_cfg=ECFG, device="cpu")
+
+
+def test_synthesize_batch_matches_jax_pipeline(jax_weights, pipe):
+    from rwkv_tts_tpu.config import BiCodecConfig as JBConfig
+    from rwkv_tts_tpu.config import EngineConfig as JEngineConfig
+    from rwkv_tts_tpu.config import RwkvConfig as JConfig
+    from rwkv_tts_tpu.config import TtsArgs as JArgs
+    from rwkv_tts_tpu.runtime.pipeline import TtsPipeline as JPipeline
+
+    lm, bc = jax_weights
+    jpipe = JPipeline(lm, JConfig(**chip_smoke.GOLDENS_CFG), bc,
+                      JBConfig.tiny(), voice_store=None,
+                      engine_cfg=JEngineConfig(prefill_buckets=(64, 128),
+                                               max_semantic_tokens=16),
+                      use_pallas=False)
+    want = jpipe.synthesize_batch(
+        [JArgs(**{f: getattr(r, f) for f in r.__dataclass_fields__})
+         for r in REQUESTS])
+    got = pipe.synthesize_batch(REQUESTS)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.global_tokens == w.global_tokens
+        assert g.semantic_tokens == w.semantic_tokens
+        assert g.audio.shape == w.audio.shape
+        assert g.audio.shape == (len(g.semantic_tokens) * 320,)
+        chain_close(g.audio, w.audio)
+    assert set(got[0].timings_ms) == {"generate", "detokenize", "total"}
+    assert got[0].rtf > 0
+
+
+def test_save_audio_writes_the_jax_wav_bytes(tmp_path):
+    pytest.importorskip("jax")
+    from rwkv_tts_tpu.audio.io import encode_wav_16bit
+
+    from rwkv_tts_tpu_torch.runtime.pipeline import SynthesisResult
+    audio = np.sin(np.linspace(0, 300, 4000)).astype(np.float32) * 0.3
+    res = SynthesisResult(audio=audio, sample_rate=16000, global_tokens=[],
+                          semantic_tokens=[], timings_ms={}, rtf=0.0)
+    path = tmp_path / "out.wav"
+    TtsPipeline.save_audio(res, str(path))
+    assert path.read_bytes() == encode_wav_16bit(audio, 16000)
+    with pytest.raises(NotImplementedError):
+        TtsPipeline.save_audio(res, str(tmp_path / "out.mp3"))
+
+
+def test_voice_chain_rungs(pipe, caplog):
+    prop = pipe.resolve_voice(TtsArgs(text="x", seed=4, zero_shot=True))
+    assert not prop.zero_shot and prop.seed == 4
+    direct = pipe.resolve_voice(TtsArgs(text="x", seed=4,
+                                        ref_global_tokens=[1] * 32))
+    assert direct.zero_shot and direct.seed == 0
+    with caplog.at_level("WARNING"):
+        assert not pipe.resolve_voice(TtsArgs(voice_id="v1")).zero_shot
+    assert "voice_id" in caplog.text
+    for unported in (TtsArgs(ref_audio_path="ref.wav"),
+                     TtsArgs(cached_speaker=True)):
+        with pytest.raises(NotImplementedError):
+            pipe.resolve_voice(unported)
+
+
+def test_empty_generation_vocodes_one_second_of_silence(pipe):
+    from rwkv_tts_tpu_torch.runtime.engine import GenerationResult
+
+    wav = pipe.vocode(GenerationResult([0] * 32, []))
+    assert wav.shape == (16000,) and not wav.any()
+
+
+def test_chip_smoke_main_path_at_tiny_shapes():
+    """chip_smoke.py's main path and its checks, on the CPU at the goldens
+    LM and the tiny codec (the card run uses full width)."""
+    out = chip_smoke.main_path(
+        torch, LM_CFG, BiCodecConfig.tiny(), "cpu", max_tokens=6,
+        engine_cfg=EngineConfig(prefill_buckets=(32, 64),
+                                max_semantic_tokens=8), warmup=False)
+    assert len(out["results"]) == len(chip_smoke.TEXTS)
+    assert out["counters"]["prefill_chunks"] == 1
+    # 32 global steps, TAG_1, and semantic steps until the block check
+    # finds every slot done
+    assert out["counters"]["decode_steps"] == 32 + 1 + 8
