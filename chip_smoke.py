@@ -7,13 +7,16 @@ Run from the root of a checkout on a machine with one CUDA card:
 
 Phases, each fatal on failure:
 
-  build      compile every kernel of the main path from ``csrc/`` with
-             nvcc for sm_90a, one process per source, all at once;
+  build      compile every kernel of both paths from ``csrc/`` with nvcc
+             for sm_90a, one process per source, all at once;
   kernels    each kernel's wrapper against its plain PyTorch version on
              the card, with stated tolerances; decode must leave the other
-             layers of the state stack untouched; each kernel and plain
-             version timed at the main path's shapes (device time from
-             torch.profiler, and CUDA events per call);
+             layers of the state stack untouched; the WY prefill (kernel +
+             PyTorch chunk combine) against the plain chunked WY and the
+             scan at T = 256 (L = 64) and T = 1028 (L = 4); each kernel and
+             plain version timed at its path's shapes (device time from
+             torch.profiler, and CUDA events per call), and the sequential
+             prefill kernel timed on the WY kernel's inputs beside it;
   goldens    the goldens model (2 layers × 128, weights rebuilt from the
              JAX package's seeded numpy stream) on the card must emit
              exactly the tokens of ``tests/goldens.json``;
@@ -23,7 +26,17 @@ Phases, each fatal on failure:
              from a fixed seed): valid tokens, finite waveforms of
              len(semantic) × 320 samples, and kernel launch counts equal
              to 32 × (decode steps) and 32 × (prefill chunks); then one
-             decode step profiled for its device busy share.
+             decode step profiled for its device busy share;
+  cloning    8 zero-shot requests through ``synthesize_batch`` at full
+             width (the LM above, full BiCodec encode and decode, 24 × 1024
+             wav2vec2): 6 by reference WAV clips (3 seeded clips of 4-8 s,
+             one at 24 kHz so resampling runs, each used twice) and 2 by
+             voice_id from a store holding the two shipped voices, with
+             texts of 100-220 tokens so the prompts pad to T = 256 and
+             prefill through the WY kernel (32 launches per chunk, no
+             sequential prefill launch); each request keeps its voice's
+             global tokens, a repeated clip hits the extraction cache, and
+             every waveform is finite and len(semantic) × 320 samples.
 
 Prints the card's name and power limit early, a ``{"kernels": [...]}``
 line second to last and ``{"ok": true, "device": {...}}`` last. Exits
@@ -176,16 +189,81 @@ def bound(nbytes: float, flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def check_wy(torch, W, B, T, H, N, gen, masked_tail):
+    """The WY route of the prefill wrapper (kernel 3 + the PyTorch chunk
+    combine) against the plain chunked WY and the scan, both on the card,
+    relative error ≤ 3e-4 (the JAX suite's WY bound); then kernel 3 alone
+    against the plain phase A, ≤ 1e-4 (same algorithm, other summation
+    order). Returns phase A's max abs error."""
+    x = wkv_inputs(torch, (B, T, H, N), gen, masked_tail)
+    s0 = 0.1 * torch.randn((B, H, N, N), generator=gen, device="cuda")
+    L = W.wy_chunk_for(T)
+    if W.prefill_route(B, T) != "wy":
+        fail(f"wy: B={B} T={T} does not route to the WY kernel")
+    W.reset_launches()
+    y, s = W.wkv7_prefill(*x, s0)
+    torch.cuda.synchronize()
+    if W.LAUNCHES != {"wkv7_decode": 0, "wkv7_prefill": 0, "wkv7_wy": 1}:
+        fail(f"wy: B={B} T={T} launched {W.LAUNCHES}")
+    errs = []
+    for name, (y_ref, s_ref) in (
+            ("chunked_wy", W.wkv7_chunked_wy(*x, s0, chunk=L)),
+            ("scan", W.wkv7_scan(*x, s0))):
+        e_y, e_s = rel_err(torch, y, y_ref), rel_err(torch, s, s_ref)
+        if e_y > 3e-4 or e_s > 3e-4:
+            fail(f"wy B={B} T={T} vs {name}: rel err y {e_y:.3g}, state "
+                 f"{e_s:.3g} (tolerance 3e-4)")
+        errs.append(f"vs {name} y {e_y:.3g} state {e_s:.3g}")
+    M = B * (T // L)
+    want = W.wkv7_chunk_wy(*(t.reshape(M, L, H, N) for t in x))
+    got = W.wkv7_wy_phase_a(*x, L)
+    torch.cuda.synchronize()
+    e_a = [rel_err(torch, g, w) for g, w in zip(got, want)]
+    if max(e_a) > 1e-4:
+        fail(f"wy phase A B={B} T={T} L={L}: rel err (y_loc, rho, s_loc, "
+             f"P) {e_a} (tolerance 1e-4)")
+    print(f"kernels: wy B={B} T={T} L={L} (last {masked_tail} masked): rel "
+          f"err {', '.join(errs)}; phase A (y_loc, rho, s_loc, P) "
+          f"{', '.join(f'{e:.3g}' for e in e_a)}", flush=True)
+    return max(float((g - w).abs().max()) for g, w in zip(got, want))
+
+
+def wy_flops(B, T, H, N, L):
+    """f32 operations that phase A's function needs, 2 per multiply-add.
+    Per (batch, chunk, head) cell: the four scores over their triangles
+    (2·L²·N), K v and the two forward substitutions (I − G) h = K v and
+    (I − G) xa = â over the strict triangle (1.5·L·(L − 1)·N), the
+    lower-triangular applications R1 h, R2 v and R1 xa (1.5·L·(L + 1)·N),
+    and the three outer-product sums over L positions (3·N²·L):
+    5·L²·N + 3·N²·L multiply-adds."""
+    per_cell = 5 * L * L * N + 3 * N * N * L
+    return 2 * per_cell * B * (T // L) * H
+
+
+def wy_algorithm_flops(W, B, T, H, N, L):
+    """f32 operations of kernel 3's algorithm as written, which does more
+    than ``wy_flops``: full L × L products whose upper triangle is masked,
+    and X = (I − G)⁻¹ formed by 2 products per doubling. Per cell: 4
+    scores (L·L·N), 2·wy_doublings(L) doubling products (L³), 6
+    applications (L·L·N) and 3 outer products (N·N·L)."""
+    per_cell = (10 * L * L * N + 2 * W.wy_doublings(L) * L ** 3
+                + 3 * N * N * L)
+    return 2 * per_cell * B * (T // L) * H
+
+
 def phase_kernels(torch, W, lm_cfg):
-    """Correctness at B ∈ {1, 8} (decode, f32 and bf16 state) and
-    T ∈ {64, 61} (prefill), then timing at the main path's shapes:
-    decode at B = 8 on the full L-layer f32 stack (cycling the layers, as
-    the decode step does, so no slab stays in L2), prefill at B = 8,
-    T = 64 over four input sets (more than L2 holds)."""
+    """Correctness at B ∈ {1, 8} (decode, f32 and bf16 state),
+    T ∈ {64, 61} (sequential prefill) and (B, T) ∈ {(8, 256), (2, 1028)}
+    (WY prefill), then timing at the paths' shapes: decode at B = 8 on the
+    full L-layer f32 stack (cycling the layers, as the decode step does, so
+    no slab stays in L2), sequential prefill at B = 8, T = 64 over four
+    input sets (more than L2 holds), and the WY kernel at the cloning
+    path's B = 8, T = 256 over two input sets (100 MB each), with the
+    sequential kernel and the whole WY route on the same inputs."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     H, N, L = lm_cfg.n_head, lm_cfg.head_size, lm_cfg.n_layer
-    err = {"wkv7_decode": 0.0, "wkv7_prefill": 0.0}
+    err = {"wkv7_decode": 0.0, "wkv7_prefill": 0.0, "wkv7_wy": 0.0}
     for B in (1, 8):
         for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
             e = check_decode(torch, W, B, H, N, 4, dtype, gen, tol)
@@ -195,6 +273,10 @@ def phase_kernels(torch, W, lm_cfg):
         e = check_prefill(torch, W, 8, T, H, N, gen, tail)
         if T == 64:
             err["wkv7_prefill"] = e
+    for B, T, tail in ((8, 256, 37), (2, 1028, 9)):
+        e = check_wy(torch, W, B, T, H, N, gen, tail)
+        if T == 256:
+            err["wkv7_wy"] = e
 
     B = 8
     ins = wkv_inputs(torch, (B, H, N), gen)
@@ -222,6 +304,19 @@ def phase_kernels(torch, W, lm_cfg):
             it["i"] += 1
         return run
 
+    Tw, Lw = 256, W.wy_chunk_for(256)
+    wy_sets = [(wkv_inputs(torch, (B, Tw, H, N), gen),
+                torch.zeros((B, H, N, N), device="cuda")) for _ in range(2)]
+
+    def wy(fn):
+        def run():
+            x, s0 = wy_sets[it["i"] % 2]
+            fn(x, s0)
+            it["i"] += 1
+        return run
+
+    seq_wy = B * Tw * H * N * 4
+    cells_sum = B * (Tw // Lw) * H * N * N * 4
     slab, seq = B * H * N * N * 4, B * T * H * N * 4
     cases = {
         "wkv7_decode": (dec_kernel, dec_plain, 10 * L, 2 * L,
@@ -230,6 +325,11 @@ def phase_kernels(torch, W, lm_cfg):
         "wkv7_prefill": (pre(W.wkv7_prefill), pre(W.wkv7_scan), 40, 4,
                          bound(7 * seq + 2 * B * H * N * N * 4,
                                9 * B * T * H * N * N)),
+        "wkv7_wy": (wy(lambda x, s0: W.wkv7_wy_phase_a(*x, Lw)),
+                    wy(lambda x, s0: W.wkv7_chunk_wy(
+                        *(t.reshape(-1, Lw, H, N) for t in x))), 20, 4,
+                    bound(8 * seq_wy + 2 * cells_sum,
+                          wy_flops(B, Tw, H, N, Lw))),
     }
     out = {}
     for name, (kern, plain, n_k, n_p, (b_ms, b_by)) in cases.items():
@@ -243,8 +343,9 @@ def phase_kernels(torch, W, lm_cfg):
             print(f"kernels: {name}: the profiler saw no device time; "
                   "reporting CUDA-event times per call", flush=True)
             dev_ms, plain_dev_ms = call_ms, plain_call_ms
-        print(f"kernels: {name} at the main path's shape (B={B}, T="
-              f"{T if name == 'wkv7_prefill' else 1}): device {dev_ms:.5f} "
+        t_shape = {"wkv7_decode": 1, "wkv7_prefill": T, "wkv7_wy": Tw}[name]
+        print(f"kernels: {name} at its path's shape (B={B}, T={t_shape}): "
+              f"device {dev_ms:.5f} "
               f"ms, plain {plain_dev_ms:.5f} ms, bound {b_ms:.5f} ms by "
               f"{b_by}; per call with launch {call_ms:.5f} ms, plain "
               f"{plain_call_ms:.5f} ms", flush=True)
@@ -252,6 +353,36 @@ def phase_kernels(torch, W, lm_cfg):
                      "bound_ms": b_ms, "bound_by": b_by,
                      "call_ms": call_ms, "plain_call_ms": plain_call_ms,
                      "max_abs_err": err[name]}
+
+    # the prefill at the WY kernel's shape: the sequential kernel, and the
+    # whole WY route (kernel 3 + the PyTorch chunk combine), on the same
+    # inputs, in turns
+    def seq_on_wy(x, s0):
+        W._seq_prefill(*x, s0)
+
+    turns = {}
+    for name, fn in (("seq", wy(seq_on_wy)), ("wy_route", wy(
+            lambda x, s0: W.wkv7_prefill(*x, s0))), ("wy_route2", wy(
+            lambda x, s0: W.wkv7_prefill(*x, s0))), ("seq2", wy(seq_on_wy))):
+        turns[name] = device_ms(torch, fn, 20)
+    seq_ms = min(turns["seq"], turns["seq2"])
+    route_ms = min(turns["wy_route"], turns["wy_route2"])
+    print(f"kernels: prefill at B={B}, T={Tw}: sequential kernel "
+          f"{turns['seq']:.5f} / {turns['seq2']:.5f} ms, WY route (kernel + "
+          f"combine) {turns['wy_route']:.5f} / {turns['wy_route2']:.5f} ms, "
+          f"WY kernel alone {out['wkv7_wy']['ms']:.5f} ms; sequential bound "
+          f"{bound(7 * seq_wy + 2 * B * H * N * N * 4, 9 * B * Tw * H * N * N)[0]:.5f}"
+          f" ms; faster: {'WY route' if route_ms < seq_ms else 'sequential'}"
+          f" by {max(seq_ms, route_ms) / min(seq_ms, route_ms):.3f}x",
+          flush=True)
+    algo = wy_algorithm_flops(W, B, Tw, H, N, Lw)
+    print(f"kernels: wkv7_wy at B={B}, T={Tw}: the function needs "
+          f"{wy_flops(B, Tw, H, N, Lw) / 1e9:.4f} GFLOP (bound "
+          f"{out['wkv7_wy']['bound_ms']:.5f} ms, "
+          f"{100 * out['wkv7_wy']['bound_ms'] / out['wkv7_wy']['ms']:.1f}% "
+          f"reached); its algorithm as written runs {algo / 1e9:.4f} GFLOP "
+          f"({algo / F32_FLOPS_PER_S * 1e3:.5f} ms at the f32 peak)",
+          flush=True)
     return out
 
 
@@ -417,7 +548,7 @@ def main_path(torch, lm_cfg, bc_cfg, device: str, max_tokens: int,
             fail(f"main_path: request {i}: waveform not finite")
     L = lm_cfg.n_layer
     want = {"wkv7_decode": L * counters["decode_steps"],
-            "wkv7_prefill": L * counters["prefill_chunks"]}
+            "wkv7_prefill": L * counters["prefill_chunks"], "wkv7_wy": 0}
     if device == "cuda" and launches != want:
         fail(f"main_path: kernel launches {launches}, expected {want} "
              f"(counters {counters})")
@@ -462,6 +593,178 @@ def step_profile(torch, pipe, steps: int = 8):
     return wall_ms, busy_us / steps / 1e3, kernels / steps
 
 
+# --------------------------------------------------------------------------
+# cloning: zero-shot requests by reference audio and by voice_id
+# --------------------------------------------------------------------------
+
+WORDS = ("the voice of this speaker carries a long paragraph of text through "
+         "the whole pipeline so that every prompt is long enough to fill a "
+         "prefill bucket of two hundred fifty six tokens 我们 今天 一起 "
+         "讨论 语音 合成 的 质量 和 速度 while the model keeps the timbre of "
+         "the reference clip from start to finish").split()
+
+
+def long_texts(encode, n, lo=100, hi=220):
+    """``n`` texts of lo..hi tokens (targets spread over the range), words
+    drawn one at a time from a seeded generator."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    texts = []
+    for i in range(n):
+        target = lo + (hi - lo) * i // max(n - 1, 1)
+        words = []
+        while len(encode(" ".join(words))) < target:
+            words.append(WORDS[int(rng.integers(len(WORDS)))])
+        text = " ".join(words)
+        if not lo <= len(encode(text)) <= hi:
+            fail(f"cloning: text {i} has {len(encode(text))} tokens, "
+                 f"outside {lo}-{hi}")
+        texts.append(text)
+    return texts
+
+
+def reference_clip(seed: int, sr: int, seconds: float):
+    """A voiced-sounding clip: a gliding 3-harmonic tone under a syllable
+    envelope, plus a little noise, with quiet edges for the trimmer."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n = int(sr * seconds)
+    t = np.arange(n) / sr
+    f0 = rng.uniform(100, 220) * (1 + 0.2 * np.sin(2 * np.pi * 0.5 * t))
+    phase = 2 * np.pi * np.cumsum(f0) / sr
+    x = sum(np.sin(h * phase) / h for h in (1, 2, 3))
+    env = 0.5 + 0.5 * np.sin(2 * np.pi * rng.uniform(2, 5) * t) ** 2
+    x = 0.3 * x * env + 0.01 * rng.standard_normal(n)
+    x[: sr // 10] *= 0.01
+    return x.astype(np.float32)
+
+
+def cloning(torch, lm_cfg, bc_cfg, w2v_cfg, device: str, max_tokens: int,
+            engine_cfg=None, w2v_layers=None, warmup: bool = True):
+    """8 zero-shot requests (6 by reference clip, 2 by voice_id) through
+    ``TtsPipeline.synthesize_batch`` on ``device``, with every check of the
+    cloning path. Returns a summary."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from rwkv_tts_tpu_torch.audio.io import encode_wav_16bit
+    from rwkv_tts_tpu_torch.config import EngineConfig, TtsArgs
+    from rwkv_tts_tpu_torch.models import bicodec, rwkv7, wav2vec2
+    from rwkv_tts_tpu_torch.ops import wkv7 as W
+    from rwkv_tts_tpu_torch.runtime.pipeline import TtsPipeline
+    from rwkv_tts_tpu_torch.runtime.voice_store import VoiceStore
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 1)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        raf = os.path.join(tmp, "raf")
+        os.makedirs(raf)
+        shipped = os.path.join(root, "assets", "raf")
+        voice_ids = sorted(f[:-len(".raf.json")] for f in os.listdir(shipped)
+                           if f.endswith(".raf.json"))
+        for vid in voice_ids:
+            shutil.copy(os.path.join(shipped, f"{vid}.raf.json"), raf)
+        store = VoiceStore(raf)
+        pipe = TtsPipeline(
+            rwkv7.init_params(lm_cfg, gen, device), lm_cfg,
+            bicodec.init_params(bc_cfg, gen, device), bc_cfg,
+            wav2vec2.init_params(w2v_cfg, gen, device), w2v_cfg,
+            voice_store=store, engine_cfg=engine_cfg or EngineConfig(),
+            w2v_output_layers=w2v_layers or wav2vec2.OUTPUT_LAYERS,
+            device=device)
+        init_s = time.perf_counter() - t0
+        clips = []
+        for i, (sr, sec) in enumerate(((24000, 6.5), (16000, 4.0),
+                                       (16000, 8.0), (16000, 5.0))):
+            path = os.path.join(tmp, f"ref{i}.wav")
+            with open(path, "wb") as f:
+                f.write(encode_wav_16bit(reference_clip(SEED + i, sr, sec),
+                                         sr))
+            clips.append(path)
+        warm_clip, clips = clips[-1], clips[:3]
+        texts = long_texts(pipe.engine.encoder.encode, 8)
+        requests = ([TtsArgs(text=texts[i], ref_audio_path=clips[i % 3],
+                             max_tokens=max_tokens, seed=7 + i)
+                     for i in range(6)]
+                    + [TtsArgs(text=texts[6 + j], voice_id=voice_ids[j],
+                               max_tokens=max_tokens)
+                       for j in range(2)])
+        if warmup:
+            # extraction on a clip the batch does not use (so the cache
+            # stays cold), and the long-prompt LM path
+            pipe.extract_voice_tokens(warm_clip)
+            pipe.synthesize_batch([
+                TtsArgs(text=r.text, ref_global_tokens=[1] * 32,
+                        max_tokens=4) for r in requests])
+
+        extract_ms = []
+        real_extract = pipe.extract_voice_tokens
+
+        def timed_extract(path):
+            t1 = time.perf_counter()
+            out = real_extract(path)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            extract_ms.append((time.perf_counter() - t1) * 1e3)
+            return out
+
+        pipe.extract_voice_tokens = timed_extract
+        pipe.engine.counters = {k: 0 for k in pipe.engine.counters}
+        W.reset_launches()
+        t1 = time.perf_counter()
+        results = pipe.synthesize_batch(requests)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t1
+        launches = dict(W.LAUNCHES)
+        counters = dict(pipe.engine.counters)
+        pipe.extract_voice_tokens = real_extract
+
+        if len(extract_ms) != len(clips):
+            fail(f"cloning: {len(extract_ms)} extractions for "
+                 f"{len(clips)} distinct clips: the repeated clip missed "
+                 "the extraction cache")
+        for i, res in enumerate(results):
+            r = requests[i]
+            if r.voice_id:
+                want_g = store.get_voice_tokens(r.voice_id)[0]
+            else:
+                want_g = pipe.extract_voice_tokens_cached(
+                    r.ref_audio_path)[0]
+            if res.global_tokens != list(want_g) or len(want_g) != 32:
+                fail(f"cloning: request {i}: global tokens "
+                     f"{res.global_tokens} are not its voice's {want_g}")
+            s = res.semantic_tokens
+            if not all(0 <= t < 8192 for t in s):
+                fail(f"cloning: request {i}: semantic token out of range")
+            want_len = len(s) * 320 if s else 16000
+            if res.audio.shape != (want_len,):
+                fail(f"cloning: request {i}: waveform {res.audio.shape}, "
+                     f"expected ({want_len},)")
+            if not np.all(np.isfinite(res.audio)):
+                fail(f"cloning: request {i}: waveform not finite")
+        T = max(len(pipe.engine.build_prompt(pipe.resolve_voice(r))[0])
+                for r in requests)
+        L = lm_cfg.n_layer
+        want = {"wkv7_decode": L * counters["decode_steps"],
+                "wkv7_prefill": 0, "wkv7_wy": L * counters["prefill_chunks"]}
+        if counters["prefill_chunks"] != 1:
+            fail(f"cloning: {counters['prefill_chunks']} prefill chunks, "
+                 "expected 1")
+        if device == "cuda" and launches != want:
+            fail(f"cloning: kernel launches {launches}, expected {want} "
+                 f"(counters {counters}, longest prompt {T} tokens)")
+    return {"results": results, "launches": launches, "counters": counters,
+            "wall_s": wall_s, "init_s": init_s, "extract_ms": extract_ms,
+            "longest_prompt": T}
+
+
 def main() -> None:
     root = os.path.dirname(os.path.abspath(__file__))
     import torch
@@ -469,7 +772,8 @@ def main() -> None:
         fail("torch.cuda.is_available() is False: this script needs a card")
     try:
         import rwkv_tts_tpu_torch
-        from rwkv_tts_tpu_torch.config import BiCodecConfig, RwkvConfig
+        from rwkv_tts_tpu_torch.config import (BiCodecConfig, RwkvConfig,
+                                               Wav2Vec2Config)
         from rwkv_tts_tpu_torch.ops import _build
         from rwkv_tts_tpu_torch.ops import wkv7 as W
     except ImportError as e:
@@ -481,7 +785,8 @@ def main() -> None:
         fail(f"rwkv_tts_tpu_torch imported from {pkg_dir}, not from the "
              f"checkout at {root}")
 
-    print(card_line(), flush=True)
+    card = card_line()
+    print(card, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)}", flush=True)
     t0 = time.perf_counter()
@@ -495,6 +800,9 @@ def main() -> None:
             if "registers" in line or "spill" in line:
                 print(f"build: {name}: {line.strip()}", flush=True)
 
+    # f32 products and convolutions stay f32 on the card in every phase
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     lm_cfg, bc_cfg = RwkvConfig(), BiCodecConfig()
     stats = phase_kernels(torch, W, lm_cfg)
     phase_goldens(root)
@@ -513,17 +821,41 @@ def main() -> None:
           f"{out['pipe'].engine.engine_cfg.batch_size}: wall {wall_ms:.3f} ms, "
           f"device busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), "
           f"{kernels:.0f} kernels per step", flush=True)
+    del out["pipe"]     # the cloning phase builds its own full-size models
 
+    clone = cloning(torch, lm_cfg, bc_cfg, Wav2Vec2Config(), "cuda",
+                    max_tokens=48)
+    res = clone["results"]
+    print(f"cloning: {len(res)} zero-shot requests (6 by reference clip, 2 "
+          f"by voice_id), {lm_cfg.n_layer} layers x {lm_cfg.n_embd}, "
+          f"wav2vec2 24 x 1024, longest prompt {clone['longest_prompt']} "
+          f"tokens, init {clone['init_s']:.2f} s, wall "
+          f"{clone['wall_s']:.3f} s, counters {clone['counters']}, launches "
+          f"{clone['launches']}", flush=True)
+    print(f"cloning: extraction ms per distinct clip "
+          f"{[round(x, 3) for x in clone['extract_ms']]} (3 clips, each "
+          f"requested twice; the second request hit the cache); stage "
+          f"timings (ms) {res[0].timings_ms}, batch RTF {res[0].rtf:.4f}, "
+          f"semantic lengths {[len(r.semantic_tokens) for r in res]}; "
+          f"{card}", flush=True)
+
+    paths = {"main_path": out["launches"], "cloning": clone["launches"]}
     sources = {"wkv7_decode": ("rwkv_tts_tpu_torch/csrc/wkv7_decode.cu",
                                "rwkv_tts_tpu/ops/wkv7.py:372"),
                "wkv7_prefill": ("rwkv_tts_tpu_torch/csrc/wkv7_prefill.cu",
-                                "rwkv_tts_tpu/ops/wkv7.py:483")}
+                                "rwkv_tts_tpu/ops/wkv7.py:483"),
+               "wkv7_wy": ("rwkv_tts_tpu_torch/csrc/wkv7_wy.cu",
+                           "rwkv_tts_tpu/ops/wkv7.py:1120")}
     kernels = []
     for name, (src, replaces) in sources.items():
         s = stats[name]
+        by_path = {p: n[name] for p, n in paths.items()}
+        if not any(by_path.values()):
+            fail(f"{name} was launched on no path: {by_path}")
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces,
-                        "launches": out["launches"][name],
+                        "launches": sum(by_path.values()),
+                        "launches_by_path": by_path,
                         "max_abs_err": s["max_abs_err"], "ms": s["ms"],
                         "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                         "bound_by": s["bound_by"], "library_ms": None})

@@ -1,11 +1,13 @@
 """PyTorch/CUDA port of ``rwkv_tts_tpu`` for one NVIDIA H100.
 
-Property-controlled text → WAV: tokenizer + property tokens → RWKV-7
-prefill → 32 global tokens → semantic tokens until EOS → BiCodec
-detokenize → 16 kHz waveform (``runtime.pipeline.TtsPipeline``). The
-decode and prefill WKV-7 recurrences run as CUDA C++ kernels written for
-``sm_90a`` (``csrc/``, built at first use by ``ops/_build.py``); the rest
-is plain PyTorch.
+``runtime.pipeline.TtsPipeline`` runs text → WAV: tokenizer + property
+tokens, or a cloned voice's 32 global tokens → RWKV-7 prefill → global
+tokens (property mode) → semantic tokens until EOS → BiCodec detokenize →
+16 kHz waveform. A voice is cloned from a reference WAV (host front end,
+then wav2vec2 features and BiCodec encode) or taken from the ``.raf``
+voice store. The WKV-7 recurrences (decode, sequential prefill, WY chunked
+prefill) run as CUDA C++ kernels written for ``sm_90a`` (``csrc/``, built
+at first use by ``ops/_build.py``); the rest is plain PyTorch.
 
 The port imports nothing of JAX or of ``rwkv_tts_tpu``: the JAX package is
 its reference, and only the tests import both. Importing this package

@@ -1,8 +1,8 @@
 """Configuration dataclasses of the PyTorch port.
 
 Own copies of ``RwkvConfig``, ``SamplingConfig``, ``EngineConfig``,
-``BiCodecConfig`` and ``TtsArgs`` from ``rwkv_tts_tpu/config.py``, with the
-same defaults. Fields that only choose between the JAX package's TPU code
+``Wav2Vec2Config``, ``BiCodecConfig`` and ``TtsArgs`` from
+``rwkv_tts_tpu/config.py``, with the same defaults. Fields that only choose between the JAX package's TPU code
 paths (``EngineConfig.chunk_size``/``use_pallas``,
 ``BiCodecConfig.conv_impl``), or that nothing in the port reads yet
 (``EngineConfig.global_tokens``, ``with_token_chunk``), have no
@@ -62,6 +62,24 @@ class EngineConfig:
     # the semantic loop checks on the host whether every slot is done once
     # per this many steps (the emitted tokens do not depend on it)
     decode_block: int = 16
+
+
+@dataclasses.dataclass(frozen=True)
+class Wav2Vec2Config:
+    """wav2vec2-large-xlsr-53 feature encoder: z-normalized waveform [B, N]
+    → features [B, T, 1024], T ≈ N/320."""
+
+    conv_dims: Tuple[int, ...] = (512, 512, 512, 512, 512, 512, 512)
+    conv_strides: Tuple[int, ...] = (5, 2, 2, 2, 2, 2, 2)
+    conv_kernels: Tuple[int, ...] = (10, 3, 3, 3, 3, 2, 2)
+    hidden_size: int = 1024
+    num_layers: int = 24
+    num_heads: int = 16
+    ffn_size: int = 4096
+    # kept for equality with the JAX package's config; the features mix
+    # the hidden states that ``extract_features``' output_layers name
+    output_layer: int = 24
+    dtype: str = "float32"
 
 
 @dataclasses.dataclass(frozen=True)

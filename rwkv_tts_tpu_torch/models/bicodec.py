@@ -1,17 +1,28 @@
-"""BiCodec decode side (SparkTTS) in PyTorch.
+"""BiCodec speech codec (SparkTTS) in PyTorch: encode and decode.
 
-Port of the detokenize path of ``rwkv_tts_tpu/models/bicodec.py``:
-global tokens [B, 32] + semantic tokens [B, S] → waveform [B, S·320] at
-16 kHz. Semantic codes → factorized-VQ codebook rows out-projected 8→1024
-(``fvq_detokenize``, :246); global codes → FSQ digits → speaker vector
-(``fsq_dequantize`` :280, ``speaker_detokenize`` :422); a Vocos prenet
-whose LayerNorms are AdaLN-conditioned on the speaker vector
+Port of ``rwkv_tts_tpu/models/bicodec.py``.
+
+Encode (``encode``, :539): wav2vec2 features [B, T, 1024] + reference mel
+[B, 128, 301] → semantic tokens [B, T] + global tokens [B, 32]. The
+semantic branch is a Vocos/ConvNeXt encoder (``encoder_forward`` :437) and
+a factorized VQ: in-projection to 8 dims and an L2-normalized nearest
+neighbour over the 8192-row codebook, ties to the lowest index
+(``fvq_tokenize`` :232). The global branch is an ECAPA-TDNN over the mel
+(``ecapa_features`` :341), a perceiver resampler pooling its time features
+into 32 latents (``perceiver_resample`` :394) and FSQ with levels 4^6
+(``fsq_quantize`` :266).
+
+Decode (the detokenize path): global tokens [B, 32] + semantic tokens
+[B, S] → waveform [B, S·320] at 16 kHz. Semantic codes → codebook rows
+out-projected 8→1024 (``fvq_detokenize`` :246); global codes → FSQ digits
+→ speaker vector (``fsq_dequantize`` :280, ``speaker_detokenize`` :422); a
+Vocos prenet whose LayerNorms are AdaLN-conditioned on the speaker vector
 (``prenet_forward`` :447) plus the speaker vector; then a DAC-style wave
 generator of snake, transposed-conv upsampling and dilated residual units
 (``wave_generator`` :514). ``detokenize`` (:845) edge-pads the sequence to
 a bucket, at least the decoder's receptive field, and trims.
 
-Parameters are the JAX package's decode subtrees (``utils/bridge.py``) or
+Parameters are the JAX package's tree (``utils/bridge.py``) or
 ``init_params`` below. The computation runs in float32 (the default
 ``BiCodecConfig.dtype``); the convolutions are ``F.conv1d`` and
 ``F.conv_transpose1d``, which the JAX package likewise left to its
@@ -20,7 +31,7 @@ compiler. ``utils.device.resolve_device`` keeps cuDNN out of TF32.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -59,9 +70,15 @@ def _ada_ln(p, x, cond, eps=1e-6):
     return (xn * scale[:, None, :] + shift[:, None, :]).to(x.dtype)
 
 
-def _conv1d(x, w, b=None, dilation=1, groups=1, padding=0):
-    """x [B, C, T], w [O, I/groups, K], symmetric padding, stride 1."""
-    out = F.conv1d(x, w, None, 1, padding, dilation, groups)
+def _rms_norm(x, g, eps=1e-8):
+    xf = x.float()
+    n = xf * torch.rsqrt((xf * xf).sum(dim=-1, keepdim=True) + eps)
+    return (n * x.shape[-1] ** 0.5 * g.float()).to(x.dtype)
+
+
+def _conv1d(x, w, b=None, dilation=1, groups=1, padding=0, stride=1):
+    """x [B, C, T], w [O, I/groups, K], symmetric padding."""
+    out = F.conv1d(x, w, None, stride, padding, dilation, groups)
     if b is not None:
         out = out + b.float()[None, :, None]
     return out
@@ -114,23 +131,66 @@ def _vocos_backbone(p, x, cond=None):
     return _ln(h, p["final_ln_w"], p["final_ln_b"])
 
 
-def _sampling_block(p, x, up: int = 1):
-    """The decode side's SamplingBlock: x [B, T, D] → [B, D, T·up]. A
-    ratio-1 block (the published config) is a transpose; ``up`` > 1 adds a
-    transposed-conv upsampling to the repeated sequence. (The encoder's
-    downsampling branch belongs to the encode path, not ported here.)"""
+def _sampling_block(p, x, up: int = 1, down: int = 1):
+    """SamplingBlock: x [B, T, D] → [B, D, T·up/down]. A ratio-1 block (the
+    published config) is a transpose; ``up`` > 1 adds a transposed-conv
+    upsampling to the repeated sequence, ``down`` > 1 a strided conv to two
+    average pools."""
     x = x.transpose(1, 2)
+    rep_res = x
     if up > 1:
         rep = torch.repeat_interleave(x, up, dim=2)
         dec = _tconv1d(F.leaky_relu(x, 0.2), p["up_w"], p["up_b"],
                        stride=up, padding=up // 2 + up % 2)
         x = rep + dec[..., :rep.shape[-1]]
+        rep_res = rep
+    if down > 1:
+        conv = _conv1d(F.leaky_relu(x, 0.2), p["down_w"], p["down_b"],
+                       stride=down, padding=down // 2 + down % 2)
+        T = x.shape[-1] // down
+        pool = x[..., :T * down].reshape(*x.shape[:2], T, down).mean(-1)
+        pool_rep = rep_res[..., :T * down].reshape(
+            *x.shape[:2], T, down).mean(-1)
+        x = conv[..., :T] + pool + pool_rep
     return x
 
 
 # --------------------------------------------------------------------------
-# token → latent
+# latent ↔ token
 # --------------------------------------------------------------------------
+
+def fvq_tokenize(p, z, l2_norm: bool = True):
+    """z [B, D, T] → indices [B, T]: in-project (1×1 conv) to the code
+    space, L2-normalized nearest neighbour; ties → the lowest index."""
+    ze = torch.einsum("bdt,dc->btc", z, p["in_w"]) + p["in_b"]
+    cb = p["codebook"]
+    if l2_norm:
+        ze = ze * torch.rsqrt((ze * ze).sum(dim=-1, keepdim=True) + 1e-12)
+        cb = cb * torch.rsqrt((cb * cb).sum(dim=-1, keepdim=True) + 1e-12)
+    d = ((ze * ze).sum(dim=-1, keepdim=True) - 2.0 * ze @ cb.T
+         + (cb * cb).sum(dim=-1)[None, None, :])
+    return torch.argmin(d, dim=-1)
+
+
+def _fsq_bound(z, levels, eps=1e-3):
+    lv = torch.tensor(levels, dtype=torch.float32, device=z.device)
+    half_l = (lv - 1.0) * (1.0 + eps) / 2.0
+    offset = torch.where(lv % 2 == 0, 0.5, 0.0)
+    shift = torch.atanh(offset / half_l)
+    return torch.tanh(z + shift) * half_l - offset
+
+
+def fsq_quantize(z, levels) -> Tuple[torch.Tensor, torch.Tensor]:
+    """z [..., d] → (codes [...], normalized quantized [..., d]): bound →
+    round (half to even) → / half width; code = Σ digit·∏ levels[:i]."""
+    lv = torch.tensor(levels, dtype=torch.int64, device=z.device)
+    half_w = lv // 2
+    q = torch.round(_fsq_bound(z, levels))             # integers around 0
+    digits = q + half_w.float()                        # [0, L)
+    basis = torch.cumprod(torch.cat([torch.ones_like(lv[:1]), lv[:-1]]), 0)
+    code = (digits.long() * basis).sum(dim=-1)
+    return code, q / half_w.float()
+
 
 def fvq_detokenize(p, idx):
     """indices [B, T] → z_q [B, D, T] (un-normalized codebook rows,
@@ -158,8 +218,121 @@ def speaker_detokenize(p, codes, cfg: BiCodecConfig):
 
 
 # --------------------------------------------------------------------------
-# decoder
+# ECAPA-TDNN speaker encoder (time features for the perceiver)
 # --------------------------------------------------------------------------
+
+def _bn1d(p, x, eps=1e-5):
+    """Inference BatchNorm over the channel axis of [B, C, T] or [B, C]."""
+    shape = (1, -1) + (1,) * (x.dim() - 2)
+    inv = torch.rsqrt(p["var"] + eps)
+    return ((x - p["mean"].reshape(shape)) * inv.reshape(shape)
+            * p["w"].reshape(shape) + p["b"].reshape(shape))
+
+
+def _conv_relu_bn(p, x, dilation=1):
+    k = p["w"].shape[-1]
+    h = _conv1d(x, p["w"], p["b"], dilation=dilation,
+                padding=(k - 1) * dilation // 2)
+    return _bn1d(p["bn"], torch.relu(h))
+
+
+def _res2_block(p, x, dilation, scale=8):
+    """Res2Net conv over channel groups with cascading adds."""
+    width = x.shape[1] // scale
+    parts = [x[:, i * width:(i + 1) * width] for i in range(scale)]
+    outs = []
+    sp = None
+    for i, conv in enumerate(p["convs"]):
+        sp = parts[i] if i == 0 else sp + parts[i]
+        k = conv["w"].shape[-1]
+        sp = _conv1d(sp, conv["w"], conv["b"], dilation=dilation,
+                     padding=(k - 1) * dilation // 2)
+        sp = _bn1d(conv["bn"], torch.relu(sp))
+        outs.append(sp)
+    outs.append(parts[-1])
+    return torch.cat(outs, dim=1)
+
+
+def _se_connect(p, x):
+    s = x.mean(dim=-1)                                  # [B, C]
+    s = torch.relu(s @ p["w1"] + p["b1"])
+    s = torch.sigmoid(s @ p["w2"] + p["b2"])
+    return x * s[:, :, None]
+
+
+def _se_res2_block(p, x, dilation):
+    h = _conv_relu_bn(p["conv1"], x)
+    h = _res2_block(p["res2"], h, dilation)
+    h = _conv_relu_bn(p["conv2"], h)
+    return _se_connect(p["se"], h) + x
+
+
+def ecapa_features(p, mel):
+    """mel [B, n_mels, T] → time features [B, 3·channels, T]: relu of a 1×1
+    conv over the three SE-Res2 blocks' outputs, whose inputs sum the skips
+    before them (the JAX package's wiring)."""
+    h = _conv_relu_bn(p["layer1"], mel)
+    o1 = _se_res2_block(p["layer2"], h, 2)
+    o2 = _se_res2_block(p["layer3"], h + o1, 3)
+    o3 = _se_res2_block(p["layer4"], h + o1 + o2, 4)
+    cat = torch.cat([o1, o2, o3], dim=1)
+    k = p["mfa_w"].shape[-1]
+    return torch.relu(_conv1d(cat, p["mfa_w"], p["mfa_b"], padding=k // 2))
+
+
+# --------------------------------------------------------------------------
+# perceiver resampler (32 learned latents over the ECAPA features)
+# --------------------------------------------------------------------------
+
+def _perceiver_attention(p, lat, ctx, heads, dim_head):
+    """Cross-attention whose context includes the queries."""
+    B, N, _ = lat.shape
+    kv_src = torch.cat([lat, ctx], dim=1)
+    M = kv_src.shape[1]
+    q = (lat @ p["q_w"]).reshape(B, N, heads, dim_head)
+    k, v = (kv_src @ p["kv_w"]).chunk(2, dim=-1)
+    k = k.reshape(B, M, heads, dim_head)
+    v = v.reshape(B, M, heads, dim_head)
+    att = torch.einsum("bnhd,bmhd->bhnm", q, k) * (dim_head ** -0.5)
+    att = torch.softmax(att, dim=-1)
+    out = torch.einsum("bhnm,bmhd->bnhd", att, v).reshape(B, N, -1)
+    return out @ p["out_w"]
+
+
+def perceiver_resample(p, ctx, heads: int, dim_head: int):
+    """ctx [B, T, C_ctx] → latents [B, num_latents, dim]."""
+    ctx = ctx @ p["ctx_w"] + p["ctx_b"]
+    lat = p["latents"].expand(ctx.shape[0], *p["latents"].shape)
+    for layer in p["layers"]:
+        lat = _perceiver_attention(layer["attn"], lat, ctx, heads,
+                                   dim_head) + lat
+        h = F.gelu(lat @ layer["ff1_w"] + layer["ff1_b"])
+        lat = (h @ layer["ff2_w"] + layer["ff2_b"]) + lat
+    return _rms_norm(lat, p["norm_g"])
+
+
+def speaker_tokenize(p, mel, cfg: BiCodecConfig):
+    """mel [B, n_mels, T] → global tokens [B, 32]."""
+    feats = ecapa_features(p["ecapa"], mel)
+    lat = perceiver_resample(p["perceiver"], feats.transpose(1, 2),
+                             cfg.perceiver_heads, cfg.perceiver_dim_head)
+    z = lat @ p["fsq_in_w"] + p["fsq_in_b"]            # [B, 32, 6]
+    return fsq_quantize(z, cfg.fsq_levels)[0]
+
+
+# --------------------------------------------------------------------------
+# encoder / decoder
+# --------------------------------------------------------------------------
+
+def encoder_forward(p, feat, cfg: BiCodecConfig):
+    """wav2vec2 features [B, T, 1024] → latent z [B, 1024, T]."""
+    h = _vocos_backbone(p["backbone"], feat.transpose(1, 2))
+    for ratio, stage in zip(cfg.encoder_ratios, p["stages"]):
+        h = _sampling_block(stage.get("sampler", {}), h, down=ratio)
+        h = _vocos_backbone(stage["vocos"], h)
+    h = h @ p["project_w"] + p["project_b"]            # [B, T, out]
+    return h.transpose(1, 2)
+
 
 def prenet_forward(p, zq, cond, cfg: BiCodecConfig):
     """z_q [B, 1024, S] + condition [B, 1024] → [B, 1024, S]."""
@@ -192,6 +365,30 @@ def wave_generator(p, x, cfg: BiCodecConfig):
     h = _snake(h, p["alpha_out"])
     h = _conv1d(h, p["out_w"], p["out_b"], padding=p["out_w"].shape[-1] // 2)
     return torch.tanh(h[:, 0, :])
+
+
+def encode(params: Params, feat, mel, cfg: BiCodecConfig, device=None
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """feat [B, T, 1024], mel [B, 128, F] (numpy or tensors) → (semantic
+    [B, T], global [B, 32]) int64 on ``device``, where the parameters must
+    lie (BiCodecTokenize.onnx, ref_audio_utilities.rs:1047-1257)."""
+    dev = resolve_device(device)
+    if params["quantizer"]["codebook"].device.type != dev.type:
+        raise ValueError(f"parameters are on "
+                         f"{params['quantizer']['codebook'].device}, "
+                         f"expected {dev}")
+    if cfg.dtype != "float32":
+        raise NotImplementedError(f"BiCodec compute dtype {cfg.dtype!r}: "
+                                  "the port runs float32 only")
+
+    def tensor(x):
+        if isinstance(x, np.ndarray):
+            x = torch.from_numpy(np.array(x, np.float32))
+        return x.to(dev, torch.float32)
+
+    z = encoder_forward(params["encoder"], tensor(feat), cfg)
+    semantic = fvq_tokenize(params["quantizer"], z, cfg.vq_l2_norm)
+    return semantic, speaker_tokenize(params["speaker"], tensor(mel), cfg)
 
 
 def decode(params: Params, global_tokens: torch.Tensor,
@@ -260,15 +457,18 @@ def detokenize(params: Params, global_tokens, semantic_tokens,
 
 
 # --------------------------------------------------------------------------
-# random parameters (decode subtrees)
+# random parameters
 # --------------------------------------------------------------------------
 
 def init_params(cfg: BiCodecConfig, generator: Optional[torch.Generator] = None,
                 device=None) -> Params:
-    """Random decode-side parameters (quantizer, speaker projection, prenet,
-    wave generator) with the JAX package's shapes and init scales
-    (``bicodec.init_params``, :605), drawn on ``device`` from ``generator``
-    (seed 0 when None). Torch's draws, not the JAX package's stream."""
+    """Random parameters of everything encode and decode run (encoder,
+    quantizer, speaker encoder and projection, prenet, wave generator) with
+    the JAX package's shapes and init scales (``bicodec.init_params``,
+    :605), drawn on ``device`` from ``generator`` (seed 0 when None).
+    Torch's draws, not the JAX package's stream; the decode leaves are
+    drawn first. The ECAPA x-vector head, which neither encode nor decode
+    reads, is left out."""
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev)
@@ -361,5 +561,48 @@ def init_params(cfg: BiCodecConfig, generator: Optional[torch.Generator] = None,
         "alpha_out": ones(ch_in),
         "out_w": conv(1, ch_in, 7), "out_b": zeros(1),
     }
-    return {"quantizer": quantizer, "speaker": speaker, "prenet": prenet,
-            "wavegen": wavegen}
+
+    D = cfg.encoder_dim
+    encoder = {
+        "backbone": vocos(cfg.feat_dim, D, cfg.encoder_inter_dim,
+                          cfg.encoder_layers),
+        "stages": [{"vocos": vocos(D, D, cfg.encoder_inter_dim, 2)}
+                   for _ in cfg.encoder_ratios],
+        "project_w": lin(D, cfg.encoder_out),
+        "project_b": zeros(cfg.encoder_out),
+    }
+    ch, scale = cfg.spk_channels, 8
+
+    def crb(i, o, k):
+        return {"w": conv(o, i, k), "b": zeros(o),
+                "bn": {"w": ones(o), "b": zeros(o), "mean": zeros(o),
+                       "var": ones(o)}}
+
+    def se_res2():
+        return {"conv1": crb(ch, ch, 1),
+                "res2": {"convs": [crb(ch // scale, ch // scale, 3)
+                                   for _ in range(scale - 1)]},
+                "conv2": crb(ch, ch, 1),
+                "se": {"w1": lin(ch, 128), "b1": zeros(128),
+                       "w2": lin(128, ch), "b2": zeros(ch)}}
+
+    cat = 3 * ch
+    speaker["ecapa"] = {
+        "layer1": crb(cfg.mel_bins, ch, 5),
+        "layer2": se_res2(), "layer3": se_res2(), "layer4": se_res2(),
+        "mfa_w": conv(cat, cat, 1), "mfa_b": zeros(cat),
+    }
+    inner = cfg.perceiver_heads * cfg.perceiver_dim_head
+    speaker["perceiver"] = {
+        "ctx_w": lin(cat, pd), "ctx_b": zeros(pd),
+        "latents": normal((cfg.num_global_tokens, pd), 1.0),
+        "layers": [{"attn": {"q_w": lin(pd, inner), "kv_w": lin(pd, 2 * inner),
+                             "out_w": lin(inner, pd)},
+                    "ff1_w": lin(pd, 4 * pd), "ff1_b": zeros(4 * pd),
+                    "ff2_w": lin(4 * pd, pd), "ff2_b": zeros(pd)}
+                   for _ in range(cfg.perceiver_depth)],
+        "norm_g": ones(pd),
+    }
+    speaker["fsq_in_w"], speaker["fsq_in_b"] = lin(pd, nf), zeros(nf)
+    return {"encoder": encoder, "quantizer": quantizer, "speaker": speaker,
+            "prenet": prenet, "wavegen": wavegen}

@@ -7,11 +7,19 @@ channel j), ``a = -kk`` and ``b = kk * iclr``:
     y_t = S_t r_t
 
 ``wkv7_scan`` (prefill) and ``wkv7_single`` (decode) transcribe the JAX
-oracles ``rwkv_tts_tpu/ops/wkv7.py:42`` and ``:153``. The wrappers
-``wkv7_prefill`` and ``wkv7_decode_`` check their arguments and then take
+oracles ``rwkv_tts_tpu/ops/wkv7.py:42`` and ``:153``; ``wkv7_chunk_wy``,
+``wkv7_chunked_wy`` and ``_chunk_combine`` transcribe its chunkwise WY
+prefill (``:957-1038``, ``:645-671``). The wrappers ``wkv7_prefill``,
+``wkv7_wy_phase_a`` and ``wkv7_decode_`` check their arguments and then take
 the plain version for tensors on the CPU, or launch the CUDA kernel
-(``csrc/wkv7_prefill.cu``, ``csrc/wkv7_decode.cu``) for tensors on a card.
-On a card they launch or raise: there is no fallback.
+(``csrc/wkv7_prefill.cu``, ``csrc/wkv7_wy.cu``, ``csrc/wkv7_decode.cu``) for
+tensors on a card. On a card they launch or raise: there is no fallback.
+
+On a card, ``wkv7_prefill`` picks its kernel by ``prefill_route(B, T)``,
+the JAX package's TPU rule (``wkv7_prefill_tpu``, ``:1208-1265``): the WY
+kernel plus the PyTorch chunk combine for B < 128, 4 | T and B·T ≥ 2048,
+the sequential kernel otherwise. On the CPU it returns ``wkv7_scan``, as
+the JAX model does off the TPU.
 
 ``LAUNCHES`` counts kernel launches per wrapper, and only those.
 """
@@ -19,16 +27,18 @@ On a card they launch or raise: there is no fallback.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from . import _build
 
-__all__ = ["wkv7_scan", "wkv7_single", "wkv7_prefill", "wkv7_decode_",
-           "LAUNCHES", "reset_launches"]
+__all__ = ["wkv7_scan", "wkv7_single", "wkv7_chunk_wy", "wkv7_chunked_wy",
+           "wy_doublings", "wy_chunk_for", "prefill_route", "wkv7_prefill",
+           "wkv7_wy_phase_a", "wkv7_decode_", "LAUNCHES", "reset_launches"]
 
-LAUNCHES: Dict[str, int] = {"wkv7_decode": 0, "wkv7_prefill": 0}
+LAUNCHES: Dict[str, int] = {"wkv7_decode": 0, "wkv7_prefill": 0,
+                            "wkv7_wy": 0}
 
 HEAD_SIZE = 64   # the kernels' compiled N
 
@@ -40,7 +50,14 @@ _ARGTYPES = {
                                ctypes.c_int, ctypes.c_int, _P],
     # r, w, k, v, a, b, state_in, y, state_out, B, T, H, device, stream
     "wkv7_prefill": [_P] * 9 + [ctypes.c_int] * 4 + [_P],
+    # r, w, k, v, a, b, y_loc, rho, s_loc, P, B, T, H, L, device, stream
+    "wkv7_wy": [_P] * 10 + [ctypes.c_int] * 5 + [_P],
 }
+
+# the TPU dispatch's lines (wkv7_prefill_tpu, rwkv_tts_tpu/ops/wkv7.py:1249,
+# :1262): the sequential kernel from this batch up, WY from these tokens up
+SEQ_MIN_BATCH = 128
+WY_MIN_TOKENS = 2048
 _fns: Dict[str, object] = {}
 
 
@@ -97,6 +114,122 @@ def wkv7_single(r, w, k, v, a, b, state) -> Tuple[torch.Tensor, torch.Tensor]:
     s = (s * decay[:, :, None, :] + sa[..., None] * b.float()[:, :, None, :]
          + v.float()[..., None] * k.float()[:, :, None, :])
     return torch.einsum("bhij,bhj->bhi", s, r.float()), s
+
+
+# --------------------------------------------------------------------------
+# chunkwise WY prefill: plain versions and the dispatch rule
+# --------------------------------------------------------------------------
+
+def wy_doublings(L: int) -> int:
+    """Nilpotent doublings ``G2 = G2²; X += G2·X`` from ``X = I + G`` that
+    cover every power of G below L: k of them cover powers < 2^(k+1)."""
+    return max((L - 1).bit_length() - 1, 0)
+
+
+def wy_chunk_for(T: int) -> Optional[int]:
+    """WY chunk length: the largest power-of-two divisor of T, capped at 64
+    (the f32 range bound of the exp(-lw) factors), or None when 4 ∤ T. A
+    pure function of T, so a request's prefill numerics do not depend on
+    its batch-mates."""
+    if T < 4 or T % 4:
+        return None
+    L = 4
+    while L < 64 and T % (L * 2) == 0:
+        L *= 2
+    return L
+
+
+def prefill_route(B: int, T: int) -> str:
+    """Which kernel ``wkv7_prefill`` launches for a [B, T] prompt chunk on a
+    card: ``"wy"`` (``csrc/wkv7_wy.cu`` + ``_chunk_combine``) where the TPU
+    dispatch takes its WY Pallas kernel, else ``"seq"``
+    (``csrc/wkv7_prefill.cu``)."""
+    if B < SEQ_MIN_BATCH and wy_chunk_for(T) is not None \
+            and B * T >= WY_MIN_TOKENS:
+        return "wy"
+    return "seq"
+
+
+def wkv7_chunk_wy(r, w, k, v, a, b):
+    """WY phase A over independent chunks: inputs [M, L, H, N] (M = B·n_c
+    chunks), returns (y_loc, rho [M, L, H, N] f32, s_loc, P [M, H, N, N]
+    f32), P with its diagonal: the local output and state of each chunk
+    from a zero state, and its transition operator and r-transport."""
+    M, L, H, N = r.shape
+
+    def mh(x):          # [M, L, H, N] -> [M, H, L, N] f32
+        return x.float().permute(0, 2, 1, 3)
+
+    ld = -torch.exp(mh(w))                     # log per-step decay (< 0)
+    lw = torch.cumsum(ld, dim=2)               # log D_{1:t}
+    e = torch.exp(lw)
+    r_, k_, v_, a_, b_ = map(mh, (r, k, v, a, b))
+    a_hat = a_ * torch.exp(lw - ld)            # a_t ⊙ D_{1:t-1}
+    b_star = b_ * torch.exp(-lw)
+    k_star = k_ * torch.exp(-lw)
+    r_hat = r_ * e
+    e_l = e[:, :, -1]                          # [M, H, N] = D_{1:L}
+
+    ones = torch.ones((L, L), dtype=torch.float32, device=r.device)
+    tri_s, tri_i = torch.tril(ones, -1), torch.tril(ones)
+    G = (a_hat @ b_star.mT) * tri_s
+    K = (a_hat @ k_star.mT) * tri_s
+    R1 = (r_hat @ b_star.mT) * tri_i
+    R2 = (r_hat @ k_star.mT) * tri_i
+
+    # X = (I - G)^{-1} = Σ_{i<L} G^i by nilpotent doubling
+    X = torch.eye(L, dtype=torch.float32, device=r.device) + G
+    G2 = G
+    for _ in range(wy_doublings(L)):
+        G2 = G2 @ G2
+        X = X + G2 @ X
+
+    h_loc = X @ (K @ v_)
+    xa = X @ a_hat
+    y_loc = R1 @ h_loc + R2 @ v_
+    rho = r_hat + R1 @ xa
+    b_tld = b_star * e_l[:, :, None, :]
+    k_tld = k_star * e_l[:, :, None, :]
+    P = xa.mT @ b_tld + torch.diag_embed(e_l)
+    s_loc = h_loc.mT @ b_tld + v_.mT @ k_tld
+    return (y_loc.permute(0, 2, 1, 3).contiguous(),
+            rho.permute(0, 2, 1, 3).contiguous(), s_loc, P)
+
+
+def _chunk_combine(state, y_loc, rho, s_loc, P, B, T, L, H, N):
+    """Phases B and C of the chunkwise decomposition: the scan over chunk
+    transitions (the only sequential part) and every position's
+    inter-chunk term, as batched f32 matrix products.
+
+    y_loc/rho: [B·n_c, L, H, N]; s_loc/P: [B·n_c, H, N, N]; state:
+    [B, H, N, N]. Returns (y [B, T, H, N] f32, final state [B, H, N, N])."""
+    n_c = T // L
+    P_c = P.reshape(B, n_c, H, N, N)
+    s_loc_c = s_loc.reshape(B, n_c, H, N, N)
+    S = state.float()
+    S_in = []
+    for c in range(n_c):
+        S_in.append(S)                         # the chunk-ENTRY state
+        S = torch.matmul(S, P_c[:, c]) + s_loc_c[:, c]
+    S_in = torch.stack(S_in, dim=1)            # [B, n_c, H, N, N]
+    rho_c = rho.reshape(B, n_c, L, H, N)
+    y_inter = torch.einsum("bchij,bclhj->bclhi", S_in, rho_c)
+    y = y_loc.reshape(B, n_c, L, H, N) + y_inter
+    return y.reshape(B, T, H, N), S
+
+
+def wkv7_chunked_wy(r, w, k, v, a, b, state, chunk: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunkwise-parallel WKV-7 with the WY phase A; ``wkv7_scan``'s
+    contract. ``chunk`` must divide T."""
+    B, T, H, N = r.shape
+    n_c = T // chunk
+
+    def resh(x):
+        return x.float().reshape(B * n_c, chunk, H, N)
+
+    y_loc, rho, s_loc, P = wkv7_chunk_wy(*map(resh, (r, w, k, v, a, b)))
+    return _chunk_combine(state, y_loc, rho, s_loc, P, B, T, chunk, H, N)
 
 
 # --------------------------------------------------------------------------
@@ -163,9 +296,10 @@ def wkv7_prefill(r, w, k, v, a, b, state) -> Tuple[torch.Tensor, torch.Tensor]:
 
     r, w, k, v, a, b: [B, T, H, N] f32 (T ≥ 1, any value); state:
     [B, H, N, N] f32, not modified. Returns (y [B, T, H, N] f32, new state
-    [B, H, N, N] f32). Counterpart of the TPU kernels
-    ``rwkv_tts_tpu/ops/wkv7.py:483 wkv7_seq_bt_pallas`` and ``:1329
-    wkv7_pallas_packed``."""
+    [B, H, N, N] f32). Counterpart of the TPU dispatch
+    ``rwkv_tts_tpu/ops/wkv7.py:1208 wkv7_prefill_tpu`` and its kernels
+    ``:483 wkv7_seq_bt_pallas``, ``:1329 wkv7_pallas_packed`` and ``:1120
+    wkv7_chunked_wy_pallas``; ``prefill_route`` picks one on a card."""
     if not isinstance(r, torch.Tensor) or r.dim() != 4:
         raise ValueError("r must be a [B, T, H, N] tensor")
     B, T, H, N = r.shape
@@ -178,9 +312,52 @@ def wkv7_prefill(r, w, k, v, a, b, state) -> Tuple[torch.Tensor, torch.Tensor]:
     _check_device(dev, N)
     if dev.type == "cpu":
         return wkv7_scan(r, w, k, v, a, b, state)
+    if prefill_route(B, T) == "wy":
+        L = wy_chunk_for(T)
+        y_loc, rho, s_loc, P = wkv7_wy_phase_a(r, w, k, v, a, b, L)
+        return _chunk_combine(state, y_loc, rho, s_loc, P, B, T, L, H, N)
+    return _seq_prefill(r, w, k, v, a, b, state)
+
+
+def _seq_prefill(r, w, k, v, a, b, state):
+    """Launch ``csrc/wkv7_prefill.cu`` on arguments ``wkv7_prefill`` has
+    checked."""
+    B, T, H, _ = r.shape
     y = torch.empty_like(r)
     s_out = torch.empty_like(state)
-    _launch("wkv7_prefill", dev, r.data_ptr(), w.data_ptr(), k.data_ptr(),
-            v.data_ptr(), a.data_ptr(), b.data_ptr(), state.data_ptr(),
-            y.data_ptr(), s_out.data_ptr(), B, T, H)
+    _launch("wkv7_prefill", r.device, r.data_ptr(), w.data_ptr(),
+            k.data_ptr(), v.data_ptr(), a.data_ptr(), b.data_ptr(),
+            state.data_ptr(), y.data_ptr(), s_out.data_ptr(), B, T, H)
     return y, s_out
+
+
+def wkv7_wy_phase_a(r, w, k, v, a, b, chunk: int):
+    """WY phase A of a [B, T, H, N] prompt cut into chunks of ``chunk``
+    positions: returns (y_loc, rho [B·n_c, chunk, H, N] f32, s_loc, P
+    [B·n_c, H, N, N] f32), ``wkv7_chunk_wy``'s contract. ``chunk`` is a
+    power of two in [4, 64] dividing T. Counterpart of the TPU kernel
+    ``rwkv_tts_tpu/ops/wkv7.py:1120 wkv7_chunked_wy_pallas`` (phase A,
+    body ``:1041``)."""
+    if not isinstance(r, torch.Tensor) or r.dim() != 4:
+        raise ValueError("r must be a [B, T, H, N] tensor")
+    B, T, H, N = r.shape
+    dev = r.device
+    for name, t in zip("rwkvab", (r, w, k, v, a, b)):
+        _check(name, t, (B, T, H, N), (torch.float32,), dev)
+    L = int(chunk)
+    if not 4 <= L <= 64 or L & (L - 1) or T % L:
+        raise ValueError(f"chunk {chunk}: needs a power of two in [4, 64] "
+                         f"dividing T = {T}")
+    _check_device(dev, N)
+    M = B * (T // L)
+    if dev.type == "cpu":
+        return wkv7_chunk_wy(*(x.reshape(M, L, H, N)
+                               for x in (r, w, k, v, a, b)))
+    y_loc = torch.empty((M, L, H, N), dtype=torch.float32, device=dev)
+    rho = torch.empty_like(y_loc)
+    s_loc = torch.empty((M, H, N, N), dtype=torch.float32, device=dev)
+    P = torch.empty_like(s_loc)
+    _launch("wkv7_wy", dev, r.data_ptr(), w.data_ptr(), k.data_ptr(),
+            v.data_ptr(), a.data_ptr(), b.data_ptr(), y_loc.data_ptr(),
+            rho.data_ptr(), s_loc.data_ptr(), P.data_ptr(), B, T, H, L)
+    return y_loc, rho, s_loc, P

@@ -1,28 +1,37 @@
-"""End-to-end TTS pipeline: text → tokens → waveform.
+"""End-to-end TTS pipeline: text (+ a voice) → tokens → waveform.
 
-Port of ``rwkv_tts_tpu/runtime/pipeline.TtsPipeline`` restricted to this
-slice: property-controlled synthesis and zero-shot from direct reference
-tokens. ``synthesize_batch`` keeps the JAX pipeline's mode grouping, stage
-timings and RTF accounting (``pipeline.py:309-349``). Cloning from
-reference audio, the voice store and the cached speaker are not ported yet
-and raise ``NotImplementedError`` rather than doing something else.
+Port of ``rwkv_tts_tpu/runtime/pipeline.TtsPipeline``: property-controlled
+synthesis and zero-shot voice cloning. The voice chain resolves, in order,
+an enrolled ``voice_id`` of the voice store, direct reference tokens, and a
+reference audio file (wav2vec2 features + BiCodec encode, behind a
+file-checksum cache), else property tokens (``pipeline.py:186-252``).
+``synthesize_batch`` keeps the JAX pipeline's mode grouping, stage timings
+and RTF accounting (``pipeline.py:309-349``). The cached-speaker rung is not
+ported yet and raises ``NotImplementedError`` rather than doing something
+else.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import hashlib
 import logging
+import threading
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
 from .. import constants as C
 from ..audio import io as audio_io
-from ..config import BiCodecConfig, EngineConfig, RwkvConfig, TtsArgs
-from ..models import bicodec
+from ..audio.frontend import load_and_process, zero_mean_unit_variance
+from ..config import (BiCodecConfig, EngineConfig, RwkvConfig, TtsArgs,
+                      Wav2Vec2Config)
+from ..models import bicodec, wav2vec2
 from ..utils.device import resolve_device
 from ..utils.rtf import StageTimer
 from .engine import GenerationResult, TtsEngine
+from .voice_store import VoiceStore
 
 log = logging.getLogger(__name__)
 
@@ -38,36 +47,109 @@ class SynthesisResult:
 
 
 class TtsPipeline:
-    """Owns the LM engine and the BiCodec decoder. Parameters are the
-    port's tensor dicts, already on ``device`` (``utils/bridge.py`` or the
-    models' ``init_params``)."""
+    """Owns the LM engine, BiCodec, wav2vec2 and the voice store.
+    Parameters are the port's tensor dicts, already on ``device``
+    (``utils/bridge.py`` or the models' ``init_params``); without wav2vec2
+    parameters a reference-audio request falls down the voice chain."""
 
     def __init__(self, lm_params, lm_cfg: RwkvConfig, bicodec_params,
-                 bicodec_cfg: BiCodecConfig,
+                 bicodec_cfg: BiCodecConfig, w2v_params=None,
+                 w2v_cfg: Optional[Wav2Vec2Config] = None,
+                 voice_store: Optional[VoiceStore] = None,
                  engine_cfg: EngineConfig = EngineConfig(), tokenizer=None,
-                 device=None):
+                 w2v_output_layers=wav2vec2.OUTPUT_LAYERS, device=None):
         self.device = resolve_device(device)
         self.engine = TtsEngine(lm_params, lm_cfg, engine_cfg,
                                 tokenizer=tokenizer, device=self.device)
         self.bicodec_params = bicodec_params
         self.bicodec_cfg = bicodec_cfg
+        self.w2v_params = w2v_params
+        self.w2v_cfg = w2v_cfg
+        self.w2v_output_layers = w2v_output_layers
+        self.voice_store = voice_store
+        # reference-audio tokens by file checksum, least recently used out
+        self._extract_cache = collections.OrderedDict()
+        self._extract_cache_cap = 64
+        self._extract_cache_lock = threading.Lock()
 
     def resolve_voice(self, args: TtsArgs) -> TtsArgs:
-        """The voice chain's rungs this slice has: direct reference tokens
-        (zero-shot, seed forced to 0 as the reference does for cloning,
-        dynamic_batch_manager.rs:487), else property tokens."""
-        if args.voice_id:
+        """The voice chain (lightweight_tts_pipeline.rs:747-787): an
+        enrolled voice_id, direct reference tokens, a reference audio file,
+        else property tokens. Every cloning rung forces seed 0, as the
+        reference does (dynamic_batch_manager.rs:435-441, 487-496); a rung
+        that fails falls down the chain instead of failing the batch."""
+        if args.voice_id and self.voice_store is not None:
+            try:
+                g, s, prompt = self.voice_store.get_voice_tokens(
+                    args.voice_id)
+            except (OSError, KeyError, TypeError, ValueError) as e:
+                log.warning("voice_id %r failed to load (%s): falling back "
+                            "down the voice chain", args.voice_id, e)
+            else:
+                return dataclasses.replace(
+                    args, zero_shot=True, ref_global_tokens=g,
+                    ref_semantic_tokens=s,
+                    prompt_text=args.prompt_text or prompt, seed=0)
+        elif args.voice_id:
             log.warning("voice_id %r ignored: no voice store configured",
                         args.voice_id)
         if args.ref_global_tokens:
             return dataclasses.replace(args, zero_shot=True, seed=0)
         if args.ref_audio_path:
-            raise NotImplementedError(
-                "cloning from reference audio is not ported yet")
+            try:
+                g, s, _ = self.extract_voice_tokens_cached(
+                    args.ref_audio_path)
+            except Exception as e:  # noqa: BLE001 — any bad file degrades
+                # this request only, as in the JAX pipeline
+                log.warning("ref_audio_path %r failed to extract (%s): "
+                            "falling back down the voice chain",
+                            args.ref_audio_path, e, exc_info=True)
+            else:
+                return dataclasses.replace(
+                    args, zero_shot=True, ref_global_tokens=g,
+                    ref_semantic_tokens=s, seed=0)
         if args.cached_speaker:
             raise NotImplementedError(
                 "the cached-speaker path is not ported yet")
         return dataclasses.replace(args, zero_shot=False)
+
+    def extract_voice_tokens(self, audio_path: str):
+        """Reference audio file → (global tokens, semantic tokens,
+        duration s): the front end on the host, then wav2vec2 features and
+        BiCodec encode on the pipeline's device
+        (bin/server.rs:195-276, ref_audio_utilities.rs:1047-1257)."""
+        if self.w2v_params is None:
+            raise RuntimeError("wav2vec2 weights not loaded")
+        pa = load_and_process(audio_path)
+        z = zero_mean_unit_variance(pa.wav)
+        feat = wav2vec2.extract_features(
+            self.w2v_params, z[None, :], self.w2v_cfg,
+            output_layers=self.w2v_output_layers, device=self.device)
+        sem, glob = bicodec.encode(self.bicodec_params, feat,
+                                   pa.ref_mel[None], self.bicodec_cfg,
+                                   device=self.device)
+        return ([int(x) for x in glob[0].tolist()],
+                [int(x) for x in sem[0].tolist()], pa.duration)
+
+    def extract_voice_tokens_cached(self, audio_path: str):
+        """``extract_voice_tokens`` behind a checksum cache of the file's
+        bytes, so a reference file reused across requests is encoded once
+        (an in-memory LRU; voice enrollment is the durable form)."""
+        with open(audio_path, "rb") as f:
+            key = hashlib.sha256(f.read()).hexdigest()
+        with self._extract_cache_lock:
+            if key in self._extract_cache:
+                self._extract_cache.move_to_end(key)
+                return self._extract_cache[key]
+        out = self.extract_voice_tokens(audio_path)
+        with self._extract_cache_lock:
+            self._extract_cache[key] = out
+            while len(self._extract_cache) > self._extract_cache_cap:
+                self._extract_cache.popitem(last=False)
+        return out
+
+    def synthesize(self, args: TtsArgs) -> SynthesisResult:
+        return self.synthesize_batch([args])[0]
 
     def vocode(self, g: GenerationResult) -> np.ndarray:
         """One request's tokens → f32 waveform @16 kHz (bucketed BiCodec

@@ -5,9 +5,11 @@ included), so this module needs no JAX. The tree structure is kept: dicts
 stay dicts, lists stay lists, arrays become tensors on ``device``.
 
 Covered: the unquantised ``rwkv7.init_params`` layout (stacked ``[L, …]``
-block leaves, raw projections, f32 or bf16) and the decode subtrees of
-``bicodec.init_params``. Quantised leaves, the partial-quant segment tuple
-and the fused ``zrkv`` layout raise ``NotImplementedError`` naming the leaf.
+block leaves, raw projections, f32 or bf16), every subtree of
+``bicodec.init_params`` and the ``wav2vec2.init_params`` tree (a list of
+conv dicts and stacked ``[L, …]`` transformer layers). Quantised leaves,
+the partial-quant segment tuple and the fused ``zrkv`` layout raise
+``NotImplementedError`` naming the leaf.
 """
 
 from __future__ import annotations
@@ -25,8 +27,6 @@ _QUANT_LEAVES = {
     frozenset({"q4p", "s4"}): "int4",
     frozenset({"q4", "s"}): "NF4",
 }
-
-BICODEC_DECODE_SUBTREES = ("quantizer", "speaker", "prenet", "wavegen")
 
 
 def to_tensor(a, device) -> torch.Tensor:
@@ -72,6 +72,11 @@ def rwkv7_params(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
 
 
 def bicodec_params(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
-    """``bicodec.init_params`` pytree → the decode subtrees the port runs."""
-    dev = resolve_device(device)
-    return {k: _tree(tree[k], dev, k) for k in BICODEC_DECODE_SUBTREES}
+    """``bicodec.init_params`` pytree → the port's parameter dict, every
+    subtree (encoder, quantizer, speaker, prenet, wave generator)."""
+    return _tree(tree, resolve_device(device), "")
+
+
+def wav2vec2_params(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
+    """``wav2vec2.init_params`` pytree → the port's parameter dict."""
+    return _tree(tree, resolve_device(device), "")

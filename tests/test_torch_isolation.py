@@ -77,9 +77,11 @@ def no_card(monkeypatch):
 
 
 def test_entry_points_refuse_the_cpu_without_asking(no_card):
+    import numpy as np
+
     from rwkv_tts_tpu_torch.config import (BiCodecConfig, EngineConfig,
-                                           RwkvConfig)
-    from rwkv_tts_tpu_torch.models import bicodec, rwkv7
+                                           RwkvConfig, Wav2Vec2Config)
+    from rwkv_tts_tpu_torch.models import bicodec, rwkv7, wav2vec2
     from rwkv_tts_tpu_torch.runtime.engine import TtsEngine
     from rwkv_tts_tpu_torch.runtime.pipeline import TtsPipeline
     from rwkv_tts_tpu_torch.utils import bridge
@@ -89,14 +91,26 @@ def test_entry_points_refuse_the_cpu_without_asking(no_card):
                      v_lora=8, gate_lora=8, dtype="float32",
                      param_dtype="float32")
     bcfg = BiCodecConfig.tiny()
+    wcfg = Wav2Vec2Config(num_layers=1, hidden_size=32, num_heads=2,
+                          ffn_size=32, conv_dims=(16,) * 7)
     lm = rwkv7.init_params(cfg, device="cpu")
     bc = bicodec.init_params(bcfg, device="cpu")
+    w2v = wav2vec2.init_params(wcfg, device="cpu")
+    wav = np.zeros((1, 4000), np.float32)
     for call in (lambda: TtsPipeline(lm, cfg, bc, bcfg),
+                 lambda: TtsPipeline(lm, cfg, bc, bcfg, w2v, wcfg),
                  lambda: TtsEngine(lm, cfg, EngineConfig()),
                  lambda: rwkv7.init_params(cfg),
                  lambda: rwkv7.init_state(cfg, 1),
                  lambda: bicodec.init_params(bcfg),
-                 lambda: bridge.rwkv7_params({"blocks": {}})):
+                 lambda: bicodec.encode(bc, np.zeros((1, 8, 1024), np.float32),
+                                        np.zeros((1, 128, 301), np.float32),
+                                        bcfg),
+                 lambda: wav2vec2.init_params(wcfg),
+                 lambda: wav2vec2.extract_features(w2v, wav, wcfg),
+                 lambda: bridge.rwkv7_params({"blocks": {}}),
+                 lambda: bridge.bicodec_params({}),
+                 lambda: bridge.wav2vec2_params({})):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
 
@@ -134,7 +148,7 @@ def test_config_copies_match_jax_package():
 
     from rwkv_tts_tpu_torch import config as P
     for name in ("RwkvConfig", "SamplingConfig", "EngineConfig",
-                 "BiCodecConfig", "TtsArgs"):
+                 "Wav2Vec2Config", "BiCodecConfig", "TtsArgs"):
         mine = dataclasses.asdict(getattr(P, name)())
         theirs = dataclasses.asdict(getattr(J, name)())
         assert {k: v for k, v in theirs.items() if k in mine} == mine, name

@@ -150,7 +150,9 @@ def test_cpu_wrappers_launch_nothing():
     W.wkv7_decode_(*map(t, x), torch.zeros(2, 1, 1, 64, 64), 0)
     W.wkv7_prefill(*map(t, inputs((1, 3, 1, 64), seed=12)),
                    torch.zeros(1, 1, 64, 64))
-    assert W.LAUNCHES == {"wkv7_decode": 0, "wkv7_prefill": 0}
+    W.wkv7_prefill(*map(t, inputs((8, 256, 1, 64), seed=12)),
+                   torch.zeros(8, 1, 64, 64))
+    assert W.LAUNCHES == {"wkv7_decode": 0, "wkv7_prefill": 0, "wkv7_wy": 0}
 
 
 def _decode_args():
@@ -265,7 +267,7 @@ def test_kernel_wrappers_count_card_launches(cuda_card):
     W.wkv7_decode_(*x, torch.zeros(2, 2, 32, 64, 64, device="cuda"), 1)
     W.wkv7_prefill(*[t(v).cuda() for v in inputs((2, 3, 32, 64), seed=19)],
                    torch.zeros(2, 32, 64, 64, device="cuda"))
-    assert W.LAUNCHES == {"wkv7_decode": 1, "wkv7_prefill": 1}
+    assert W.LAUNCHES == {"wkv7_decode": 1, "wkv7_prefill": 1, "wkv7_wy": 0}
 
 
 @pytest.mark.cuda
