@@ -7,8 +7,8 @@ Run from the root of a checkout on a machine with one CUDA card:
 
 Phases, each fatal on failure:
 
-  build      compile every kernel of both paths from ``csrc/`` with nvcc
-             for sm_90a, one process per source, all at once;
+  build      compile every kernel of every path from ``csrc/`` with nvcc
+             for sm_90a, one process per source, all at once (six);
   kernels    each kernel's wrapper against its plain PyTorch version on
              the card, with stated tolerances; decode must leave the other
              layers of the state stack untouched; the WY prefill (kernel +
@@ -16,8 +16,16 @@ Phases, each fatal on failure:
              scan at T = 256 (L = 64) and T = 1028 (L = 4); each kernel and
              plain version timed at its path's shapes (device time from
              torch.profiler, and CUDA events per call), and the sequential
-             prefill kernel timed on the WY kernel's inputs beside it;
-  goldens    the goldens model (2 layers × 128, weights rebuilt from the
+             prefill kernel timed on the WY kernel's inputs beside it; then
+             the quantized path's kernels: qmm4 (int4) and qmm (int8)
+             against their plain versions at the decode products' shapes
+             (M = 8), the 8320-wide head slice read in place, qmm4 at
+             prefill rows M = 512 and 2048, qmm at zrkv's 4096 × 6144 (1e-5
+             relative); the fused decode step at B = 8, f32 and bf16 state,
+             other layers untouched; each timed beside its plain version
+             and, for the GEMMs, cuBLAS bf16 on the weights dequantized
+             beforehand (the library column);
+  goldens   the goldens model (2 layers × 128, weights rebuilt from the
              JAX package's seeded numpy stream) on the card must emit
              exactly the tokens of ``tests/goldens.json``;
   main_path  8 property-controlled requests through
@@ -36,7 +44,16 @@ Phases, each fatal on failure:
              prefill through the WY kernel (32 launches per chunk, no
              sequential prefill launch); each request keeps its voice's
              global tokens, a repeated clip hits the extraction cache, and
-             every waveform is finite and len(semantic) × 320 samples.
+             every waveform is finite and len(semantic) × 320 samples;
+  quantized  the LM at full width in the JAX package's serving layouts,
+             built on the card by ``make_serving_params``: int8 as deployed
+             (``torch._int_mm``) and int4 (qmm4 launched 6·L + 1 times per
+             decode step and per prefill chunk), each with 8 property
+             requests through ``synthesize_batch`` and one profiled decode
+             step; fused int8 with ``STEP_FUSED`` and ``USE_QMM_KERNEL`` on,
+             8 requests through the engine (fused step L per decode step,
+             qmm 4·L + 1 per step and 1 per prefill chunk) and one step held
+             against the same step through the plain versions (5e-2).
 
 Prints the card's name and power limit early, a ``{"kernels": [...]}``
 line second to last and ``{"ok": true, "device": {...}}`` last. Exits
@@ -56,6 +73,7 @@ import time
 SEED = 20261016
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12        # H100 SXM, f32 outside the tensor cores
+BF16_TC_FLOPS_PER_S = 989e12   # H100 SXM, dense bf16 on the tensor cores
 TEXTS = (
     "Hello, this is a smoke test of the speech pipeline.",
     "你好，欢迎使用语音合成。",
@@ -183,9 +201,9 @@ def check_prefill(torch, W, B, T, H, N, gen, masked_tail):
     return max(float((y - y_ref).abs().max()), float((s - s_ref).abs().max()))
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, flops_per_s: float = F32_FLOPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -203,7 +221,8 @@ def check_wy(torch, W, B, T, H, N, gen, masked_tail):
     W.reset_launches()
     y, s = W.wkv7_prefill(*x, s0)
     torch.cuda.synchronize()
-    if W.LAUNCHES != {"wkv7_decode": 0, "wkv7_prefill": 0, "wkv7_wy": 1}:
+    if W.LAUNCHES != {"wkv7_decode": 0, "wkv7_prefill": 0, "wkv7_wy": 1,
+                      "wkv7_step_fused": 0}:
         fail(f"wy: B={B} T={T} launched {W.LAUNCHES}")
     errs = []
     for name, (y_ref, s_ref) in (
@@ -333,26 +352,10 @@ def phase_kernels(torch, W, lm_cfg):
     }
     out = {}
     for name, (kern, plain, n_k, n_p, (b_ms, b_by)) in cases.items():
-        # device time (profiler) is the kernel's own time; the event time
-        # per call also holds the host's launch overhead between calls
-        call_ms, plain_call_ms = (cuda_ms(torch, kern, n_k),
-                                  cuda_ms(torch, plain, n_p))
-        dev_ms, plain_dev_ms = (device_ms(torch, kern, n_k),
-                                device_ms(torch, plain, n_p))
-        if dev_ms != dev_ms or plain_dev_ms != plain_dev_ms:   # NaN
-            print(f"kernels: {name}: the profiler saw no device time; "
-                  "reporting CUDA-event times per call", flush=True)
-            dev_ms, plain_dev_ms = call_ms, plain_call_ms
         t_shape = {"wkv7_decode": 1, "wkv7_prefill": T, "wkv7_wy": Tw}[name]
-        print(f"kernels: {name} at its path's shape (B={B}, T={t_shape}): "
-              f"device {dev_ms:.5f} "
-              f"ms, plain {plain_dev_ms:.5f} ms, bound {b_ms:.5f} ms by "
-              f"{b_by}; per call with launch {call_ms:.5f} ms, plain "
-              f"{plain_call_ms:.5f} ms", flush=True)
-        out[name] = {"ms": dev_ms, "plain_ms": plain_dev_ms,
-                     "bound_ms": b_ms, "bound_by": b_by,
-                     "call_ms": call_ms, "plain_call_ms": plain_call_ms,
-                     "max_abs_err": err[name]}
+        out[name] = timed(torch, name, kern, plain, None, n_k, n_p, b_ms,
+                          b_by, err[name],
+                          f"its path's shape (B={B}, T={t_shape})")
 
     # the prefill at the WY kernel's shape: the sequential kernel, and the
     # whole WY route (kernel 3 + the PyTorch chunk combine), on the same
@@ -384,6 +387,235 @@ def phase_kernels(torch, W, lm_cfg):
           f"({algo / F32_FLOPS_PER_S * 1e3:.5f} ms at the f32 peak)",
           flush=True)
     return out
+
+
+# the decode products of one layer, (K, N) at M = batch: raw int4 layers
+# (w_r, w_k, w_v, w_o, ffn_k, ffn_v) and fused int8 layers (zrkv, w_o,
+# ffn_k, ffn_v); the 8320-wide head slice and prefill rows are checked too
+QMM4_LAYER = ((2048, 2048),) * 4 + ((2048, 8192), (8192, 2048))
+QMM_LAYER = ((4096, 6144), (2048, 2048), (2048, 8192), (8192, 2048))
+
+
+def gemm_weight(torch, Q, name, K, N, gen):
+    """A seeded [K, N] weight quantized for ``name``'s kernel: (wq, ws)."""
+    w = 0.02 * torch.randn((K, N), generator=gen, device="cuda")
+    if name == "qmm4":
+        q = Q.quantize_tensor_int4(w)
+        return q["q4p"], q["s4"]
+    q = Q.quantize_tensor(w)
+    return q["q"], q["s"]
+
+
+def gemm_bytes(name, M, K, N):
+    """Bytes a product must move: x (bf16) and the quantized weight with
+    its scales read once, the f32 output written once."""
+    w = K * N // 2 + (K // 128) * N * 4 if name == "qmm4" else K * N + N * 4
+    return M * K * 2 + w + M * N * 4
+
+
+def check_gemm(torch, Q, name, M, K, N, gen, wq=None, ws=None):
+    """``name``'s kernel against its plain version on the card at
+    [M, K] × [K, N], bf16 activations: 1e-5 relative (the same bf16
+    operands, f32 sums in another order). Returns the max abs error."""
+    if wq is None:
+        wq, ws = gemm_weight(torch, Q, name, K, N, gen)
+    x = torch.randn((M, K), generator=gen, device="cuda").bfloat16()
+    kern, plain = ((Q.qmm4, Q.qmm4_plain) if name == "qmm4"
+                   else (Q.qmm, Q.qmm_plain))
+    got, want = kern(x, wq, ws), plain(x, wq, ws)
+    torch.cuda.synchronize()
+    e = rel_err(torch, got, want)
+    if e > 1e-5:
+        fail(f"{name} M={M} K={K} N={N}: rel err {e:.3g} (tolerance 1e-5)")
+    print(f"kernels: {name} M={M} K={K} N={N}"
+          f"{' (head slice, row stride %d)' % wq.stride(0) if wq.stride(0) != N else ''}"
+          f": rel err {e:.3g}", flush=True)
+    return float((got - want).abs().max())
+
+
+def check_step_fused(torch, W, B, H, N, L, dtype, gen, tol):
+    """The fused decode step against its plain version on layer 2 of an
+    L-layer stack, with the model's operand layout (r, k, v bf16 column
+    slices of one [B, 3C] product, the LoRA outputs f32 slices of one
+    [B, 4C]); the other layers must come back bit-identical. Output 1e-4
+    relative, state ``tol``. Returns the max abs error."""
+    ops, params8 = step_fused_inputs(torch, B, H, N, gen)
+    stack = (0.1 * torch.randn((L, B, H, N, N), generator=gen,
+                               device="cuda")).to(dtype)
+    before = stack.clone()
+    layer = 2
+    out_ref, s_ref = W.wkv7_step_fused(*ops, stack[layer], params8, 1.0)
+    out = W.wkv7_step_fused_(*ops, params8, stack, layer, 1.0)
+    torch.cuda.synchronize()
+    e_o = rel_err(torch, out, out_ref)
+    e_s = rel_err(torch, stack[layer], s_ref.to(dtype))
+    if e_o > 1e-4 or e_s > tol:
+        fail(f"step_fused B={B} {dtype}: rel err out {e_o:.3g}, state "
+             f"{e_s:.3g} (tolerance out 1e-4, state {tol})")
+    others = [i for i in range(L) if i != layer]
+    if not torch.equal(stack[others], before[others]):
+        fail(f"step_fused B={B} {dtype}: layers other than {layer} changed")
+    print(f"kernels: step_fused B={B} H={H} L={L} state={dtype}: rel err "
+          f"out {e_o:.3g} state {e_s:.3g}; other layers untouched",
+          flush=True)
+    return max(float((out - out_ref).abs().max()),
+               float((stack[layer].float() - s_ref.to(dtype).float())
+                     .abs().max()))
+
+
+def step_fused_inputs(torch, B, H, N, gen):
+    """The fused step's eight [B, H, N] operands as the model hands them
+    over, and params8 [8, H, N], at the model's magnitudes."""
+    C = H * N
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    rkv = (0.5 * randn(B, 3 * C)).bfloat16()
+    lo = randn(B, 4 * C)
+    r, k, v = (rkv[:, i * C:(i + 1) * C].reshape(B, H, N) for i in range(3))
+    lo_w, lo_a, lo_v, g = (lo[:, i * C:(i + 1) * C].reshape(B, H, N)
+                           for i in range(4))
+    v_first = 0.5 * randn(B, H, N)
+    params8 = torch.stack([
+        0.5 + 0.5 * torch.rand((H, N), generator=gen, device="cuda"),
+        0.5 + 0.5 * torch.rand((H, N), generator=gen, device="cuda"),
+        randn(H, N) - 4.0, 0.1 * randn(H, N), 0.1 * randn(H, N),
+        0.3 * randn(H, N), 1.0 + 0.1 * randn(H, N), 0.1 * randn(H, N)])
+    return (r, lo_w, lo_a, lo_v, k, v, g, v_first), params8
+
+
+def phase_quant_kernels(torch, W, Q, lm_cfg):
+    """The three kernels of the quantized path against their plain
+    versions (qmm4 at decode rows M = 8 for every int4 leaf shape, the
+    8320-wide head slice read in place, and prefill rows M = 512, 2048;
+    qmm at the same decode shapes and zrkv's 4096 × 6144; the fused step at
+    B = 8 with f32 and bf16 state), then timing at the path's shapes: one
+    layer's decode products at M = 8 (cycling weight sets larger than L2),
+    beside the plain versions and cuBLAS's bf16 product on the same weights
+    dequantized beforehand (the library column); the fused step at B = 8 on
+    the full f32 stack, cycling the layers."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 7)
+    H, N, L, C = lm_cfg.n_head, lm_cfg.head_size, lm_cfg.n_layer, \
+        lm_cfg.n_embd
+    V, hs = lm_cfg.padded_vocab_size, 8320
+    B = 8
+    err = {"qmm4": 0.0, "qmm": 0.0, "wkv7_step_fused": 0.0}
+    for name in ("qmm4", "qmm"):
+        shapes = [(B, K, N_) for K, N_ in QMM4_LAYER[3:]]
+        shapes += ([(512, C, 4 * C), (2048, C, 4 * C)] if name == "qmm4"
+                   else [(B, 2 * C, 3 * C)])
+        for M, K, N_ in shapes:
+            err[name] = max(err[name], check_gemm(torch, Q, name, M, K, N_,
+                                                  gen))
+        hq, hsc = gemm_weight(torch, Q, name, C, V, gen)
+        err[name] = max(err[name], check_gemm(
+            torch, Q, name, B, C, hs, gen, hq[:, :hs], hsc[:, :hs]))
+        del hq, hsc
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        e = check_step_fused(torch, W, B, H, N, 4, dtype, gen, tol)
+        if dtype == torch.float32:
+            err["wkv7_step_fused"] = e
+
+    out = {}
+    for name, layer, n_sets in (("qmm4", QMM4_LAYER, 4),
+                                ("qmm", QMM_LAYER, 2)):
+        sets = [[gemm_weight(torch, Q, name, K, N_, gen) for K, N_ in layer]
+                for _ in range(n_sets)]
+        deq = [[(Q.dequantize_tensor_int4({"q4p": wq, "s4": ws},
+                                          torch.bfloat16) if name == "qmm4"
+                 else Q.dequantize_tensor({"q": wq, "s": ws},
+                                          torch.bfloat16))
+                for wq, ws in ws_] for ws_ in sets]
+        xs = {K: torch.randn((B, K), generator=gen,
+                             device="cuda").bfloat16() for K, _ in layer}
+        kern, plain = ((Q.qmm4, Q.qmm4_plain) if name == "qmm4"
+                       else (Q.qmm, Q.qmm_plain))
+        it = {"i": 0}
+
+        def layer_fn(fn, dequantized=False, sets=sets, deq=deq, xs=xs,
+                     layer=layer, it=it):
+            def run():
+                i = it["i"] % len(sets)
+                for (K, _), wts, wd in zip(layer, sets[i], deq[i]):
+                    if dequantized:
+                        torch.matmul(xs[K], wd)
+                    else:
+                        fn(xs[K], *wts)
+                it["i"] += 1
+            return run
+
+        nbytes = sum(gemm_bytes(name, B, K, N_) for K, N_ in layer)
+        flops = sum(2 * B * K * N_ for K, N_ in layer)
+        b_ms, b_by = bound(nbytes, flops, BF16_TC_FLOPS_PER_S)
+        out[name] = timed(torch, name, layer_fn(kern), layer_fn(plain),
+                          layer_fn(None, True), 10 * n_sets, 2 * n_sets,
+                          b_ms, b_by, err[name],
+                          f"one layer's decode products at M={B}")
+        del sets, deq
+    # qmm4 at prefill rows: one product of ffn_k's shape
+    wq, ws = gemm_weight(torch, Q, "qmm4", C, 4 * C, gen)
+    wd = Q.dequantize_tensor_int4({"q4p": wq, "s4": ws}, torch.bfloat16)
+    for M in (512, 2048):
+        x = torch.randn((M, C), generator=gen, device="cuda").bfloat16()
+        k_ms = device_ms(torch, lambda: Q.qmm4(x, wq, ws), 10)
+        l_ms = device_ms(torch, lambda: torch.matmul(x, wd), 10)
+        pb = bound(gemm_bytes("qmm4", M, C, 4 * C), 2 * M * C * 4 * C,
+                   BF16_TC_FLOPS_PER_S)
+        print(f"kernels: qmm4 at prefill rows M={M} K={C} N={4 * C}: device "
+              f"{k_ms:.5f} ms, cuBLAS bf16 on the dequantized weight "
+              f"{l_ms:.5f} ms, bound {pb[0]:.5f} ms by {pb[1]} "
+              f"({100 * pb[0] / k_ms:.1f}% reached)", flush=True)
+    del wq, ws, wd
+
+    ops, params8 = step_fused_inputs(torch, B, H, N, gen)
+    stack = torch.zeros((L, B, H, N, N), device="cuda")
+    it = {"i": 0}
+
+    def fused_kernel():
+        W.wkv7_step_fused_(*ops, params8, stack, it["i"] % L, 1.0)
+        it["i"] += 1
+
+    def fused_plain():
+        l = it["i"] % L
+        _, s_new = W.wkv7_step_fused(*ops, stack[l], params8, 1.0)
+        stack[l].copy_(s_new)
+        it["i"] += 1
+
+    slab = B * H * N * N * 4
+    op_bytes = B * C * (3 * 2 + 5 * 4) + 8 * C * 4 + B * C * 4
+    b_ms, b_by = bound(2 * slab + op_bytes, 9 * B * H * N * N)
+    out["wkv7_step_fused"] = timed(
+        torch, "wkv7_step_fused", fused_kernel, fused_plain, None, 10 * L,
+        2 * L, b_ms, b_by, err["wkv7_step_fused"], f"B={B}, f32 state")
+    return out
+
+
+def timed(torch, name, kern, plain, library, n_k, n_p, b_ms, b_by, err,
+          shape):
+    """Device time per call (torch.profiler) of a kernel, its plain version
+    and its library yardstick (or None), with CUDA-event times per call
+    beside (those also hold the host's launch work between calls); returns
+    the kernel's stats row."""
+    call_ms, plain_call_ms = cuda_ms(torch, kern, n_k), cuda_ms(torch, plain,
+                                                               n_p)
+    dev_ms, plain_dev_ms = device_ms(torch, kern, n_k), device_ms(torch,
+                                                                  plain, n_p)
+    lib_ms = device_ms(torch, library, n_k) if library else None
+    if dev_ms != dev_ms or plain_dev_ms != plain_dev_ms:   # NaN
+        print(f"kernels: {name}: the profiler saw no device time; "
+              "reporting CUDA-event times per call", flush=True)
+        dev_ms, plain_dev_ms = call_ms, plain_call_ms
+    print(f"kernels: {name} at {shape}: device {dev_ms:.5f} ms, plain "
+          f"{plain_dev_ms:.5f} ms, library "
+          f"{'none' if lib_ms is None else f'{lib_ms:.5f} ms'}, bound "
+          f"{b_ms:.5f} ms by {b_by} ({100 * b_ms / dev_ms:.1f}% reached); "
+          f"per call with launch {call_ms:.5f} ms, plain {plain_call_ms:.5f}"
+          f" ms", flush=True)
+    return {"ms": dev_ms, "plain_ms": plain_dev_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib_ms, "call_ms": call_ms,
+            "plain_call_ms": plain_call_ms, "max_abs_err": err}
 
 
 # --------------------------------------------------------------------------
@@ -498,19 +730,38 @@ def phase_goldens(root: str) -> None:
 # main path
 # --------------------------------------------------------------------------
 
+def launch_counts():
+    """Every kernel wrapper's launch count, by kernel name."""
+    from rwkv_tts_tpu_torch.ops import quant as Q
+    from rwkv_tts_tpu_torch.ops import wkv7 as W
+
+    return {**W.LAUNCHES, **Q.LAUNCHES}
+
+
+def reset_launch_counts() -> None:
+    from rwkv_tts_tpu_torch.ops import quant as Q
+    from rwkv_tts_tpu_torch.ops import wkv7 as W
+
+    W.reset_launches()
+    Q.reset_launches()
+
+
 def main_path(torch, lm_cfg, bc_cfg, device: str, max_tokens: int,
-              engine_cfg=None, warmup: bool = True):
+              engine_cfg=None, warmup: bool = True, lm_params=None):
     """8 property-controlled requests through TtsPipeline.synthesize_batch
-    on ``device``, with every check of the main path. Returns a summary."""
+    on ``device``, with every check of the main path. ``lm_params`` (for
+    example a quantized serving tree) replaces the seeded bf16 LM. Returns
+    a summary."""
     from rwkv_tts_tpu_torch.config import EngineConfig, TtsArgs
     from rwkv_tts_tpu_torch.models import bicodec, rwkv7
-    from rwkv_tts_tpu_torch.ops import wkv7 as W
     from rwkv_tts_tpu_torch.runtime.pipeline import TtsPipeline
 
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED)
     t0 = time.perf_counter()
-    pipe = TtsPipeline(rwkv7.init_params(lm_cfg, gen, device), lm_cfg,
+    if lm_params is None:
+        lm_params = rwkv7.init_params(lm_cfg, gen, device)
+    pipe = TtsPipeline(lm_params, lm_cfg,
                        bicodec.init_params(bc_cfg, gen, device), bc_cfg,
                        engine_cfg=engine_cfg or EngineConfig(), device=device)
     init_s = time.perf_counter() - t0
@@ -524,13 +775,13 @@ def main_path(torch, lm_cfg, bc_cfg, device: str, max_tokens: int,
                                for r in requests])
 
     pipe.engine.counters = {k: 0 for k in pipe.engine.counters}
-    W.reset_launches()
+    reset_launch_counts()
     t0 = time.perf_counter()
     results = pipe.synthesize_batch(requests)
     if device == "cuda":
         torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = dict(W.LAUNCHES)
+    launches = launch_counts()
     counters = dict(pipe.engine.counters)
 
     import numpy as np
@@ -548,25 +799,26 @@ def main_path(torch, lm_cfg, bc_cfg, device: str, max_tokens: int,
             fail(f"main_path: request {i}: waveform not finite")
     L = lm_cfg.n_layer
     want = {"wkv7_decode": L * counters["decode_steps"],
-            "wkv7_prefill": L * counters["prefill_chunks"], "wkv7_wy": 0}
-    if device == "cuda" and launches != want:
+            "wkv7_prefill": L * counters["prefill_chunks"], "wkv7_wy": 0,
+            "wkv7_step_fused": 0}
+    if device == "cuda" and {k: launches[k] for k in want} != want:
         fail(f"main_path: kernel launches {launches}, expected {want} "
              f"(counters {counters})")
     return {"results": results, "launches": launches, "counters": counters,
             "wall_s": wall_s, "init_s": init_s, "pipe": pipe}
 
 
-def step_profile(torch, pipe, steps: int = 8):
-    """One decode step of the main path's LM at its batch: wall ms per step
+def step_profile(torch, eng, steps: int = 8, top: int = 5):
+    """One decode step of an engine's LM at its batch: wall ms per step
     (host clock, synchronized, no profiler attached), then, over as many
     steps under torch.profiler, device busy ms per step (sum of CUDA kernel
-    time) and kernels launched per step."""
+    time), kernels launched per step, and the ``top`` kernels by device
+    time as (name, ms per step, launches per step)."""
     from torch.profiler import ProfilerActivity, profile
 
     from rwkv_tts_tpu_torch.models import rwkv7
     from rwkv_tts_tpu_torch.runtime.engine import SEMANTIC_SLICE
 
-    eng = pipe.engine
     B = eng.engine_cfg.batch_size
     state = rwkv7.init_state(eng.cfg, B, device="cuda")
     tok = torch.zeros(B, dtype=torch.int64, device="cuda")
@@ -585,12 +837,19 @@ def step_profile(torch, pipe, steps: int = 8):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         run()
-    busy_us, kernels = 0.0, 0
+    busy_us, kernels, by_name = 0.0, 0, []
     for e in prof.key_averages():
         if str(getattr(e, "device_type", "")).endswith("CUDA"):
-            busy_us += getattr(e, "self_device_time_total", 0.0)
+            us = getattr(e, "self_device_time_total", 0.0)
+            busy_us += us
             kernels += e.count
-    return wall_ms, busy_us / steps / 1e3, kernels / steps
+            by_name.append((e.key[:60], us / steps / 1e3, e.count / steps))
+    by_name.sort(key=lambda t: -t[1])
+    return wall_ms, busy_us / steps / 1e3, kernels / steps, by_name[:top]
+
+
+def top_line(by_name) -> str:
+    return "; ".join(f"{n} {ms:.3f} ms x{c:.0f}" for n, ms, c in by_name)
 
 
 # --------------------------------------------------------------------------
@@ -654,7 +913,6 @@ def cloning(torch, lm_cfg, bc_cfg, w2v_cfg, device: str, max_tokens: int,
     from rwkv_tts_tpu_torch.audio.io import encode_wav_16bit
     from rwkv_tts_tpu_torch.config import EngineConfig, TtsArgs
     from rwkv_tts_tpu_torch.models import bicodec, rwkv7, wav2vec2
-    from rwkv_tts_tpu_torch.ops import wkv7 as W
     from rwkv_tts_tpu_torch.runtime.pipeline import TtsPipeline
     from rwkv_tts_tpu_torch.runtime.voice_store import VoiceStore
 
@@ -716,13 +974,13 @@ def cloning(torch, lm_cfg, bc_cfg, w2v_cfg, device: str, max_tokens: int,
 
         pipe.extract_voice_tokens = timed_extract
         pipe.engine.counters = {k: 0 for k in pipe.engine.counters}
-        W.reset_launches()
+        reset_launch_counts()
         t1 = time.perf_counter()
         results = pipe.synthesize_batch(requests)
         if device == "cuda":
             torch.cuda.synchronize()
         wall_s = time.perf_counter() - t1
-        launches = dict(W.LAUNCHES)
+        launches = launch_counts()
         counters = dict(pipe.engine.counters)
         pipe.extract_voice_tokens = real_extract
 
@@ -753,7 +1011,8 @@ def cloning(torch, lm_cfg, bc_cfg, w2v_cfg, device: str, max_tokens: int,
                 for r in requests)
         L = lm_cfg.n_layer
         want = {"wkv7_decode": L * counters["decode_steps"],
-                "wkv7_prefill": 0, "wkv7_wy": L * counters["prefill_chunks"]}
+                "wkv7_prefill": 0, "wkv7_wy": L * counters["prefill_chunks"],
+                "wkv7_step_fused": 0, "qmm4": 0, "qmm": 0}
         if counters["prefill_chunks"] != 1:
             fail(f"cloning: {counters['prefill_chunks']} prefill chunks, "
                  "expected 1")
@@ -763,6 +1022,144 @@ def cloning(torch, lm_cfg, bc_cfg, w2v_cfg, device: str, max_tokens: int,
     return {"results": results, "launches": launches, "counters": counters,
             "wall_s": wall_s, "init_s": init_s, "extract_ms": extract_ms,
             "longest_prompt": T}
+
+
+# --------------------------------------------------------------------------
+# quantized: the LM's serving layouts through the normal entry points
+# --------------------------------------------------------------------------
+
+def quantized(torch, lm_cfg, bc_cfg, device: str, max_tokens: int,
+              engine_cfg=None, warmup: bool = True):
+    """The LM in the JAX package's serving layouts, built on ``device`` by
+    ``make_serving_params`` (no host copy): (b) int8 as deployed and (c)
+    int4, each through ``main_path`` (8 property requests through
+    ``synthesize_batch``), int4 launching qmm4 for every dense leaf and the
+    head (6·L + 1 per decode step and per prefill chunk); (d) fused int8
+    with ``STEP_FUSED`` and ``USE_QMM_KERNEL`` on, 8 requests through the
+    engine (the fused step L per decode step, qmm for zrkv, w_o, ffn_k,
+    ffn_v and the head per step, and for the head per prefill chunk), and
+    one decode step held against the same step through the plain versions.
+    Returns a summary with the launches summed over the three runs."""
+    from rwkv_tts_tpu_torch.config import EngineConfig, TtsArgs
+    from rwkv_tts_tpu_torch.models import rwkv7
+    from rwkv_tts_tpu_torch.ops import quant as Q
+    from rwkv_tts_tpu_torch.ops import wkv7 as W
+    from rwkv_tts_tpu_torch.runtime.engine import SEMANTIC_SLICE, TtsEngine
+
+    L = lm_cfg.n_layer
+    ecfg = engine_cfg or EngineConfig()
+    summary = {"launches": {}}
+
+    def add(launches):
+        for k, n in launches.items():
+            summary["launches"][k] = summary["launches"].get(k, 0) + n
+
+    for kind in ("int8", "int4"):
+        gen = torch.Generator(device=device)
+        gen.manual_seed(SEED + 2)
+        t0 = time.perf_counter()
+        params = rwkv7.make_serving_params(lm_cfg, gen, quant=kind,
+                                           device=device)
+        init_s = time.perf_counter() - t0
+        run = main_path(torch, lm_cfg, bc_cfg, device, max_tokens, ecfg,
+                        warmup, lm_params=params)
+        c = run["counters"]
+        per = 6 * L + 1
+        want = {"qmm4": per * (c["decode_steps"] + c["prefill_chunks"])
+                if kind == "int4" else 0, "qmm": 0}
+        got = {k: run["launches"][k] for k in want}
+        if device == "cuda" and got != want:
+            fail(f"quantized {kind}: launches {got}, expected {want} "
+                 f"({per} per decode step and prefill chunk; counters {c})")
+        run["init_s"] = init_s
+        if device == "cuda":
+            run["step"] = step_profile(torch, run["pipe"].engine)
+        del run["pipe"], params
+        summary[kind] = run
+        add(run["launches"])
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 3)
+    params = rwkv7.make_serving_params(lm_cfg, gen, fused=True, quant="int8",
+                                       device=device)
+    eng = TtsEngine(params, lm_cfg, ecfg, device=device)
+    requests = [TtsArgs(text=t, seed=200 + i, max_tokens=max_tokens)
+                for i, t in enumerate(TEXTS)]
+    switches = (rwkv7.STEP_FUSED, Q.USE_QMM_KERNEL)
+    rwkv7.STEP_FUSED, Q.USE_QMM_KERNEL = True, True
+    try:
+        if warmup:
+            eng.generate_batch([dataclasses.replace(r, max_tokens=4)
+                                for r in requests])
+        eng.counters = {k: 0 for k in eng.counters}
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        results = eng.generate_batch(requests)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches, c = launch_counts(), dict(eng.counters)
+        for i, res in enumerate(results):
+            if len(res.global_tokens) != 32 or not all(
+                    0 <= t < 4096 for t in res.global_tokens) or not all(
+                    0 <= t < 8192 for t in res.semantic_tokens):
+                fail(f"quantized fused: request {i}: bad tokens")
+        want = {"wkv7_decode": 0, "wkv7_step_fused": L * c["decode_steps"],
+                "wkv7_prefill": L * c["prefill_chunks"], "wkv7_wy": 0,
+                "qmm4": 0, "qmm": (4 * L + 1) * c["decode_steps"]
+                + c["prefill_chunks"]}
+        if device == "cuda" and launches != want:
+            fail(f"quantized fused: launches {launches}, expected {want} "
+                 f"(counters {c})")
+        add(launches)
+        fused = {"wall_s": wall_s, "counters": c, "launches": launches,
+                 "results": results}
+        if device == "cuda":
+            fused["step"] = step_profile(torch, eng)
+
+        # one decode step through the kernels, and the same step through
+        # the plain versions, from the same state
+        prompts = [eng.build_prompt(r)[0] for r in requests]
+        _, state = eng.prefill(prompts, rwkv7.init_state(
+            lm_cfg, len(prompts), device=device))
+        tok = torch.arange(len(prompts), device=device) + 100
+        twin = {k: v.clone() for k, v in state.items()}
+        reset_launch_counts()
+        lk, sk = rwkv7.step(params, tok, state, lm_cfg,
+                            head_slice=SEMANTIC_SLICE)
+        if device == "cuda" and (launch_counts()["wkv7_step_fused"] != L
+                                 or launch_counts()["qmm"] != 4 * L + 1):
+            fail(f"quantized fused: the checked step launched "
+                 f"{launch_counts()}")
+
+        def plain_step_(*a):
+            *ops, params8, stack, layer, notfirst, eps = a
+            out, s_new = W.wkv7_step_fused(*ops, stack[layer], params8,
+                                           notfirst, eps)
+            stack[layer].copy_(s_new)
+            return out
+
+        real = (rwkv7.wkv7_step_fused_, Q.qmm)
+        rwkv7.wkv7_step_fused_, Q.qmm = plain_step_, Q.qmm_plain
+        try:
+            lp, sp = rwkv7.step(params, tok, twin, lm_cfg,
+                                head_slice=SEMANTIC_SLICE)
+        finally:
+            rwkv7.wkv7_step_fused_, Q.qmm = real
+        e_l = rel_err(torch, lk, lp)
+        e_s = rel_err(torch, sk["wkv"], sp["wkv"])
+        # bf16 activations are re-rounded after every product: a 1e-6
+        # difference in an f32 sum flips a bf16 rounding (2^-8 relative)
+        # now and then, and the flips compound over the layers
+        if not e_l <= 5e-2 or not e_s <= 5e-2:
+            fail(f"quantized fused: one step through the kernels against "
+                 f"the plain versions: rel err logits {e_l:.3g}, state "
+                 f"{e_s:.3g} (tolerance 5e-2)")
+        fused["step_vs_plain"] = (e_l, e_s)
+    finally:
+        rwkv7.STEP_FUSED, Q.USE_QMM_KERNEL = switches
+    summary["fused_int8"] = fused
+    return summary
 
 
 def main() -> None:
@@ -775,6 +1172,7 @@ def main() -> None:
         from rwkv_tts_tpu_torch.config import (BiCodecConfig, RwkvConfig,
                                                Wav2Vec2Config)
         from rwkv_tts_tpu_torch.ops import _build
+        from rwkv_tts_tpu_torch.ops import quant as Q
         from rwkv_tts_tpu_torch.ops import wkv7 as W
     except ImportError as e:
         fail(f"the rwkv_tts_tpu_torch package is not importable: {e}")
@@ -805,6 +1203,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     lm_cfg, bc_cfg = RwkvConfig(), BiCodecConfig()
     stats = phase_kernels(torch, W, lm_cfg)
+    stats.update(phase_quant_kernels(torch, W, Q, lm_cfg))
     phase_goldens(root)
 
     out = main_path(torch, lm_cfg, bc_cfg, "cuda", max_tokens=64)
@@ -816,11 +1215,13 @@ def main() -> None:
     print(f"main_path: stage timings (ms) {res[0].timings_ms}, batch RTF "
           f"{res[0].rtf:.4f}, semantic lengths "
           f"{[len(r.semantic_tokens) for r in res]}", flush=True)
-    wall_ms, busy_ms, kernels = step_profile(torch, out["pipe"])
+    wall_ms, busy_ms, kernels, by_name = step_profile(torch,
+                                                      out["pipe"].engine)
     print(f"main_path: decode step at batch "
           f"{out['pipe'].engine.engine_cfg.batch_size}: wall {wall_ms:.3f} ms, "
           f"device busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), "
-          f"{kernels:.0f} kernels per step", flush=True)
+          f"{kernels:.0f} kernels per step; top kernels per step: "
+          f"{top_line(by_name)}", flush=True)
     del out["pipe"]     # the cloning phase builds its own full-size models
 
     clone = cloning(torch, lm_cfg, bc_cfg, Wav2Vec2Config(), "cuda",
@@ -838,14 +1239,53 @@ def main() -> None:
           f"timings (ms) {res[0].timings_ms}, batch RTF {res[0].rtf:.4f}, "
           f"semantic lengths {[len(r.semantic_tokens) for r in res]}; "
           f"{card}", flush=True)
+    clone_launches = clone["launches"]
 
-    paths = {"main_path": out["launches"], "cloning": clone["launches"]}
+    del clone
+    torch.cuda.empty_cache()
+    quant = quantized(torch, lm_cfg, bc_cfg, "cuda", max_tokens=32)
+    for kind in ("int8", "int4"):
+        run = quant[kind]
+        res = run["results"]
+        wall_ms, busy_ms, kernels, by_name = run["step"]
+        print(f"quantized: {kind} weights, {len(res)} requests, "
+              f"{lm_cfg.n_layer} layers x {lm_cfg.n_embd}, init "
+              f"{run['init_s']:.2f} s, wall {run['wall_s']:.3f} s, counters "
+              f"{run['counters']}, launches {run['launches']}", flush=True)
+        print(f"quantized: {kind} stage timings (ms) {res[0].timings_ms}, "
+              f"batch RTF {res[0].rtf:.4f}, semantic lengths "
+              f"{[len(r.semantic_tokens) for r in res]}; decode step at "
+              f"batch 8: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
+              f"({100 * busy_ms / wall_ms:.1f}%), {kernels:.0f} kernels per "
+              f"step; top kernels per step: {top_line(by_name)}", flush=True)
+    fz = quant["fused_int8"]
+    wall_ms, busy_ms, kernels, by_name = fz["step"]
+    print(f"quantized: fused int8 with STEP_FUSED and the qmm kernel, "
+          f"{len(fz['results'])} requests through the engine, wall "
+          f"{fz['wall_s']:.3f} s, counters {fz['counters']}, launches "
+          f"{fz['launches']}; decode step: wall {wall_ms:.3f} ms, device busy "
+          f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), {kernels:.0f} "
+          f"kernels per step; top kernels per step: {top_line(by_name)}; "
+          f"one step through the kernels vs the plain "
+          f"versions: rel err logits {fz['step_vs_plain'][0]:.3g}, state "
+          f"{fz['step_vs_plain'][1]:.3g} (tolerance 5e-2); {card}",
+          flush=True)
+
+    paths = {"main_path": out["launches"], "cloning": clone_launches,
+             "quantized": quant["launches"]}
     sources = {"wkv7_decode": ("rwkv_tts_tpu_torch/csrc/wkv7_decode.cu",
                                "rwkv_tts_tpu/ops/wkv7.py:372"),
                "wkv7_prefill": ("rwkv_tts_tpu_torch/csrc/wkv7_prefill.cu",
                                 "rwkv_tts_tpu/ops/wkv7.py:483"),
                "wkv7_wy": ("rwkv_tts_tpu_torch/csrc/wkv7_wy.cu",
-                           "rwkv_tts_tpu/ops/wkv7.py:1120")}
+                           "rwkv_tts_tpu/ops/wkv7.py:1120"),
+               "wkv7_step_fused": (
+                   "rwkv_tts_tpu_torch/csrc/wkv7_step_fused.cu",
+                   "rwkv_tts_tpu/ops/wkv7.py:755"),
+               "qmm4": ("rwkv_tts_tpu_torch/csrc/qmm4.cu",
+                        "rwkv_tts_tpu/ops/quant.py:296"),
+               "qmm": ("rwkv_tts_tpu_torch/csrc/qmm.cu",
+                       "rwkv_tts_tpu/ops/quant.py:367")}
     kernels = []
     for name, (src, replaces) in sources.items():
         s = stats[name]
@@ -858,7 +1298,8 @@ def main() -> None:
                         "launches_by_path": by_path,
                         "max_abs_err": s["max_abs_err"], "ms": s["ms"],
                         "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
-                        "bound_by": s["bound_by"], "library_ms": None})
+                        "bound_by": s["bound_by"],
+                        "library_ms": s.get("library_ms")})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,17 +1,24 @@
 """RWKV-7 ("Goose") language model in PyTorch.
 
 Function port of ``rwkv_tts_tpu/models/rwkv7.py`` on the same parameter
-dict (stacked ``[L, …]`` block leaves, raw projection layout; see
-``utils/bridge.py``): ``init_state`` (:444), ``forward`` with ``lengths``
-masking (:586-648) and ``step`` with ``head_slice`` (:651-840, the unfused
-path :754-808). The WKV recurrence of ``forward`` runs through
-``ops.wkv7.wkv7_prefill`` and that of ``step`` through
-``ops.wkv7.wkv7_decode_``: CUDA kernels on a card, at every batch size.
+tree (stacked ``[L, …]`` block leaves; see ``utils/bridge.py``):
+``init_state`` (:444), ``forward`` with ``lengths`` masking (:586-648) and
+``step`` with ``head_slice`` (:651-840), in every serving layout the JAX
+package has: the raw projections or the fused ``zrkv`` layout
+(``fuse_params``, :150-215), with plain, int8, int4 or NF4 dense leaves,
+and ``blocks`` either one stacked dict or a tuple of layer segments
+(partial quantization, walked as ``_scan_layers`` does, :418-441). Every
+product the JAX model sends to ``qmatmul`` goes to ``ops.quant.qmatmul``.
+
+The WKV recurrence of ``forward`` runs through ``ops.wkv7.wkv7_prefill``
+and that of ``step`` through ``ops.wkv7.wkv7_decode_``: CUDA kernels on a
+card, at every batch size. With ``STEP_FUSED`` on, a layer with ``zrkv``
+takes the fused decode step (``ops.wkv7.wkv7_step_fused_``) instead.
 
 The state keeps the plain layout ``{"att_x": [L, B, C] f32, "ffn_x":
 [L, B, C] f32, "wkv": [L, B, H, N, N] state_dtype}``. ``forward`` returns a
 new state; ``step`` updates the state it is given in place (the wkv stack
-through the in-place decode kernel) and returns it.
+through the in-place decode kernels) and returns it.
 """
 
 from __future__ import annotations
@@ -21,7 +28,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ..config import RwkvConfig
-from ..ops.wkv7 import wkv7_decode_, wkv7_prefill
+from ..ops.quant import qmatmul, quantize_rwkv_params
+from ..ops.wkv7 import wkv7_decode_, wkv7_prefill, wkv7_step_fused_
 from ..utils.device import resolve_device
 
 Params = Dict[str, Any]
@@ -29,6 +37,15 @@ State = Dict[str, torch.Tensor]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
+
+
+# The fused decode step (the JAX model's STEP_FUSED, default off there
+# too): a layer with the fused zrkv layout runs its per-head soup and WKV
+# update as one kernel (ops.wkv7.wkv7_step_fused_). The JAX model takes its
+# kernel only from batch 8 up (wkv_bt_active), because that kernel keeps
+# the batch in the TPU's 128 lanes; the port's kernel has no lanes and
+# serves every batch.
+STEP_FUSED = False
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -103,6 +120,64 @@ def init_params(cfg: RwkvConfig, generator: Optional[torch.Generator] = None,
     }
 
 
+def make_serving_params(cfg: RwkvConfig,
+                        generator: Optional[torch.Generator] = None,
+                        fused: bool = False, quant: Optional[str] = "int8",
+                        device=None) -> Params:
+    """A random serving-layout tree built on ``device``: init → (fuse) →
+    (quantize), as the JAX package's ``make_serving_params`` (:125-147)
+    does, with no host copy of the full-width weights. ``quant`` is
+    "int8", "int4", "nf4" or None."""
+    p = init_params(cfg, generator, device)
+    if fused:
+        p = fuse_params(p, cfg)
+    if quant:
+        p = quantize_rwkv_params(p, kind=quant)
+    return p
+
+
+def fuse_params(params: Params, cfg: RwkvConfig) -> Params:
+    """Fuse the seven per-token time-mix projections into two matmuls
+    (``rwkv7.fuse_params``, :150-215): ``x_r @ W_r`` with the token-shift
+    lerp ``x_r = h + (prev − h)·μ_r`` equals ``[h; prev−h] @ [W_r;
+    diag(μ_r) W_r]``, so r/k/v stack into one [2C, 3C] ``zrkv``, the four
+    LoRA A-matrices into one f32 [2C, ΣD] ``za`` and the four B-matrices
+    into one block-diagonal f32 [ΣD, 4C] ``lora2``. Returns a new tree
+    without w_r/w_k/w_v, the LoRA matrices and the six x_* mix vectors."""
+    bp = params["blocks"]
+    if isinstance(bp, (tuple, list)):
+        raise ValueError("fuse_params must run BEFORE quantization "
+                         "(blocks are already split into partial-quant "
+                         "segments)")
+    f32 = torch.float32
+
+    def hat(W, mu):
+        # [L, C, O], [L, C] → [L, 2C, O]; rows 0:C ← h, rows C:2C ← (prev−h)
+        Wf = W.float()
+        return torch.cat([Wf, mu[:, :, None].float() * Wf], dim=1)
+
+    zrkv = torch.cat([hat(bp["w_r"], bp["x_r"]), hat(bp["w_k"], bp["x_k"]),
+                      hat(bp["w_v"], bp["x_v"])], dim=2).to(bp["w_r"].dtype)
+    za = torch.cat([hat(bp["w1"], bp["x_w"]), hat(bp["a1"], bp["x_a"]),
+                    hat(bp["v1"], bp["x_v"]), hat(bp["g1"], bp["x_g"])],
+                   dim=2).float()
+    L, C = bp["x_r"].shape
+    mats = ("w2", "a2", "v2", "g2")
+    total = sum(bp[m].shape[1] for m in mats)
+    lora2 = torch.zeros((L, total, 4 * C), dtype=f32, device=zrkv.device)
+    off = 0
+    for i, m in enumerate(mats):
+        d = bp[m].shape[1]
+        lora2[:, off:off + d, i * C:(i + 1) * C] = bp[m].float()
+        off += d
+
+    gone = ("w_r", "w_k", "w_v", "w1", "a1", "v1", "g1", "w2", "a2", "v2",
+            "g2", "x_r", "x_w", "x_k", "x_v", "x_a", "x_g")
+    blocks = {k: v for k, v in bp.items() if k not in gone}
+    blocks.update(zrkv=zrkv, za=za, lora2=lora2)
+    return {**params, "blocks": blocks}
+
+
 def init_state(cfg: RwkvConfig, batch: int, device=None) -> State:
     """Fresh recurrent state (web-rwkv's ``state.init()``)."""
     dev = resolve_device(device)
@@ -116,7 +191,18 @@ def init_state(cfg: RwkvConfig, batch: int, device=None) -> State:
 
 
 def _layer(blocks: Params, l: int) -> Params:
-    return {k: v[l] for k, v in blocks.items()}
+    """Layer ``l`` of one stacked segment; a quantized leaf slices each of
+    its members."""
+    return {k: ({m: t[l] for m, t in v.items()} if isinstance(v, dict)
+                else v[l]) for k, v in blocks.items()}
+
+
+def _layers(blocks):
+    """Every layer's parameters in order, across the segments of a tuple
+    ``blocks`` (partial quantization) as across one stacked dict."""
+    for seg in (blocks if isinstance(blocks, (tuple, list)) else (blocks,)):
+        for l in range(int(seg["ln1_w"].shape[0])):
+            yield _layer(seg, l)
 
 
 # --------------------------------------------------------------------------
@@ -152,10 +238,6 @@ def _softplus(x):
     return torch.logaddexp(x, torch.zeros_like(x))
 
 
-def _mm(x, w):
-    return x @ w.to(x.dtype)
-
-
 def _v_blend_keys(lp, k, v, a, v_res_gate, v_first, is_first, H, N):
     """First-layer v capture, v-residual blend, l2-normalized write key,
     iclr-shaped read key (``rwkv7._v_blend_keys``, :292). Returns
@@ -183,17 +265,52 @@ def _step_unfused_front(lp, h, xx, v_first, is_first, cfg, cdt):
     xa = h + xx * lp["x_a"].to(cdt)
     xg = h + xx * lp["x_g"].to(cdt)
 
-    r = _mm(xr, lp["w_r"])
+    r = qmatmul(xr, lp["w_r"])
     w_lora = torch.tanh(xw.to(f32) @ lp["w1"].to(f32))
     w = -_softplus(-(lp["w0"] + w_lora @ lp["w2"].to(f32))) - 0.5
-    k = _mm(xk, lp["w_k"])
-    v = _mm(xv, lp["w_v"])
+    k = qmatmul(xk, lp["w_k"])
+    v = qmatmul(xv, lp["w_v"])
     v_res_gate = torch.sigmoid(
         lp["v0"] + (xv.to(f32) @ lp["v1"].to(f32)) @ lp["v2"].to(f32))
     a = torch.sigmoid(
         lp["a0"] + (xa.to(f32) @ lp["a1"].to(f32)) @ lp["a2"].to(f32))
     g = torch.sigmoid(xg @ lp["g1"].to(cdt)) @ lp["g2"].to(cdt)
 
+    v, kk, k_in, v_first = _v_blend_keys(lp, k, v, a, v_res_gate, v_first,
+                                         is_first, cfg.n_head, cfg.head_size)
+    return r, w, k_in, v, kk, a, g, v_first
+
+
+def _fused_projections(lp, h, xx, cfg, cdt, raw: bool = False):
+    """The fused layout's time-mix projections (``rwkv7._fused_projections``,
+    :218-248). h, xx: [..., C] (xx = prev − h). Returns (r, k, v, w, a,
+    v_res_gate, g) with the unfused chain's meaning, or with ``raw`` (r, k,
+    v, lo), lo the [..., 4C] LoRA second-stage output before its biases and
+    activations (the fused decode step applies them)."""
+    C = cfg.n_embd
+    z = torch.cat([h, xx], dim=-1)
+    rkv = qmatmul(z, lp["zrkv"])
+    r, k, v = rkv[..., :C], rkv[..., C:2 * C], rkv[..., 2 * C:]
+    u = z.float() @ lp["za"]
+    dw, dav = cfg.decay_lora, cfg.a_lora + cfg.v_lora
+    act = torch.cat([torch.tanh(u[..., :dw]), u[..., dw:dw + dav],
+                     torch.sigmoid(u[..., dw + dav:])], dim=-1)
+    lo = act @ lp["lora2"]
+    if raw:
+        return r, k, v, lo
+    w = -_softplus(-(lp["w0"] + lo[..., :C])) - 0.5
+    a = torch.sigmoid(lp["a0"] + lo[..., C:2 * C])
+    v_res_gate = torch.sigmoid(lp["v0"] + lo[..., 2 * C:3 * C])
+    g = lo[..., 3 * C:].to(cdt)
+    return r, k, v, w, a, v_res_gate, g
+
+
+def _front(lp, h, xx, v_first, is_first, cfg, cdt):
+    """The time-mix front half in either projection layout. Returns (r, w,
+    k_in, v f32, kk, a, g, v_first)."""
+    if "zrkv" not in lp:
+        return _step_unfused_front(lp, h, xx, v_first, is_first, cfg, cdt)
+    r, k, v, w, a, v_res_gate, g = _fused_projections(lp, h, xx, cfg, cdt)
     v, kk, k_in, v_first = _v_blend_keys(lp, k, v, a, v_res_gate, v_first,
                                          is_first, cfg.n_head, cfg.head_size)
     return r, w, k_in, v, kk, a, g, v_first
@@ -219,8 +336,8 @@ def _time_mix(lp, x, shift_x, wkv_state, v_first, is_first, cfg,
     cdt = x.dtype
 
     xprev = torch.cat([shift_x[:, None, :].to(cdt), x[:, :-1]], dim=1)
-    r, w, k_in, v, kk, a, g, v_first = _step_unfused_front(
-        lp, x, xprev - x, v_first, is_first, cfg, cdt)
+    r, w, k_in, v, kk, a, g, v_first = _front(lp, x, xprev - x, v_first,
+                                              is_first, cfg, cdt)
     v = v.to(cdt)
 
     b_in = kk * a
@@ -230,8 +347,9 @@ def _time_mix(lp, x, shift_x, wkv_state, v_first, is_first, cfg,
         k_in = k_in * m
         b_in = b_in * m
 
-    def hv(t):
-        return t.reshape(B, T, H, N)
+    def hv(t):      # the WKV kernels take contiguous operands; r is a
+        # column slice of the fused projection's output
+        return t.reshape(B, T, H, N).contiguous()
 
     y, wkv_state = wkv7_prefill(
         hv(r.float()), hv(w), hv(k_in), hv(v.float()), hv(-kk), hv(b_in),
@@ -241,7 +359,7 @@ def _time_mix(lp, x, shift_x, wkv_state, v_first, is_first, cfg,
     rk = (hv(r.float()) * hv(k_in) * lp["r_k"][None, None]).sum(
         dim=-1, keepdim=True)
     y = y.float() + (rk * hv(v.float())).reshape(B, T, C)
-    out = _mm(y.to(cdt) * g, lp["w_o"])
+    out = qmatmul(y.to(cdt) * g, lp["w_o"])
     return out, _shift_out(x, shift_x, mask, last_idx), wkv_state, v_first
 
 
@@ -250,7 +368,7 @@ def _channel_mix(lp, x, shift_x, mask=None, last_idx=None):
     cdt = x.dtype
     xprev = torch.cat([shift_x[:, None, :].to(cdt), x[:, :-1]], dim=1)
     xk = x + (xprev - x) * lp["ffn_x_k"].to(cdt)
-    out = _mm(torch.relu(_mm(xk, lp["ffn_k"])).square(), lp["ffn_v"])
+    out = qmatmul(torch.relu(qmatmul(xk, lp["ffn_k"])).square(), lp["ffn_v"])
     return out, _shift_out(x, shift_x, mask, last_idx)
 
 
@@ -281,8 +399,7 @@ def forward(params: Params, tokens: torch.Tensor, state: State,
 
     v_first = None
     att_xs, ffn_xs, wkvs = [], [], []
-    for l in range(cfg.n_layer):
-        lp = _layer(params["blocks"], l)
+    for l, lp in enumerate(_layers(params["blocks"])):
         h = _layer_norm(x, lp["ln1_w"], lp["ln1_b"], cfg.ln_eps)
         att, att_x, wkv, v_first = _time_mix(
             lp, h, state["att_x"][l], state["wkv"][l].float(), v_first,
@@ -302,7 +419,7 @@ def forward(params: Params, tokens: torch.Tensor, state: State,
             x = x[torch.arange(B, device=x.device), last_idx]
         else:
             x = x[:, -1, :]
-    logits = _mm(x, params["head"]).float()
+    logits = qmatmul(x, params["head"]).float()
     new_state = {"att_x": torch.stack(att_xs), "ffn_x": torch.stack(ffn_xs),
                  "wkv": torch.stack(wkvs).to(dtype_of(cfg.state_dtype))}
     return logits, new_state
@@ -321,34 +438,69 @@ def step(params: Params, token: torch.Tensor, state: State, cfg: RwkvConfig,
     x = params["emb"][token].to(cdt)
     x = _layer_norm(x, params["ln0_w"], params["ln0_b"], cfg.ln_eps)
 
-    def hv(t):
-        return t.reshape(B, H, N)
+    def hv(t):      # contiguous, as for forward's WKV operands
+        return t.reshape(B, H, N).contiguous()
 
     v_first = None
-    for l in range(cfg.n_layer):
-        lp = _layer(params["blocks"], l)
+    for l, lp in enumerate(_layers(params["blocks"])):
         h = _layer_norm(x, lp["ln1_w"], lp["ln1_b"], cfg.ln_eps)
         xx = state["att_x"][l].to(cdt) - h
-        r, w, k_in, v, kk, a, g, v_first = _step_unfused_front(
-            lp, h, xx, v_first, l == 0, cfg, cdt)
-        y = wkv7_decode_(hv(r.float()), hv(w), hv(k_in), hv(v), hv(-kk),
-                         hv(kk * a), state["wkv"], l)
-        # post-WKV chain (rwkv7._step_post_wkv, :309)
-        y = _group_norm(y.reshape(B, C), lp["ln_x_w"], lp["ln_x_b"], H,
-                        cfg.group_norm_eps)
-        rk = (hv(r.float()) * hv(k_in) * lp["r_k"][None]).sum(
-            dim=-1, keepdim=True)
-        y = y.float() + (rk * hv(v)).reshape(B, C)
-        x = x + _mm(y.to(cdt) * g, lp["w_o"])
+        if STEP_FUSED and "zrkv" in lp:
+            att, v_first = _step_fused(lp, h, xx, v_first, state["wkv"], l,
+                                       cfg, cdt)
+        else:
+            r, w, k_in, v, kk, a, g, v_first = _front(lp, h, xx, v_first,
+                                                      l == 0, cfg, cdt)
+            y = wkv7_decode_(hv(r.float()), hv(w), hv(k_in), hv(v), hv(-kk),
+                             hv(kk * a), state["wkv"], l)
+            # post-WKV chain (rwkv7._step_post_wkv, :309)
+            y = _group_norm(y.reshape(B, C), lp["ln_x_w"], lp["ln_x_b"], H,
+                            cfg.group_norm_eps)
+            rk = (hv(r.float()) * hv(k_in) * lp["r_k"][None]).sum(
+                dim=-1, keepdim=True)
+            y = y.float() + (rk * hv(v)).reshape(B, C)
+            att = qmatmul(y.to(cdt) * g, lp["w_o"])
+        x = x + att
         state["att_x"][l] = h.float()
 
         h2 = _layer_norm(x, lp["ln2_w"], lp["ln2_b"], cfg.ln_eps)
         xk2 = h2 + (state["ffn_x"][l].to(cdt) - h2) * lp["ffn_x_k"].to(cdt)
-        x = x + _mm(torch.relu(_mm(xk2, lp["ffn_k"])).square(), lp["ffn_v"])
+        x = x + qmatmul(torch.relu(qmatmul(xk2, lp["ffn_k"])).square(),
+                        lp["ffn_v"])
         state["ffn_x"][l] = h2.float()
 
     x = _layer_norm(x, params["ln_out_w"], params["ln_out_b"], cfg.ln_eps)
     head = params["head"]
     if head_slice is not None:
-        head = head[:, :head_slice]
-    return _mm(x, head).float(), state
+        # a quantized head's members all end in the vocab dim
+        head = ({m: t[..., :head_slice] for m, t in head.items()}
+                if isinstance(head, dict) else head[:, :head_slice])
+    return qmatmul(x, head).float(), state
+
+
+def _step_fused(lp, h, xx, v_first, wkv, layer, cfg, cdt):
+    """A fused-layout layer's time mix under ``STEP_FUSED``
+    (``rwkv7.step``, :709-737): the raw projections, then one kernel for
+    the per-head soup and the WKV update of ``wkv[layer]`` in place, then
+    w_o. Returns (the attention output [B, C], v_first)."""
+    B = h.shape[0]
+    C, H, N = cfg.n_embd, cfg.n_head, cfg.head_size
+    r, k, v, lo = _fused_projections(lp, h, xx, cfg, cdt, raw=True)
+
+    def hv(t):              # a view: the slices keep their row stride
+        return t.reshape(B, H, N)
+
+    params8 = torch.stack([
+        lp["k_k"], lp["k_a"], lp["w0"], lp["a0"], lp["v0"],
+        lp["r_k"].reshape(-1), lp["ln_x_w"], lp["ln_x_b"],
+    ]).float().reshape(8, H, N)
+    first = v_first is None
+    vf = torch.zeros((B, C), dtype=torch.float32, device=h.device) \
+        if first else v_first
+    out = wkv7_step_fused_(
+        hv(r), hv(lo[:, :C]), hv(lo[:, C:2 * C]), hv(lo[:, 2 * C:3 * C]),
+        hv(k), hv(v), hv(lo[:, 3 * C:]), hv(vf), params8, wkv, layer,
+        0.0 if first else 1.0, cfg.group_norm_eps)
+    if first:
+        v_first = v.float()
+    return qmatmul(out.reshape(B, C).to(cdt), lp["w_o"]), v_first

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, under ``build/rwkv_tts_tpu_torch/`` at the
-root of the checkout, named by a hash of its source and flags, so an edited
-source rebuilds and an unchanged one loads at once. Sources build in
+root of the checkout, named by a hash of its source, the shared ``*.cuh``
+headers and the flags, so an edited source rebuilds and an unchanged one
+loads at once. Sources build in
 parallel, one ``nvcc`` process each. A failed build raises; nothing falls
 back to another path.
 
@@ -24,7 +25,8 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "rwkv_tts_tpu_torch"
-KERNELS = ("wkv7_decode", "wkv7_prefill", "wkv7_wy")
+KERNELS = ("wkv7_decode", "wkv7_prefill", "wkv7_wy", "wkv7_step_fused",
+           "qmm4", "qmm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -53,7 +55,9 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the shared headers count too: an edited header rebuilds its users
+    src = b"".join(p.read_bytes() for p in
+                   [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

@@ -9,11 +9,14 @@ channel j), ``a = -kk`` and ``b = kk * iclr``:
 ``wkv7_scan`` (prefill) and ``wkv7_single`` (decode) transcribe the JAX
 oracles ``rwkv_tts_tpu/ops/wkv7.py:42`` and ``:153``; ``wkv7_chunk_wy``,
 ``wkv7_chunked_wy`` and ``_chunk_combine`` transcribe its chunkwise WY
-prefill (``:957-1038``, ``:645-671``). The wrappers ``wkv7_prefill``,
-``wkv7_wy_phase_a`` and ``wkv7_decode_`` check their arguments and then take
-the plain version for tensors on the CPU, or launch the CUDA kernel
-(``csrc/wkv7_prefill.cu``, ``csrc/wkv7_wy.cu``, ``csrc/wkv7_decode.cu``) for
-tensors on a card. On a card they launch or raise: there is no fallback.
+prefill (``:957-1038``, ``:645-671``); ``wkv7_step_fused`` transcribes the
+fused decode step's kernel body (``:685-751``). The wrappers
+``wkv7_prefill``, ``wkv7_wy_phase_a``, ``wkv7_decode_`` and
+``wkv7_step_fused_`` check their arguments and then take the plain version
+for tensors on the CPU, or launch the CUDA kernel
+(``csrc/wkv7_prefill.cu``, ``csrc/wkv7_wy.cu``, ``csrc/wkv7_decode.cu``,
+``csrc/wkv7_step_fused.cu``) for tensors on a card. On a card they launch
+or raise: there is no fallback.
 
 On a card, ``wkv7_prefill`` picks its kernel by ``prefill_route(B, T)``,
 the JAX package's TPU rule (``wkv7_prefill_tpu``, ``:1208-1265``): the WY
@@ -35,10 +38,11 @@ from . import _build
 
 __all__ = ["wkv7_scan", "wkv7_single", "wkv7_chunk_wy", "wkv7_chunked_wy",
            "wy_doublings", "wy_chunk_for", "prefill_route", "wkv7_prefill",
-           "wkv7_wy_phase_a", "wkv7_decode_", "LAUNCHES", "reset_launches"]
+           "wkv7_wy_phase_a", "wkv7_decode_", "wkv7_step_fused",
+           "wkv7_step_fused_", "LAUNCHES", "reset_launches"]
 
 LAUNCHES: Dict[str, int] = {"wkv7_decode": 0, "wkv7_prefill": 0,
-                            "wkv7_wy": 0}
+                            "wkv7_wy": 0, "wkv7_step_fused": 0}
 
 HEAD_SIZE = 64   # the kernels' compiled N
 
@@ -52,6 +56,13 @@ _ARGTYPES = {
     "wkv7_prefill": [_P] * 9 + [ctypes.c_int] * 4 + [_P],
     # r, w, k, v, a, b, y_loc, rho, s_loc, P, B, T, H, L, device, stream
     "wkv7_wy": [_P] * 10 + [ctypes.c_int] * 5 + [_P],
+    # r, lo_w, lo_a, lo_v, k, v, g, v_first, their 8 batch strides,
+    # rkv_is_bf16, params8, state_stack, state_is_bf16, layer, out, B, H,
+    # notfirst, gn_eps, device, stream
+    "wkv7_step_fused": [_P] * 8 + [ctypes.c_longlong] * 8
+    + [ctypes.c_int, _P, _P, ctypes.c_int, ctypes.c_longlong, _P,
+       ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
+       ctypes.c_int, _P],
 }
 
 # the TPU dispatch's lines (wkv7_prefill_tpu, rwkv_tts_tpu/ops/wkv7.py:1249,
@@ -74,6 +85,11 @@ def _kernel(name: str):
         fn.argtypes = _ARGTYPES[name]
         _fns[name] = fn
     return fn
+
+
+def _softplus(x):
+    # jax.nn.softplus is logaddexp(x, 0)
+    return torch.logaddexp(x, torch.zeros_like(x))
 
 
 def _launch(name: str, device: torch.device, *args) -> None:
@@ -114,6 +130,36 @@ def wkv7_single(r, w, k, v, a, b, state) -> Tuple[torch.Tensor, torch.Tensor]:
     s = (s * decay[:, :, None, :] + sa[..., None] * b.float()[:, :, None, :]
          + v.float()[..., None] * k.float()[:, :, None, :])
     return torch.einsum("bhij,bhj->bhi", s, r.float()), s
+
+
+def wkv7_step_fused(r, lo_w, lo_a, lo_v, k, v, g, v_first, state, params8,
+                    notfirst, gn_eps: float = 64e-5
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The fused decode step's function: the per-head soup around one WKV
+    update (``_wkv7_step_fused_bt_kernel``, ``rwkv_tts_tpu/ops/wkv7.py:685``),
+    on the port's [B, H, N] layout.
+
+    r, k, v, g, v_first: [B, H, N]; lo_w, lo_a, lo_v: the raw LoRA
+    second-stage outputs [B, H, N]; state [B, H, N, N]; params8 [8, H, N]
+    (k_k, k_a, w0, a0, v0, r_k, ln_x_w, ln_x_b); ``notfirst`` 0.0 on the
+    layer that captures v_first (the v-residual gate is off there), else
+    1.0. Returns (out [B, H, N] f32: group-normed, bonused and gated, ready
+    for w_o; new state [B, H, N, N] f32)."""
+    r, lo_w, lo_a, lo_v, k, v, g, v_first = (
+        t.float() for t in (r, lo_w, lo_a, lo_v, k, v, g, v_first))
+    k_k, k_a, w0, a0, v0, r_k, ln_w, ln_b = params8.float()
+    w = -_softplus(-(w0 + lo_w)) - 0.5
+    iclr = torch.sigmoid(a0 + lo_a)
+    gate = torch.sigmoid(v0 + lo_v) * notfirst
+    v_eff = v + (v_first - v) * gate
+    kk0 = k * k_k
+    kk = kk0 * torch.rsqrt((kk0 * kk0).sum(dim=-1, keepdim=True) + 1e-12)
+    k_in = k * (1.0 + (iclr - 1.0) * k_a)
+    y, s = wkv7_single(r, w, k_in, v_eff, -kk, kk * iclr, state)
+    yc = y - y.mean(dim=-1, keepdim=True)
+    yn = yc * torch.rsqrt((yc * yc).mean(dim=-1, keepdim=True) + gn_eps)
+    rk = (r * k_in * r_k).sum(dim=-1, keepdim=True)
+    return (yn * ln_w + ln_b + rk * v_eff) * g, s
 
 
 # --------------------------------------------------------------------------
@@ -361,3 +407,56 @@ def wkv7_wy_phase_a(r, w, k, v, a, b, chunk: int):
             v.data_ptr(), a.data_ptr(), b.data_ptr(), y_loc.data_ptr(),
             rho.data_ptr(), s_loc.data_ptr(), P.data_ptr(), B, T, H, L)
     return y_loc, rho, s_loc, P
+
+
+def wkv7_step_fused_(r, lo_w, lo_a, lo_v, k, v, g, v_first, params8,
+                     state_stack, layer: int, notfirst: float,
+                     gn_eps: float = 64e-5) -> torch.Tensor:
+    """The fused decode step of layer ``layer``, IN PLACE on
+    ``state_stack``; ``wkv7_step_fused``'s function.
+
+    r, k, v: [B, H, N] f32 or bf16 (one dtype); lo_w, lo_a, lo_v, g,
+    v_first: [B, H, N] f32. Each may be a view whose batch rows are apart
+    (a column slice of a wider product), with its H·N values contiguous.
+    params8: [8, H, N] f32; state_stack: [L, B, H, N, N] f32 or bf16, of
+    which only ``state_stack[layer]`` changes. Returns out [B, H, N] f32.
+    Counterpart of the TPU kernel ``rwkv_tts_tpu/ops/wkv7.py:755
+    wkv7_step_fused_bt_pallas`` (body ``:685``)."""
+    if not isinstance(state_stack, torch.Tensor) or state_stack.dim() != 5:
+        raise ValueError("state_stack must be a [L, B, H, N, N] tensor")
+    L, B, H, N, _ = state_stack.shape
+    dev = state_stack.device
+    _check("state_stack", state_stack, (L, B, H, N, N),
+           (torch.float32, torch.bfloat16), dev)
+    _check("params8", params8, (8, H, N), (torch.float32,), dev)
+    ops = {"r": r, "lo_w": lo_w, "lo_a": lo_a, "lo_v": lo_v, "k": k, "v": v,
+           "g": g, "v_first": v_first}
+    for name, t in ops.items():
+        dts = ((torch.float32, torch.bfloat16) if name in ("r", "k", "v")
+               else (torch.float32,))
+        if not isinstance(t, torch.Tensor) or t.device != dev \
+                or t.dtype not in dts or tuple(t.shape) != (B, H, N):
+            raise ValueError(f"{name}: expected a [{B}, {H}, {N}] tensor of "
+                             f"{dts} on {dev}")
+        if t.stride(1) != N or t.stride(2) != 1:
+            raise ValueError(f"{name}: each batch row's H·N values must be "
+                             "contiguous")
+    if not r.dtype == k.dtype == v.dtype:
+        raise TypeError("r, k and v must share a dtype")
+    layer = int(layer)
+    if not 0 <= layer < L:
+        raise IndexError(f"layer {layer} out of range for {L} layers")
+    _check_device(dev, N)
+    if dev.type == "cpu":
+        out, s = wkv7_step_fused(r, lo_w, lo_a, lo_v, k, v, g, v_first,
+                                 state_stack[layer], params8, notfirst,
+                                 gn_eps)
+        state_stack[layer].copy_(s)
+        return out
+    out = torch.empty((B, H, N), dtype=torch.float32, device=dev)
+    _launch("wkv7_step_fused", dev, *(t.data_ptr() for t in ops.values()),
+            *(t.stride(0) for t in ops.values()),
+            int(r.dtype == torch.bfloat16), params8.data_ptr(),
+            state_stack.data_ptr(), int(state_stack.dtype == torch.bfloat16),
+            layer, out.data_ptr(), B, H, float(notfirst), float(gn_eps))
+    return out

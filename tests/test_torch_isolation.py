@@ -102,6 +102,7 @@ def test_entry_points_refuse_the_cpu_without_asking(no_card):
                  lambda: TtsEngine(lm, cfg, EngineConfig()),
                  lambda: rwkv7.init_params(cfg),
                  lambda: rwkv7.init_state(cfg, 1),
+                 lambda: rwkv7.make_serving_params(cfg),
                  lambda: bicodec.init_params(bcfg),
                  lambda: bicodec.encode(bc, np.zeros((1, 8, 1024), np.float32),
                                         np.zeros((1, 128, 301), np.float32),

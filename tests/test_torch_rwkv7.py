@@ -154,8 +154,12 @@ def test_bridge_keeps_every_leaf(param_dtype):
 
 @pytest.mark.parametrize("layout", ["int8", "int4", "nf4", "partial",
                                     "fused"])
-def test_bridge_rejects_unported_layouts(jax_model, layout):
+def test_bridge_round_trips_quantized_and_fused_layouts(jax_model, layout):
+    """Every serving layout crosses leaf for leaf and bit for bit: the int8,
+    int4 and NF4 leaves member by member, the partial-quant blocks as a
+    tuple of segment dicts, the fused zrkv/za/lora2 leaves."""
     J, jcfg, jp = jax_model
+    jax = pytest.importorskip("jax")
     from rwkv_tts_tpu.ops.quant import quantize_rwkv_params
 
     if layout == "fused":
@@ -164,8 +168,15 @@ def test_bridge_rejects_unported_layouts(jax_model, layout):
         tree = quantize_rwkv_params(jp, quant_layers=1)
     else:
         tree = quantize_rwkv_params(jp, kind=layout)
-    with pytest.raises(NotImplementedError):
-        bridge.rwkv7_params(tree, device="cpu")
+    pt = bridge.rwkv7_params(tree, device="cpu")
+    assert isinstance(pt["blocks"], tuple) == (layout == "partial")
+    flat_j = jax.tree_util.tree_leaves_with_path(tree)
+    flat_t = jax.tree_util.tree_leaves_with_path(pt)
+    assert [p for p, _ in flat_t] == [p for p, _ in flat_j]
+    for (path, want), (_, got) in zip(flat_j, flat_t):
+        want = np.asarray(want)
+        assert str(got.dtype).endswith(want.dtype.name), path
+        np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_init_params_layout_matches_jax(jax_model):

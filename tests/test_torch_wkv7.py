@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from rwkv_tts_tpu_torch.ops import _build
+from rwkv_tts_tpu_torch.ops import quant as Q
 from rwkv_tts_tpu_torch.ops import wkv7 as W
 
 
@@ -152,7 +153,10 @@ def test_cpu_wrappers_launch_nothing():
                    torch.zeros(1, 1, 64, 64))
     W.wkv7_prefill(*map(t, inputs((8, 256, 1, 64), seed=12)),
                    torch.zeros(8, 1, 64, 64))
-    assert W.LAUNCHES == {"wkv7_decode": 0, "wkv7_prefill": 0, "wkv7_wy": 0}
+    W.wkv7_step_fused_(*[torch.zeros(1, 1, 64)] * 8, torch.zeros(8, 1, 64),
+                       torch.zeros(2, 1, 1, 64, 64), 0, 0.0)
+    assert W.LAUNCHES == {"wkv7_decode": 0, "wkv7_prefill": 0, "wkv7_wy": 0,
+                          "wkv7_step_fused": 0}
 
 
 def _decode_args():
@@ -215,7 +219,8 @@ def test_c_entry_point_matches_ctypes_signature(name):
     src = (_build.CSRC / f"{name}.cu").read_text()
     m = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", src)
     assert m, f"no extern \"C\" int {name}(...) in {name}.cu"
-    assert len(m.group(1).split(",")) == len(W._ARGTYPES[name])
+    argtypes = {**W._ARGTYPES, "qmm4": Q._ARGTYPES, "qmm": Q._ARGTYPES}
+    assert len(m.group(1).split(",")) == len(argtypes[name])
 
 
 def test_kernel_sources_avoid_fast_math():
@@ -267,7 +272,8 @@ def test_kernel_wrappers_count_card_launches(cuda_card):
     W.wkv7_decode_(*x, torch.zeros(2, 2, 32, 64, 64, device="cuda"), 1)
     W.wkv7_prefill(*[t(v).cuda() for v in inputs((2, 3, 32, 64), seed=19)],
                    torch.zeros(2, 32, 64, 64, device="cuda"))
-    assert W.LAUNCHES == {"wkv7_decode": 1, "wkv7_prefill": 1, "wkv7_wy": 0}
+    assert W.LAUNCHES == {"wkv7_decode": 1, "wkv7_prefill": 1, "wkv7_wy": 0,
+                          "wkv7_step_fused": 0}
 
 
 @pytest.mark.cuda
