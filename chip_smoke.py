@@ -8,10 +8,13 @@ Run from the root of a checkout on a machine with one CUDA card:
 Phases, each fatal on failure:
 
   build      compile every kernel of every path from ``csrc/`` with nvcc
-             for sm_90a, one process per source, all at once (six);
+             for sm_90a, one process per source, all at once (seven);
   kernels    each kernel's wrapper against its plain PyTorch version on
              the card, with stated tolerances; decode must leave the other
-             layers of the state stack untouched; the WY prefill (kernel +
+             layers of the state stack untouched, also on the slot prefixes
+             ``stack[:, :2]`` and ``stack[:, :4]`` of an 8-slot stack (the
+             views the streaming path's bucketed block hands it), where the
+             other slots must stay untouched too; the WY prefill (kernel +
              PyTorch chunk combine) against the plain chunked WY and the
              scan at T = 256 (L = 64) and T = 1028 (L = 4); each kernel and
              plain version timed at its path's shapes (device time from
@@ -22,9 +25,18 @@ Phases, each fatal on failure:
              (M = 8), the 8320-wide head slice read in place, qmm4 at
              prefill rows M = 512 and 2048, qmm at zrkv's 4096 × 6144 (1e-5
              relative); the fused decode step at B = 8, f32 and bf16 state,
-             other layers untouched; each timed beside its plain version
+             other layers untouched, and on the same slot prefixes; each timed beside its plain version
              and, for the GEMMs, cuBLAS bf16 on the weights dequantized
-             beforehand (the library column);
+             beforehand (the library column); then conv1d against its
+             plain version at the wave generator's full-width shapes of one
+             exact-mode streaming window (widths 768, 384, 192, 96 at k = 7
+             with dilation 1, 3, 9 and k = 1, and the 1024 -> 1536 input
+             conv; bare, snake, snake + residual; f32 and bf16 compute),
+             each shape timed beside cuDNN on bf16 operands, and one
+             window's 25 calls timed as a whole; and the 25 calls of every
+             other window length the streaming vocoder decodes (interior
+             and flush window of each latency mode, lengths taken from
+             ``StreamingVocoder``) against the plain version;
   goldens   the goldens model (2 layers × 128, weights rebuilt from the
              JAX package's seeded numpy stream) on the card must emit
              exactly the tokens of ``tests/goldens.json``;
@@ -53,7 +65,28 @@ Phases, each fatal on failure:
              step; fused int8 with ``STEP_FUSED`` and ``USE_QMM_KERNEL`` on,
              8 requests through the engine (fused step L per decode step,
              qmm 4·L + 1 per step and 1 per prefill chunk) and one step held
-             against the same step through the plain versions (5e-2).
+             against the same step through the plain versions (5e-2);
+  streaming  a ``ContinuousEngine`` with 8 slots (occupancy buckets 2 and
+             4) at full width and ``BiCodecConfig(conv_impl="mxu_fused")``:
+             8 requests from 8 threads through ``stream_synthesize``,
+             staggered (4 property-controlled, 2 by cached speaker, 2 by
+             the shipped voices; every latency mode): each stream ends
+             with a final chunk, its audio is 320 samples per semantic
+             token, finite and in [-1, 1]; each exact-mode stream equals
+             ``detokenize`` of its tokens with f32 convs (stated tolerance),
+             and under ``mxu_fused`` every kernel call of its windows
+             equals the plain version on the same inputs, the windows equal
+             the one-shot decode after the input conv and the first
+             upsampling block, and the growth of the difference from block
+             to block is printed for the kernel and for the plain version;
+             conv1d was launched 25 times per vocoder window; a cancelled
+             request frees its slot; the goldens requests through the
+             continuous engine emit ``tests/goldens.json``; with f32 weights
+             at the same width the same 8 requests emit the static engine's
+             tokens through the continuous engine (at least 6 of 8) and a
+             bucketed block equals the whole block; first-chunk times,
+             stage histograms, loop stats and vocoder ms per window are
+             printed.
 
 Prints the card's name and power limit early, a ``{"kernels": [...]}``
 line second to last and ``{"ok": true, "device": {...}}`` last. Exits
@@ -63,6 +96,7 @@ package is missing, or when any phase fails.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -71,6 +105,7 @@ import sys
 import time
 
 SEED = 20261016
+STREAM_SLOTS, STREAM_BUCKETS = 8, (2, 4)   # the streaming phase's engine
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12        # H100 SXM, f32 outside the tensor cores
 BF16_TC_FLOPS_PER_S = 989e12   # H100 SXM, dense bf16 on the tensor cores
@@ -160,29 +195,44 @@ def wkv_inputs(torch, shape, gen, masked_tail: int = 0):
     return [t.contiguous() for t in (r, w, k, v, a, b)]
 
 
-def check_decode(torch, W, B, H, N, L, dtype, gen, tol):
-    """Decode kernel vs plain on layer 2 of an L-layer stack; the other
-    layers must come back bit-identical. Returns the max abs error."""
-    r, w, k, v, a, b = wkv_inputs(torch, (B, H, N), gen)
+def check_decode(torch, W, B, H, N, L, dtype, gen, tol, bucket=None):
+    """Decode kernel vs plain on layer 2 of an L-layer stack of B slots; the
+    other layers must come back bit-identical. With ``bucket`` the kernel
+    runs on the non-contiguous slot prefix ``stack[:, :bucket]``, as the
+    continuous engine's bucketed block hands it over (addressed by the
+    layer stride, no copy), the plain version on a copy of that prefix, and
+    the slots from ``bucket`` up must come back bit-identical too. Returns
+    the max abs error."""
+    n = bucket or B
+    r, w, k, v, a, b = wkv_inputs(torch, (n, H, N), gen)
     stack = (0.1 * torch.randn((L, B, H, N, N), generator=gen,
                                device="cuda")).to(dtype)
     before = stack.clone()
     layer = 2
-    y_ref, s_ref = W.wkv7_single(r, w, k, v, a, b, stack[layer])
-    y = W.wkv7_decode_(r, w, k, v, a, b, stack, layer)
+    view = stack[:, :n]
+    if bucket and view.is_contiguous():
+        fail(f"decode B={B} bucket={bucket}: the slot prefix is contiguous")
+    y_ref, s_ref = W.wkv7_single(r, w, k, v, a, b,
+                                 before[layer, :n].contiguous())
+    y = W.wkv7_decode_(r, w, k, v, a, b, view, layer)
     torch.cuda.synchronize()
     e_y = rel_err(torch, y, y_ref)
-    e_s = rel_err(torch, stack[layer], s_ref.to(dtype))
+    e_s = rel_err(torch, stack[layer, :n], s_ref.to(dtype))
+    what = f"decode B={B}{f' bucket={bucket}' if bucket else ''} {dtype}"
     if e_y > 1e-4 or e_s > tol:
-        fail(f"decode B={B} {dtype}: rel err y {e_y:.3g}, state {e_s:.3g} "
+        fail(f"{what}: rel err y {e_y:.3g}, state {e_s:.3g} "
              f"(tolerance y 1e-4, state {tol})")
     others = [i for i in range(L) if i != layer]
     if not torch.equal(stack[others], before[others]):
-        fail(f"decode B={B} {dtype}: layers other than {layer} changed")
-    print(f"kernels: decode B={B} H={H} L={L} state={dtype}: rel err y "
-          f"{e_y:.3g} state {e_s:.3g}; other layers untouched", flush=True)
+        fail(f"{what}: layers other than {layer} changed")
+    if not torch.equal(stack[layer, n:], before[layer, n:]):
+        fail(f"{what}: slots from {n} up changed")
+    print(f"kernels: decode B={B}{f' on the slot prefix [:, :{bucket}]' if bucket else ''}"
+          f" H={H} L={L} state={dtype}: rel err y {e_y:.3g} state {e_s:.3g}; "
+          f"other layers{' and slots' if bucket else ''} untouched",
+          flush=True)
     return max(float((y - y_ref).abs().max()),
-               float((stack[layer].float() - s_ref.to(dtype).float())
+               float((stack[layer, :n].float() - s_ref.to(dtype).float())
                      .abs().max()))
 
 
@@ -288,6 +338,14 @@ def phase_kernels(torch, W, lm_cfg):
             e = check_decode(torch, W, B, H, N, 4, dtype, gen, tol)
             if B == 8 and dtype == torch.float32:
                 err["wkv7_decode"] = e
+    # the streaming path's bucketed block: the first 2 and the first 4 of
+    # 8 slots, a view of the stack
+    for bucket in STREAM_BUCKETS:
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+            e = check_decode(torch, W, STREAM_SLOTS, H, N, 4, dtype, gen, tol,
+                             bucket)
+            if dtype == torch.float32:
+                err["wkv7_decode"] = max(err["wkv7_decode"], e)
     for T, tail in ((64, 5), (61, 0)):
         e = check_prefill(torch, W, 8, T, H, N, gen, tail)
         if T == 64:
@@ -433,33 +491,42 @@ def check_gemm(torch, Q, name, M, K, N, gen, wq=None, ws=None):
     return float((got - want).abs().max())
 
 
-def check_step_fused(torch, W, B, H, N, L, dtype, gen, tol):
+def check_step_fused(torch, W, B, H, N, L, dtype, gen, tol, bucket=None):
     """The fused decode step against its plain version on layer 2 of an
-    L-layer stack, with the model's operand layout (r, k, v bf16 column
-    slices of one [B, 3C] product, the LoRA outputs f32 slices of one
-    [B, 4C]); the other layers must come back bit-identical. Output 1e-4
-    relative, state ``tol``. Returns the max abs error."""
-    ops, params8 = step_fused_inputs(torch, B, H, N, gen)
+    L-layer stack of B slots, with the model's operand layout (r, k, v bf16
+    column slices of one [B, 3C] product, the LoRA outputs f32 slices of one
+    [B, 4C]); the other layers must come back bit-identical. With
+    ``bucket`` the kernel runs on the slot prefix ``stack[:, :bucket]`` (a
+    view, addressed by the layer stride) and the slots from ``bucket`` up
+    must come back bit-identical too. Output 1e-4 relative, state ``tol``.
+    Returns the max abs error."""
+    n = bucket or B
+    ops, params8 = step_fused_inputs(torch, n, H, N, gen)
     stack = (0.1 * torch.randn((L, B, H, N, N), generator=gen,
                                device="cuda")).to(dtype)
     before = stack.clone()
     layer = 2
-    out_ref, s_ref = W.wkv7_step_fused(*ops, stack[layer], params8, 1.0)
-    out = W.wkv7_step_fused_(*ops, params8, stack, layer, 1.0)
+    out_ref, s_ref = W.wkv7_step_fused(
+        *ops, before[layer, :n].contiguous(), params8, 1.0)
+    out = W.wkv7_step_fused_(*ops, params8, stack[:, :n], layer, 1.0)
     torch.cuda.synchronize()
     e_o = rel_err(torch, out, out_ref)
-    e_s = rel_err(torch, stack[layer], s_ref.to(dtype))
+    e_s = rel_err(torch, stack[layer, :n], s_ref.to(dtype))
+    what = f"step_fused B={B}{f' bucket={bucket}' if bucket else ''} {dtype}"
     if e_o > 1e-4 or e_s > tol:
-        fail(f"step_fused B={B} {dtype}: rel err out {e_o:.3g}, state "
+        fail(f"{what}: rel err out {e_o:.3g}, state "
              f"{e_s:.3g} (tolerance out 1e-4, state {tol})")
     others = [i for i in range(L) if i != layer]
     if not torch.equal(stack[others], before[others]):
-        fail(f"step_fused B={B} {dtype}: layers other than {layer} changed")
-    print(f"kernels: step_fused B={B} H={H} L={L} state={dtype}: rel err "
-          f"out {e_o:.3g} state {e_s:.3g}; other layers untouched",
-          flush=True)
+        fail(f"{what}: layers other than {layer} changed")
+    if not torch.equal(stack[layer, n:], before[layer, n:]):
+        fail(f"{what}: slots from {n} up changed")
+    print(f"kernels: step_fused B={B}{f' on the slot prefix [:, :{bucket}]' if bucket else ''}"
+          f" H={H} L={L} state={dtype}: rel err out {e_o:.3g} state "
+          f"{e_s:.3g}; other layers{' and slots' if bucket else ''} "
+          f"untouched", flush=True)
     return max(float((out - out_ref).abs().max()),
-               float((stack[layer].float() - s_ref.to(dtype).float())
+               float((stack[layer, :n].float() - s_ref.to(dtype).float())
                      .abs().max()))
 
 
@@ -517,6 +584,11 @@ def phase_quant_kernels(torch, W, Q, lm_cfg):
         e = check_step_fused(torch, W, B, H, N, 4, dtype, gen, tol)
         if dtype == torch.float32:
             err["wkv7_step_fused"] = e
+        for bucket in STREAM_BUCKETS:
+            e = check_step_fused(torch, W, STREAM_SLOTS, H, N, 4, dtype, gen,
+                                 tol, bucket)
+            if dtype == torch.float32:
+                err["wkv7_step_fused"] = max(err["wkv7_step_fused"], e)
 
     out = {}
     for name, layer, n_sets in (("qmm4", QMM4_LAYER, 4),
@@ -732,18 +804,21 @@ def phase_goldens(root: str) -> None:
 
 def launch_counts():
     """Every kernel wrapper's launch count, by kernel name."""
+    from rwkv_tts_tpu_torch.ops import conv1d as C1
     from rwkv_tts_tpu_torch.ops import quant as Q
     from rwkv_tts_tpu_torch.ops import wkv7 as W
 
-    return {**W.LAUNCHES, **Q.LAUNCHES}
+    return {**W.LAUNCHES, **Q.LAUNCHES, **C1.LAUNCHES}
 
 
 def reset_launch_counts() -> None:
+    from rwkv_tts_tpu_torch.ops import conv1d as C1
     from rwkv_tts_tpu_torch.ops import quant as Q
     from rwkv_tts_tpu_torch.ops import wkv7 as W
 
     W.reset_launches()
     Q.reset_launches()
+    C1.reset_launches()
 
 
 def main_path(torch, lm_cfg, bc_cfg, device: str, max_tokens: int,
@@ -808,29 +883,15 @@ def main_path(torch, lm_cfg, bc_cfg, device: str, max_tokens: int,
             "wall_s": wall_s, "init_s": init_s, "pipe": pipe}
 
 
-def step_profile(torch, eng, steps: int = 8, top: int = 5):
-    """One decode step of an engine's LM at its batch: wall ms per step
-    (host clock, synchronized, no profiler attached), then, over as many
-    steps under torch.profiler, device busy ms per step (sum of CUDA kernel
-    time), kernels launched per step, and the ``top`` kernels by device
-    time as (name, ms per step, launches per step)."""
+def profile_steps(torch, run, steps: int, top: int):
+    """``run()`` performs ``steps`` steps and synchronises. Wall ms per
+    step (host clock, no profiler attached), then, over as many steps under
+    torch.profiler, device busy ms per step (sum of CUDA kernel time),
+    kernels launched per step, and the ``top`` kernels by device time as
+    (name, ms per step, launches per step)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from rwkv_tts_tpu_torch.models import rwkv7
-    from rwkv_tts_tpu_torch.runtime.engine import SEMANTIC_SLICE
-
-    B = eng.engine_cfg.batch_size
-    state = rwkv7.init_state(eng.cfg, B, device="cuda")
-    tok = torch.zeros(B, dtype=torch.int64, device="cuda")
-
-    def run():
-        for _ in range(steps):
-            rwkv7.step(eng.params, tok, state, eng.cfg,
-                       head_slice=SEMANTIC_SLICE)
-        torch.cuda.synchronize()
-
-    rwkv7.step(eng.params, tok, state, eng.cfg, head_slice=SEMANTIC_SLICE)
-    torch.cuda.synchronize()
+    run()
     t0 = time.perf_counter()
     run()
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
@@ -846,6 +907,25 @@ def step_profile(torch, eng, steps: int = 8, top: int = 5):
             by_name.append((e.key[:60], us / steps / 1e3, e.count / steps))
     by_name.sort(key=lambda t: -t[1])
     return wall_ms, busy_us / steps / 1e3, kernels / steps, by_name[:top]
+
+
+def step_profile(torch, eng, steps: int = 8, top: int = 5):
+    """One decode step of an engine's LM at its batch, as
+    ``profile_steps`` reports it."""
+    from rwkv_tts_tpu_torch.models import rwkv7
+    from rwkv_tts_tpu_torch.runtime.engine import SEMANTIC_SLICE
+
+    B = eng.engine_cfg.batch_size
+    state = rwkv7.init_state(eng.cfg, B, device="cuda")
+    tok = torch.zeros(B, dtype=torch.int64, device="cuda")
+
+    def run():
+        for _ in range(steps):
+            rwkv7.step(eng.params, tok, state, eng.cfg,
+                       head_slice=SEMANTIC_SLICE)
+        torch.cuda.synchronize()
+
+    return profile_steps(torch, run, steps, top)
 
 
 def top_line(by_name) -> str:
@@ -1012,7 +1092,7 @@ def cloning(torch, lm_cfg, bc_cfg, w2v_cfg, device: str, max_tokens: int,
         L = lm_cfg.n_layer
         want = {"wkv7_decode": L * counters["decode_steps"],
                 "wkv7_prefill": 0, "wkv7_wy": L * counters["prefill_chunks"],
-                "wkv7_step_fused": 0, "qmm4": 0, "qmm": 0}
+                "wkv7_step_fused": 0, "qmm4": 0, "qmm": 0, "conv1d": 0}
         if counters["prefill_chunks"] != 1:
             fail(f"cloning: {counters['prefill_chunks']} prefill chunks, "
                  "expected 1")
@@ -1107,7 +1187,7 @@ def quantized(torch, lm_cfg, bc_cfg, device: str, max_tokens: int,
         want = {"wkv7_decode": 0, "wkv7_step_fused": L * c["decode_steps"],
                 "wkv7_prefill": L * c["prefill_chunks"], "wkv7_wy": 0,
                 "qmm4": 0, "qmm": (4 * L + 1) * c["decode_steps"]
-                + c["prefill_chunks"]}
+                + c["prefill_chunks"], "conv1d": 0}
         if device == "cuda" and launches != want:
             fail(f"quantized fused: launches {launches}, expected {want} "
                  f"(counters {c})")
@@ -1161,6 +1241,979 @@ def quantized(torch, lm_cfg, bc_cfg, device: str, max_tokens: int,
     summary["fused_int8"] = fused
     return summary
 
+# --------------------------------------------------------------------------
+# conv1d: the wave generator's stride-1 convs
+# --------------------------------------------------------------------------
+
+def wavegen_conv_shapes(bc_cfg, window: int):
+    """The ``ops.conv1d`` calls of one ``decode`` of ``window`` latents under
+    ``conv_impl="mxu_fused"``, in order, as (Ci, O, T, K, dilation,
+    variant): the input conv (bare), then per upsampling block three
+    residual units of a k = 7 conv (snake) and a k = 1 conv (snake +
+    residual). Convs narrower than 96 channels stay on the library and are
+    not listed."""
+    calls = []
+    ch, T = bc_cfg.dec_channels, window
+    if min(bc_cfg.encoder_out, ch) >= 96:
+        calls.append((bc_cfg.encoder_out, ch, T, 7, 1, "bare"))
+    for rate in bc_cfg.dec_rates:
+        ch, T = ch // 2, T * rate
+        if ch < 96:
+            continue
+        for d in (1, 3, 9):
+            calls.append((ch, ch, T, 7, d, "snake"))
+            calls.append((ch, ch, T, 1, 1, "snake_res"))
+    return calls
+
+
+def stream_window_lengths(bc_cfg):
+    """{latency mode: (interior, flush)}: the two padded window lengths, in
+    latents, that ``StreamingVocoder`` decodes in each mode."""
+    from rwkv_tts_tpu_torch.runtime.streaming import StreamingVocoder
+
+    out = {}
+    for mode in ("exact", "low", "ultra", "flash"):
+        sv = StreamingVocoder({}, bc_cfg, None, latency_mode=mode)
+        out[mode] = (sv.window_bucket, sv.flush_bucket)
+    return out
+
+
+def conv_bound(Ci, O, T, K, variant, B=1):
+    """One call's bound: x (f32), the weights (f32 as stored), bias, alpha
+    and residual each read once, y (f32) written once, against 2·K·Ci·O·T·B
+    operations at the bf16 tensor cores' peak."""
+    nbytes = 4 * (B * Ci * T + O * Ci * K + O + B * O * T)
+    if variant != "bare":
+        nbytes += 4 * Ci
+    if variant == "snake_res":
+        nbytes += 4 * B * O * T
+    return bound(nbytes, 2.0 * K * Ci * O * T * B, BF16_TC_FLOPS_PER_S)
+
+
+def conv_case(torch, Ci, O, T, K, dil, variant, gen):
+    """Seeded operands of one call at the wave generator's magnitudes."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    x = 2.0 * randn(1, Ci, T)
+    w = randn(O, Ci, K) / (Ci * K) ** 0.5
+    b = 0.1 * randn(O)
+    kw = {"dilation": dil, "padding": (K - 1) * dil // 2}
+    if variant != "bare":
+        kw["snake_alpha"] = 0.1 + 1.9 * torch.rand((Ci,), generator=gen,
+                                                   device="cuda")
+    if variant == "snake_res":
+        kw["residual"] = 2.0 * randn(1, O, T)
+    return x, w, b, kw
+
+
+def library_conv(torch, C1, x, w, b, kw):
+    """The library's version of one call, timed only: cuDNN ``F.conv1d`` on
+    bf16 operands (x and w cast beforehand for the bare conv; for the fused
+    variants the snake in f32, its cast, the conv and the residual add as
+    separate PyTorch calls)."""
+    F = torch.nn.functional
+    wb, bb = w.bfloat16(), b.bfloat16()
+    alpha, res = kw.get("snake_alpha"), kw.get("residual")
+    xb = x.bfloat16()
+
+    def run():
+        xin = xb if alpha is None else C1.snake(x, alpha).bfloat16()
+        y = F.conv1d(xin, wb, bb, 1, kw["padding"], kw["dilation"])
+        if alpha is not None:
+            y = y.float()
+        if res is not None:
+            y = y + res
+        return y
+    return run
+
+
+def phase_conv_kernels(torch, C1, bc_cfg):
+    """conv1d against its plain version on the card at every shape the wave
+    generator gives it in one exact-mode streaming window (B = 1): each
+    width at k = 7 with dilation 1, 3, 9 and at k = 1, and the input conv,
+    as bare, snake and snake + residual calls, with f32 and bf16 compute,
+    f32 in and out. Tolerances, of the output's largest value: 2e-5 (the
+    same rounded operands, f32 sums in another order), and 1e-3 for bf16
+    compute with a snake prologue (a snake value within an f32 ulp of a
+    bf16 rounding boundary rounds the other way between ``sinf`` and
+    ``torch.sin``, 2^-9 of one operand). Then the time of each of the
+    window's calls beside cuDNN on bf16 operands (CUDA events), and the
+    window's 25 calls as a whole (torch.profiler) beside their plain
+    versions and the library's."""
+    from rwkv_tts_tpu_torch.models import bicodec
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 11)
+    window = 2 * bicodec.receptive_latents(bc_cfg) + 32
+    calls = wavegen_conv_shapes(bc_cfg, window)
+    shapes = sorted(set((Ci, O, T, K, d) for Ci, O, T, K, d, _ in calls),
+                    key=lambda t: (-t[0], -t[3], t[4]))
+    worst, n_checks = 0.0, 0
+    for Ci, O, T, K, d in shapes:
+        for variant in ("bare", "snake", "snake_res"):
+            x, w, b, kw = conv_case(torch, Ci, O, T, K, d, variant, gen)
+            for cdt in (torch.float32, torch.bfloat16):
+                got = C1.conv1d(x, w, b, compute_dtype=cdt, **kw)
+                torch.cuda.synchronize()
+                want = C1.conv1d_plain(x, w, b, kw["dilation"], kw["padding"],
+                                       cdt, None, kw.get("snake_alpha"),
+                                       kw.get("residual"))
+                e = rel_err(torch, got, want)
+                tol = 1e-3 if (cdt == torch.bfloat16
+                               and variant != "bare") else 2e-5
+                if not e <= tol:
+                    fail(f"conv1d {Ci}->{O} T={T} K={K} dil={d} {variant} "
+                         f"{cdt}: rel err {e:.3g} (tolerance {tol})")
+                if cdt == torch.bfloat16:
+                    worst = max(worst, float((got - want).abs().max()))
+                n_checks += 1
+            del x, w, b, kw
+    print(f"kernels: conv1d: {n_checks} checks against the plain version at "
+          f"{len(shapes)} shapes of a {window}-latent window (bare, snake, "
+          f"snake + residual; f32 and bf16 compute) pass; largest abs err "
+          f"with bf16 compute {worst:.3g}", flush=True)
+
+    # every other window length the streaming vocoder decodes: the calls of
+    # one window as the path makes them (its variant, bf16 compute)
+    lengths = stream_window_lengths(bc_cfg)
+    if lengths["exact"][0] != window:
+        fail(f"conv1d: the exact-mode window is {lengths['exact'][0]} "
+             f"latents, the checks above ran at {window}")
+    for mode, pair in lengths.items():
+        for n_lat in pair:
+            if n_lat == window:
+                continue
+            worst_n, seen = 0.0, set()
+            for key in wavegen_conv_shapes(bc_cfg, n_lat):
+                if key in seen:
+                    continue
+                seen.add(key)
+                Ci, O, T, K, d, variant = key
+                x, w, b, kw = conv_case(torch, Ci, O, T, K, d, variant, gen)
+                got = C1.conv1d(x, w, b, compute_dtype=torch.bfloat16, **kw)
+                torch.cuda.synchronize()
+                want = C1.conv1d_plain(x, w, b, d, kw["padding"],
+                                       torch.bfloat16, None,
+                                       kw.get("snake_alpha"),
+                                       kw.get("residual"))
+                e = rel_err(torch, got, want)
+                tol = 2e-5 if variant == "bare" else 1e-3
+                if not e <= tol:
+                    fail(f"conv1d {Ci}->{O} T={T} K={K} dil={d} {variant} "
+                         f"({mode} window of {n_lat} latents): rel err "
+                         f"{e:.3g} (tolerance {tol})")
+                worst_n = max(worst_n, float((got - want).abs().max()))
+                del x, w, b, kw, got, want
+            worst = max(worst, worst_n)
+            print(f"kernels: conv1d: the {len(seen)} distinct calls of a "
+                  f"{mode} window of {n_lat} latents pass against the plain "
+                  f"version (bf16 compute); largest abs err {worst_n:.3g}",
+                  flush=True)
+
+    # each of the window's distinct calls, kernel and library, in turns
+    cases = []
+    for Ci, O, T, K, d, variant in calls:
+        cases.append(((Ci, O, T, K, d, variant),
+                      conv_case(torch, Ci, O, T, K, d, variant, gen)))
+    seen = set()
+    for key, (x, w, b, kw) in cases:
+        if key in seen:
+            continue
+        seen.add(key)
+        Ci, O, T, K, d, variant = key
+        kern = lambda: C1.conv1d(x, w, b, compute_dtype=torch.bfloat16, **kw)
+        f32 = lambda: C1.conv1d(x, w, b, compute_dtype=torch.float32, **kw)
+        lib = library_conv(torch, C1, x, w, b, kw)
+        k_ms = min(cuda_ms(torch, kern, 10), cuda_ms(torch, kern, 10))
+        l_ms = min(cuda_ms(torch, lib, 10), cuda_ms(torch, lib, 10))
+        f_ms = cuda_ms(torch, f32, 5)
+        b_ms, b_by = conv_bound(Ci, O, T, K, variant)
+        flops = 2.0 * K * Ci * O * T
+        print(f"kernels: conv1d {Ci}->{O} T={T} K={K} dil={d} {variant}: "
+              f"{k_ms:.5f} ms ({flops / k_ms / 1e9:.1f} TFLOP/s), library "
+              f"{l_ms:.5f} ms, bound {b_ms:.5f} ms by {b_by} "
+              f"({100 * b_ms / k_ms:.1f}% reached); f32 compute {f_ms:.5f} "
+              f"ms ({flops / f_ms / 1e9:.1f} TFLOP/s, "
+              f"{100 * flops / F32_FLOPS_PER_S * 1e3 / f_ms:.1f}% of the "
+              f"f32 peak)", flush=True)
+
+    def window_fn(make):
+        fns = [make(x, w, b, kw) for _, (x, w, b, kw) in cases]
+
+        def run():
+            for fn in fns:
+                fn()
+        return run
+
+    bounds = [conv_bound(*k[:4], k[5]) for k, _ in cases]
+    b_ms = sum(ms for ms, _ in bounds)
+    by_ops = sum(ms for ms, by in bounds if by == "operations")
+    return {"conv1d": timed(
+        torch, "conv1d",
+        window_fn(lambda x, w, b, kw: lambda: C1.conv1d(
+            x, w, b, compute_dtype=torch.bfloat16, **kw)),
+        window_fn(lambda x, w, b, kw: lambda: C1.conv1d_plain(
+            x, w, b, kw["dilation"], kw["padding"], torch.bfloat16, None,
+            kw.get("snake_alpha"), kw.get("residual"))),
+        window_fn(lambda x, w, b, kw: library_conv(torch, C1, x, w, b, kw)),
+        5, 5, b_ms, "operations" if by_ops >= b_ms - by_ops else "bytes",
+        worst, f"the {len(cases)} calls of one {window}-latent window, "
+        f"B=1 (bound: the sum of the calls' bounds, "
+        f"{100 * by_ops / b_ms:.0f}% of it from calls bound by operations)")}
+
+
+# --------------------------------------------------------------------------
+# streaming: the continuous slot engine and the chunked vocoder
+# --------------------------------------------------------------------------
+
+def block_profile(torch, eng, steps: int = 8, top: int = 5):
+    """One ``decode_block`` of ``steps`` steps on a fresh all-idle state of
+    the engine's size (idle slots are stepped like live ones), alone on the
+    card, as ``profile_steps`` reports it."""
+    from rwkv_tts_tpu_torch.models import rwkv7
+    from rwkv_tts_tpu_torch.runtime import continuous as CT
+
+    state = rwkv7.init_state(eng.cfg, eng.B, device="cuda")
+    logits = torch.zeros_like(eng.logits)
+    slots = CT.init_slots(eng.B, "cuda")
+
+    def run():
+        CT.decode_block(eng.params, state, logits, slots, eng.cfg, steps)
+        torch.cuda.synchronize()
+
+    return profile_steps(torch, run, steps, top)
+
+
+@contextlib.contextmanager
+def logged_windows(bicodec):
+    """Within the block every ``bicodec.decode`` call (one per vocoder
+    window) appends (the calling thread's id, the padded window length in
+    latents, seconds on the host's clock with the caller's stream
+    synchronised) to the list this yields."""
+    import threading
+
+    import torch
+
+    log, real = [], bicodec.decode
+
+    def decode(params, global_tokens, semantic_tokens, cfg):
+        t0 = time.perf_counter()
+        wav = real(params, global_tokens, semantic_tokens, cfg)
+        if wav.is_cuda:
+            torch.cuda.current_stream(wav.device).synchronize()
+        log.append((threading.get_ident(), semantic_tokens.shape[1],
+                    time.perf_counter() - t0))
+        return wav
+
+    bicodec.decode = decode
+    try:
+        yield log
+    finally:
+        bicodec.decode = real
+
+
+def exact_mode_chain(torch, bicodec, C1, StreamingVocoder, params, cfg, g,
+                     sem):
+    """Where an exact-mode stream and the one-shot decode of the same tokens
+    part under a ``conv_impl`` that routes to ``ops.conv1d``.
+
+    The tokens are vocoded four times, window by window as the stream does
+    and whole as ``detokenize`` does, once with the kernel and once with
+    ``conv1d_plain`` in its place (the same padded lengths, so the
+    library's transposed convs run the same algorithms either way). Every
+    kernel call of every window is also held against the plain version on
+    that call's own inputs, which are bit-identical. The outputs of the
+    input conv and of each upsampling block that runs on ``ops.conv1d``
+    ("taps") and the waveform are compared over each window's emitted
+    samples. Returns {"calls": {variant: largest error of a kernel call
+    against the plain version on the same inputs, of the output's largest
+    value}, "taps": [names], "kernel_vs_plain", "window_vs_whole",
+    "window_vs_whole_plain": largest difference per tap over the windows,
+    of the whole decode's largest value at that tap; "rms": the waveform's
+    RMS difference for the last two}."""
+    import numpy as np
+
+    real_conv, real_decode = bicodec.conv1d_kernel, bicodec.decode
+    hop = cfg.hop
+    rec = {"taps": [], "dil": 1, "calls": {}}
+    rates = [1]
+    for r in cfg.dec_rates:
+        rates.append(rates[-1] * r)
+
+    def conv_with(fn, check):
+        def conv(x, w, b=None, dilation=1, padding=0,
+                 compute_dtype=torch.bfloat16, out_dtype=None,
+                 snake_alpha=None, residual=None):
+            y = fn(x, w, b, dilation, padding, compute_dtype, out_dtype,
+                   snake_alpha, residual)
+            if check:
+                want = C1.conv1d_plain(x, w, b, dilation, padding,
+                                       compute_dtype, out_dtype, snake_alpha,
+                                       residual)
+                kind = "bare" if snake_alpha is None else "snake"
+                rec["calls"][kind] = max(rec["calls"].get(kind, 0.0),
+                                         rel_err(torch, y, want))
+            # taps: the bare input conv (samples per latent: 1), and a
+            # block's last residual unit (the product of the rates so far)
+            if snake_alpha is None:
+                rec["taps"].append(("input conv", y, 1))
+            elif residual is not None and rec["dil"] == 9:
+                k = 1 + sum(n != "input conv" for n, _, _ in rec["taps"])
+                rec["taps"].append((f"block {k}", y, rates[k]))
+            if residual is None:
+                rec["dil"] = dilation
+            return y
+        return conv
+
+    def whole(fn):
+        rec["taps"] = []
+        bicodec.conv1d_kernel = conv_with(fn, False)
+        try:
+            wav = bicodec.detokenize(params, g, sem, cfg)
+        finally:
+            bicodec.conv1d_kernel = real_conv
+        taps = rec["taps"]
+        wav = torch.from_numpy(wav).to(taps[0][1].device)
+        return taps + [("waveform", wav[:, None, :], hop)]
+
+    def windows(fn, check):
+        """Per window: (tokens emitted before it, tokens it emits, each
+        tap cut to the emitted span)."""
+        sv = StreamingVocoder(params, cfg, g)
+        out = []
+
+        def decode(p, gt, st, c):
+            e = sv._emitted
+            ctx = e - max(0, e - sv.context)
+            n = (sv.chunk if st.shape[1] == sv.window_bucket
+                 else len(sv._tokens) - e)
+            rec["taps"] = []
+            wav = real_decode(p, gt, st, c)
+            taps = rec["taps"] + [("waveform", wav[:, None, :], hop)]
+            out.append((e, n, [t[..., ctx * f:(ctx + n) * f].clone()
+                               for _, t, f in taps]))
+            return wav
+
+        bicodec.conv1d_kernel, bicodec.decode = conv_with(fn, check), decode
+        try:
+            sv.push(list(sem))
+            sv.push([], flush=True)
+        finally:
+            bicodec.conv1d_kernel, bicodec.decode = real_conv, real_decode
+        return out
+
+    def plain(x, w, b, *a):
+        return C1.conv1d_plain(x, w, b, *a)
+
+    whole_k, whole_p = whole(real_conv), whole(plain)
+    win_k, win_p = windows(real_conv, True), windows(plain, False)
+    n_taps = len(whole_k)
+    scale = [float(t.abs().max()) for _, t, _ in whole_k]
+
+    def worst(pairs):
+        return [max(float((a[i] - b[i]).abs().max()) for a, b in pairs)
+                / scale[i] for i in range(n_taps)]
+
+    def against(win, full):
+        return [(taps, [t[..., e * f:(e + n) * f] for _, t, f in full])
+                for e, n, taps in win]
+
+    def wav_rms(win, full):
+        d = torch.cat([taps[-1] - full[-1][1][..., e * hop:(e + n) * hop]
+                       for e, n, taps in win], dim=-1)
+        return float(np.sqrt(np.mean(np.square(d.double().cpu().numpy()))))
+
+    return {"calls": dict(rec["calls"]), "taps": [n for n, _, _ in whole_k],
+            "windows": len(win_k),
+            "kernel_vs_plain": worst([(a[2], b[2])
+                                      for a, b in zip(win_k, win_p)]),
+            "window_vs_whole": worst(against(win_k, whole_k)),
+            "window_vs_whole_plain": worst(against(win_p, whole_p)),
+            "rms": (wav_rms(win_k, whole_k), wav_rms(win_p, whole_p))}
+
+
+def bucketed_block_check(torch, CT, rwkv7, params, cfg, device, B, bucket,
+                         steps: int = 8):
+    """One ``decode_block_bucketed`` on the first ``bucket`` of ``B`` slots
+    against ``decode_block`` over all of them, from the same seeded state
+    (three live slots, one in the global stage; the slots from ``bucket``
+    up hold a sentinel). Returns (emitted tokens of the live slots that
+    agree, their number, largest relative difference of the prefix's state,
+    whether the slots from ``bucket`` up came back bit-identical with no
+    emit)."""
+    from rwkv_tts_tpu_torch.runtime.engine import SEMANTIC_SLICE
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 21)
+
+    def state():
+        st = rwkv7.init_state(cfg, B, device=device)
+        for v in st.values():
+            v[:, :bucket] = (0.1 * torch.randn(
+                v[:, :bucket].shape, generator=gen, device=device)).to(v.dtype)
+            v[:, bucket:] = 7.0
+        return st
+
+    st_a = state()
+    st_b = {k: v.clone() for k, v in st_a.items()}
+    logits = torch.randn((B, min(SEMANTIC_SLICE, cfg.padded_vocab_size)), generator=gen, device=device)
+    slots = CT.init_slots(B, device)
+    live = min(3, bucket)
+    slots["stage"][:live] = CT.SEMANTIC
+    slots["stage"][0] = CT.GLOBAL
+    slots["limit"][:live] = 10 * steps
+    for key in ("gkey", "skey"):
+        slots[key][:live] = torch.randint(
+            0, 1 << 32, (live, 2), generator=gen, device=device)
+    _, _, _, em_a = CT.decode_block(params, st_a, logits, slots, cfg, steps)
+    _, _, _, em_b = CT.decode_block_bucketed(params, st_b, logits, slots, cfg,
+                                             steps, bucket)
+    same = int((em_a[:, :live] == em_b[:, :live]).sum())
+    diff = max(rel_err(torch, st_b[k][:, :bucket], st_a[k][:, :bucket])
+               for k in st_a)
+    untouched = all(bool((st_b[k][:, bucket:] == 7.0).all()) for k in st_b) \
+        and bool((em_b[:, bucket:] == CT.NO_EMIT).all())
+    return same, steps * live, diff, untouched
+
+
+def same_tokens(a, b) -> bool:
+    return (list(a.global_tokens) == list(b.global_tokens)
+            and list(a.semantic_tokens) == list(b.semantic_tokens))
+
+
+def first_difference(a, b) -> int:
+    """Tokens (global then semantic) two results share before they part."""
+    x = list(a.global_tokens) + list(a.semantic_tokens)
+    y = list(b.global_tokens) + list(b.semantic_tokens)
+    return next((i for i, (p, q) in enumerate(zip(x, y)) if p != q),
+                min(len(x), len(y)))
+
+
+def through_engine(eng, requests, stagger_s=None, timeout: float = 900.0):
+    """``requests`` through a ``ContinuousEngine``: as one admission burst,
+    or ``stagger_s`` apart. Returns the results in order; stops the
+    engine."""
+    import threading
+
+    got, done = {}, threading.Event()
+
+    def mk(i):
+        def cb(res):
+            got[i] = res
+            if len(got) == len(requests):
+                done.set()
+        return cb
+
+    try:
+        if stagger_s is None:
+            eng.submit_burst([(r, mk(i), None)
+                              for i, r in enumerate(requests)])
+        else:
+            for i, r in enumerate(requests):
+                eng.submit(r, mk(i))
+                time.sleep(stagger_s)
+        if not done.wait(timeout):
+            fail(f"streaming: witness: only {sorted(got)} finished")
+    finally:
+        eng.stop()
+    for i, res in got.items():
+        if isinstance(res, Exception):
+            fail(f"streaming: witness: request {i}: {res!r}")
+    return [got[i] for i in range(len(requests))]
+
+
+def static_by_mode(engine, requests):
+    """``requests`` through a static engine, grouped by mode as
+    ``synthesize_batch`` groups them; results in the requests' order."""
+    out = [None] * len(requests)
+    for zs in (False, True):
+        group = [i for i, r in enumerate(requests) if bool(r.zero_shot) == zs]
+        if group:
+            for i, res in zip(group, engine.generate_batch(
+                    [requests[i] for i in group])):
+                out[i] = res
+    return out
+
+
+def token_witnesses(torch, pipe, lm_cfg, ecfg, device, block, requests,
+                    static, stagger_s: float):
+    """Whether the continuous engine's slot machine, and not rounding,
+    could be what parts its tokens from the static engine's at full width.
+
+    ``burst``: each mode's requests once more at the streaming weights
+    through a ``ContinuousEngine`` of as many slots, without buckets,
+    admitted as one burst: the prefill and every decode product then have
+    the static engine's shapes, so the tokens must be the static engine's
+    (``static``) exactly. ``staggered``: the same 8 requests, 0.15 s
+    apart, through an engine of 8 slots with buckets 2 and 4 over the
+    goldens model (f32, 2 layers x 128, where a product's rounding is far
+    below a draw's margin), against its static engine: admission while
+    others decode, bucketed blocks on views, relocation and the decode
+    thread's stream on ``device``, exactly. ``f32``: the requests (at most
+    48 semantic tokens) staggered through 8 slots at full width with f32
+    weights, against the static engine on those weights (reported), and a
+    bucketed block against the whole block there."""
+    from rwkv_tts_tpu_torch.config import EngineConfig, RwkvConfig
+    from rwkv_tts_tpu_torch.models import rwkv7
+    from rwkv_tts_tpu_torch.runtime import continuous as CT
+    from rwkv_tts_tpu_torch.utils import bridge
+
+    out = {}
+    agree = [0] * len(requests)
+    for zs in (False, True):
+        group = [i for i, r in enumerate(requests) if bool(r.zero_shot) == zs]
+        if not group:
+            continue
+        eng = CT.ContinuousEngine(pipe.engine.params, lm_cfg, ecfg,
+                                  block=block, slots=len(group), buckets=(),
+                                  device=device)
+        for i, res in zip(group, through_engine(
+                eng, [requests[i] for i in group])):
+            agree[i] = (first_difference(res, static[i]),
+                        same_tokens(res, static[i]))
+        del eng
+    out["burst"] = {"same": sum(ok for _, ok in agree),
+                    "agree": [n for n, _ in agree]}
+
+    gcfg = RwkvConfig(**GOLDENS_CFG)
+    eng = CT.ContinuousEngine(
+        bridge.rwkv7_params(goldens_params(gcfg, 1234), device), gcfg,
+        EngineConfig(prefill_buckets=(64, 128),
+                     max_semantic_tokens=ecfg.max_semantic_tokens),
+        block=8, slots=STREAM_SLOTS, buckets=STREAM_BUCKETS, device=device)
+    block_slots, real_block = [], CT.decode_block
+
+    def logged_block(params, state, logits, *a):
+        block_slots.append(logits.shape[0])
+        return real_block(params, state, logits, *a)
+
+    CT.decode_block = logged_block
+    try:
+        got = through_engine(eng, requests, stagger_s=0.15)
+    finally:
+        CT.decode_block = real_block
+    ref = static_by_mode(eng.inner, requests)
+    out["staggered"] = {
+        "same": sum(same_tokens(a, b) for a, b in zip(got, ref)),
+        "agree": [first_difference(a, b) for a, b in zip(got, ref)],
+        "buckets": sorted(set(block_slots)),
+        "relocations": eng.stats["relocations"],
+        "blocks": eng.stats["blocks"]}
+    del eng
+
+    cfg32 = dataclasses.replace(lm_cfg, dtype="float32",
+                                param_dtype="float32")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 4)
+    params = rwkv7.init_params(cfg32, gen, device)
+    blocks = {b: bucketed_block_check(torch, CT, rwkv7, params, cfg32, device,
+                                      STREAM_SLOTS, b)
+              for b in STREAM_BUCKETS}
+    short = [dataclasses.replace(r, max_tokens=min(r.max_tokens, 48))
+             for r in requests]
+    eng = CT.ContinuousEngine(params, cfg32, ecfg, block=block,
+                              slots=STREAM_SLOTS, buckets=STREAM_BUCKETS,
+                              device=device)
+    got = through_engine(eng, short, stagger_s=stagger_s)
+    ref = static_by_mode(eng.inner, short)
+    out["f32"] = {
+        "same": sum(same_tokens(a, b) for a, b in zip(got, ref)),
+        "agree": [first_difference(a, b) for a, b in zip(got, ref)],
+        "lengths": [len(a.semantic_tokens) for a in got], "blocks": blocks}
+    return out
+
+
+STREAM_PLAN = (
+    # (kind, latency mode): 4 property-controlled, 2 cached-speaker, 2 by
+    # the shipped voices; every mode at least once
+    ("property", "exact"), ("property", "low"), ("cached", "flash"),
+    ("voice", "ultra"), ("property", "ultra"), ("cached", "low"),
+    ("voice", "exact"), ("property", "flash"),
+)
+CHAIN_TOL = {"input conv": 1e-3, "block 1": 2e-2}
+STREAM_TOKENS = {"exact": 160, "low": 120, "ultra": 80, "flash": 60}
+
+
+def streaming(torch, lm_cfg, bc_cfg, device: str, engine_cfg=None,
+              block: int = 32, tokens=None, stagger_s: float = 1.5,
+              exact_tol: float = 1e-2, chain_tol=None,
+              warmup: bool = True, goldens_root=None, solo_plan=()):
+    """The ``streaming`` phase on ``device`` (see the module docstring),
+    with every check; ``tokens`` maps a latency mode to its requests'
+    ``max_tokens``; ``solo_plan`` lists (kind, mode) requests that each
+    run alone on the idle engine first, for their first-chunk time;
+    ``chain_tol`` bounds how far an exact-mode window may lie from the
+    one-shot decode after the input conv and after the first upsampling
+    block (of the largest value there; ``CHAIN_TOL`` when None). Returns a
+    summary."""
+    import threading
+
+    import numpy as np
+
+    from rwkv_tts_tpu_torch.config import EngineConfig, RwkvConfig, TtsArgs
+    from rwkv_tts_tpu_torch.models import bicodec, rwkv7
+    from rwkv_tts_tpu_torch.ops import conv1d as C1
+    from rwkv_tts_tpu_torch.runtime import continuous as CT
+    from rwkv_tts_tpu_torch.runtime.pipeline import TtsPipeline
+    from rwkv_tts_tpu_torch.runtime.streaming import (StreamingVocoder,
+                                                      stream_synthesize)
+    from rwkv_tts_tpu_torch.runtime.voice_store import VoiceStore
+    from rwkv_tts_tpu_torch.utils import bridge
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    tokens = tokens or STREAM_TOKENS
+    chain_tol = CHAIN_TOL if chain_tol is None else chain_tol
+    ecfg = engine_cfg or EngineConfig()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 4)
+    t0 = time.perf_counter()
+    store = VoiceStore(os.path.join(root, "assets", "raf"))
+    voice_ids = sorted(f[:-len(".raf.json")] for f in os.listdir(
+        os.path.join(root, "assets", "raf")) if f.endswith(".raf.json"))
+    pipe = TtsPipeline(rwkv7.init_params(lm_cfg, gen, device), lm_cfg,
+                       bicodec.init_params(bc_cfg, gen, device), bc_cfg,
+                       voice_store=store, engine_cfg=ecfg, device=device)
+    bc_params, bc_cfg = pipe.bicodec_params, pipe.bicodec_cfg
+    eng = CT.ContinuousEngine(pipe.engine.params, lm_cfg, ecfg, block=block,
+                              slots=STREAM_SLOTS, buckets=STREAM_BUCKETS,
+                              device=device)
+    init_s = time.perf_counter() - t0
+    n_conv = len(wavegen_conv_shapes(bc_cfg, 1))
+
+    # what the engine hands each request, by request
+    results = {}
+    real_submit = eng.submit
+
+    def submit(args, result_cb, chunk_cb=None):
+        def cb(res):
+            results[id(args)] = res
+            result_cb(res)
+        real_submit(args, cb, chunk_cb)
+
+    eng.submit = submit
+    block_slots = []            # slots each decode block ran on
+    real_block = CT.decode_block
+
+    def logged_block(params, state, logits, *a):
+        block_slots.append(logits.shape[0])
+        return real_block(params, state, logits, *a)
+
+    CT.decode_block = logged_block
+    try:
+        if warmup:
+            # the engine's admission, decode, relocation and cancel paths,
+            # and both window shapes of every latency mode
+            eng.warmup(max_burst=1, prefill_buckets=1)
+            for mode in STREAM_TOKENS:
+                sv = StreamingVocoder(bc_params, bc_cfg, [0] * 32,
+                                      latency_mode=mode)
+                sv.push([1] * (sv.chunk + sv.lookahead + 1), flush=True)
+            eng.stats = {k: type(v)() for k, v in eng.stats.items()}
+            eng.hist = {k: type(h)(h.name, h.bounds, h.help)
+                        for k, h in eng.hist.items()}
+
+        # first chunk of one request alone on the idle engine, per mode
+        solo = []
+        for kind, mode in solo_plan:
+            kw = dict(text=TEXTS[1], seed=250, max_tokens=tokens[mode])
+            if kind == "cached":
+                kw["cached_speaker"] = True
+            args = pipe.resolve_voice(TtsArgs(**kw))   # the cache's miss
+            t1 = time.perf_counter()
+            it = stream_synthesize(eng, bc_params, bc_cfg, args,
+                                   latency_mode=mode, timeout=600.0)
+            first = next(it)
+            ms = (time.perf_counter() - t1) * 1e3
+            n_chunks = 1 + sum(1 for _ in it)
+            if first.final or not first.audio.size:
+                fail(f"streaming: solo {kind} {mode}: no first chunk")
+            solo.append({"kind": kind, "mode": mode, "first_chunk_ms": ms,
+                         "chunks": n_chunks})
+        if solo:
+            eng.stats = {k: type(v)() for k, v in eng.stats.items()}
+            eng.hist = {k: type(h)(h.name, h.bounds, h.help)
+                        for k, h in eng.hist.items()}
+            block_slots.clear()
+
+        requests = []
+        for i, (kind, mode) in enumerate(STREAM_PLAN):
+            kw = dict(text=TEXTS[i], seed=300 + i, max_tokens=tokens[mode],
+                      gender=("female", "male")[i % 2])
+            if kind == "cached":
+                kw["cached_speaker"] = True
+            if kind == "voice":
+                kw["voice_id"] = voice_ids[i % len(voice_ids)]
+            requests.append(TtsArgs(**kw))
+        runs = [{"kind": k, "mode": m, "chunks": [], "windows": []}
+                for k, m in STREAM_PLAN]
+
+        def consume(i):
+            run = runs[i]
+            try:
+                time.sleep(i * stagger_s)
+                run["thread"] = threading.get_ident()
+                # the voice chain runs in the caller's thread, as a server
+                # would run it: a cached speaker's 32 global steps go
+                # through the static engine while the decode thread runs
+                run["args"] = pipe.resolve_voice(requests[i])
+                run["t_submit"] = time.perf_counter()
+                for chunk in stream_synthesize(
+                        eng, bc_params, bc_cfg, run["args"],
+                        latency_mode=run["mode"], timeout=600.0):
+                    run["chunks"].append((time.perf_counter(), chunk))
+            except BaseException as e:  # noqa: BLE001: reported below
+                run["error"] = e
+
+        pipe.engine.counters = {k: 0 for k in pipe.engine.counters}
+        eng.inner.counters = {k: 0 for k in eng.inner.counters}
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=consume, args=(i,))
+                   for i in range(len(requests))]
+        with logged_windows(bicodec) as window_log:
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=900.0)
+            if any(t.is_alive() for t in threads):
+                fail("streaming: a stream did not end within 900 s")
+        for run in runs:
+            run["windows"] = [(n, sec) for tid, n, sec in window_log
+                              if tid == run.get("thread")]
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = launch_counts()
+        stats = dict(eng.stats)
+        hist = {k: (h.n, h.total, list(h.counts))
+                for k, h in eng.hist.items()}
+
+        n_windows = 0
+        for i, run in enumerate(runs):
+            if "error" in run:
+                fail(f"streaming: request {i} ({run['kind']}, "
+                     f"{run['mode']}): {run['error']!r}")
+            chunks = [c for _, c in run["chunks"]]
+            if not chunks or not chunks[-1].final or any(
+                    c.final for c in chunks[:-1]):
+                fail(f"streaming: request {i}: no single final chunk last")
+            if len(chunks) < 2:
+                fail(f"streaming: request {i}: only {len(chunks)} chunk")
+            res = results[id(run["args"])]
+            run["result"] = res
+            audio = np.concatenate([c.audio for c in chunks])
+            run["audio"] = audio
+            n = len(res.semantic_tokens)
+            if len(res.global_tokens) != 32 or not all(
+                    0 <= t < 4096 for t in res.global_tokens) or not all(
+                    0 <= t < 8192 for t in res.semantic_tokens):
+                fail(f"streaming: request {i}: bad tokens")
+            if audio.shape != (n * 320,):
+                fail(f"streaming: request {i}: {audio.shape[0]} samples for "
+                     f"{n} semantic tokens")
+            if not np.all(np.isfinite(audio)) or np.abs(audio).max() > 1.0:
+                fail(f"streaming: request {i}: audio not finite in [-1, 1]")
+            if run["kind"] != "property" and \
+                    res.global_tokens != list(run["args"].ref_global_tokens):
+                fail(f"streaming: request {i}: not its voice's global tokens")
+            n_windows += len(run["windows"])
+            run["first_chunk_ms"] = (run["chunks"][0][0]
+                                     - run["t_submit"]) * 1e3
+
+        L = lm_cfg.n_layer
+        steps = stats["blocks"] * block + pipe.engine.counters["decode_steps"]
+        chunks_pf = (eng.inner.counters["prefill_chunks"]
+                     + pipe.engine.counters["prefill_chunks"])
+        if device == "cuda":
+            if launches["conv1d"] != n_conv * n_windows:
+                fail(f"streaming: conv1d launched {launches['conv1d']} "
+                     f"times, expected {n_conv} x {n_windows} windows")
+            if launches["wkv7_decode"] != L * steps:
+                fail(f"streaming: wkv7_decode launched "
+                     f"{launches['wkv7_decode']} times, expected {L} x "
+                     f"{steps} steps")
+            if launches["wkv7_prefill"] + launches["wkv7_wy"] != \
+                    L * chunks_pf:
+                fail(f"streaming: prefill kernels launched {launches}, "
+                     f"expected {L} x {chunks_pf} chunks")
+        bucket_set = sorted(set(block_slots))
+        if stats["relocations"] < 1 and len(bucket_set) < 2:
+            fail(f"streaming: no compaction and no bucket change (buckets "
+                 f"{bucket_set}, stats {stats})")
+        if stats["admitted"] != len(requests):
+            fail(f"streaming: {stats['admitted']} admissions")
+
+        # exact mode against the one-shot decode of the same tokens. With
+        # f32 convs (conv_impl "native") the stream must equal the one-shot
+        # decode to ``exact_tol``: the windows and their offsets are right.
+        # Under a backend that routes to ``ops.conv1d``, every kernel call
+        # of every window must equal the plain version on the same inputs,
+        # and the window must equal the whole decode closely where little
+        # has been rounded yet: after the input conv and after the first
+        # upsampling block (``chain_tol``). Further down a random-init wave
+        # generator grows a bf16 rounding flip from block to block (the
+        # same chain through the plain version shows the same growth), so
+        # the later blocks and the waveform are reported, not asserted.
+        def rms(a):
+            return float(np.sqrt(np.mean(np.square(a, dtype=np.float64))))
+
+        native_cfg = dataclasses.replace(bc_cfg, conv_impl="native")
+        exact = []
+        for run in runs:
+            if run["mode"] != "exact":
+                continue
+            res = run["result"]
+            g, sem = res.global_tokens, res.semantic_tokens
+            full = bicodec.detokenize(bc_params, g, sem, bc_cfg)[0]
+            full_native = bicodec.detokenize(bc_params, g, sem,
+                                             native_cfg)[0]
+            sv = StreamingVocoder(bc_params, native_cfg, g)
+            native = np.concatenate([sv.push(sem), sv.push([], flush=True)])
+            e = {"native_max_abs": float(np.abs(native - full_native).max()),
+                 "stream_rms": rms(run["audio"] - full),
+                 "policy_rms": rms(full - full_native),
+                 "stream_max_abs": float(np.abs(run["audio"] - full).max())}
+            if not e["native_max_abs"] <= exact_tol:
+                fail(f"streaming: exact-mode windows with f32 convs differ "
+                     f"from detokenize by {e['native_max_abs']:.3g} "
+                     f"(tolerance {exact_tol})")
+            if bc_cfg.conv_impl != "native":
+                chain = exact_mode_chain(torch, bicodec, C1, StreamingVocoder,
+                                         bc_params, bc_cfg, g, sem)
+                e["chain"] = chain
+                for kind, tol in (("bare", 2e-5), ("snake", 1e-3)):
+                    if not chain["calls"].get(kind, 0.0) <= tol:
+                        fail(f"streaming: a {kind} conv1d call of an "
+                             f"exact-mode window lies "
+                             f"{chain['calls'][kind]:.3g} from the plain "
+                             f"version on the same inputs (tolerance {tol})")
+                for i, name in enumerate(chain["taps"]):
+                    tol = chain_tol.get(name)
+                    if tol is None:
+                        continue
+                    for key in ("window_vs_whole", "window_vs_whole_plain"):
+                        if not chain[key][i] <= tol:
+                            fail(f"streaming: after the {chain['taps'][i]} an "
+                                 f"exact-mode window lies {chain[key][i]:.3g} "
+                                 f"from the one-shot decode ({key}, "
+                                 f"tolerance {tol})")
+            exact.append(e)
+        if not exact:
+            fail("streaming: no exact-mode stream")
+
+        # one cancelled request frees its slot
+        victim = pipe.resolve_voice(TtsArgs(
+            text=TEXTS[0], seed=77, max_tokens=max(tokens.values()) * 4))
+        it = stream_synthesize(eng, bc_params, bc_cfg, victim,
+                               latency_mode="flash", timeout=600.0)
+        first = next(it)
+        if first.final or not first.audio.size:
+            fail("streaming: the request to cancel ended before its cancel")
+        if not eng.cancel(victim):
+            fail("streaming: cancel() did not find the live request")
+        try:
+            list(it)
+        except CT.RequestCancelled:
+            pass
+        else:
+            fail("streaming: the cancelled stream ended without an error")
+        if len(eng._free_slots()) != eng.B:
+            fail(f"streaming: after the cancel {eng._free_slots()} are free")
+
+        # the same arguments through the static engine, grouped by mode as
+        # synthesize_batch groups them (reported, not asserted: on a card a
+        # request's products depend on the batch it shares)
+        static = static_by_mode(pipe.engine, [r["args"] for r in runs])
+        same = sum(same_tokens(r["result"], g) for r, g in zip(runs, static))
+        agree = [first_difference(r["result"], g)
+                 for r, g in zip(runs, static)]
+    finally:
+        CT.decode_block = real_block
+        eng.stop()
+    profiled = block_profile(torch, eng) if device == "cuda" else None
+
+    # the slot machine against the static engine where rounding cannot
+    # explain a difference, and a bucketed block against the whole block at
+    # the streaming weights (reported) and at f32 (asserted)
+    bf16_blocks = {b: bucketed_block_check(torch, CT, rwkv7,
+                                           pipe.engine.params, lm_cfg, device,
+                                           STREAM_SLOTS, b)
+                   for b in STREAM_BUCKETS}
+    del eng
+    witness = token_witnesses(torch, pipe, lm_cfg, ecfg, device, block,
+                              [run["args"] for run in runs], static,
+                              stagger_s)
+    for label, blocks, strict in (("the streaming weights", bf16_blocks,
+                                   lm_cfg.dtype == "float32"),
+                                  ("f32 weights", witness["f32"]["blocks"],
+                                   True)):
+        for b, (agree_n, of, diff, untouched) in blocks.items():
+            if not untouched:
+                fail(f"streaming: a block on the first {b} slots ({label}) "
+                     f"changed the slots above them")
+            if strict and (agree_n != of or not diff <= 1e-4):
+                fail(f"streaming: a block on the first {b} slots ({label}) "
+                     f"emits {agree_n} of {of} tokens of the whole block, "
+                     f"state rel diff {diff:.3g} (tolerance 1e-4)")
+    for name, what in (("burst", "admitted as one burst at the static "
+                        "engine's shapes"),
+                       ("staggered", "staggered over the goldens model")):
+        if witness[name]["same"] != len(runs):
+            fail(f"streaming: {what}, only {witness[name]['same']} of "
+                 f"{len(runs)} requests emit the static engine's tokens "
+                 f"(tokens in common {witness[name]['agree']})")
+    stag = witness["staggered"]
+    if stag["relocations"] < 1 and len(stag["buckets"]) < 2:
+        fail(f"streaming: the staggered witness saw no compaction and no "
+             f"bucket change ({stag})")
+
+    # the goldens requests through the continuous engine
+    goldens = None
+    if goldens_root is not None:
+        gcfg = RwkvConfig(**GOLDENS_CFG)
+        geng = CT.ContinuousEngine(
+            bridge.rwkv7_params(goldens_params(gcfg, 1234), device), gcfg,
+            EngineConfig(prefill_buckets=(64, 128), max_semantic_tokens=16),
+            block=8, slots=4, device=device)
+        try:
+            got, done = {}, threading.Event()
+            reqs = goldens_requests(TtsArgs)
+
+            def mk(name):
+                def cb(res):
+                    got[name] = res
+                    if len(got) == len(reqs):
+                        done.set()
+                return cb
+
+            for name, r in reqs.items():
+                geng.submit(r, mk(name))
+            if not done.wait(300.0):
+                fail(f"streaming: goldens: only {sorted(got)} finished")
+        finally:
+            geng.stop()
+        with open(os.path.join(goldens_root, "tests", "goldens.json")) as f:
+            want = json.load(f)
+        for name in want:
+            if isinstance(got[name], Exception):
+                fail(f"streaming: goldens: {name}: {got[name]!r}")
+            mine = {"global": got[name].global_tokens,
+                    "semantic": got[name].semantic_tokens}
+            if mine != want[name]:
+                fail(f"streaming: goldens: {name} through the continuous "
+                     f"engine: {mine} vs {want[name]}")
+        goldens = len(want)
+
+    return {"runs": runs, "launches": launches, "stats": stats,
+            "hist": hist,
+            "wall_s": wall_s, "init_s": init_s, "windows": n_windows,
+            "buckets": bucket_set, "exact": exact, "same": same,
+            "agree": agree, "solo": solo, "block": profiled,
+            "steps": steps, "prefill_chunks": chunks_pf, "goldens": goldens,
+            "witness": witness, "bf16_blocks": bf16_blocks,
+            "conv_per_window": n_conv}
+
 
 def main() -> None:
     root = os.path.dirname(os.path.abspath(__file__))
@@ -1172,6 +2225,7 @@ def main() -> None:
         from rwkv_tts_tpu_torch.config import (BiCodecConfig, RwkvConfig,
                                                Wav2Vec2Config)
         from rwkv_tts_tpu_torch.ops import _build
+        from rwkv_tts_tpu_torch.ops import conv1d as C1
         from rwkv_tts_tpu_torch.ops import quant as Q
         from rwkv_tts_tpu_torch.ops import wkv7 as W
     except ImportError as e:
@@ -1204,9 +2258,11 @@ def main() -> None:
     lm_cfg, bc_cfg = RwkvConfig(), BiCodecConfig()
     stats = phase_kernels(torch, W, lm_cfg)
     stats.update(phase_quant_kernels(torch, W, Q, lm_cfg))
+    stats.update(phase_conv_kernels(torch, C1, bc_cfg))
+    torch.cuda.empty_cache()
     phase_goldens(root)
 
-    out = main_path(torch, lm_cfg, bc_cfg, "cuda", max_tokens=64)
+    out = main_path(torch, lm_cfg, bc_cfg, "cuda", max_tokens=48)
     res = out["results"]
     print(f"main_path: {len(res)} requests, {lm_cfg.n_layer} layers x "
           f"{lm_cfg.n_embd}, init {out['init_s']:.2f} s, wall "
@@ -1243,7 +2299,7 @@ def main() -> None:
 
     del clone
     torch.cuda.empty_cache()
-    quant = quantized(torch, lm_cfg, bc_cfg, "cuda", max_tokens=32)
+    quant = quantized(torch, lm_cfg, bc_cfg, "cuda", max_tokens=16)
     for kind in ("int8", "int4"):
         run = quant[kind]
         res = run["results"]
@@ -1271,8 +2327,98 @@ def main() -> None:
           f"{fz['step_vs_plain'][1]:.3g} (tolerance 5e-2); {card}",
           flush=True)
 
+    torch.cuda.empty_cache()
+    st = streaming(torch, lm_cfg,
+                   dataclasses.replace(bc_cfg, conv_impl="mxu_fused"), "cuda",
+                   goldens_root=root,
+                   solo_plan=(("cached", "flash"), ("property", "flash"),
+                              ("property", "exact")))
+    print("streaming: first chunk of one request alone on the idle engine "
+          "(submit to first StreamChunk): " + "; ".join(
+              f"{r['kind']} {r['mode']} {r['first_chunk_ms']:.1f} ms"
+              for r in st["solo"]) + f"; {card}", flush=True)
+    print(f"streaming: 8 requests from 8 threads through stream_synthesize "
+          f"over a ContinuousEngine (8 slots, block 32, buckets 2 and 4), "
+          f"{lm_cfg.n_layer} layers x {lm_cfg.n_embd}, BiCodec conv_impl "
+          f"mxu_fused, init {st['init_s']:.2f} s, wall {st['wall_s']:.3f} s; "
+          f"{st['steps']} decode steps, {st['prefill_chunks']} prefill "
+          f"chunks, {st['windows']} vocoder windows x "
+          f"{st['conv_per_window']} conv1d launches; launches "
+          f"{st['launches']}; {card}", flush=True)
+    for i, run in enumerate(st["runs"]):
+        by_shape = {}
+        for n, sec in run["windows"]:
+            by_shape.setdefault(n, []).append(sec * 1e3)
+        print(f"streaming: request {i} ({run['kind']}, {run['mode']}): "
+              f"first chunk {run['first_chunk_ms']:.1f} ms after submit, "
+              f"{len(run['chunks'])} chunks, "
+              f"{len(run['result'].semantic_tokens)} semantic tokens; "
+              f"vocoder ms per window by latents "
+              + "; ".join(f"{n}: {len(v)} x {sum(v) / len(v):.2f} (max "
+                          f"{max(v):.2f})" for n, v in sorted(
+                              by_shape.items())), flush=True)
+    wall_ms, busy_ms, kernels, by_name = st["block"]
+    print(f"streaming: one decode block alone on the card, per step at 8 "
+          f"slots: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
+          f"({100 * busy_ms / wall_ms:.1f}%), {kernels:.0f} kernels per "
+          f"step; top kernels per step: {top_line(by_name)}", flush=True)
+    print(f"streaming: engine stats {st['stats']}; slots the decode blocks "
+          f"ran on {st['buckets']}; " + "; ".join(
+              f"{k}: n {n}, mean {1e3 * tot / max(n, 1):.1f} ms, bucket "
+              f"counts {counts}" for k, (n, tot, counts)
+              in st["hist"].items()) + f"; {card}", flush=True)
+    def col(key):
+        return [float(f"{e[key]:.3g}") for e in st["exact"]]
+
+    def sig(xs):
+        return [float(f"{x:.3g}") for x in xs]
+
+    print(f"streaming: exact-mode streams against detokenize of the same "
+          f"tokens: with f32 convs max abs diff {col('native_max_abs')} "
+          f"(tolerance 1e-2); under mxu_fused RMS diff {col('stream_rms')} "
+          f"and max abs {col('stream_max_abs')} (reported), where the bf16 "
+          f"backend's own rounding moves detokenize by {col('policy_rms')} "
+          f"RMS", flush=True)
+    for e in st["exact"]:
+        c = e["chain"]
+        print(f"streaming: exact-mode chain over {c['windows']} windows, "
+              f"largest difference of the emitted span per stage "
+              f"{c['taps']}, of the stage's largest value: kernel vs plain "
+              f"version in the same window {sig(c['kernel_vs_plain'])}; "
+              f"window vs one-shot decode through the kernel "
+              f"{sig(c['window_vs_whole'])} and through the plain version "
+              f"{sig(c['window_vs_whole_plain'])} (first two stages held to "
+              f"1e-3 and 2e-2); waveform RMS window vs one-shot {sig(c['rms'])}"
+              f" (kernel, plain); every kernel call against the plain "
+              f"version on its own inputs: {c['calls']} (tolerance bare "
+              f"2e-5, snake 1e-3)", flush=True)
+    wit = st["witness"]
+    print(f"streaming: one cancelled request freed its slot; "
+          f"{st['goldens']} goldens requests through the continuous engine "
+          f"emit the tokens of tests/goldens.json; {st['same']} of 8 "
+          f"requests emitted the static engine's tokens for the same "
+          f"arguments (tokens in common before the two part, global then "
+          f"semantic: {st['agree']})", flush=True)
+    print(f"streaming: token witnesses against the static engine: each "
+          f"mode's 4 requests at the streaming weights as one burst through "
+          f"4 slots without buckets (the static engine's shapes): "
+          f"{wit['burst']['same']} of 8 emit the same tokens (in common "
+          f"{wit['burst']['agree']}; must be 8); the 8 requests 0.15 s apart "
+          f"over the goldens model (f32, 2 x 128) through 8 slots with "
+          f"buckets 2 and 4: {wit['staggered']['same']} of 8 (must be 8; "
+          f"blocks ran on {wit['staggered']['buckets']} slots, "
+          f"{wit['staggered']['relocations']} relocations, "
+          f"{wit['staggered']['blocks']} blocks); with f32 weights at full "
+          f"width, at most 48 semantic tokens, 1.5 s apart through 8 slots "
+          f"with buckets: {wit['f32']['same']} of 8 (reported; in common "
+          f"{wit['f32']['agree']}, semantic lengths {wit['f32']['lengths']})"
+          f"; a bucketed block against the whole block (tokens of the live "
+          f"slots that agree, of; state rel diff; other slots untouched) at "
+          f"f32: {wit['f32']['blocks']} (must agree, 1e-4), at the streaming "
+          f"weights: {st['bf16_blocks']} (reported); {card}", flush=True)
+
     paths = {"main_path": out["launches"], "cloning": clone_launches,
-             "quantized": quant["launches"]}
+             "quantized": quant["launches"], "streaming": st["launches"]}
     sources = {"wkv7_decode": ("rwkv_tts_tpu_torch/csrc/wkv7_decode.cu",
                                "rwkv_tts_tpu/ops/wkv7.py:372"),
                "wkv7_prefill": ("rwkv_tts_tpu_torch/csrc/wkv7_prefill.cu",
@@ -1285,7 +2431,9 @@ def main() -> None:
                "qmm4": ("rwkv_tts_tpu_torch/csrc/qmm4.cu",
                         "rwkv_tts_tpu/ops/quant.py:296"),
                "qmm": ("rwkv_tts_tpu_torch/csrc/qmm.cu",
-                       "rwkv_tts_tpu/ops/quant.py:367")}
+                       "rwkv_tts_tpu/ops/quant.py:367"),
+               "conv1d": ("rwkv_tts_tpu_torch/csrc/conv1d.cu",
+                          "rwkv_tts_tpu/ops/conv1d.py:112")}
     kernels = []
     for name, (src, replaces) in sources.items():
         s = stats[name]

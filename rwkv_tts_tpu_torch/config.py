@@ -2,10 +2,10 @@
 
 Own copies of ``RwkvConfig``, ``SamplingConfig``, ``EngineConfig``,
 ``Wav2Vec2Config``, ``BiCodecConfig`` and ``TtsArgs`` from
-``rwkv_tts_tpu/config.py``, with the same defaults. Fields that only choose between the JAX package's TPU code
-paths (``EngineConfig.chunk_size``/``use_pallas``,
-``BiCodecConfig.conv_impl``), or that nothing in the port reads yet
-(``EngineConfig.global_tokens``, ``with_token_chunk``), have no
+``rwkv_tts_tpu/config.py``, with the same defaults. Fields that only
+choose between the JAX package's TPU code paths
+(``EngineConfig.chunk_size``/``use_pallas``), or that nothing in the port
+reads yet (``EngineConfig.global_tokens``, ``with_token_chunk``), have no
 counterpart here.
 """
 
@@ -115,7 +115,15 @@ class BiCodecConfig:
     dec_channels: int = 1536
     dec_rates: Tuple[int, ...] = (8, 5, 4, 2)          # ∏ = 320 = hop
     dec_kernels: Tuple[int, ...] = (16, 11, 8, 4)
+    # compute policy of decode: "bfloat16" runs the prenet's and the wave
+    # generator's products on bf16 operands; norms, snake and the final
+    # tanh stay f32 (models/bicodec.decode)
     dtype: str = "float32"
+    # wave-generator conv backend: "native" (F.conv1d), "mxu" (the
+    # stride-1 wide convs through ops/conv1d: bf16 operands, f32
+    # accumulation) or "mxu_fused" (also each residual unit's snakes and
+    # residual add inside that kernel); models/bicodec._wavegen_conv
+    conv_impl: str = "native"
 
     @property
     def global_codebook(self) -> int:
@@ -161,6 +169,10 @@ class TtsArgs:
     ref_global_tokens: Optional[Sequence[int]] = None
     ref_semantic_tokens: Optional[Sequence[int]] = None
     ref_audio_path: Optional[str] = None
+    # cached-speaker path: a property-controlled request reuses 32 cached
+    # speaker tokens keyed by (properties, seed) and runs the zero-shot
+    # chain, skipping the global stage. None follows the pipeline's
+    # default; False opts out even where that default is on
     cached_speaker: Optional[bool] = None
     age: str = "youth-adult"
     gender: str = "female"

@@ -94,16 +94,19 @@ wkv7_decode_kernel(const float* __restrict__ r, const float* __restrict__ w,
 }  // namespace
 
 // r, w, k, v, a, b, y: [B, H, 64] f32, contiguous. state_stack: [L, B, H,
-// 64, 64] contiguous, f32 (state_is_bf16 == 0) or bf16; layer in [0, L).
-// Launches on `stream` of card `device` and returns cudaGetLastError().
+// 64, 64], f32 (state_is_bf16 == 0) or bf16, each layer's B * H tiles
+// contiguous and the layers `layer_stride` elements apart (B * H * 64 * 64
+// for a whole stack, more for the first B slots of a wider one); layer in
+// [0, L). Launches on `stream` of card `device` and returns
+// cudaGetLastError().
 extern "C" int wkv7_decode(const float* r, const float* w, const float* k,
                            const float* v, const float* a, const float* b,
                            float* y, void* state_stack, int state_is_bf16,
-                           long long layer, int batch_heads, int device,
-                           void* stream) {
+                           long long layer, long long layer_stride,
+                           int batch_heads, int device, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
-  const long long slab = static_cast<long long>(batch_heads) * kN * kN;
+  const long long slab = layer_stride;
   const dim3 grid(batch_heads), block(kWarps * 32);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (state_is_bf16) {

@@ -185,8 +185,9 @@ void launch_for_state(const Operands& op, int in_is_bf16, const float* pp,
 // v_first: [B, H, 64] f32. Each operand's batch rows lie `s_*` elements
 // apart, the H * 64 values of a row contiguous. params8: [8, H, 64] f32
 // contiguous (k_k, k_a, w0, a0, v0, r_k, ln_x_w, ln_x_b). state_stack:
-// [L, B, H, 64, 64] contiguous, f32 (state_is_bf16 == 0) or bf16; only
-// layer `layer` is rewritten. out: [B, H, 64] f32 contiguous. Launches on
+// [L, B, H, 64, 64], f32 (state_is_bf16 == 0) or bf16, each layer's B * H
+// tiles contiguous and the layers `layer_stride` elements apart; only layer
+// `layer` is rewritten. out: [B, H, 64] f32 contiguous. Launches on
 // `stream` of card `device` and returns cudaGetLastError().
 extern "C" int wkv7_step_fused(
     const void* r, const float* lo_w, const float* lo_a, const float* lo_v,
@@ -194,13 +195,13 @@ extern "C" int wkv7_step_fused(
     long long s_r, long long s_lo_w, long long s_lo_a, long long s_lo_v,
     long long s_k, long long s_v, long long s_g, long long s_v_first,
     int rkv_is_bf16, const float* params8, void* state_stack,
-    int state_is_bf16, long long layer, float* out, int B, int H,
-    float notfirst, float gn_eps, int device, void* stream) {
+    int state_is_bf16, long long layer, long long layer_stride, float* out,
+    int B, int H, float notfirst, float gn_eps, int device, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   const Operands op{r,   lo_w,   lo_a,   lo_v,   k,   v,   g,   v_first,
                     s_r, s_lo_w, s_lo_a, s_lo_v, s_k, s_v, s_g, s_v_first};
-  const long long slab = static_cast<long long>(B) * H * kN * kN;
+  const long long slab = layer_stride;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (state_is_bf16)
     launch_for_state(op, rkv_is_bf16, params8,

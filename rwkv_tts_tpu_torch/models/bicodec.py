@@ -23,10 +23,20 @@ generator of snake, transposed-conv upsampling and dilated residual units
 a bucket, at least the decoder's receptive field, and trims.
 
 Parameters are the JAX package's tree (``utils/bridge.py``) or
-``init_params`` below. The computation runs in float32 (the default
-``BiCodecConfig.dtype``); the convolutions are ``F.conv1d`` and
+``init_params`` below. Encode runs in float32. Decode follows
+``BiCodecConfig.dtype``: with "bfloat16" the prenet's and the wave
+generator's products take bf16 operands (``prepare_params`` casts those two
+subtrees once), while norms, snake and the final tanh stay f32 (the JAX
+``decode``, ``rwkv_tts_tpu/models/bicodec.py:570-579``). The convolutions
+are ``F.conv1d`` and
 ``F.conv_transpose1d``, which the JAX package likewise left to its
-compiler. ``utils.device.resolve_device`` keeps cuDNN out of TF32.
+compiler, except under ``BiCodecConfig.conv_impl`` "mxu" or "mxu_fused":
+then the wave generator's stride-1 convs of at least 96 channels each way
+go through ``ops.conv1d.conv1d`` (a hand-written kernel on a card), and
+"mxu_fused" also folds each residual unit's two snakes and its residual add
+into those calls (``_wavegen_conv`` and ``_residual_unit_fused``, :458 and
+:494 there).
+``utils.device.resolve_device`` keeps cuDNN out of TF32.
 """
 
 from __future__ import annotations
@@ -38,6 +48,8 @@ import torch
 import torch.nn.functional as F
 
 from ..config import BiCodecConfig
+from ..ops.conv1d import conv1d as conv1d_kernel
+from ..ops.conv1d import snake as snake_f32
 from ..utils.device import resolve_device
 
 Params = Dict[str, Any]
@@ -77,25 +89,27 @@ def _rms_norm(x, g, eps=1e-8):
 
 
 def _conv1d(x, w, b=None, dilation=1, groups=1, padding=0, stride=1):
-    """x [B, C, T], w [O, I/groups, K], symmetric padding."""
-    out = F.conv1d(x, w, None, stride, padding, dilation, groups)
+    """x [B, C, T], w [O, I/groups, K], symmetric padding; the product in
+    x's type, the bias added in f32, returns x's type."""
+    out = F.conv1d(x, w.to(x.dtype), None, stride, padding, dilation, groups)
     if b is not None:
-        out = out + b.float()[None, :, None]
+        out = (out.float() + b.float()[None, :, None]).to(x.dtype)
     return out
 
 
 def _tconv1d(x, w, b=None, stride=1, padding=0):
-    """ConvTranspose1d, torch weight layout [I, O, K]."""
-    out = F.conv_transpose1d(x, w, None, stride, padding)
+    """ConvTranspose1d, torch weight layout [I, O, K]; types as
+    ``_conv1d``."""
+    out = F.conv_transpose1d(x, w.to(x.dtype), None, stride, padding)
     if b is not None:
-        out = out + b.float()[None, :, None]
+        out = (out.float() + b.float()[None, :, None]).to(x.dtype)
     return out
 
 
 def _snake(x, alpha):
-    """Snake activation (DAC): x + sin²(αx)/α, α per channel."""
-    a = alpha.float()[None, :, None]
-    return x + torch.sin(a * x) ** 2 / (a + 1e-9)
+    """Snake activation (DAC): x + sin²(αx)/α, α per channel; computed in
+    f32 (the sine's argument needs the precision), returns x's type."""
+    return snake_f32(x, alpha).to(x.dtype)
 
 
 # --------------------------------------------------------------------------
@@ -345,26 +359,71 @@ def prenet_forward(p, zq, cond, cfg: BiCodecConfig):
     return h.transpose(1, 2)
 
 
-def _residual_unit(p, x, dilation):
+KERNEL_MIN_CHANNELS = 96     # narrower convs stay on F.conv1d
+
+
+def _wavegen_conv(cfg: BiCodecConfig):
+    """The wave generator's conv backend, per ``cfg.conv_impl``. "mxu" and
+    "mxu_fused" send the stride-1, groups-1 convs of at least 96 channels
+    each way (the generator's bulk) to ``ops.conv1d`` with bf16 compute and
+    the input's type out; transposed convs, the 1-channel output conv and
+    narrow convs stay on ``F.conv1d``."""
+    if cfg.conv_impl not in ("mxu", "mxu_fused"):
+        if cfg.conv_impl != "native":
+            raise ValueError(f"unknown conv_impl {cfg.conv_impl!r}")
+        return _conv1d
+
+    def conv(x, w, b=None, dilation=1, groups=1, padding=0, stride=1):
+        O, Ci, _ = w.shape
+        if stride == 1 and groups == 1 and min(O, Ci) >= KERNEL_MIN_CHANNELS:
+            return conv1d_kernel(x, w, b, dilation=dilation, padding=padding,
+                                 compute_dtype=torch.bfloat16,
+                                 out_dtype=x.dtype)
+        return _conv1d(x, w, b, dilation, groups, padding, stride)
+
+    return conv
+
+
+def _residual_unit(p, x, dilation, conv=_conv1d):
     k = p["w1"].shape[-1]
-    h = _conv1d(_snake(x, p["alpha1"]), p["w1"], p["b1"], dilation=dilation,
-                padding=(k - 1) * dilation // 2)
-    h = _conv1d(_snake(h, p["alpha2"]), p["w2"], p["b2"])
+    h = conv(_snake(x, p["alpha1"]), p["w1"], p["b1"], dilation=dilation,
+             padding=(k - 1) * dilation // 2)
+    h = conv(_snake(h, p["alpha2"]), p["w2"], p["b2"])
     return x + h
 
 
+def _residual_unit_fused(p, x, dilation):
+    """x + conv_k1(snake(conv_k7(snake(x)))) in two ``ops.conv1d`` calls:
+    both snakes ride the calls' prologue and the residual add the second
+    one's epilogue, so the unit makes no separate pass over the [B, C, T]
+    activations."""
+    k = p["w1"].shape[-1]
+    h = conv1d_kernel(x, p["w1"], p["b1"], dilation=dilation,
+                      padding=(k - 1) * dilation // 2,
+                      compute_dtype=torch.bfloat16, out_dtype=x.dtype,
+                      snake_alpha=p["alpha1"])
+    return conv1d_kernel(h, p["w2"], p["b2"], compute_dtype=torch.bfloat16,
+                         out_dtype=x.dtype, snake_alpha=p["alpha2"],
+                         residual=x)
+
+
 def wave_generator(p, x, cfg: BiCodecConfig):
-    """x [B, 1024, S] → wav [B, S·320] in (−1, 1)."""
-    h = _conv1d(x, p["in_w"], p["in_b"], padding=p["in_w"].shape[-1] // 2)
+    """x [B, 1024, S] → wav [B, S·320] in (−1, 1), f32."""
+    conv = _wavegen_conv(cfg)
+    fused = cfg.conv_impl == "mxu_fused"
+    h = conv(x, p["in_w"], p["in_b"], padding=p["in_w"].shape[-1] // 2)
     for blk, rate, k in zip(p["blocks"], cfg.dec_rates, cfg.dec_kernels):
         h = _snake(h, blk["alpha"])
         h = _tconv1d(h, blk["up_w"], blk["up_b"], stride=rate,
                      padding=(k - rate) // 2)
         for ru, d in zip(blk["res"], (1, 3, 9)):
-            h = _residual_unit(ru, h, d)
+            if fused and min(ru["w1"].shape[:2]) >= KERNEL_MIN_CHANNELS:
+                h = _residual_unit_fused(ru, h, d)
+            else:
+                h = _residual_unit(ru, h, d, conv=conv)
     h = _snake(h, p["alpha_out"])
     h = _conv1d(h, p["out_w"], p["out_b"], padding=p["out_w"].shape[-1] // 2)
-    return torch.tanh(h[:, 0, :])
+    return torch.tanh(h[:, 0, :].float())
 
 
 def encode(params: Params, feat, mel, cfg: BiCodecConfig, device=None
@@ -378,8 +437,10 @@ def encode(params: Params, feat, mel, cfg: BiCodecConfig, device=None
                          f"{params['quantizer']['codebook'].device}, "
                          f"expected {dev}")
     if cfg.dtype != "float32":
+        # the JAX package never casts the encode subtrees either: FSQ
+        # rounding and the FVQ argmin flip on near-ties
         raise NotImplementedError(f"BiCodec compute dtype {cfg.dtype!r}: "
-                                  "the port runs float32 only")
+                                  "encode runs float32 only")
 
     def tensor(x):
         if isinstance(x, np.ndarray):
@@ -395,14 +456,49 @@ def decode(params: Params, global_tokens: torch.Tensor,
            semantic_tokens: torch.Tensor, cfg: BiCodecConfig) -> torch.Tensor:
     """global [B, 32] + semantic [B, S] → wav [B, S·320] f32:
     prenet(z_q, d) + d, then the wave generator
-    (BiCodecDetokenize.onnx, ref_audio_utilities.rs:1259-1297)."""
-    if cfg.dtype != "float32":
-        raise NotImplementedError(f"BiCodec compute dtype {cfg.dtype!r}: "
-                                  "the port runs float32 only")
-    zq = fvq_detokenize(params["quantizer"], semantic_tokens)
-    d = speaker_detokenize(params["speaker"], global_tokens, cfg)
+    (BiCodecDetokenize.onnx, ref_audio_utilities.rs:1259-1297).
+
+    ``cfg.dtype`` is the compute policy: with "bfloat16" the prenet's and
+    the wave generator's products take bf16 operands; norms, snake and the
+    output tanh stay f32. The quantizer and speaker subtrees stay f32 (the
+    encode path shares them) and their small outputs are cast here."""
+    cdt = _DTYPES[cfg.dtype]
+    if params["wavegen"]["in_w"].dtype != cdt:
+        # no cast in here: it would convert every weight per call, once per
+        # streamed chunk
+        raise ValueError(
+            f"decode under dtype {cfg.dtype!r} needs the prenet and wave "
+            f"generator cast once at load (prepare_params); the tree holds "
+            f"{params['wavegen']['in_w'].dtype}")
+    zq = fvq_detokenize(params["quantizer"], semantic_tokens).to(cdt)
+    d = speaker_detokenize(params["speaker"], global_tokens, cfg).to(cdt)
     x = prenet_forward(params["prenet"], zq, d, cfg) + d[:, :, None]
     return wave_generator(params["wavegen"], x, cfg)
+
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _cast_tree(x, dtype):
+    if isinstance(x, dict):
+        return {k: _cast_tree(v, dtype) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_cast_tree(v, dtype) for v in x)
+    return x.to(dtype) if x.dtype == torch.float32 else x
+
+
+def prepare_params(params: Params, cfg: BiCodecConfig) -> Params:
+    """One-time cast to the ``cfg.dtype`` compute policy, of the
+    decode-only subtrees (prenet and wave generator, where the vocoder's
+    operations are). The encoder, quantizer and speaker subtrees are shared
+    with ``encode`` and stay f32. Call it at load: ``decode`` takes a tree
+    cast for its ``cfg.dtype`` and casts nothing itself."""
+    cdt = _DTYPES[cfg.dtype]
+    if cdt == torch.float32:
+        return params
+    cast = {k: _cast_tree(params[k], cdt) for k in ("prenet", "wavegen")
+            if k in params}
+    return {**params, **cast}
 
 
 def receptive_latents(cfg: BiCodecConfig) -> int:

@@ -48,21 +48,22 @@ HEAD_SIZE = 64   # the kernels' compiled N
 
 _P = ctypes.c_void_p
 _ARGTYPES = {
-    # r, w, k, v, a, b, y, state_stack, state_is_bf16, layer, B·H, device,
-    # stream
+    # r, w, k, v, a, b, y, state_stack, state_is_bf16, layer, layer stride,
+    # B·H, device, stream
     "wkv7_decode": [_P] * 8 + [ctypes.c_int, ctypes.c_longlong,
-                               ctypes.c_int, ctypes.c_int, _P],
+                               ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                               _P],
     # r, w, k, v, a, b, state_in, y, state_out, B, T, H, device, stream
     "wkv7_prefill": [_P] * 9 + [ctypes.c_int] * 4 + [_P],
     # r, w, k, v, a, b, y_loc, rho, s_loc, P, B, T, H, L, device, stream
     "wkv7_wy": [_P] * 10 + [ctypes.c_int] * 5 + [_P],
     # r, lo_w, lo_a, lo_v, k, v, g, v_first, their 8 batch strides,
-    # rkv_is_bf16, params8, state_stack, state_is_bf16, layer, out, B, H,
-    # notfirst, gn_eps, device, stream
+    # rkv_is_bf16, params8, state_stack, state_is_bf16, layer, layer stride,
+    # out, B, H, notfirst, gn_eps, device, stream
     "wkv7_step_fused": [_P] * 8 + [ctypes.c_longlong] * 8
-    + [ctypes.c_int, _P, _P, ctypes.c_int, ctypes.c_longlong, _P,
-       ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
-       ctypes.c_int, _P],
+    + [ctypes.c_int, _P, _P, ctypes.c_int, ctypes.c_longlong,
+       ctypes.c_longlong, _P, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+       ctypes.c_float, ctypes.c_int, _P],
 }
 
 # the TPU dispatch's lines (wkv7_prefill_tpu, rwkv_tts_tpu/ops/wkv7.py:1249,
@@ -296,6 +297,26 @@ def _check(name, t, shape, dtypes, device) -> None:
         raise ValueError(f"{name}: must be contiguous")
 
 
+def _check_stack(t, device) -> None:
+    """A [L, B, H, N, N] state stack whose layers are each contiguous: a
+    whole stack, or the first B slots ``stack[:, :B]`` of a wider one (the
+    continuous engine's occupancy bucket), which the kernels address by its
+    layer stride instead of through a copy."""
+    if not isinstance(t, torch.Tensor) or t.dim() != 5:
+        raise ValueError("state_stack must be a [L, B, H, N, N] tensor")
+    _, B, H, N, M = t.shape
+    if t.device != device:
+        raise ValueError(f"state_stack: on {t.device}, expected {device}")
+    if t.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"state_stack: dtype {t.dtype} is not f32 or bf16")
+    if N != M:
+        raise ValueError(f"state_stack: shape {tuple(t.shape)}")
+    if t.stride()[1:] != (H * N * N, N * N, N, 1) or \
+            t.stride(0) < B * H * N * N:
+        raise ValueError("state_stack: each layer's [B, H, N, N] block must "
+                         "be contiguous")
+
+
 def _check_device(device: torch.device, n: int) -> None:
     if device.type == "cuda":
         if n != HEAD_SIZE:
@@ -309,7 +330,8 @@ def wkv7_decode_(r, w, k, v, a, b, state_stack, layer: int) -> torch.Tensor:
     """One decode step of layer ``layer``, IN PLACE on ``state_stack``.
 
     r, w, k, v, a, b: [B, H, N] f32; state_stack: [L, B, H, N, N] f32 or
-    bf16. Only ``state_stack[layer]`` changes (rounded to the storage dtype
+    bf16, whole or the slot prefix ``stack[:, :B]`` of a wider one
+    (``_check_stack``). Only ``state_stack[layer]`` changes (rounded to the storage dtype
     once, after the f32 update); the other layers are not touched. Returns
     y [B, H, N] f32. Counterpart of the TPU kernel
     ``rwkv_tts_tpu/ops/wkv7.py:372 wkv7_single_bt_stack``."""
@@ -317,8 +339,7 @@ def wkv7_decode_(r, w, k, v, a, b, state_stack, layer: int) -> torch.Tensor:
         raise ValueError("state_stack must be a [L, B, H, N, N] tensor")
     L, B, H, N, _ = state_stack.shape
     dev = state_stack.device
-    _check("state_stack", state_stack, (L, B, H, N, N),
-           (torch.float32, torch.bfloat16), dev)
+    _check_stack(state_stack, dev)
     for name, t in zip("rwkvab", (r, w, k, v, a, b)):
         _check(name, t, (B, H, N), (torch.float32,), dev)
     layer = int(layer)
@@ -333,7 +354,7 @@ def wkv7_decode_(r, w, k, v, a, b, state_stack, layer: int) -> torch.Tensor:
     _launch("wkv7_decode", dev, r.data_ptr(), w.data_ptr(), k.data_ptr(),
             v.data_ptr(), a.data_ptr(), b.data_ptr(), y.data_ptr(),
             state_stack.data_ptr(), int(state_stack.dtype == torch.bfloat16),
-            layer, B * H)
+            layer, state_stack.stride(0), B * H)
     return y
 
 
@@ -426,8 +447,7 @@ def wkv7_step_fused_(r, lo_w, lo_a, lo_v, k, v, g, v_first, params8,
         raise ValueError("state_stack must be a [L, B, H, N, N] tensor")
     L, B, H, N, _ = state_stack.shape
     dev = state_stack.device
-    _check("state_stack", state_stack, (L, B, H, N, N),
-           (torch.float32, torch.bfloat16), dev)
+    _check_stack(state_stack, dev)
     _check("params8", params8, (8, H, N), (torch.float32,), dev)
     ops = {"r": r, "lo_w": lo_w, "lo_a": lo_a, "lo_v": lo_v, "k": k, "v": v,
            "g": g, "v_first": v_first}
@@ -458,5 +478,6 @@ def wkv7_step_fused_(r, lo_w, lo_a, lo_v, k, v, g, v_first, params8,
             *(t.stride(0) for t in ops.values()),
             int(r.dtype == torch.bfloat16), params8.data_ptr(),
             state_stack.data_ptr(), int(state_stack.dtype == torch.bfloat16),
-            layer, out.data_ptr(), B, H, float(notfirst), float(gn_eps))
+            layer, state_stack.stride(0), out.data_ptr(), B, H,
+            float(notfirst), float(gn_eps))
     return out

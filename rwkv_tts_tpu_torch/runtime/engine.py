@@ -318,3 +318,24 @@ class TtsEngine:
 
     def generate(self, args: TtsArgs) -> GenerationResult:
         return self.generate_batch([args])[0]
+
+    def generate_speaker_tokens(self, args: TtsArgs, seed: int) -> List[int]:
+        """32 speaker (global) tokens for a property set, from a text-free
+        prompt: the cached-speaker path's enrollment step
+        (``engine.py:575`` of the JAX package).
+
+        Prompt = props + TAG_2 + TAG_0 (the normal-mode assembly with the
+        text span empty), then the 32-token global stage at the stage seed
+        ``seed + 1000``. The tokens condition on the properties only, not
+        on a request's text, so one speaker identity serves many texts
+        through the zero-shot chain."""
+        props = convert_standard_properties_to_tokens(
+            args.age, args.gender, args.emotion, args.pitch, args.speed)
+        prompt = list(props) + [C.TTS_TAG_2, C.TTS_TAG_0]
+        state = rwkv7.init_state(self.cfg, 1, device=self.device)
+        logits, state = self.prefill([prompt], state)
+        glob, _, _ = global_stage(
+            self.params, state, logits,
+            self._keys([seed], C.GLOBAL_SEED_OFFSET), self.cfg)
+        self.counters["decode_steps"] += C.GLOBAL_TOKENS_SIZE
+        return [int(t) for t in glob[0].tolist()]

@@ -5,10 +5,12 @@ synthesis and zero-shot voice cloning. The voice chain resolves, in order,
 an enrolled ``voice_id`` of the voice store, direct reference tokens, and a
 reference audio file (wav2vec2 features + BiCodec encode, behind a
 file-checksum cache), else property tokens (``pipeline.py:186-252``).
+The chain's last opt-in rung is the cached speaker (``pipeline.py:234-273``):
+a property-controlled request reuses 32 speaker tokens cached by
+(properties, seed) and runs the zero-shot chain, skipping the global stage.
 ``synthesize_batch`` keeps the JAX pipeline's mode grouping, stage timings
-and RTF accounting (``pipeline.py:309-349``). The cached-speaker rung is not
-ported yet and raises ``NotImplementedError`` rather than doing something
-else.
+and RTF accounting (``pipeline.py:309-349``); ``assemble_result`` packages
+one continuous-engine generation the same way.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import collections
 import dataclasses
 import hashlib
 import logging
+import os
 import threading
 from typing import Dict, List, Optional, Sequence
 
@@ -57,8 +60,23 @@ class TtsPipeline:
                  w2v_cfg: Optional[Wav2Vec2Config] = None,
                  voice_store: Optional[VoiceStore] = None,
                  engine_cfg: EngineConfig = EngineConfig(), tokenizer=None,
-                 w2v_output_layers=wav2vec2.OUTPUT_LAYERS, device=None):
+                 w2v_output_layers=wav2vec2.OUTPUT_LAYERS, device=None,
+                 cached_speaker_default: bool = False,
+                 codec_dtype: Optional[str] = None,
+                 codec_conv_impl: Optional[str] = None):
+        """``codec_dtype`` sets the BiCodec compute policy
+        (``BiCodecConfig.dtype``) and casts the decode subtrees once, here;
+        ``codec_conv_impl`` sets the wave generator's conv backend
+        (``BiCodecConfig.conv_impl``), as the JAX pipeline's loader does
+        (``pipeline.py:164-178``)."""
         self.device = resolve_device(device)
+        if codec_dtype is not None:
+            bicodec_cfg = dataclasses.replace(bicodec_cfg, dtype=codec_dtype)
+            bicodec_params = bicodec.prepare_params(bicodec_params,
+                                                    bicodec_cfg)
+        if codec_conv_impl is not None:
+            bicodec_cfg = dataclasses.replace(bicodec_cfg,
+                                              conv_impl=codec_conv_impl)
         self.engine = TtsEngine(lm_params, lm_cfg, engine_cfg,
                                 tokenizer=tokenizer, device=self.device)
         self.bicodec_params = bicodec_params
@@ -71,13 +89,21 @@ class TtsPipeline:
         self._extract_cache = collections.OrderedDict()
         self._extract_cache_cap = 64
         self._extract_cache_lock = threading.Lock()
+        # cached-speaker path: speaker tokens by (properties, seed); off
+        # unless a request or this default asks for it
+        self.cached_speaker_default = cached_speaker_default
+        self._speaker_cache: Dict[tuple, List[int]] = {}
+        self._speaker_cache_lock = threading.Lock()
 
     def resolve_voice(self, args: TtsArgs) -> TtsArgs:
         """The voice chain (lightweight_tts_pipeline.rs:747-787): an
         enrolled voice_id, direct reference tokens, a reference audio file,
-        else property tokens. Every cloning rung forces seed 0, as the
-        reference does (dynamic_batch_manager.rs:435-441, 487-496); a rung
-        that fails falls down the chain instead of failing the batch."""
+        the cached speaker where asked for, else property tokens. Every
+        cloning rung forces seed 0, as the reference does
+        (dynamic_batch_manager.rs:435-441, 487-496); a rung that fails falls
+        down the chain instead of failing the batch. The cached-speaker
+        rung keeps the user's seed for the semantic stage, so different
+        seeds still vary the delivery."""
         if args.voice_id and self.voice_store is not None:
             try:
                 g, s, prompt = self.voice_store.get_voice_tokens(
@@ -108,10 +134,33 @@ class TtsPipeline:
                 return dataclasses.replace(
                     args, zero_shot=True, ref_global_tokens=g,
                     ref_semantic_tokens=s, seed=0)
-        if args.cached_speaker:
-            raise NotImplementedError(
-                "the cached-speaker path is not ported yet")
+        use_cached = (args.cached_speaker if args.cached_speaker is not None
+                      else self.cached_speaker_default)
+        if use_cached:
+            return dataclasses.replace(
+                args, zero_shot=True,
+                ref_global_tokens=self.get_cached_speaker(args),
+                ref_semantic_tokens=[])
         return dataclasses.replace(args, zero_shot=False)
+
+    def get_cached_speaker(self, args: TtsArgs) -> List[int]:
+        """Speaker tokens for (properties, seed), generated once and
+        cached. ``seed=None`` is its own key: one default voice for the
+        pipeline's lifetime, drawn once from OS entropy."""
+        key = (args.age, args.gender, args.emotion, args.pitch, args.speed,
+               args.seed)
+        with self._speaker_cache_lock:
+            hit = self._speaker_cache.get(key)
+        if hit is not None:
+            return list(hit)
+        seed = (int(args.seed) if args.seed is not None
+                else int.from_bytes(os.urandom(4), "little"))
+        toks = self.engine.generate_speaker_tokens(args, seed)
+        with self._speaker_cache_lock:
+            # a concurrent miss may have raced this one: the first writer
+            # wins, so every request with this key gets one speaker
+            hit = self._speaker_cache.setdefault(key, toks)
+        return list(hit)
 
     def extract_voice_tokens(self, audio_path: str):
         """Reference audio file → (global tokens, semantic tokens,
@@ -160,6 +209,19 @@ class TtsPipeline:
                 self.bicodec_params, g.global_tokens or [0] * 32,
                 g.semantic_tokens, self.bicodec_cfg)[0]
         return np.zeros(C.SAMPLE_RATE, np.float32)
+
+    def assemble_result(self, g: GenerationResult, wav: np.ndarray,
+                        timings_ms: Dict[str, float]) -> SynthesisResult:
+        """One continuous-engine generation packaged as ``synthesize_batch``
+        packages a static batch, with the same RTF accounting: serving wall
+        per second of audio that wall produced."""
+        total_s = sum(timings_ms.values()) / 1000.0
+        audio_s = len(wav) / C.SAMPLE_RATE
+        return SynthesisResult(
+            audio=wav, sample_rate=C.SAMPLE_RATE,
+            global_tokens=g.global_tokens,
+            semantic_tokens=g.semantic_tokens, timings_ms=dict(timings_ms),
+            rtf=(total_s / audio_s) if audio_s > 0 else 0.0)
 
     def synthesize_batch(self, requests: Sequence[TtsArgs]
                          ) -> List[SynthesisResult]:

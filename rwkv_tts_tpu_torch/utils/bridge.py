@@ -12,7 +12,9 @@ fused layout of ``fuse_params`` (``zrkv``, ``za``, ``lora2``), the int8
 ``quantize_rwkv_params`` (plain dicts, carried member by member) and its
 partial-quant ``blocks``, a tuple of segment dicts; every subtree of
 ``bicodec.init_params`` and the ``wav2vec2.init_params`` tree (a list of
-conv dicts and stacked ``[L, …]`` transformer layers).
+conv dicts and stacked ``[L, …]`` transformer layers); a BiCodec tree
+pre-cast by the JAX ``prepare_params`` (bf16 leaves keep their bits); and a
+JAX continuous engine's device state (``continuous_state``).
 """
 
 from __future__ import annotations
@@ -60,3 +62,20 @@ def bicodec_params(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
 def wav2vec2_params(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
     """``wav2vec2.init_params`` pytree → the port's parameter dict."""
     return _tree(tree, resolve_device(device))
+
+
+def continuous_state(state, logits, slots, device=None):
+    """A JAX ``ContinuousEngine``'s recurrent state, last logits and slot
+    dict (as numpy) → the port's ``(state, logits, slots)`` on ``device``:
+    integer slot fields widen to int64, and the uint32 threefry keys become
+    int64 words (``utils/threefry``)."""
+    dev = resolve_device(device)
+
+    def slot(a):
+        a = np.asarray(a)
+        if a.dtype != np.bool_:
+            a = a.astype(np.int64)
+        return to_tensor(a, dev)
+
+    return (_tree(dict(state), dev), to_tensor(logits, dev),
+            {k: slot(v) for k, v in slots.items()})

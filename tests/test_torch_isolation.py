@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: nothing under ``rwkv_tts_tpu_torch/`` and
 not ``chip_smoke.py`` imports JAX or the JAX package; the package imports
 with no JAX, no nvcc and no card; entry points refuse to run on the CPU
-unless asked; its own copies of host-only modules equal the originals."""
+unless asked, and a kernel wrapper never gives way to its plain version on
+another device; its own copies of host-only modules equal the originals."""
 
 import ast
 import dataclasses
@@ -80,10 +81,14 @@ def test_entry_points_refuse_the_cpu_without_asking(no_card):
     import numpy as np
 
     from rwkv_tts_tpu_torch.config import (BiCodecConfig, EngineConfig,
-                                           RwkvConfig, Wav2Vec2Config)
+                                           RwkvConfig, TtsArgs,
+                                           Wav2Vec2Config)
     from rwkv_tts_tpu_torch.models import bicodec, rwkv7, wav2vec2
+    from rwkv_tts_tpu_torch.ops.conv1d import conv1d
+    from rwkv_tts_tpu_torch.runtime.continuous import ContinuousEngine
     from rwkv_tts_tpu_torch.runtime.engine import TtsEngine
     from rwkv_tts_tpu_torch.runtime.pipeline import TtsPipeline
+    from rwkv_tts_tpu_torch.runtime.streaming import stream_synthesize
     from rwkv_tts_tpu_torch.utils import bridge
 
     cfg = RwkvConfig(n_layer=1, n_embd=64, vocab_size=300,
@@ -99,7 +104,16 @@ def test_entry_points_refuse_the_cpu_without_asking(no_card):
     wav = np.zeros((1, 4000), np.float32)
     for call in (lambda: TtsPipeline(lm, cfg, bc, bcfg),
                  lambda: TtsPipeline(lm, cfg, bc, bcfg, w2v, wcfg),
+                 lambda: TtsPipeline(lm, cfg, bc, bcfg,
+                                     codec_conv_impl="mxu_fused"),
                  lambda: TtsEngine(lm, cfg, EngineConfig()),
+                 lambda: ContinuousEngine(lm, cfg, EngineConfig()),
+                 lambda: ContinuousEngine(lm, cfg, EngineConfig(), slots=2,
+                                          buckets=()),
+                 lambda: next(stream_synthesize(
+                     ContinuousEngine(lm, cfg, EngineConfig()), bc, bcfg,
+                     TtsArgs(text="x"))),
+                 lambda: bridge.continuous_state({}, np.zeros(1), {}),
                  lambda: rwkv7.init_params(cfg),
                  lambda: rwkv7.init_state(cfg, 1),
                  lambda: rwkv7.make_serving_params(cfg),
@@ -114,6 +128,29 @@ def test_entry_points_refuse_the_cpu_without_asking(no_card):
                  lambda: bridge.wav2vec2_params({})):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
+
+
+def test_conv1d_has_no_quiet_fallback(no_card, tmp_path, monkeypatch):
+    """``conv1d`` picks its path by where the tensors lie: the plain
+    version on the CPU, the kernel on a card. It refuses any other device
+    instead of computing somewhere else, and where the kernel cannot be
+    built (no nvcc) loading it raises instead of giving way to the plain
+    version."""
+    from rwkv_tts_tpu_torch.ops import _build
+    from rwkv_tts_tpu_torch.ops import conv1d as C
+
+    x, w = torch.zeros(1, 96, 32), torch.zeros(96, 96, 7)
+    assert C.conv1d(x, w, padding=3).shape == (1, 96, 32)
+    with pytest.raises(ValueError, match="unsupported device"):
+        C.conv1d(x.to("meta"), w.to("meta"), padding=3)
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(C, "_fn", None)
+    if not os.path.exists("/usr/local/cuda/bin/nvcc"):
+        with pytest.raises(RuntimeError, match="nvcc"):
+            C._kernel()
 
 
 def test_chip_smoke_fails_without_a_card():
@@ -153,9 +190,36 @@ def test_config_copies_match_jax_package():
         mine = dataclasses.asdict(getattr(P, name)())
         theirs = dataclasses.asdict(getattr(J, name)())
         assert {k: v for k, v in theirs.items() if k in mine} == mine, name
-    assert dataclasses.asdict(P.BiCodecConfig.tiny()) == {
-        k: v for k, v in dataclasses.asdict(J.BiCodecConfig.tiny()).items()
-        if k != "conv_impl"}
+    assert dataclasses.asdict(P.BiCodecConfig.tiny()) == \
+        dataclasses.asdict(J.BiCodecConfig.tiny())
+    # the fields this slice reads are there, with the JAX defaults
+    assert P.BiCodecConfig().conv_impl == J.BiCodecConfig().conv_impl \
+        == "native"
+    assert P.TtsArgs().cached_speaker is J.TtsArgs().cached_speaker is None
+
+
+def test_metrics_copy_matches_jax_package():
+    """``utils/metrics`` is the port's own copy of the host-only histogram:
+    the same buckets, and the same exposition text for the same
+    observations (NaN and infinities dropped)."""
+    pytest.importorskip("jax")
+    from rwkv_tts_tpu.utils import metrics as J
+
+    from rwkv_tts_tpu_torch.utils import metrics as P
+    assert P.STAGE_BUCKETS == J.STAGE_BUCKETS
+    values = [0.0, 0.004, 0.01, 0.0100001, 0.3, 0.4, 1.7, 19.9, 20.0, 25.0,
+              float("nan"), float("inf"), -float("inf"), -1.0]
+    for buckets, help_text in ((P.STAGE_BUCKETS, "submit() to admission"),
+                               ((5.0, 0.5, 1.0), "")):
+        mine = P.Histogram("stage_seconds", buckets, help_text)
+        theirs = J.Histogram("stage_seconds", buckets, help_text)
+        assert mine.render() == theirs.render()
+        for v in values:
+            mine.observe(v)
+            theirs.observe(v)
+        assert mine.render() == theirs.render()
+        assert (mine.n, mine.total, mine.counts) == \
+            (theirs.n, theirs.total, theirs.counts)
 
 
 def test_property_tables_match_jax_package():

@@ -118,8 +118,12 @@ def test_voice_chain_rungs(pipe, caplog):
         ref = pipe.resolve_voice(TtsArgs(ref_audio_path="ref.wav", seed=4))
     assert not ref.zero_shot and ref.seed == 4
     assert "ref_audio_path" in caplog.text
-    with pytest.raises(NotImplementedError):
-        pipe.resolve_voice(TtsArgs(cached_speaker=True))
+    # the last opt-in rung: a cached speaker turns the request zero-shot
+    # and keeps its seed (tests/test_torch_cached_speaker.py)
+    cached = pipe.resolve_voice(TtsArgs(text="x", seed=4,
+                                        cached_speaker=True))
+    assert cached.zero_shot and cached.seed == 4
+    assert len(cached.ref_global_tokens) == 32
 
 
 def test_empty_generation_vocodes_one_second_of_silence(pipe):

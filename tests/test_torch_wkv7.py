@@ -219,7 +219,10 @@ def test_c_entry_point_matches_ctypes_signature(name):
     src = (_build.CSRC / f"{name}.cu").read_text()
     m = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", src)
     assert m, f"no extern \"C\" int {name}(...) in {name}.cu"
-    argtypes = {**W._ARGTYPES, "qmm4": Q._ARGTYPES, "qmm": Q._ARGTYPES}
+    from rwkv_tts_tpu_torch.ops import conv1d as C1
+
+    argtypes = {**W._ARGTYPES, "qmm4": Q._ARGTYPES, "qmm": Q._ARGTYPES,
+                "conv1d": C1._ARGTYPES}
     assert len(m.group(1).split(",")) == len(argtypes[name])
 
 
@@ -286,3 +289,29 @@ def test_card_wrapper_rejects_unsupported_dtype(cuda_card):
         W.wkv7_decode_(*x, torch.zeros(2, 2, 32, 64, 64, device="cuda",
                                        dtype=torch.float16), 0)
     assert W.LAUNCHES["wkv7_decode"] == 0
+
+
+def test_decode_on_a_slot_prefix_of_a_wider_stack():
+    """The continuous engine's bucketed block hands the decode wrapper the
+    first B slots of a wider stack, a view whose layers are each
+    contiguous: the same step as on a copy, the other slots untouched; a
+    stack whose layer blocks are not contiguous is refused."""
+    rng = np.random.default_rng(5)
+    L, B, H, N = 3, 4, 2, 64
+    full = torch.from_numpy(rng.standard_normal((L, 8, H, N, N))
+                            .astype(np.float32))
+    before = full.clone()
+    ins = [torch.from_numpy(rng.standard_normal((B, H, N)).astype(np.float32)
+                            * 0.1) for _ in range(6)]
+    ins[1] = -0.5 - ins[1].abs()
+    copy = full[:, :B].clone()
+    y_view = W.wkv7_decode_(*ins, full[:, :B], 1)
+    y_copy = W.wkv7_decode_(*ins, copy, 1)
+    assert torch.equal(y_view, y_copy)
+    assert torch.equal(full[:, :B], copy)
+    assert torch.equal(full[:, B:], before[:, B:])
+    assert torch.equal(full[0], before[0]) and torch.equal(full[2], before[2])
+    with pytest.raises(ValueError, match="contiguous"):
+        W.wkv7_decode_(*ins, full[:, ::2], 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        W.wkv7_decode_(*ins, full.transpose(3, 4)[:, :B], 1)
