@@ -8,10 +8,11 @@ Run from the root of a checkout on a machine with one CUDA card:
 Phases, each fatal on failure:
 
   build      compile every kernel of every path from ``csrc/`` with nvcc
-             for sm_90a, one process per source, all at once (seven);
+             for sm_90a, one process per source, all at once (eight);
   kernels    each kernel's wrapper against its plain PyTorch version on
-             the card, with stated tolerances; decode must leave the other
-             layers of the state stack untouched, also on the slot prefixes
+             the card, with stated tolerances; decode (B = 1, 8, 128) must
+             leave the other layers of the state stack untouched, also on
+             the slot prefixes
              ``stack[:, :2]`` and ``stack[:, :4]`` of an 8-slot stack (the
              views the streaming path's bucketed block hands it), where the
              other slots must stay untouched too; the WY prefill (kernel +
@@ -36,7 +37,34 @@ Phases, each fatal on failure:
              window's 25 calls timed as a whole; and the 25 calls of every
              other window length the streaming vocoder decodes (interior
              and flush window of each latency mode, lengths taken from
-             ``StreamingVocoder``) against the plain version;
+             ``StreamingVocoder``) against the plain version; then the
+             kernels off the serving paths: the out-of-place decode
+             (``wkv7_decode_out``) at B = 8 and 128, f32 and bf16 state, its
+             input state bit-unchanged and its bf16 state its own f32
+             update rounded once; the all-layer decode
+             (``wkv7_decode_layers_``) at B = 8 on a whole 8-slot stack and
+             on ``stack[:, :2]`` and ``stack[:, :4]``, and on a whole
+             128-slot stack (the tools' shape), f32 and bf16, bit-identical
+             to L launches of ``wkv7_decode_`` and within tolerance of the
+             plain version, the other slots untouched; the
+             sequential entry ``wkv7_seq`` at T = 64, 61, 256; the paired
+             phase A against ``wkv7_chunk_pair`` and, with the chunk
+             combine, against the scan at (B, T, L) = (8, 64, 4),
+             (8, 256, 16), (28, 64, 4), (32, 512, 32), masked tails; each
+             timed beside its plain version;
+  sweep     the prefill dispatch sweep at every (B, T) of the JAX package's
+             ``tools/tpu_smoke.py`` ((8, 64), (28, 256), (7, 16), (130, 64),
+             (32, 512), (128, 64), (3, 12)): ``wkv7_prefill`` and each
+             formulation that applies (sequential, WY + combine where
+             4 | T, pair + combine where ``prefill_chunk_for(T)`` is
+             defined) against the scan, each formulation timed; one table.
+             ``prefill_route`` is not changed;
+  tools     the three kernel-attribution tools
+             (``rwkv_tts_tpu_torch/tools``) at full width with few steps:
+             ``profile_stack_kernel`` (B = 128 and 8, bf16 state),
+             ``profile_step_pieces`` (B = 128 and 8) and
+             ``profile_prefill_pieces`` (B = 8, T = 64 and 256); their JSON
+             lines, and their launches as the ``tools`` path;
   goldens   the goldens model (2 layers × 128, weights rebuilt from the
              JAX package's seeded numpy stream) on the card must emit
              exactly the tokens of ``tests/goldens.json``;
@@ -89,7 +117,10 @@ Phases, each fatal on failure:
              printed.
 
 Prints the card's name and power limit early, a ``{"kernels": [...]}``
-line second to last and ``{"ok": true, "device": {...}}`` last. Exits
+line second to last (one entry per C entry point, ``replaces`` the list
+of TPU functions it stands for; every one of the 13 must appear, and
+every entry must have launched on some path) and ``{"ok": true,
+"device": {...}}`` last. Exits
 non-zero, printing no result line, when no card is present, when the
 package is missing, or when any phase fails.
 """
@@ -106,6 +137,7 @@ import time
 
 SEED = 20261016
 STREAM_SLOTS, STREAM_BUCKETS = 8, (2, 4)   # the streaming phase's engine
+TOOLS_BATCH = 128    # the attribution tools' decode batch besides 8
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12        # H100 SXM, f32 outside the tensor cores
 BF16_TC_FLOPS_PER_S = 989e12   # H100 SXM, dense bf16 on the tensor cores
@@ -135,41 +167,27 @@ def card_line() -> str:
 
 
 def cuda_ms(torch, fn, iters: int, warmup: int = 3) -> float:
-    """Mean device time of ``fn`` in ms, by CUDA events around ``iters``
-    calls after ``warmup`` calls."""
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    """Mean time per call of ``fn`` in ms, by CUDA events around ``iters``
+    calls after ``warmup`` calls (``rwkv_tts_tpu_torch.utils.timing``, the
+    attribution tools' yardstick)."""
+    from rwkv_tts_tpu_torch.utils.timing import event_ms
+    return event_ms(fn, iters, warmup)
 
 
 def device_ms(torch, fn, iters: int) -> float:
     """Device time per call of ``fn`` in ms: the summed duration of the
     CUDA kernels it ran, from ``torch.profiler`` (CUPTI), over ``iters``
-    calls after a warmup call. Unlike ``cuda_ms`` it excludes the idle gaps
-    while the host prepares the next launch. NaN when the profiler saw no
-    device activity."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = 0.0
-    for e in prof.key_averages():
-        if str(getattr(e, "device_type", "")).endswith("CUDA"):
-            us += getattr(e, "self_device_time_total", 0.0)
-    return us / iters / 1e3 if us > 0 else float("nan")
+    calls after a warmup call (``rwkv_tts_tpu_torch.utils.timing``). Unlike
+    ``cuda_ms`` it excludes the idle gaps while the host prepares the next
+    launch. Where the profiler saw no device activity it says so and
+    returns ``cuda_ms``."""
+    from rwkv_tts_tpu_torch.utils.timing import device_ms as profiled_ms
+    ms = profiled_ms(fn, iters)
+    if ms is None:
+        print("chip_smoke: the profiler saw no device time; reporting "
+              "CUDA-event time per call", flush=True)
+        return cuda_ms(torch, fn, iters)
+    return ms
 
 
 def rel_err(torch, got, want) -> float:
@@ -271,8 +289,7 @@ def check_wy(torch, W, B, T, H, N, gen, masked_tail):
     W.reset_launches()
     y, s = W.wkv7_prefill(*x, s0)
     torch.cuda.synchronize()
-    if W.LAUNCHES != {"wkv7_decode": 0, "wkv7_prefill": 0, "wkv7_wy": 1,
-                      "wkv7_step_fused": 0}:
+    if W.LAUNCHES != {**{k: 0 for k in W.LAUNCHES}, "wkv7_wy": 1}:
         fail(f"wy: B={B} T={T} launched {W.LAUNCHES}")
     errs = []
     for name, (y_ref, s_ref) in (
@@ -321,8 +338,9 @@ def wy_algorithm_flops(W, B, T, H, N, L):
 
 
 def phase_kernels(torch, W, lm_cfg):
-    """Correctness at B ∈ {1, 8} (decode, f32 and bf16 state),
-    T ∈ {64, 61} (sequential prefill) and (B, T) ∈ {(8, 256), (2, 1028)}
+    """Correctness at B ∈ {1, 8, 128} (decode, f32 and bf16 state; 128 is
+    the attribution tools' batch), T ∈ {64, 61} (sequential prefill) and
+    (B, T) ∈ {(8, 256), (2, 1028)}
     (WY prefill), then timing at the paths' shapes: decode at B = 8 on the
     full L-layer f32 stack (cycling the layers, as the decode step does, so
     no slab stays in L2), sequential prefill at B = 8, T = 64 over four
@@ -333,7 +351,7 @@ def phase_kernels(torch, W, lm_cfg):
     gen.manual_seed(SEED)
     H, N, L = lm_cfg.n_head, lm_cfg.head_size, lm_cfg.n_layer
     err = {"wkv7_decode": 0.0, "wkv7_prefill": 0.0, "wkv7_wy": 0.0}
-    for B in (1, 8):
+    for B in (1, 8, TOOLS_BATCH):
         for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
             e = check_decode(torch, W, B, H, N, 4, dtype, gen, tol)
             if B == 8 and dtype == torch.float32:
@@ -675,10 +693,6 @@ def timed(torch, name, kern, plain, library, n_k, n_p, b_ms, b_by, err,
     dev_ms, plain_dev_ms = device_ms(torch, kern, n_k), device_ms(torch,
                                                                   plain, n_p)
     lib_ms = device_ms(torch, library, n_k) if library else None
-    if dev_ms != dev_ms or plain_dev_ms != plain_dev_ms:   # NaN
-        print(f"kernels: {name}: the profiler saw no device time; "
-              "reporting CUDA-event times per call", flush=True)
-        dev_ms, plain_dev_ms = call_ms, plain_call_ms
     print(f"kernels: {name} at {shape}: device {dev_ms:.5f} ms, plain "
           f"{plain_dev_ms:.5f} ms, library "
           f"{'none' if lib_ms is None else f'{lib_ms:.5f} ms'}, bound "
@@ -688,6 +702,362 @@ def timed(torch, name, kern, plain, library, n_k, n_p, b_ms, b_by, err,
     return {"ms": dev_ms, "plain_ms": plain_dev_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": lib_ms, "call_ms": call_ms,
             "plain_call_ms": plain_call_ms, "max_abs_err": err}
+
+
+# --------------------------------------------------------------------------
+# the kernels off the serving paths: out-of-place and all-layer decode, the
+# per-(b, h) sequential prefill entry, the paired chunkwise phase A
+# --------------------------------------------------------------------------
+
+def check_decode_out(torch, W, B, H, N, dtype, gen):
+    """The out-of-place decode step against the plain version: y and the
+    f32 update within 1e-4 of the largest value; a bf16 state is the
+    kernel's own f32 update rounded once (bit for bit against the launch on
+    the same state held in f32), and within 2e-2 of the largest value of
+    the plain version's (the decode check's bf16 bound: an element whose
+    f32 update differs in its last bits may round the other way); the
+    input state bit-unchanged. Returns the max abs error of y and the f32
+    update."""
+    x = wkv_inputs(torch, (B, H, N), gen)
+    s_in = (0.1 * torch.randn((B, H, N, N), generator=gen,
+                              device="cuda")).to(dtype)
+    before = s_in.clone()
+    y, s = W.wkv7_decode_out(*x, s_in)
+    y32, s32 = W.wkv7_decode_out(*x, s_in.float())
+    y_ref, s_ref = W.wkv7_single(*x, s_in)
+    torch.cuda.synchronize()
+    what = f"decode_out B={B} {dtype}"
+    if not torch.equal(s_in, before):
+        fail(f"{what}: the input state changed")
+    if s.dtype != dtype or not (torch.equal(y, y32)
+                                and torch.equal(s, s32.to(dtype))):
+        fail(f"{what}: the stored state is not the f32 update rounded once")
+    e_y, e_s = rel_err(torch, y, y_ref), rel_err(torch, s32, s_ref)
+    if e_y > 1e-4 or e_s > 1e-4:
+        fail(f"{what}: rel err y {e_y:.3g}, f32 state {e_s:.3g} (tolerance "
+             "1e-4)")
+    note = ""
+    if dtype == torch.bfloat16:
+        e_b = rel_err(torch, s, s_ref)
+        if e_b > 2e-2:
+            fail(f"{what}: rel err stored state {e_b:.3g} against the plain "
+                 "version's f32 update (tolerance 2e-2)")
+        flips = int((s != s_ref.to(dtype)).sum())
+        note = (f", {e_b:.3g} from the plain update ({flips} of {s.numel()} "
+                f"elements round the other way from the plain version's)")
+    print(f"kernels: decode_out B={B} H={H} state={dtype}: rel err y "
+          f"{e_y:.3g}, f32 update {e_s:.3g}; stored state = own f32 update "
+          f"rounded, bit for bit{note}; input state unchanged", flush=True)
+    return max(float((y - y_ref).abs().max()),
+               float((s32 - s_ref).abs().max()))
+
+
+def check_decode_layers(torch, W, H, N, L, dtype, gen, slots=None,
+                        width=STREAM_SLOTS):
+    """All layers in one launch against L launches of ``wkv7_decode_`` on a
+    twin of a ``width``-slot stack, bit for bit (same body, same rounding),
+    on the whole stack or its slot prefix ``stack[:, :slots]``; the other
+    slots untouched; y within 1e-4 and the new state within ``tol`` (1e-4
+    f32, 2e-2 bf16, as ``check_decode``) of the largest value of the plain
+    version's. Returns the max abs error of y and the state against the
+    plain version."""
+    n = slots or width
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    full = (0.1 * torch.randn((L, width, H, N, N), generator=gen,
+                              device="cuda")).to(dtype)
+    before, twin = full.clone(), full.clone()
+    xs = wkv_inputs(torch, (L, n, H, N), gen)
+    y = W.wkv7_decode_layers_(*xs, full[:, :n])
+    y_each = torch.stack([W.wkv7_decode_(*(v[l] for v in xs), twin[:, :n], l)
+                          for l in range(L)])
+    torch.cuda.synchronize()
+    what = (f"decode_layers L={L} on {f'[:, :{slots}] of ' if slots else ''}"
+            f"{width} slots {dtype}")
+    if not (torch.equal(y, y_each) and torch.equal(full, twin)):
+        fail(f"{what}: differs from {L} launches of wkv7_decode_")
+    del y_each, twin
+    e_y = e_s = d_y = d_s = 0.0
+    for l in range(L):
+        y_ref, s_ref = W.wkv7_single(*(v[l] for v in xs), before[l, :n])
+        s_ref = s_ref.to(dtype)
+        e_y = max(e_y, rel_err(torch, y[l], y_ref))
+        e_s = max(e_s, rel_err(torch, full[l, :n], s_ref))
+        d_y = max(d_y, float((y[l] - y_ref).abs().max()))
+        d_s = max(d_s, float((full[l, :n].float() - s_ref.float()).abs()
+                             .max()))
+    if e_y > 1e-4 or e_s > tol:
+        fail(f"{what}: rel err y {e_y:.3g}, state {e_s:.3g} against the "
+             f"plain version (tolerance y 1e-4, state {tol})")
+    if not torch.equal(full[:, n:], before[:, n:]):
+        fail(f"{what}: slots from {n} up changed")
+    print(f"kernels: {what}: bit-identical to {L} per-layer launches, rel "
+          f"err y {e_y:.3g} state {e_s:.3g} against the plain version"
+          f"{', other slots untouched' if slots else ''}", flush=True)
+    return max(d_y, d_s)
+
+
+def check_seq(torch, W, B, T, H, N, gen, masked_tail):
+    x = wkv_inputs(torch, (B, T, H, N), gen, masked_tail)
+    s0 = 0.1 * torch.randn((B, H, N, N), generator=gen, device="cuda")
+    W.reset_launches()
+    y, s = W.wkv7_seq(*x, s0)
+    if W.LAUNCHES != {**{k: 0 for k in W.LAUNCHES}, "wkv7_seq": 1}:
+        fail(f"seq B={B} T={T} launched {W.LAUNCHES}")
+    y_ref, s_ref = W.wkv7_scan(*x, s0)
+    torch.cuda.synchronize()
+    e_y, e_s = rel_err(torch, y, y_ref), rel_err(torch, s, s_ref)
+    if e_y > 1e-4 or e_s > 1e-4:
+        fail(f"seq B={B} T={T}: rel err y {e_y:.3g}, state {e_s:.3g} "
+             "(tolerance 1e-4)")
+    print(f"kernels: seq (row 7's entry) B={B} T={T} (last {masked_tail} "
+          f"masked): rel err y {e_y:.3g} state {e_s:.3g}", flush=True)
+    return max(float((y - y_ref).abs().max()), float((s - s_ref).abs().max()))
+
+
+def check_pair(torch, W, B, T, H, N, L, gen, masked_tail):
+    """The paired phase A against its plain version (1e-4 of each output's
+    largest value: same algorithm, other summation order), and phase A +
+    the chunk combine against the scan (5e-4, the TPU smoke's bound), which
+    a P with its decay on the wrong index fails. Returns phase A's max abs
+    error."""
+    x = wkv_inputs(torch, (B, T, H, N), gen, masked_tail)
+    s0 = 0.1 * torch.randn((B, H, N, N), generator=gen, device="cuda")
+    M = B * (T // L)
+    got = W.wkv7_chunk_pair_phase_a(*x, L)
+    want = W.wkv7_chunk_pair(*(t.reshape(M, L, H, N) for t in x))
+    y, s = W.wkv7_chunked_fused(*x, s0, L)
+    y_ref, s_ref = W.wkv7_scan(*x, s0)
+    torch.cuda.synchronize()
+    e_a = [rel_err(torch, g, w) for g, w in zip(got, want)]
+    e_y, e_s = rel_err(torch, y, y_ref), rel_err(torch, s, s_ref)
+    if max(e_a) > 1e-4 or e_y > 5e-4 or e_s > 5e-4:
+        fail(f"pair B={B} T={T} L={L}: rel err phase A (y_loc, rho, s_loc, "
+             f"P) {e_a} (tolerance 1e-4), with the combine vs the scan y "
+             f"{e_y:.3g} state {e_s:.3g} (tolerance 5e-4)")
+    print(f"kernels: pair B={B} T={T} L={L} (last {masked_tail} masked): "
+          f"phase A (y_loc, rho, s_loc, P) rel err "
+          f"{', '.join(f'{e:.3g}' for e in e_a)}; with the combine vs the "
+          f"scan y {e_y:.3g} state {e_s:.3g}", flush=True)
+    return max(float((g - w).abs().max()) for g, w in zip(got, want))
+
+
+def pair_flops(B, T, H, N):
+    """f32 operations of the paired phase A, per position and head: the
+    state's update as the decode step's (S a, the update, S r: 9 N²) and
+    the transition's without the write (P a, the update, P r: 7 N²)."""
+    return 16 * B * T * H * N * N
+
+
+def phase_rest_kernels(torch, W, lm_cfg):
+    """Correctness of the kernels off the serving paths: the out-of-place
+    decode at B ∈ {8, 128} with f32 and bf16 state; the all-layer decode at
+    B = 8 on the whole stack and on the slot prefixes [:, :2] and [:, :4],
+    and at B = 128 on the whole stack (f32 and bf16 state);
+    the sequential entry at T ∈ {64, 61, 256}; the paired phase A at (B, T,
+    L) ∈ {(8, 64, 4), (8, 256, 16), (28, 64, 4), (32, 512, 32)}. Then
+    timing at the paths' shapes beside the plain versions: decode_out at
+    B = 8 cycling the L layers of an f32 stack, decode_layers over the same
+    stack (one launch per step), seq at B = 8, T = 64, the pair at the
+    cloning prompt's B = 8, T = 256, L = 16."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 11)
+    H, N, L = lm_cfg.n_head, lm_cfg.head_size, lm_cfg.n_layer
+    err = {"wkv7_decode_out": 0.0, "wkv7_decode_layers": 0.0,
+           "wkv7_seq": 0.0, "wkv7_chunk_pair": 0.0}
+    for B in (8, 128):
+        for dtype in (torch.float32, torch.bfloat16):
+            e = check_decode_out(torch, W, B, H, N, dtype, gen)
+            if B == 8 and dtype == torch.float32:
+                err["wkv7_decode_out"] = e
+    for slots in (None,) + STREAM_BUCKETS:
+        for dtype in (torch.float32, torch.bfloat16):
+            e = check_decode_layers(torch, W, H, N, L, dtype, gen, slots)
+            if dtype == torch.float32:
+                err["wkv7_decode_layers"] = max(err["wkv7_decode_layers"], e)
+    # the attribution tools' shape: the whole 128-slot stack
+    for dtype in (torch.float32, torch.bfloat16):
+        e = check_decode_layers(torch, W, H, N, L, dtype, gen,
+                                width=TOOLS_BATCH)
+        if dtype == torch.float32:
+            err["wkv7_decode_layers"] = max(err["wkv7_decode_layers"], e)
+        torch.cuda.empty_cache()
+    for T, tail in ((64, 5), (61, 0), (256, 37)):
+        e = check_seq(torch, W, 8, T, H, N, gen, tail)
+        if T == 64:
+            err["wkv7_seq"] = e
+    for B, T, Lc, tail in ((8, 64, 4, 5), (8, 256, 16, 37), (28, 64, 4, 9),
+                           (32, 512, 32, 77)):
+        e = check_pair(torch, W, B, T, H, N, Lc, gen, tail)
+        if T == 256:
+            err["wkv7_chunk_pair"] = e
+    torch.cuda.empty_cache()
+
+    B = 8
+    it = {"i": 0}
+    ins = wkv_inputs(torch, (B, H, N), gen)
+    stack = torch.zeros((L, B, H, N, N), device="cuda")
+    ins_l = wkv_inputs(torch, (L, B, H, N), gen)
+
+    def out_kernel():
+        W.wkv7_decode_out(*ins, stack[it["i"] % L])
+        it["i"] += 1
+
+    def out_plain():
+        W.wkv7_single(*ins, stack[it["i"] % L])
+        it["i"] += 1
+
+    def layers_plain():
+        for l in range(L):
+            _, s = W.wkv7_single(*(v[l] for v in ins_l), stack[l])
+            stack[l].copy_(s)
+
+    T = 64
+    sets = [(wkv_inputs(torch, (B, T, H, N), gen),
+             torch.zeros((B, H, N, N), device="cuda")) for _ in range(4)]
+
+    def pre(fn):
+        def run():
+            x, s0 = sets[it["i"] % 4]
+            fn(*x, s0)
+            it["i"] += 1
+        return run
+
+    Tp, Lp = 256, 16
+    pair_sets = [wkv_inputs(torch, (B, Tp, H, N), gen) for _ in range(2)]
+    Mp = B * (Tp // Lp)
+
+    def pair(fn):
+        def run():
+            fn(pair_sets[it["i"] % 2])
+            it["i"] += 1
+        return run
+
+    slab, vec = B * H * N * N * 4, B * H * N * 4
+    seq, seq_p = B * T * H * N * 4, B * Tp * H * N * 4
+    cases = {
+        "wkv7_decode_out": (out_kernel, out_plain, 10 * L, 2 * L,
+                            bound(2 * slab + 7 * vec, 9 * B * H * N * N),
+                            f"B={B}, f32 state"),
+        "wkv7_decode_layers": (
+            lambda: W.wkv7_decode_layers_(*ins_l, stack), layers_plain, 20, 2,
+            bound(L * (2 * slab + 7 * vec), 9 * L * B * H * N * N),
+            f"B={B}, all {L} layers of an f32 stack in one launch"),
+        "wkv7_seq": (pre(W.wkv7_seq), pre(W.wkv7_scan), 40, 4,
+                     bound(7 * seq + 2 * slab, 9 * B * T * H * N * N),
+                     f"B={B}, T={T}"),
+        "wkv7_chunk_pair": (
+            pair(lambda x: W.wkv7_chunk_pair_phase_a(*x, Lp)),
+            pair(lambda x: W.wkv7_chunk_pair(
+                *(t.reshape(Mp, Lp, H, N) for t in x))), 20, 2,
+            bound(8 * seq_p + 2 * Mp * H * N * N * 4,
+                  pair_flops(B, Tp, H, N)),
+            f"B={B}, T={Tp}, L={Lp} (phase A alone)"),
+    }
+    out = {}
+    for name, (kern, plain, n_k, n_p, (b_ms, b_by), shape) in cases.items():
+        out[name] = timed(torch, name, kern, plain, None, n_k, n_p, b_ms,
+                          b_by, err[name], shape)
+    return out
+
+
+# every (B, T) of the TPU smoke's prefill dispatch sweep (tools/tpu_smoke.py)
+SWEEP = ((8, 64), (28, 256), (7, 16), (130, 64), (32, 512), (128, 64),
+         (3, 12))
+
+
+def prefill_sweep(torch, W, H, N):
+    """D1's measured sweep: at each (B, T), ``wkv7_prefill`` (the route
+    ``prefill_route`` picks) against the scan, and every exact formulation
+    that applies timed on the same inputs (device time per layer): the
+    sequential kernel, the WY route (phase A at ``wy_chunk_for(T)`` + the
+    combine) where 4 | T, the pair route (paired phase A at
+    ``prefill_chunk_for(T)`` + the combine) where that is defined, each
+    also held against the scan. The dispatch rule is not changed."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 13)
+    rows = []
+    for B, T in SWEEP:
+        x = wkv_inputs(torch, (B, T, H, N), gen)
+        s0 = 0.1 * torch.randn((B, H, N, N), generator=gen, device="cuda")
+        y_ref, s_ref = W.wkv7_scan(*x, s0)
+        route = W.prefill_route(B, T)
+        Lw, Lp = W.wy_chunk_for(T), W.prefill_chunk_for(T)
+
+        def wy_route():
+            y_loc, rho, s_loc, P = W.wkv7_wy_phase_a(*x, Lw)
+            return W._chunk_combine(s0, y_loc, rho, s_loc, P, B, T, Lw, H, N)
+
+        forms = {"dispatch": (lambda: W.wkv7_prefill(*x, s0),
+                              3e-4 if route == "wy" else 1e-4),
+                 "seq": (lambda: W.wkv7_seq(*x, s0), 1e-4)}
+        if Lw is not None:
+            forms["wy"] = (wy_route, 3e-4)
+        if Lp is not None:
+            forms["pair"] = (lambda: W.wkv7_chunked_fused(*x, s0, Lp), 5e-4)
+        row = {"B": B, "T": T, "route": route, "wy_chunk": Lw,
+               "pair_chunk": Lp}
+        for name, (fn, tol) in forms.items():
+            y, s = fn()
+            torch.cuda.synchronize()
+            e = max(rel_err(torch, y, y_ref), rel_err(torch, s, s_ref))
+            if e > tol:
+                fail(f"prefill sweep B={B} T={T} {name}: rel err {e:.3g} "
+                     f"against the scan (tolerance {tol})")
+            row[f"{name}_err"] = e
+            if name != "dispatch":
+                row[f"{name}_ms"] = device_ms(torch, fn, 5)
+        del x, y_ref, s_ref
+        torch.cuda.empty_cache()
+        times = {k[:-3]: v for k, v in row.items() if k.endswith("_ms")}
+        row["fastest"] = min(times, key=times.get)
+        rows.append(row)
+
+    def ms(row, k):
+        return f"{row[k]:.5f}" if k in row else "—"
+
+    print("prefill sweep (device ms per layer, each formulation held against "
+          "the scan; the dispatch route in force is the TPU's rule):\n"
+          "  B    T    route  wy L  pair L  seq ms    wy ms     pair ms   "
+          "fastest  dispatch rel err", flush=True)
+    for r in rows:
+        print(f"  {r['B']:<4} {r['T']:<4} {r['route']:<6} "
+              f"{str(r['wy_chunk']):<5} {str(r['pair_chunk']):<7} "
+              f"{ms(r, 'seq_ms'):<9} {ms(r, 'wy_ms'):<9} "
+              f"{ms(r, 'pair_ms'):<9} {r['fastest']:<8} "
+              f"{r['dispatch_err']:.3g}", flush=True)
+    print(f"prefill sweep: {json.dumps(rows)}", flush=True)
+    return rows
+
+
+def phase_tools(torch):
+    """The three kernel-attribution tools on the card at their full-width
+    shapes, with few steps: their JSON lines, and the launches they made
+    (the ``tools`` path). Each entry that only this path reaches, and the
+    in-place decode the tools compare with, must have launched."""
+    from rwkv_tts_tpu_torch.tools import (profile_prefill_pieces,
+                                          profile_stack_kernel,
+                                          profile_step_pieces)
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = {}
+    for name, mod, argv in (
+            ("profile_stack_kernel", profile_stack_kernel,
+             ["--steps", "4", "--iters", "1"]),
+            ("profile_step_pieces", profile_step_pieces,
+             ["--steps", "2", "--iters", "1"]),
+            ("profile_prefill_pieces", profile_prefill_pieces,
+             ["--iters", "1"])):
+        outs[name] = mod.main(argv, device="cuda")
+        torch.cuda.empty_cache()
+    launches = launch_counts()
+    for k in ("wkv7_decode_out", "wkv7_decode_layers", "wkv7_seq",
+              "wkv7_chunk_pair", "wkv7_decode"):
+        if not launches[k]:
+            fail(f"tools: {k} was not launched ({launches})")
+    print(f"tools: three tools in {time.perf_counter() - t0:.1f} s, launches "
+          f"{launches}", flush=True)
+    return outs, launches
 
 
 # --------------------------------------------------------------------------
@@ -1090,9 +1460,9 @@ def cloning(torch, lm_cfg, bc_cfg, w2v_cfg, device: str, max_tokens: int,
         T = max(len(pipe.engine.build_prompt(pipe.resolve_voice(r))[0])
                 for r in requests)
         L = lm_cfg.n_layer
-        want = {"wkv7_decode": L * counters["decode_steps"],
-                "wkv7_prefill": 0, "wkv7_wy": L * counters["prefill_chunks"],
-                "wkv7_step_fused": 0, "qmm4": 0, "qmm": 0, "conv1d": 0}
+        want = {**{k: 0 for k in launches},
+                "wkv7_decode": L * counters["decode_steps"],
+                "wkv7_wy": L * counters["prefill_chunks"]}
         if counters["prefill_chunks"] != 1:
             fail(f"cloning: {counters['prefill_chunks']} prefill chunks, "
                  "expected 1")
@@ -1184,10 +1554,10 @@ def quantized(torch, lm_cfg, bc_cfg, device: str, max_tokens: int,
                     0 <= t < 4096 for t in res.global_tokens) or not all(
                     0 <= t < 8192 for t in res.semantic_tokens):
                 fail(f"quantized fused: request {i}: bad tokens")
-        want = {"wkv7_decode": 0, "wkv7_step_fused": L * c["decode_steps"],
-                "wkv7_prefill": L * c["prefill_chunks"], "wkv7_wy": 0,
-                "qmm4": 0, "qmm": (4 * L + 1) * c["decode_steps"]
-                + c["prefill_chunks"], "conv1d": 0}
+        want = {**{k: 0 for k in launches},
+                "wkv7_step_fused": L * c["decode_steps"],
+                "wkv7_prefill": L * c["prefill_chunks"],
+                "qmm": (4 * L + 1) * c["decode_steps"] + c["prefill_chunks"]}
         if device == "cuda" and launches != want:
             fail(f"quantized fused: launches {launches}, expected {want} "
                  f"(counters {c})")
@@ -2215,6 +2585,46 @@ def streaming(torch, lm_cfg, bc_cfg, device: str, engine_cfg=None,
             "conv_per_window": n_conv}
 
 
+# every function of the JAX package that reaches pl.pallas_call (the
+# table in PERF.md), by file:line of its definition
+TPU_FUNCTIONS = (
+    "rwkv_tts_tpu/ops/wkv7.py:372", "rwkv_tts_tpu/ops/wkv7.py:483",
+    "rwkv_tts_tpu/ops/wkv7.py:1329", "rwkv_tts_tpu/ops/wkv7.py:1120",
+    "rwkv_tts_tpu/ops/wkv7.py:306", "rwkv_tts_tpu/ops/wkv7.py:206",
+    "rwkv_tts_tpu/ops/wkv7.py:103", "rwkv_tts_tpu/ops/wkv7.py:755",
+    "rwkv_tts_tpu/ops/wkv7.py:851", "rwkv_tts_tpu/ops/quant.py:296",
+    "rwkv_tts_tpu/ops/quant.py:367", "rwkv_tts_tpu/ops/conv1d.py:112",
+    "tools/profile_stack_kernel.py:115")
+
+# each C entry point of the port: its source, its wrapper, the TPU
+# functions it stands for
+_CSRC = "rwkv_tts_tpu_torch/csrc/"
+KERNEL_ENTRIES = {
+    "wkv7_decode": (_CSRC + "wkv7_decode.cu", "ops.wkv7.wkv7_decode_",
+                    TPU_FUNCTIONS[:1]),
+    "wkv7_decode_out": (_CSRC + "wkv7_decode.cu",
+                        "ops.wkv7.wkv7_decode_out", TPU_FUNCTIONS[4:6]),
+    "wkv7_decode_layers": (_CSRC + "wkv7_decode.cu",
+                           "ops.wkv7.wkv7_decode_layers_",
+                           TPU_FUNCTIONS[12:13]),
+    "wkv7_prefill": (_CSRC + "wkv7_prefill.cu", "ops.wkv7.wkv7_prefill",
+                     TPU_FUNCTIONS[1:3]),
+    "wkv7_seq": (_CSRC + "wkv7_prefill.cu", "ops.wkv7.wkv7_seq",
+                 TPU_FUNCTIONS[6:7]),
+    "wkv7_wy": (_CSRC + "wkv7_wy.cu", "ops.wkv7.wkv7_wy_phase_a",
+                TPU_FUNCTIONS[3:4]),
+    "wkv7_chunk_pair": (_CSRC + "wkv7_chunk_pair.cu",
+                        "ops.wkv7.wkv7_chunk_pair_phase_a",
+                        TPU_FUNCTIONS[8:9]),
+    "wkv7_step_fused": (_CSRC + "wkv7_step_fused.cu",
+                        "ops.wkv7.wkv7_step_fused_", TPU_FUNCTIONS[7:8]),
+    "qmm4": (_CSRC + "qmm4.cu", "ops.quant.qmm4", TPU_FUNCTIONS[9:10]),
+    "qmm": (_CSRC + "qmm.cu", "ops.quant.qmm", TPU_FUNCTIONS[10:11]),
+    "conv1d": (_CSRC + "conv1d.cu", "ops.conv1d.conv1d",
+               TPU_FUNCTIONS[11:12]),
+}
+
+
 def main() -> None:
     root = os.path.dirname(os.path.abspath(__file__))
     import torch
@@ -2260,6 +2670,17 @@ def main() -> None:
     stats.update(phase_quant_kernels(torch, W, Q, lm_cfg))
     stats.update(phase_conv_kernels(torch, C1, bc_cfg))
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    stats.update(phase_rest_kernels(torch, W, lm_cfg))
+    torch.cuda.empty_cache()
+    print(f"kernels: the kernels off the serving paths in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    prefill_sweep(torch, W, lm_cfg.n_head, lm_cfg.head_size)
+    torch.cuda.empty_cache()
+    print(f"sweep: {time.perf_counter() - t0:.1f} s; {card}", flush=True)
+    _, tool_launches = phase_tools(torch)
+    print(f"tools: {card}", flush=True)
     phase_goldens(root)
 
     out = main_path(torch, lm_cfg, bc_cfg, "cuda", max_tokens=48)
@@ -2418,36 +2839,25 @@ def main() -> None:
           f"weights: {st['bf16_blocks']} (reported); {card}", flush=True)
 
     paths = {"main_path": out["launches"], "cloning": clone_launches,
-             "quantized": quant["launches"], "streaming": st["launches"]}
-    sources = {"wkv7_decode": ("rwkv_tts_tpu_torch/csrc/wkv7_decode.cu",
-                               "rwkv_tts_tpu/ops/wkv7.py:372"),
-               "wkv7_prefill": ("rwkv_tts_tpu_torch/csrc/wkv7_prefill.cu",
-                                "rwkv_tts_tpu/ops/wkv7.py:483"),
-               "wkv7_wy": ("rwkv_tts_tpu_torch/csrc/wkv7_wy.cu",
-                           "rwkv_tts_tpu/ops/wkv7.py:1120"),
-               "wkv7_step_fused": (
-                   "rwkv_tts_tpu_torch/csrc/wkv7_step_fused.cu",
-                   "rwkv_tts_tpu/ops/wkv7.py:755"),
-               "qmm4": ("rwkv_tts_tpu_torch/csrc/qmm4.cu",
-                        "rwkv_tts_tpu/ops/quant.py:296"),
-               "qmm": ("rwkv_tts_tpu_torch/csrc/qmm.cu",
-                       "rwkv_tts_tpu/ops/quant.py:367"),
-               "conv1d": ("rwkv_tts_tpu_torch/csrc/conv1d.cu",
-                          "rwkv_tts_tpu/ops/conv1d.py:112")}
+             "quantized": quant["launches"], "streaming": st["launches"],
+             "tools": tool_launches}
     kernels = []
-    for name, (src, replaces) in sources.items():
+    for name, (src, wrapper, replaces) in KERNEL_ENTRIES.items():
         s = stats[name]
         by_path = {p: n[name] for p, n in paths.items()}
         if not any(by_path.values()):
             fail(f"{name} was launched on no path: {by_path}")
         kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces,
+                        "wrapper": wrapper, "replaces": list(replaces),
                         "launches": sum(by_path.values()),
                         "launches_by_path": by_path,
                         "max_abs_err": s["max_abs_err"], "ms": s["ms"],
                         "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                         "bound_by": s["bound_by"],
                         "library_ms": s.get("library_ms")})
+    missing = set(TPU_FUNCTIONS) - {r for e in kernels for r in e["replaces"]}
+    if missing:
+        fail(f"TPU functions with no kernel in the kernels line: {missing}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,20 +1,30 @@
-// Decode WKV-7: one token step of one layer, in place on the state stack.
+// Decode WKV-7: one token step, three entry points around one body.
 //
-// Replaces the TPU kernel rwkv_tts_tpu/ops/wkv7.py:372 wkv7_single_bt_stack
-// (body _wkv7_single_bt_stack_kernel, :349). Per (batch b, head h), with the
-// N x N state S (S[i, j]: value channel i, key channel j):
+// Replaces the TPU kernels rwkv_tts_tpu/ops/wkv7.py:372 wkv7_single_bt_stack
+// (body _wkv7_single_bt_stack_kernel, :349; entry `wkv7_decode`), :206
+// wkv7_single_pallas and :306 wkv7_single_bt_pallas (bodies :174, :283; the
+// same function, out of place; entry `wkv7_decode_out`), and the profiling
+// tool's tools/profile_stack_kernel.py:115 merged_step_fn (all layers of a
+// step in one call; entry `wkv7_decode_layers`). Per (batch b, head h), with
+// the N x N state S (S[i, j]: value channel i, key channel j):
 //
 //     S <- S * diag(exp(-exp(w))) + (S a) b^T + v k^T,    y = S r
 //
 // The state is read in its storage dtype (float or bf16), the math runs in
 // f32, and the result is rounded once, at the store (round to nearest even,
-// as `s.astype(s_out_ref.dtype)` does in the TPU kernel).
+// as `s.astype(s_out_ref.dtype)` does in the TPU kernels).
 //
-// In place: the kernel addresses layer `layer` of the whole [L, B, H, N, N]
-// stack and rewrites only that slab. This keeps the property the TPU kernel
-// got from `input_output_aliases`: the rest of the stack is never read,
-// written or copied, so the state crosses device memory once each way per
-// layer per token.
+// `wkv7_decode`, in place: the kernel addresses layer `layer` of the whole
+// [L, B, H, N, N] stack and rewrites only that slab. This keeps the property
+// the TPU kernel got from `input_output_aliases`: the rest of the stack is
+// never read, written or copied, so the state crosses device memory once
+// each way per layer per token. `wkv7_decode_out` reads `state_in` and
+// writes a separate `state_out` (the per-layer TPU kernels' contract; the
+// port keeps the plain [B, H, N, N] layout for both TPU layouts).
+// `wkv7_decode_layers` runs every layer's tile of one step in one launch,
+// grid (B*H, L): legal only because its inputs drop the inter-layer
+// dependency, so it exists for measurement, and since every tile runs the
+// same body its result is bit-identical to L launches of `wkv7_decode`.
 //
 // Bound: bytes. A step moves the layer's state slab twice (read + write,
 // 2 * B*H*N*N*elem bytes) against ~9 flops per state element, far below the
@@ -50,17 +60,17 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// One (b, h) tile: reads `s_in` (all of a warp's values before any store),
+// writes `s_out`; the two may be the same tile (in place). `vec` is the
+// offset of the tile's N-vectors in the [.., N] inputs and y.
 template <typename S>
-__global__ void __launch_bounds__(kWarps * 32)
-wkv7_decode_kernel(const float* __restrict__ r, const float* __restrict__ w,
-                   const float* __restrict__ k, const float* __restrict__ v,
-                   const float* __restrict__ a, const float* __restrict__ b,
-                   S* __restrict__ slab, float* __restrict__ y) {
+__device__ __forceinline__ void decode_tile(
+    const float* __restrict__ r, const float* __restrict__ w,
+    const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ a, const float* __restrict__ b,
+    const S* s_in, S* s_out, float* __restrict__ y, long long vec) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  // (b, h) vector of the [B, H, N] inputs, and its N x N tile of the slab
-  const long long vec = static_cast<long long>(blockIdx.x) * kN;
-  S* tile = slab + vec * kN;
 
   const int j0 = lane, j1 = lane + 32;
   const float d0 = expf(-expf(w[vec + j0]));
@@ -74,8 +84,8 @@ wkv7_decode_kernel(const float* __restrict__ r, const float* __restrict__ w,
   float s0[kRows], s1[kRows];
 #pragma unroll
   for (int q = 0; q < kRows; ++q) {
-    s0[q] = load_f32(tile + (row0 + q) * kN + j0);
-    s1[q] = load_f32(tile + (row0 + q) * kN + j1);
+    s0[q] = load_f32(s_in + (row0 + q) * kN + j0);
+    s1[q] = load_f32(s_in + (row0 + q) * kN + j1);
   }
 #pragma unroll
   for (int q = 0; q < kRows; ++q) {
@@ -84,11 +94,56 @@ wkv7_decode_kernel(const float* __restrict__ r, const float* __restrict__ w,
     const float sa = warp_sum(s0[q] * a0 + s1[q] * a1);
     const float n0 = s0[q] * d0 + sa * b0 + vi * k0;
     const float n1 = s1[q] * d1 + sa * b1 + vi * k1;
-    store_f32(tile + i * kN + j0, n0);
-    store_f32(tile + i * kN + j1, n1);
+    store_f32(s_out + i * kN + j0, n0);
+    store_f32(s_out + i * kN + j1, n1);
     const float yi = warp_sum(n0 * r0 + n1 * r1);
     if (lane == 0) y[vec + i] = yi;
   }
+}
+
+// in place on one layer's slab: block x = b * H + h
+template <typename S>
+__global__ void __launch_bounds__(kWarps * 32)
+wkv7_decode_kernel(const float* __restrict__ r, const float* __restrict__ w,
+                   const float* __restrict__ k, const float* __restrict__ v,
+                   const float* __restrict__ a, const float* __restrict__ b,
+                   S* slab, float* __restrict__ y) {
+  const long long vec = static_cast<long long>(blockIdx.x) * kN;
+  S* tile = slab + vec * kN;
+  decode_tile<S>(r, w, k, v, a, b, tile, tile, y, vec);
+}
+
+// out of place: [B, H, N, N] in, [B, H, N, N] out
+template <typename S>
+__global__ void __launch_bounds__(kWarps * 32)
+wkv7_decode_out_kernel(const float* __restrict__ r,
+                       const float* __restrict__ w,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v,
+                       const float* __restrict__ a,
+                       const float* __restrict__ b,
+                       const S* __restrict__ s_in, S* __restrict__ s_out,
+                       float* __restrict__ y) {
+  const long long vec = static_cast<long long>(blockIdx.x) * kN;
+  decode_tile<S>(r, w, k, v, a, b, s_in + vec * kN, s_out + vec * kN, y,
+                 vec);
+}
+
+// every layer in place: block (b * H + h, layer); inputs and y [L, B, H, N]
+template <typename S>
+__global__ void __launch_bounds__(kWarps * 32)
+wkv7_decode_layers_kernel(const float* __restrict__ r,
+                          const float* __restrict__ w,
+                          const float* __restrict__ k,
+                          const float* __restrict__ v,
+                          const float* __restrict__ a,
+                          const float* __restrict__ b, S* stack,
+                          long long layer_stride, float* __restrict__ y) {
+  const long long bh = blockIdx.x;
+  const long long layer = blockIdx.y;
+  const long long vec = (layer * gridDim.x + bh) * kN;
+  S* tile = stack + layer * layer_stride + bh * kN * kN;
+  decode_tile<S>(r, w, k, v, a, b, tile, tile, y, vec);
 }
 
 }  // namespace
@@ -116,6 +171,55 @@ extern "C" int wkv7_decode(const float* r, const float* w, const float* k,
   } else {
     float* s = static_cast<float*>(state_stack) + layer * slab;
     wkv7_decode_kernel<float><<<grid, block, 0, st>>>(r, w, k, v, a, b, s, y);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// r, w, k, v, a, b, y: [B, H, 64] f32; state_in, state_out: [B, H, 64, 64],
+// both f32 (state_is_bf16 == 0) or both bf16, contiguous and distinct;
+// state_in is not written. Launches on `stream` of card `device` and
+// returns cudaGetLastError().
+extern "C" int wkv7_decode_out(const float* r, const float* w, const float* k,
+                               const float* v, const float* a, const float* b,
+                               float* y, const void* state_in, void* state_out,
+                               int state_is_bf16, int batch_heads, int device,
+                               void* stream) {
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  const dim3 grid(batch_heads), block(kWarps * 32);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (state_is_bf16) {
+    wkv7_decode_out_kernel<__nv_bfloat16><<<grid, block, 0, st>>>(
+        r, w, k, v, a, b, static_cast<const __nv_bfloat16*>(state_in),
+        static_cast<__nv_bfloat16*>(state_out), y);
+  } else {
+    wkv7_decode_out_kernel<float><<<grid, block, 0, st>>>(
+        r, w, k, v, a, b, static_cast<const float*>(state_in),
+        static_cast<float*>(state_out), y);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// r, w, k, v, a, b, y: [L, B, H, 64] f32, contiguous. state_stack: [L, B, H,
+// 64, 64] f32 or bf16 as for wkv7_decode, every layer updated in place.
+// Launches on `stream` of card `device` and returns cudaGetLastError().
+extern "C" int wkv7_decode_layers(const float* r, const float* w,
+                                  const float* k, const float* v,
+                                  const float* a, const float* b, float* y,
+                                  void* state_stack, int state_is_bf16,
+                                  int layers, long long layer_stride,
+                                  int batch_heads, int device, void* stream) {
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  const dim3 grid(batch_heads, layers), block(kWarps * 32);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (state_is_bf16) {
+    wkv7_decode_layers_kernel<__nv_bfloat16><<<grid, block, 0, st>>>(
+        r, w, k, v, a, b, static_cast<__nv_bfloat16*>(state_stack),
+        layer_stride, y);
+  } else {
+    wkv7_decode_layers_kernel<float><<<grid, block, 0, st>>>(
+        r, w, k, v, a, b, static_cast<float*>(state_stack), layer_stride, y);
   }
   return static_cast<int>(cudaGetLastError());
 }

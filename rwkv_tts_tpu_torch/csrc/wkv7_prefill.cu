@@ -1,9 +1,12 @@
 // Prefill WKV-7: the sequential recurrence over a whole prompt chunk.
 //
 // Replaces the TPU kernels rwkv_tts_tpu/ops/wkv7.py:483 wkv7_seq_bt_pallas
-// (body :450) and :1329 wkv7_pallas_packed (body :1278), and covers :103
-// wkv7_pallas (body :72): all three compute the function of the oracle
-// wkv7_scan (:42). Per (batch b, head h), for t = 0 .. T-1:
+// (body :450) and :1329 wkv7_pallas_packed (body :1278), both behind the
+// entry point `wkv7_prefill`, and :103 wkv7_pallas (body :72, one block per
+// (b, h) with the state resident, the design of this kernel) behind the
+// entry point `wkv7_seq`: all three compute the function of the oracle
+// wkv7_scan (:42), and both entry points launch the one kernel below, each
+// under its own launch count. Per (batch b, head h), for t = 0 .. T-1:
 //
 //     S <- S * diag(exp(-exp(w_t))) + (S a_t) b_t^T + v_t k_t^T,  y_t = S r_t
 //
@@ -128,4 +131,14 @@ extern "C" int wkv7_prefill(const float* r, const float* w, const float* k,
   wkv7_prefill_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
       r, w, k, v, a, b, state_in, y, state_out, T, H);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The same kernel and arguments as wkv7_prefill, launched through the entry
+// point that stands for rwkv_tts_tpu/ops/wkv7.py:103 wkv7_pallas.
+extern "C" int wkv7_seq(const float* r, const float* w, const float* k,
+                        const float* v, const float* a, const float* b,
+                        const float* state_in, float* y, float* state_out,
+                        int batch, int T, int H, int device, void* stream) {
+  return wkv7_prefill(r, w, k, v, a, b, state_in, y, state_out, batch, T, H,
+                      device, stream);
 }

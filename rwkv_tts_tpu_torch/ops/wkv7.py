@@ -9,12 +9,16 @@ channel j), ``a = -kk`` and ``b = kk * iclr``:
 ``wkv7_scan`` (prefill) and ``wkv7_single`` (decode) transcribe the JAX
 oracles ``rwkv_tts_tpu/ops/wkv7.py:42`` and ``:153``; ``wkv7_chunk_wy``,
 ``wkv7_chunked_wy`` and ``_chunk_combine`` transcribe its chunkwise WY
-prefill (``:957-1038``, ``:645-671``); ``wkv7_step_fused`` transcribes the
-fused decode step's kernel body (``:685-751``). The wrappers
-``wkv7_prefill``, ``wkv7_wy_phase_a``, ``wkv7_decode_`` and
-``wkv7_step_fused_`` check their arguments and then take the plain version
-for tensors on the CPU, or launch the CUDA kernel
-(``csrc/wkv7_prefill.cu``, ``csrc/wkv7_wy.cu``, ``csrc/wkv7_decode.cu``,
+prefill (``:957-1038``, ``:645-671``); ``wkv7_chunked``, ``wkv7_chunk_pair``
+and ``prefill_chunk_for`` its generic two-run chunkwise prefill and the
+paired phase A (``:610-642``, ``:804-847``, ``:1158-1186``);
+``wkv7_step_fused`` transcribes the fused decode step's kernel body
+(``:685-751``). The wrappers ``wkv7_prefill``, ``wkv7_seq``,
+``wkv7_wy_phase_a``, ``wkv7_chunk_pair_phase_a``, ``wkv7_decode_``,
+``wkv7_decode_out``, ``wkv7_decode_layers_`` and ``wkv7_step_fused_`` check
+their arguments and then take the plain version for tensors on the CPU, or
+launch the CUDA kernel (``csrc/wkv7_prefill.cu``, ``csrc/wkv7_wy.cu``,
+``csrc/wkv7_chunk_pair.cu``, ``csrc/wkv7_decode.cu``,
 ``csrc/wkv7_step_fused.cu``) for tensors on a card. On a card they launch
 or raise: there is no fallback.
 
@@ -24,7 +28,10 @@ kernel plus the PyTorch chunk combine for B < 128, 4 | T and B·T ≥ 2048,
 the sequential kernel otherwise. On the CPU it returns ``wkv7_scan``, as
 the JAX model does off the TPU.
 
-``LAUNCHES`` counts kernel launches per wrapper, and only those.
+``LAUNCHES`` counts kernel launches per C entry point, and only those:
+``wkv7_decode`` counts ``wkv7_decode_``, ``wkv7_decode_layers`` counts
+``wkv7_decode_layers_``, ``wkv7_chunk_pair`` counts
+``wkv7_chunk_pair_phase_a``; the others share their wrapper's name.
 """
 
 from __future__ import annotations
@@ -39,10 +46,15 @@ from . import _build
 __all__ = ["wkv7_scan", "wkv7_single", "wkv7_chunk_wy", "wkv7_chunked_wy",
            "wy_doublings", "wy_chunk_for", "prefill_route", "wkv7_prefill",
            "wkv7_wy_phase_a", "wkv7_decode_", "wkv7_step_fused",
-           "wkv7_step_fused_", "LAUNCHES", "reset_launches"]
+           "wkv7_step_fused_", "prefill_chunk_for", "wkv7_chunked",
+           "wkv7_chunk_pair", "wkv7_seq", "wkv7_chunk_pair_phase_a",
+           "wkv7_chunked_fused", "wkv7_decode_out", "wkv7_decode_layers_",
+           "LAUNCHES", "reset_launches"]
 
 LAUNCHES: Dict[str, int] = {"wkv7_decode": 0, "wkv7_prefill": 0,
-                            "wkv7_wy": 0, "wkv7_step_fused": 0}
+                            "wkv7_wy": 0, "wkv7_step_fused": 0,
+                            "wkv7_decode_out": 0, "wkv7_decode_layers": 0,
+                            "wkv7_seq": 0, "wkv7_chunk_pair": 0}
 
 HEAD_SIZE = 64   # the kernels' compiled N
 
@@ -53,8 +65,20 @@ _ARGTYPES = {
     "wkv7_decode": [_P] * 8 + [ctypes.c_int, ctypes.c_longlong,
                                ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                                _P],
+    # r, w, k, v, a, b, y, state_in, state_out, state_is_bf16, B·H, device,
+    # stream
+    "wkv7_decode_out": [_P] * 9 + [ctypes.c_int] * 3 + [_P],
+    # r, w, k, v, a, b, y, state_stack, state_is_bf16, L, layer stride, B·H,
+    # device, stream
+    "wkv7_decode_layers": [_P] * 8 + [ctypes.c_int, ctypes.c_int,
+                                      ctypes.c_longlong, ctypes.c_int,
+                                      ctypes.c_int, _P],
     # r, w, k, v, a, b, state_in, y, state_out, B, T, H, device, stream
     "wkv7_prefill": [_P] * 9 + [ctypes.c_int] * 4 + [_P],
+    "wkv7_seq": [_P] * 9 + [ctypes.c_int] * 4 + [_P],
+    # r, w, k, v, a, b, y_loc, rho, s_loc, P, M (chunks), L, H, device,
+    # stream
+    "wkv7_chunk_pair": [_P] * 10 + [ctypes.c_int] * 4 + [_P],
     # r, w, k, v, a, b, y_loc, rho, s_loc, P, B, T, H, L, device, stream
     "wkv7_wy": [_P] * 10 + [ctypes.c_int] * 5 + [_P],
     # r, lo_w, lo_a, lo_v, k, v, g, v_first, their 8 batch strides,
@@ -65,6 +89,10 @@ _ARGTYPES = {
        ctypes.c_longlong, _P, ctypes.c_int, ctypes.c_int, ctypes.c_float,
        ctypes.c_float, ctypes.c_int, _P],
 }
+
+# the source each C entry point is compiled from, where it is not its own
+LIBRARY = {"wkv7_decode_out": "wkv7_decode",
+           "wkv7_decode_layers": "wkv7_decode", "wkv7_seq": "wkv7_prefill"}
 
 # the TPU dispatch's lines (wkv7_prefill_tpu, rwkv_tts_tpu/ops/wkv7.py:1249,
 # :1262): the sequential kernel from this batch up, WY from these tokens up
@@ -81,7 +109,7 @@ def reset_launches() -> None:
 def _kernel(name: str):
     fn = _fns.get(name)
     if fn is None:
-        fn = getattr(_build.load(name), name)
+        fn = getattr(_build.load(LIBRARY.get(name, name)), name)
         fn.restype = ctypes.c_int
         fn.argtypes = _ARGTYPES[name]
         _fns[name] = fn
@@ -280,6 +308,82 @@ def wkv7_chunked_wy(r, w, k, v, a, b, state, chunk: int
 
 
 # --------------------------------------------------------------------------
+# chunkwise prefill by forward products: the generic two-run decomposition
+# and its paired phase A
+# --------------------------------------------------------------------------
+
+def prefill_chunk_for(T: int) -> Optional[int]:
+    """Chunk length of the paired prefill, a pure function of T: the
+    largest power of two L ≤ T/16 dividing T, at least 4 (so n_c ≈ 16 and
+    the combine's per-chunk [N, N] states stay bounded as T grows), or None
+    when 4 ∤ T or T ≤ 4. No cap at 64: P is formed by forward products
+    only, with no exp(−lw) factors to overflow."""
+    if T % 4 or T <= 4:
+        return None
+    L = 4
+    while L * 2 <= T // 16 and T % (L * 2) == 0:
+        L *= 2
+    return L
+
+
+def wkv7_chunked(r, w, k, v, a, b, state, chunk: int = 16, inner=None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunkwise-parallel WKV-7 in two runs of ``inner`` (``wkv7_scan`` by
+    default) over the [B·n_c, chunk, H, N] chunks; ``wkv7_scan``'s
+    contract. The local run starts each chunk from a zero state and gives
+    y_loc and s_loc; the transition run starts from the identity with zero
+    writes (k = v = 0), so its state is P = M_1…M_L and its output
+    ρ_τ = (M_1…M_τ) r_τ; ``_chunk_combine`` joins the chunks. Falls back
+    to ``inner`` on the whole sequence when ``chunk`` does not divide T or
+    T ≤ chunk."""
+    B, T, H, N = r.shape
+    if inner is None:
+        inner = wkv7_scan
+    if T % chunk or T <= chunk:
+        return inner(r, w, k, v, a, b, state)
+    L, n_c = chunk, T // chunk
+    f32, dev = torch.float32, r.device
+
+    def resh(x):
+        return x.float().reshape(B * n_c, L, H, N).contiguous()
+
+    zeros_s = torch.zeros((B * n_c, H, N, N), dtype=f32, device=dev)
+    eye_s = torch.eye(N, dtype=f32, device=dev).expand(
+        B * n_c, H, N, N).contiguous()
+    zeros_seq = torch.zeros((B * n_c, L, H, N), dtype=f32, device=dev)
+    r2, w2, a2, b2 = resh(r), resh(w), resh(a), resh(b)
+    y_loc, s_loc = inner(r2, w2, resh(k), resh(v), a2, b2, zeros_s)
+    rho, P = inner(r2, w2, zeros_seq, zeros_seq, a2, b2, eye_s)
+    return _chunk_combine(state, y_loc, rho, s_loc, P, B, T, L, H, N)
+
+
+def wkv7_chunk_pair(r, w, k, v, a, b):
+    """Both runs of ``wkv7_chunked``'s phase A in one pass over the L
+    positions of each chunk (``_wkv7_chunk_pair_bt_kernel``,
+    ``rwkv_tts_tpu/ops/wkv7.py:804``): inputs [M, L, H, N]; returns
+    (y_loc, rho [M, L, H, N] f32, s_loc, P [M, H, N, N] f32),
+    ``wkv7_chunk_wy``'s contract. S starts at zero, P at the identity; P
+    takes the state's update without the write, so its decay acts on the
+    key (column) index as the state's does."""
+    M, L, H, N = r.shape
+    decay = torch.exp(-torch.exp(w.float()))
+    r, k, v, a, b = (x.float() for x in (r, k, v, a, b))
+    s = torch.zeros((M, H, N, N), dtype=torch.float32, device=r.device)
+    p = torch.eye(N, dtype=torch.float32, device=r.device).expand(
+        M, H, N, N)
+    ys, rhos = [], []
+    for t in range(L):
+        d, b_t = decay[:, t, :, None, :], b[:, t, :, None, :]
+        sa = torch.einsum("bhij,bhj->bhi", s, a[:, t])
+        s = s * d + sa[..., None] * b_t + v[:, t, :, :, None] * k[:, t, :, None, :]
+        ys.append(torch.einsum("bhij,bhj->bhi", s, r[:, t]))
+        pa = torch.einsum("bhij,bhj->bhi", p, a[:, t])
+        p = p * d + pa[..., None] * b_t
+        rhos.append(torch.einsum("bhij,bhj->bhi", p, r[:, t]))
+    return torch.stack(ys, dim=1), torch.stack(rhos, dim=1), s, p
+
+
+# --------------------------------------------------------------------------
 # wrappers
 # --------------------------------------------------------------------------
 
@@ -358,6 +462,84 @@ def wkv7_decode_(r, w, k, v, a, b, state_stack, layer: int) -> torch.Tensor:
     return y
 
 
+def wkv7_decode_out(r, w, k, v, a, b, state
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One decode step of one layer, OUT OF PLACE.
+
+    r, w, k, v, a, b: [B, H, N] f32; state: [B, H, N, N] f32 or bf16, read
+    in its storage dtype and not modified. Returns (y [B, H, N] f32, new
+    state [B, H, N, N] in ``state.dtype``, rounded once after the f32
+    update). Counterpart of the TPU kernels ``rwkv_tts_tpu/ops/wkv7.py:206
+    wkv7_single_pallas`` and ``:306 wkv7_single_bt_pallas`` (the same
+    function on the batch-in-lanes layout; the port keeps [B, H, N, N])."""
+    if not isinstance(state, torch.Tensor) or state.dim() != 4:
+        raise ValueError("state must be a [B, H, N, N] tensor")
+    B, H, N, _ = state.shape
+    dev = state.device
+    _check("state", state, (B, H, N, N), (torch.float32, torch.bfloat16),
+           dev)
+    for name, t in zip("rwkvab", (r, w, k, v, a, b)):
+        _check(name, t, (B, H, N), (torch.float32,), dev)
+    _check_device(dev, N)
+    if dev.type == "cpu":
+        y, s = wkv7_single(r, w, k, v, a, b, state)
+        return y, s.to(state.dtype)
+    y = torch.empty_like(r)
+    s_out = torch.empty_like(state)
+    _launch("wkv7_decode_out", dev, r.data_ptr(), w.data_ptr(), k.data_ptr(),
+            v.data_ptr(), a.data_ptr(), b.data_ptr(), y.data_ptr(),
+            state.data_ptr(), s_out.data_ptr(),
+            int(state.dtype == torch.bfloat16), B * H)
+    return y, s_out
+
+
+def wkv7_decode_layers_(r, w, k, v, a, b, state_stack) -> torch.Tensor:
+    """One decode step of EVERY layer in one launch, in place on
+    ``state_stack``; for measurement only (no serving path calls it: layer
+    l + 1's inputs are projections of layer l's output).
+
+    r, w, k, v, a, b: [L, B, H, N] f32; state_stack: [L, B, H, N, N] f32 or
+    bf16, whole or a slot prefix ``stack[:, :B]`` (``_check_stack``). Each
+    layer gets ``wkv7_decode_``'s update with its own inputs, bit for bit.
+    Returns y [L, B, H, N] f32. Counterpart of the profiling tool's
+    ``tools/profile_stack_kernel.py:115 merged_step_fn``."""
+    if not isinstance(state_stack, torch.Tensor) or state_stack.dim() != 5:
+        raise ValueError("state_stack must be a [L, B, H, N, N] tensor")
+    L, B, H, N, _ = state_stack.shape
+    dev = state_stack.device
+    _check_stack(state_stack, dev)
+    for name, t in zip("rwkvab", (r, w, k, v, a, b)):
+        _check(name, t, (L, B, H, N), (torch.float32,), dev)
+    _check_device(dev, N)
+    if dev.type == "cpu":
+        return torch.stack([wkv7_decode_(r[l], w[l], k[l], v[l], a[l], b[l],
+                                         state_stack, l) for l in range(L)])
+    y = torch.empty_like(r)
+    _launch("wkv7_decode_layers", dev, r.data_ptr(), w.data_ptr(),
+            k.data_ptr(), v.data_ptr(), a.data_ptr(), b.data_ptr(),
+            y.data_ptr(), state_stack.data_ptr(),
+            int(state_stack.dtype == torch.bfloat16), L,
+            state_stack.stride(0), B * H)
+    return y
+
+
+def _check_sequence(r, w, k, v, a, b, state=None):
+    """Checks [B, T, H, N] f32 operands (and a [B, H, N, N] f32 state);
+    returns (B, T, H, N, device)."""
+    if not isinstance(r, torch.Tensor) or r.dim() != 4:
+        raise ValueError("r must be a [B, T, H, N] tensor")
+    B, T, H, N = r.shape
+    dev = r.device
+    for name, t in zip("rwkvab", (r, w, k, v, a, b)):
+        _check(name, t, (B, T, H, N), (torch.float32,), dev)
+    if state is not None:
+        _check("state", state, (B, H, N, N), (torch.float32,), dev)
+    if T < 1:
+        raise ValueError("prefill needs T >= 1")
+    _check_device(dev, N)
+    return B, T, H, N, dev
+
+
 def wkv7_prefill(r, w, k, v, a, b, state) -> Tuple[torch.Tensor, torch.Tensor]:
     """The prefill recurrence over T positions; ``wkv7_scan``'s contract.
 
@@ -367,16 +549,7 @@ def wkv7_prefill(r, w, k, v, a, b, state) -> Tuple[torch.Tensor, torch.Tensor]:
     ``rwkv_tts_tpu/ops/wkv7.py:1208 wkv7_prefill_tpu`` and its kernels
     ``:483 wkv7_seq_bt_pallas``, ``:1329 wkv7_pallas_packed`` and ``:1120
     wkv7_chunked_wy_pallas``; ``prefill_route`` picks one on a card."""
-    if not isinstance(r, torch.Tensor) or r.dim() != 4:
-        raise ValueError("r must be a [B, T, H, N] tensor")
-    B, T, H, N = r.shape
-    dev = r.device
-    for name, t in zip("rwkvab", (r, w, k, v, a, b)):
-        _check(name, t, (B, T, H, N), (torch.float32,), dev)
-    _check("state", state, (B, H, N, N), (torch.float32,), dev)
-    if T < 1:
-        raise ValueError("prefill needs T >= 1")
-    _check_device(dev, N)
+    B, T, H, N, dev = _check_sequence(r, w, k, v, a, b, state)
     if dev.type == "cpu":
         return wkv7_scan(r, w, k, v, a, b, state)
     if prefill_route(B, T) == "wy":
@@ -386,16 +559,67 @@ def wkv7_prefill(r, w, k, v, a, b, state) -> Tuple[torch.Tensor, torch.Tensor]:
     return _seq_prefill(r, w, k, v, a, b, state)
 
 
-def _seq_prefill(r, w, k, v, a, b, state):
-    """Launch ``csrc/wkv7_prefill.cu`` on arguments ``wkv7_prefill`` has
-    checked."""
+def wkv7_seq(r, w, k, v, a, b, state) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The sequential prefill kernel whatever ``prefill_route`` says;
+    ``wkv7_prefill``'s contract (any T, f32 state in and out). Counterpart
+    of the TPU kernel ``rwkv_tts_tpu/ops/wkv7.py:103 wkv7_pallas`` (one
+    block per (b, h), the state resident across the T walk, body ``:72``),
+    which is the function ``csrc/wkv7_prefill.cu`` computes: its entry
+    point ``wkv7_seq`` launches the same kernel under its own count."""
+    _, _, _, _, dev = _check_sequence(r, w, k, v, a, b, state)
+    if dev.type == "cpu":
+        return wkv7_scan(r, w, k, v, a, b, state)
+    return _seq_prefill(r, w, k, v, a, b, state, entry="wkv7_seq")
+
+
+def _seq_prefill(r, w, k, v, a, b, state, entry: str = "wkv7_prefill"):
+    """Launch ``csrc/wkv7_prefill.cu`` through ``entry`` on checked
+    arguments."""
     B, T, H, _ = r.shape
     y = torch.empty_like(r)
     s_out = torch.empty_like(state)
-    _launch("wkv7_prefill", r.device, r.data_ptr(), w.data_ptr(),
-            k.data_ptr(), v.data_ptr(), a.data_ptr(), b.data_ptr(),
-            state.data_ptr(), y.data_ptr(), s_out.data_ptr(), B, T, H)
+    _launch(entry, r.device, r.data_ptr(), w.data_ptr(), k.data_ptr(),
+            v.data_ptr(), a.data_ptr(), b.data_ptr(), state.data_ptr(),
+            y.data_ptr(), s_out.data_ptr(), B, T, H)
     return y, s_out
+
+
+def wkv7_chunk_pair_phase_a(r, w, k, v, a, b, chunk: int):
+    """The paired phase A of a [B, T, H, N] prompt cut into chunks of
+    ``chunk`` positions (any L ≥ 1 dividing T): returns (y_loc, rho
+    [B·n_c, chunk, H, N] f32, s_loc, P [B·n_c, H, N, N] f32),
+    ``wkv7_chunk_pair``'s function. Counterpart of the TPU kernel
+    ``rwkv_tts_tpu/ops/wkv7.py:851 wkv7_chunk_pair_bt_pallas`` (body
+    ``:804``); the card runs ``csrc/wkv7_chunk_pair.cu``."""
+    B, T, H, N, dev = _check_sequence(r, w, k, v, a, b)
+    L = int(chunk)
+    if L < 1 or T % L:
+        raise ValueError(f"chunk {chunk}: needs L >= 1 dividing T = {T}")
+    M = B * (T // L)
+    if dev.type == "cpu":
+        return wkv7_chunk_pair(*(x.reshape(M, L, H, N)
+                                 for x in (r, w, k, v, a, b)))
+    y_loc = torch.empty((M, L, H, N), dtype=torch.float32, device=dev)
+    rho = torch.empty_like(y_loc)
+    s_loc = torch.empty((M, H, N, N), dtype=torch.float32, device=dev)
+    P = torch.empty_like(s_loc)
+    _launch("wkv7_chunk_pair", dev, r.data_ptr(), w.data_ptr(), k.data_ptr(),
+            v.data_ptr(), a.data_ptr(), b.data_ptr(), y_loc.data_ptr(),
+            rho.data_ptr(), s_loc.data_ptr(), P.data_ptr(), M, L, H)
+    return y_loc, rho, s_loc, P
+
+
+def wkv7_chunked_fused(r, w, k, v, a, b, state, chunk: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunkwise-parallel WKV-7 with the paired phase A and the PyTorch
+    chunk combine; ``wkv7_scan``'s contract (f32 state, not modified).
+    ``chunk`` divides T. Counterpart of ``rwkv_tts_tpu/ops/wkv7.py:896
+    wkv7_chunked_fused``. No dispatch routes here: ``prefill_route`` keeps
+    the TPU's rule."""
+    B, T, H, N, _ = _check_sequence(r, w, k, v, a, b, state)
+    y_loc, rho, s_loc, P = wkv7_chunk_pair_phase_a(r, w, k, v, a, b, chunk)
+    return _chunk_combine(state, y_loc, rho, s_loc, P, B, T, int(chunk), H,
+                          N)
 
 
 def wkv7_wy_phase_a(r, w, k, v, a, b, chunk: int):
@@ -405,17 +629,11 @@ def wkv7_wy_phase_a(r, w, k, v, a, b, chunk: int):
     power of two in [4, 64] dividing T. Counterpart of the TPU kernel
     ``rwkv_tts_tpu/ops/wkv7.py:1120 wkv7_chunked_wy_pallas`` (phase A,
     body ``:1041``)."""
-    if not isinstance(r, torch.Tensor) or r.dim() != 4:
-        raise ValueError("r must be a [B, T, H, N] tensor")
-    B, T, H, N = r.shape
-    dev = r.device
-    for name, t in zip("rwkvab", (r, w, k, v, a, b)):
-        _check(name, t, (B, T, H, N), (torch.float32,), dev)
+    B, T, H, N, dev = _check_sequence(r, w, k, v, a, b)
     L = int(chunk)
     if not 4 <= L <= 64 or L & (L - 1) or T % L:
         raise ValueError(f"chunk {chunk}: needs a power of two in [4, 64] "
                          f"dividing T = {T}")
-    _check_device(dev, N)
     M = B * (T // L)
     if dev.type == "cpu":
         return wkv7_chunk_wy(*(x.reshape(M, L, H, N)

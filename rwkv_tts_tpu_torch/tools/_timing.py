@@ -1,0 +1,60 @@
+"""Timing shared by the attribution tools.
+
+On a card every piece gets two numbers from ``utils/timing.py``, the
+yardstick ``chip_smoke.py`` uses too: ``wall_ms``, CUDA events around a
+loop of calls (the time the card took, idle gaps while the host prepares
+the next launch included), and ``device_ms``, the summed duration of the
+CUDA kernels those calls ran (``torch.profiler``). In eager PyTorch the
+difference is host time. On the CPU ``wall_ms`` is the host clock and
+``device_ms`` is None: no device was measured.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable, Dict, Optional
+
+import torch
+
+from ..ops import wkv7 as W
+from ..utils.timing import device_ms, event_ms
+
+
+def timed(fn: Callable[[], object], iters: int, device: torch.device,
+          per: int = 1) -> Dict[str, Optional[float]]:
+    """ms of ``fn`` per call divided by ``per`` (the steps or layers one
+    call runs), after one warmup call."""
+    if device.type != "cuda":
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        return {"wall_ms": (time.perf_counter() - t0) * 1e3 / iters / per,
+                "device_ms": None}
+    wall = event_ms(fn, iters, warmup=1)
+    dev = device_ms(fn, iters, warmup=0)
+    return {"wall_ms": wall / per,
+            "device_ms": None if dev is None else dev / per}
+
+
+def minus(a: Dict[str, Optional[float]], b: Dict[str, Optional[float]]
+          ) -> Dict[str, Optional[float]]:
+    """a − b per key, None where either side is None."""
+    return {k: None if a[k] is None or b[k] is None else a[k] - b[k]
+            for k in a}
+
+
+def card_name(device: torch.device) -> str:
+    return (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else "cpu")
+
+
+class Launches:
+    """The WKV wrappers' launches while a tool runs (the counters are the
+    process's; this takes the difference)."""
+
+    def __init__(self):
+        self.before = dict(W.LAUNCHES)
+
+    def delta(self) -> Dict[str, int]:
+        return {k: v - self.before.get(k, 0) for k, v in W.LAUNCHES.items()}

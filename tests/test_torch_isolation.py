@@ -89,6 +89,9 @@ def test_entry_points_refuse_the_cpu_without_asking(no_card):
     from rwkv_tts_tpu_torch.runtime.engine import TtsEngine
     from rwkv_tts_tpu_torch.runtime.pipeline import TtsPipeline
     from rwkv_tts_tpu_torch.runtime.streaming import stream_synthesize
+    from rwkv_tts_tpu_torch.tools import (profile_prefill_pieces,
+                                          profile_stack_kernel,
+                                          profile_step_pieces)
     from rwkv_tts_tpu_torch.utils import bridge
 
     cfg = RwkvConfig(n_layer=1, n_embd=64, vocab_size=300,
@@ -125,7 +128,10 @@ def test_entry_points_refuse_the_cpu_without_asking(no_card):
                  lambda: wav2vec2.extract_features(w2v, wav, wcfg),
                  lambda: bridge.rwkv7_params({"blocks": {}}),
                  lambda: bridge.bicodec_params({}),
-                 lambda: bridge.wav2vec2_params({})):
+                 lambda: bridge.wav2vec2_params({}),
+                 lambda: profile_stack_kernel.main([]),
+                 lambda: profile_step_pieces.main([]),
+                 lambda: profile_prefill_pieces.main([])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
 

@@ -156,7 +156,9 @@ def test_cpu_wrappers_launch_nothing():
     W.wkv7_step_fused_(*[torch.zeros(1, 1, 64)] * 8, torch.zeros(8, 1, 64),
                        torch.zeros(2, 1, 1, 64, 64), 0, 0.0)
     assert W.LAUNCHES == {"wkv7_decode": 0, "wkv7_prefill": 0, "wkv7_wy": 0,
-                          "wkv7_step_fused": 0}
+                          "wkv7_step_fused": 0, "wkv7_decode_out": 0,
+                          "wkv7_decode_layers": 0, "wkv7_seq": 0,
+                          "wkv7_chunk_pair": 0}
 
 
 def _decode_args():
@@ -276,7 +278,9 @@ def test_kernel_wrappers_count_card_launches(cuda_card):
     W.wkv7_prefill(*[t(v).cuda() for v in inputs((2, 3, 32, 64), seed=19)],
                    torch.zeros(2, 32, 64, 64, device="cuda"))
     assert W.LAUNCHES == {"wkv7_decode": 1, "wkv7_prefill": 1, "wkv7_wy": 0,
-                          "wkv7_step_fused": 0}
+                          "wkv7_step_fused": 0, "wkv7_decode_out": 0,
+                          "wkv7_decode_layers": 0, "wkv7_seq": 0,
+                          "wkv7_chunk_pair": 0}
 
 
 @pytest.mark.cuda

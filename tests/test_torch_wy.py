@@ -207,7 +207,9 @@ def test_wy_prefill_route_on_card(cuda_card):
     y, s = W.wkv7_prefill(*x, s0)
     torch.cuda.synchronize()
     assert W.LAUNCHES == {"wkv7_decode": 0, "wkv7_prefill": 0, "wkv7_wy": 1,
-                          "wkv7_step_fused": 0}
+                          "wkv7_step_fused": 0, "wkv7_decode_out": 0,
+                          "wkv7_decode_layers": 0, "wkv7_seq": 0,
+                          "wkv7_chunk_pair": 0}
     y_ref, s_ref = W.wkv7_scan(*x, s0)
     assert (y - y_ref).abs().max() <= 3e-4 * y_ref.abs().max()
     assert (s - s_ref).abs().max() <= 3e-4 * s_ref.abs().max()
