@@ -3,7 +3,16 @@
 
 Run from the root of a checkout on a machine with one CUDA card:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                       # every phase
+    python3 chip_smoke.py --phases quant_kernels,quantized
+
+Without ``--phases`` every phase runs and the last line is the ok line.
+With it, the build runs and then only the named phases (``PHASES``: kernels,
+quant_kernels, conv_kernels, rest_kernels, sweep, tools, goldens,
+main_path, cloning, quantized, streaming), and the last line is
+``{"partial": [...]}``: a partial run never prints the ok line, and the
+all-kernels check of the kernels line runs only in a whole run. An unknown
+name fails.
 
 Phases, each fatal on failure:
 
@@ -21,14 +30,20 @@ Phases, each fatal on failure:
              plain version timed at its path's shapes (device time from
              torch.profiler, and CUDA events per call), and the sequential
              prefill kernel timed on the WY kernel's inputs beside it; then
-             the quantized path's kernels: qmm4 (int4) and qmm (int8)
-             against their plain versions at the decode products' shapes
-             (M = 8), the 8320-wide head slice read in place, qmm4 at
-             prefill rows M = 512 and 2048, qmm at zrkv's 4096 × 6144 (1e-5
-             relative); the fused decode step at B = 8, f32 and bf16 state,
+             the quantized path's kernels (phase ``quant_kernels``): qmm4
+             (int4) and qmm (int8) against their plain versions at the
+             decode products' shapes (M = 8), the 8320-wide head slice read
+             in place (qmm4 also at M = 512), qmm4 at prefill rows M = 512
+             and 2048, qmm at zrkv's 4096 × 6144 (1e-5 relative); qmm4 runs
+             one kernel per product (torch.profiler) and gives the same bits
+             from two launches (M = 8, 2048), and its M sweep (1 … 2048 at
+             2048 × 8192) holds each regime where it is legal against the
+             plain version and times it beside cuBLAS, with the crossover;
+             the fused decode step at B = 8, f32 and bf16 state,
              other layers untouched, and on the same slot prefixes; each timed beside its plain version
              and, for the GEMMs, cuBLAS bf16 on the weights dequantized
-             beforehand (the library column); then conv1d against its
+             beforehand (the library column; qmm4 at M = 512 and 2048 too);
+             then conv1d (phase ``conv_kernels``) against its
              plain version at the wave generator's full-width shapes of one
              exact-mode streaming window (widths 768, 384, 192, 96 at k = 7
              with dilation 1, 3, 9 and k = 1, and the 1024 -> 1536 input
@@ -51,7 +66,7 @@ Phases, each fatal on failure:
              phase A against ``wkv7_chunk_pair`` and, with the chunk
              combine, against the scan at (B, T, L) = (8, 64, 4),
              (8, 256, 16), (28, 64, 4), (32, 512, 32), masked tails; each
-             timed beside its plain version;
+             timed beside its plain version (phase ``rest_kernels``);
   sweep     the prefill dispatch sweep at every (B, T) of the JAX package's
              ``tools/tpu_smoke.py`` ((8, 64), (28, 256), (7, 16), (130, 64),
              (32, 512), (128, 64), (3, 12)): ``wkv7_prefill`` and each
@@ -90,7 +105,8 @@ Phases, each fatal on failure:
              (``torch._int_mm``) and int4 (qmm4 launched 6·L + 1 times per
              decode step and per prefill chunk), each with 8 property
              requests through ``synthesize_batch`` and one profiled decode
-             step; fused int8 with ``STEP_FUSED`` and ``USE_QMM_KERNEL`` on,
+             step (int4: with qmm4's device ms of it); fused int8 with
+             ``STEP_FUSED`` and ``USE_QMM_KERNEL`` on,
              8 requests through the engine (fused step L per decode step,
              qmm 4·L + 1 per step and 1 per prefill chunk) and one step held
              against the same step through the plain versions (5e-2);
@@ -489,24 +505,91 @@ def gemm_bytes(name, M, K, N):
     return M * K * 2 + w + M * N * 4
 
 
-def check_gemm(torch, Q, name, M, K, N, gen, wq=None, ws=None):
+def check_gemm(torch, Q, name, M, K, N, gen, wq=None, ws=None,
+               regime=None, tol=1e-5):
     """``name``'s kernel against its plain version on the card at
-    [M, K] × [K, N], bf16 activations: 1e-5 relative (the same bf16
-    operands, f32 sums in another order). Returns the max abs error."""
+    [M, K] × [K, N], bf16 activations: ``tol`` relative, 1e-5 by default
+    (the same bf16 operands, f32 sums in another order). ``regime`` forces
+    qmm4's decode or prefill regime (else ``qmm4_plan`` picks by M).
+    Returns the max abs error."""
     if wq is None:
         wq, ws = gemm_weight(torch, Q, name, K, N, gen)
     x = torch.randn((M, K), generator=gen, device="cuda").bfloat16()
-    kern, plain = ((Q.qmm4, Q.qmm4_plain) if name == "qmm4"
-                   else (Q.qmm, Q.qmm_plain))
-    got, want = kern(x, wq, ws), plain(x, wq, ws)
+    if name == "qmm4":
+        got = Q.qmm4(x, wq, ws, regime=regime)
+        want = Q.qmm4_plain(x, wq, ws)
+        regime = Q.qmm4_plan(M, K // 2, N, regime)["regime"]
+    else:
+        got, want = Q.qmm(x, wq, ws), Q.qmm_plain(x, wq, ws)
     torch.cuda.synchronize()
     e = rel_err(torch, got, want)
-    if e > 1e-5:
-        fail(f"{name} M={M} K={K} N={N}: rel err {e:.3g} (tolerance 1e-5)")
-    print(f"kernels: {name} M={M} K={K} N={N}"
-          f"{' (head slice, row stride %d)' % wq.stride(0) if wq.stride(0) != N else ''}"
-          f": rel err {e:.3g}", flush=True)
+    what = (f"{name}{f' {regime}' if regime else ''} M={M} K={K} N={N}"
+            f"{' (head slice, row stride %d)' % wq.stride(0) if wq.stride(0) != N else ''}")
+    if e > tol:
+        fail(f"{what}: rel err {e:.3g} (tolerance {tol:g})")
+    print(f"kernels: {what}: rel err {e:.3g}", flush=True)
     return float((got - want).abs().max())
+
+
+def kernel_names(torch, fn):
+    """The CUDA kernels one call of ``fn`` launches, by torch.profiler, in
+    order."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if str(getattr(e, "device_type", "")).endswith("CUDA")]
+
+
+# qmm4's M sweep at ffn_k's 2048 x 8192: each regime where it is legal
+# (decode M <= 64, prefill any M) beside cuBLAS on the dequantized weight
+QMM4_SWEEP_M = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 2048)
+
+
+def qmm4_sweep(torch, Q, C, gen):
+    """Every M of ``QMM4_SWEEP_M`` through each legal regime of qmm4,
+    held against ``qmm4_plain`` (1e-5 relative) and timed (device ms, 5
+    calls) beside cuBLAS bf16 on the weight dequantized beforehand; prints
+    one table and the crossover (the least M from which the prefill regime
+    is faster at every larger M of the sweep). Returns (rows, crossover,
+    max abs error)."""
+    wq, ws = gemm_weight(torch, Q, "qmm4", C, 4 * C, gen)
+    wd = Q.dequantize_tensor_int4({"q4p": wq, "s4": ws}, torch.bfloat16)
+    rows, err = [], 0.0
+    for M in QMM4_SWEEP_M:
+        x = torch.randn((M, C), generator=gen, device="cuda").bfloat16()
+        row = {"M": M, "plan": Q.qmm4_plan(M, C // 2, 4 * C)["regime"]}
+        for regime in ("decode", "prefill"):
+            if regime == "decode" and M > 64:
+                row[regime] = None
+                continue
+            err = max(err, check_gemm(torch, Q, "qmm4", M, C, 4 * C, gen, wq,
+                                      ws, regime))
+            row[regime] = device_ms(
+                torch, lambda: Q.qmm4(x, wq, ws, regime=regime), 5)
+        row["cublas"] = device_ms(torch, lambda: torch.matmul(x, wd), 5)
+        row["bound"] = bound(gemm_bytes("qmm4", M, C, 4 * C),
+                             2 * M * C * 4 * C, BF16_TC_FLOPS_PER_S)[0]
+        rows.append(row)
+    cross = None
+    for row in reversed(rows):
+        if row["decode"] is not None and row["decode"] <= row["prefill"]:
+            break
+        cross = row["M"]
+    print(f"kernels: qmm4 M sweep at K={C} N={4 * C} (device ms): M | "
+          f"plan | decode | prefill | cuBLAS bf16 | bound", flush=True)
+    for r in rows:
+        dec = "-" if r["decode"] is None else f"{r['decode']:.5f}"
+        print(f"kernels: qmm4 sweep {r['M']} | {r['plan']} | {dec} | "
+              f"{r['prefill']:.5f} | {r['cublas']:.5f} | {r['bound']:.5f}",
+              flush=True)
+    print(f"kernels: qmm4 crossover: the prefill regime is faster from M = "
+          f"{cross} (QMM4_DECODE_MAX_M = {Q.QMM4_DECODE_MAX_M})", flush=True)
+    return rows, cross, err
 
 
 def check_step_fused(torch, W, B, H, N, L, dtype, gen, tol, bucket=None):
@@ -573,13 +656,15 @@ def step_fused_inputs(torch, B, H, N, gen):
 def phase_quant_kernels(torch, W, Q, lm_cfg):
     """The three kernels of the quantized path against their plain
     versions (qmm4 at decode rows M = 8 for every int4 leaf shape, the
-    8320-wide head slice read in place, and prefill rows M = 512, 2048;
-    qmm at the same decode shapes and zrkv's 4096 × 6144; the fused step at
-    B = 8 with f32 and bf16 state), then timing at the path's shapes: one
-    layer's decode products at M = 8 (cycling weight sets larger than L2),
-    beside the plain versions and cuBLAS's bf16 product on the same weights
-    dequantized beforehand (the library column); the fused step at B = 8 on
-    the full f32 stack, cycling the layers."""
+    8320-wide head slice read in place at M = 8 and 512, and prefill rows
+    M = 512, 2048; qmm at the same decode shapes and zrkv's 4096 × 6144;
+    the fused step at B = 8 with f32 and bf16 state); qmm4's one kernel per
+    product and its bits from two launches; then timing at the path's
+    shapes: one layer's decode products at M = 8 (cycling weight sets
+    larger than L2), beside the plain versions and cuBLAS's bf16 product on
+    the same weights dequantized beforehand (the library column); qmm4 at
+    M = 512 and 2048 the same way, and its M sweep (``qmm4_sweep``); the
+    fused step at B = 8 on the full f32 stack, cycling the layers."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 7)
     H, N, L, C = lm_cfg.n_head, lm_cfg.head_size, lm_cfg.n_layer, \
@@ -589,15 +674,37 @@ def phase_quant_kernels(torch, W, Q, lm_cfg):
     err = {"qmm4": 0.0, "qmm": 0.0, "wkv7_step_fused": 0.0}
     for name in ("qmm4", "qmm"):
         shapes = [(B, K, N_) for K, N_ in QMM4_LAYER[3:]]
-        shapes += ([(512, C, 4 * C), (2048, C, 4 * C)] if name == "qmm4"
+        shapes += ([(512, K, N_) for K, N_ in QMM4_LAYER[3:]]
+                   + [(2048, C, 4 * C)] if name == "qmm4"
                    else [(B, 2 * C, 3 * C)])
         for M, K, N_ in shapes:
+            # the prefill regime's wgmma adds a row's K / 16 partial
+            # products into one register chain, rounding each step more
+            # coarsely than an f32 add, so its difference from the plain
+            # version grows with K (PERF.md §6, PR 7); the decode regime
+            # (short chains, partial tiles added in f32) and K = 2048 are
+            # held to 1e-5
+            tol = 2e-5 if name == "qmm4" and M > 64 and K > C else 1e-5
             err[name] = max(err[name], check_gemm(torch, Q, name, M, K, N_,
-                                                  gen))
+                                                  gen, tol=tol))
         hq, hsc = gemm_weight(torch, Q, name, C, V, gen)
-        err[name] = max(err[name], check_gemm(
-            torch, Q, name, B, C, hs, gen, hq[:, :hs], hsc[:, :hs]))
+        for M in ((B, 512) if name == "qmm4" else (B,)):
+            err[name] = max(err[name], check_gemm(
+                torch, Q, name, M, C, hs, gen, hq[:, :hs], hsc[:, :hs]))
         del hq, hsc
+    # qmm4: one kernel per product, the same bits from two launches
+    wq, ws = gemm_weight(torch, Q, "qmm4", C, 4 * C, gen)
+    for M in (B, 2048):
+        x = torch.randn((M, C), generator=gen, device="cuda").bfloat16()
+        names = kernel_names(torch, lambda: Q.qmm4(x, wq, ws))
+        if len(names) != 1 or "qmm4" not in names[0]:
+            fail(f"qmm4 M={M}: one product launched {names}")
+        a, b = Q.qmm4(x, wq, ws), Q.qmm4(x, wq, ws)
+        if not torch.equal(a, b):
+            fail(f"qmm4 M={M}: two launches on the same inputs differ")
+        print(f"kernels: qmm4 M={M} K={C} N={4 * C}: one kernel per product "
+              f"({names[0][:40]}), two launches bit-identical", flush=True)
+    del wq, ws
     for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
         e = check_step_fused(torch, W, B, H, N, 4, dtype, gen, tol)
         if dtype == torch.float32:
@@ -647,17 +754,19 @@ def phase_quant_kernels(torch, W, Q, lm_cfg):
     # qmm4 at prefill rows: one product of ffn_k's shape
     wq, ws = gemm_weight(torch, Q, "qmm4", C, 4 * C, gen)
     wd = Q.dequantize_tensor_int4({"q4p": wq, "s4": ws}, torch.bfloat16)
+    out["qmm4"]["shapes"] = {}
     for M in (512, 2048):
         x = torch.randn((M, C), generator=gen, device="cuda").bfloat16()
-        k_ms = device_ms(torch, lambda: Q.qmm4(x, wq, ws), 10)
-        l_ms = device_ms(torch, lambda: torch.matmul(x, wd), 10)
         pb = bound(gemm_bytes("qmm4", M, C, 4 * C), 2 * M * C * 4 * C,
                    BF16_TC_FLOPS_PER_S)
-        print(f"kernels: qmm4 at prefill rows M={M} K={C} N={4 * C}: device "
-              f"{k_ms:.5f} ms, cuBLAS bf16 on the dequantized weight "
-              f"{l_ms:.5f} ms, bound {pb[0]:.5f} ms by {pb[1]} "
-              f"({100 * pb[0] / k_ms:.1f}% reached)", flush=True)
+        out["qmm4"]["shapes"][f"M={M}"] = timed(
+            torch, "qmm4", lambda: Q.qmm4(x, wq, ws),
+            lambda: Q.qmm4_plain(x, wq, ws), lambda: torch.matmul(x, wd),
+            10, 2, *pb, err["qmm4"], f"prefill rows M={M} K={C} N={4 * C}")
     del wq, ws, wd
+    rows, cross, e = qmm4_sweep(torch, Q, C, gen)
+    out["qmm4"]["sweep"] = {"rows": rows, "crossover": cross}
+    out["qmm4"]["max_abs_err"] = max(out["qmm4"]["max_abs_err"], e)
 
     ops, params8 = step_fused_inputs(torch, B, H, N, gen)
     stack = torch.zeros((L, B, H, N, N), device="cuda")
@@ -1523,7 +1632,11 @@ def quantized(torch, lm_cfg, bc_cfg, device: str, max_tokens: int,
                  f"({per} per decode step and prefill chunk; counters {c})")
         run["init_s"] = init_s
         if device == "cuda":
-            run["step"] = step_profile(torch, run["pipe"].engine)
+            wall_ms, busy_ms, kernels, by_name = step_profile(
+                torch, run["pipe"].engine, top=10 ** 6)
+            # qmm4's device ms per step, all its launches
+            run["qmm4_ms"] = sum(ms for n, ms, _ in by_name if "qmm4" in n)
+            run["step"] = (wall_ms, busy_ms, kernels, by_name[:5])
         del run["pipe"], params
         summary[kind] = run
         add(run["launches"])
@@ -2625,7 +2738,40 @@ KERNEL_ENTRIES = {
 }
 
 
-def main() -> None:
+PHASES = ("kernels", "quant_kernels", "conv_kernels", "rest_kernels",
+          "sweep", "tools", "goldens", "main_path", "cloning", "quantized",
+          "streaming")
+
+
+def parse_phases(argv):
+    """The phases ``--phases a,b,...`` names, in ``PHASES`` order, or None
+    (every phase) without the option. An unknown name or a malformed
+    command line fails."""
+    import argparse
+
+    ap = argparse.ArgumentParser(
+        prog="chip_smoke.py",
+        description="Chip smoke test of the PyTorch/CUDA port. Without "
+                    "--phases every phase runs and the last line is the ok "
+                    "line; with it, the build and the named phases run and "
+                    "the last line is {\"partial\": [...]}, never the ok "
+                    "line.")
+    ap.add_argument("--phases", help="comma-separated subset of: "
+                    + ", ".join(PHASES))
+    args = ap.parse_args(argv)
+    if args.phases is None:
+        return None
+    names = [n.strip() for n in args.phases.split(",") if n.strip()]
+    unknown = sorted(set(names) - set(PHASES))
+    if unknown or not names:
+        fail(f"--phases: unknown phase names {unknown} (known: "
+             f"{', '.join(PHASES)})" if unknown else "--phases: no phase")
+    return [n for n in PHASES if n in names]
+
+
+def main(argv=None) -> None:
+    phases = parse_phases(sys.argv[1:] if argv is None else argv)
+    selected = set(PHASES if phases is None else phases)
     root = os.path.dirname(os.path.abspath(__file__))
     import torch
     if not torch.cuda.is_available():
@@ -2666,181 +2812,207 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     lm_cfg, bc_cfg = RwkvConfig(), BiCodecConfig()
-    stats = phase_kernels(torch, W, lm_cfg)
-    stats.update(phase_quant_kernels(torch, W, Q, lm_cfg))
-    stats.update(phase_conv_kernels(torch, C1, bc_cfg))
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    stats.update(phase_rest_kernels(torch, W, lm_cfg))
-    torch.cuda.empty_cache()
-    print(f"kernels: the kernels off the serving paths in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-    t0 = time.perf_counter()
-    prefill_sweep(torch, W, lm_cfg.n_head, lm_cfg.head_size)
-    torch.cuda.empty_cache()
-    print(f"sweep: {time.perf_counter() - t0:.1f} s; {card}", flush=True)
-    _, tool_launches = phase_tools(torch)
-    print(f"tools: {card}", flush=True)
-    phase_goldens(root)
+    stats, paths = {}, {}
+    if "kernels" in selected:
+        stats.update(phase_kernels(torch, W, lm_cfg))
+    if "quant_kernels" in selected:
+        stats.update(phase_quant_kernels(torch, W, Q, lm_cfg))
+    if "conv_kernels" in selected:
+        stats.update(phase_conv_kernels(torch, C1, bc_cfg))
+        torch.cuda.empty_cache()
+    if "rest_kernels" in selected:
+        t0 = time.perf_counter()
+        stats.update(phase_rest_kernels(torch, W, lm_cfg))
+        torch.cuda.empty_cache()
+        print(f"kernels: the kernels off the serving paths in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if "sweep" in selected:
+        t0 = time.perf_counter()
+        prefill_sweep(torch, W, lm_cfg.n_head, lm_cfg.head_size)
+        torch.cuda.empty_cache()
+        print(f"sweep: {time.perf_counter() - t0:.1f} s; {card}", flush=True)
+    if "tools" in selected:
+        _, paths["tools"] = phase_tools(torch)
+        print(f"tools: {card}", flush=True)
+    if "goldens" in selected:
+        phase_goldens(root)
 
-    out = main_path(torch, lm_cfg, bc_cfg, "cuda", max_tokens=48)
-    res = out["results"]
-    print(f"main_path: {len(res)} requests, {lm_cfg.n_layer} layers x "
-          f"{lm_cfg.n_embd}, init {out['init_s']:.2f} s, wall "
-          f"{out['wall_s']:.3f} s, counters {out['counters']}, launches "
-          f"{out['launches']}", flush=True)
-    print(f"main_path: stage timings (ms) {res[0].timings_ms}, batch RTF "
-          f"{res[0].rtf:.4f}, semantic lengths "
-          f"{[len(r.semantic_tokens) for r in res]}", flush=True)
-    wall_ms, busy_ms, kernels, by_name = step_profile(torch,
-                                                      out["pipe"].engine)
-    print(f"main_path: decode step at batch "
-          f"{out['pipe'].engine.engine_cfg.batch_size}: wall {wall_ms:.3f} ms, "
-          f"device busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), "
-          f"{kernels:.0f} kernels per step; top kernels per step: "
-          f"{top_line(by_name)}", flush=True)
-    del out["pipe"]     # the cloning phase builds its own full-size models
+    if "main_path" in selected:
+        out = main_path(torch, lm_cfg, bc_cfg, "cuda", max_tokens=48)
+        res = out["results"]
+        print(f"main_path: {len(res)} requests, {lm_cfg.n_layer} layers x "
+              f"{lm_cfg.n_embd}, init {out['init_s']:.2f} s, wall "
+              f"{out['wall_s']:.3f} s, counters {out['counters']}, launches "
+              f"{out['launches']}", flush=True)
+        print(f"main_path: stage timings (ms) {res[0].timings_ms}, batch RTF "
+              f"{res[0].rtf:.4f}, semantic lengths "
+              f"{[len(r.semantic_tokens) for r in res]}", flush=True)
+        wall_ms, busy_ms, kernels, by_name = step_profile(torch,
+                                                          out["pipe"].engine)
+        print(f"main_path: decode step at batch "
+              f"{out['pipe'].engine.engine_cfg.batch_size}: wall {wall_ms:.3f} ms, "
+              f"device busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), "
+              f"{kernels:.0f} kernels per step; top kernels per step: "
+              f"{top_line(by_name)}", flush=True)
+        del out["pipe"]     # the cloning phase builds its own full-size models
 
-    clone = cloning(torch, lm_cfg, bc_cfg, Wav2Vec2Config(), "cuda",
-                    max_tokens=48)
-    res = clone["results"]
-    print(f"cloning: {len(res)} zero-shot requests (6 by reference clip, 2 "
-          f"by voice_id), {lm_cfg.n_layer} layers x {lm_cfg.n_embd}, "
-          f"wav2vec2 24 x 1024, longest prompt {clone['longest_prompt']} "
-          f"tokens, init {clone['init_s']:.2f} s, wall "
-          f"{clone['wall_s']:.3f} s, counters {clone['counters']}, launches "
-          f"{clone['launches']}", flush=True)
-    print(f"cloning: extraction ms per distinct clip "
-          f"{[round(x, 3) for x in clone['extract_ms']]} (3 clips, each "
-          f"requested twice; the second request hit the cache); stage "
-          f"timings (ms) {res[0].timings_ms}, batch RTF {res[0].rtf:.4f}, "
-          f"semantic lengths {[len(r.semantic_tokens) for r in res]}; "
-          f"{card}", flush=True)
-    clone_launches = clone["launches"]
+        paths["main_path"] = out["launches"]
 
-    del clone
-    torch.cuda.empty_cache()
-    quant = quantized(torch, lm_cfg, bc_cfg, "cuda", max_tokens=16)
-    for kind in ("int8", "int4"):
-        run = quant[kind]
-        res = run["results"]
-        wall_ms, busy_ms, kernels, by_name = run["step"]
-        print(f"quantized: {kind} weights, {len(res)} requests, "
-              f"{lm_cfg.n_layer} layers x {lm_cfg.n_embd}, init "
-              f"{run['init_s']:.2f} s, wall {run['wall_s']:.3f} s, counters "
-              f"{run['counters']}, launches {run['launches']}", flush=True)
-        print(f"quantized: {kind} stage timings (ms) {res[0].timings_ms}, "
-              f"batch RTF {res[0].rtf:.4f}, semantic lengths "
-              f"{[len(r.semantic_tokens) for r in res]}; decode step at "
-              f"batch 8: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
+    if "cloning" in selected:
+        clone = cloning(torch, lm_cfg, bc_cfg, Wav2Vec2Config(), "cuda",
+                        max_tokens=48)
+        res = clone["results"]
+        print(f"cloning: {len(res)} zero-shot requests (6 by reference clip, 2 "
+              f"by voice_id), {lm_cfg.n_layer} layers x {lm_cfg.n_embd}, "
+              f"wav2vec2 24 x 1024, longest prompt {clone['longest_prompt']} "
+              f"tokens, init {clone['init_s']:.2f} s, wall "
+              f"{clone['wall_s']:.3f} s, counters {clone['counters']}, launches "
+              f"{clone['launches']}", flush=True)
+        print(f"cloning: extraction ms per distinct clip "
+              f"{[round(x, 3) for x in clone['extract_ms']]} (3 clips, each "
+              f"requested twice; the second request hit the cache); stage "
+              f"timings (ms) {res[0].timings_ms}, batch RTF {res[0].rtf:.4f}, "
+              f"semantic lengths {[len(r.semantic_tokens) for r in res]}; "
+              f"{card}", flush=True)
+
+        paths["cloning"] = clone["launches"]
+        del clone
+        torch.cuda.empty_cache()
+
+    if "quantized" in selected:
+        quant = quantized(torch, lm_cfg, bc_cfg, "cuda", max_tokens=16)
+        for kind in ("int8", "int4"):
+            run = quant[kind]
+            res = run["results"]
+            wall_ms, busy_ms, kernels, by_name = run["step"]
+            print(f"quantized: {kind} weights, {len(res)} requests, "
+                  f"{lm_cfg.n_layer} layers x {lm_cfg.n_embd}, init "
+                  f"{run['init_s']:.2f} s, wall {run['wall_s']:.3f} s, counters "
+                  f"{run['counters']}, launches {run['launches']}", flush=True)
+            print(f"quantized: {kind} stage timings (ms) {res[0].timings_ms}, "
+                  f"batch RTF {res[0].rtf:.4f}, semantic lengths "
+                  f"{[len(r.semantic_tokens) for r in res]}; decode step at "
+                  f"batch 8: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
+                  f"({100 * busy_ms / wall_ms:.1f}%), {kernels:.0f} kernels per "
+                  f"step; top kernels per step: {top_line(by_name)}", flush=True)
+            if kind == "int4":
+                print(f"quantized: int4 decode step at batch 8: qmm4 "
+                      f"{run['qmm4_ms']:.3f} ms of {busy_ms:.3f} busy ms "
+                      f"({100 * run['qmm4_ms'] / busy_ms:.1f}%); {card}",
+                      flush=True)
+        fz = quant["fused_int8"]
+        wall_ms, busy_ms, kernels, by_name = fz["step"]
+        print(f"quantized: fused int8 with STEP_FUSED and the qmm kernel, "
+              f"{len(fz['results'])} requests through the engine, wall "
+              f"{fz['wall_s']:.3f} s, counters {fz['counters']}, launches "
+              f"{fz['launches']}; decode step: wall {wall_ms:.3f} ms, device busy "
+              f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), {kernels:.0f} "
+              f"kernels per step; top kernels per step: {top_line(by_name)}; "
+              f"one step through the kernels vs the plain "
+              f"versions: rel err logits {fz['step_vs_plain'][0]:.3g}, state "
+              f"{fz['step_vs_plain'][1]:.3g} (tolerance 5e-2); {card}",
+              flush=True)
+
+        paths["quantized"] = quant["launches"]
+
+    if "streaming" in selected:
+        torch.cuda.empty_cache()
+        st = streaming(torch, lm_cfg,
+                       dataclasses.replace(bc_cfg, conv_impl="mxu_fused"), "cuda",
+                       goldens_root=root,
+                       solo_plan=(("cached", "flash"), ("property", "flash"),
+                                  ("property", "exact")))
+        print("streaming: first chunk of one request alone on the idle engine "
+              "(submit to first StreamChunk): " + "; ".join(
+                  f"{r['kind']} {r['mode']} {r['first_chunk_ms']:.1f} ms"
+                  for r in st["solo"]) + f"; {card}", flush=True)
+        print(f"streaming: 8 requests from 8 threads through stream_synthesize "
+              f"over a ContinuousEngine (8 slots, block 32, buckets 2 and 4), "
+              f"{lm_cfg.n_layer} layers x {lm_cfg.n_embd}, BiCodec conv_impl "
+              f"mxu_fused, init {st['init_s']:.2f} s, wall {st['wall_s']:.3f} s; "
+              f"{st['steps']} decode steps, {st['prefill_chunks']} prefill "
+              f"chunks, {st['windows']} vocoder windows x "
+              f"{st['conv_per_window']} conv1d launches; launches "
+              f"{st['launches']}; {card}", flush=True)
+        for i, run in enumerate(st["runs"]):
+            by_shape = {}
+            for n, sec in run["windows"]:
+                by_shape.setdefault(n, []).append(sec * 1e3)
+            print(f"streaming: request {i} ({run['kind']}, {run['mode']}): "
+                  f"first chunk {run['first_chunk_ms']:.1f} ms after submit, "
+                  f"{len(run['chunks'])} chunks, "
+                  f"{len(run['result'].semantic_tokens)} semantic tokens; "
+                  f"vocoder ms per window by latents "
+                  + "; ".join(f"{n}: {len(v)} x {sum(v) / len(v):.2f} (max "
+                              f"{max(v):.2f})" for n, v in sorted(
+                                  by_shape.items())), flush=True)
+        wall_ms, busy_ms, kernels, by_name = st["block"]
+        print(f"streaming: one decode block alone on the card, per step at 8 "
+              f"slots: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
               f"({100 * busy_ms / wall_ms:.1f}%), {kernels:.0f} kernels per "
               f"step; top kernels per step: {top_line(by_name)}", flush=True)
-    fz = quant["fused_int8"]
-    wall_ms, busy_ms, kernels, by_name = fz["step"]
-    print(f"quantized: fused int8 with STEP_FUSED and the qmm kernel, "
-          f"{len(fz['results'])} requests through the engine, wall "
-          f"{fz['wall_s']:.3f} s, counters {fz['counters']}, launches "
-          f"{fz['launches']}; decode step: wall {wall_ms:.3f} ms, device busy "
-          f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), {kernels:.0f} "
-          f"kernels per step; top kernels per step: {top_line(by_name)}; "
-          f"one step through the kernels vs the plain "
-          f"versions: rel err logits {fz['step_vs_plain'][0]:.3g}, state "
-          f"{fz['step_vs_plain'][1]:.3g} (tolerance 5e-2); {card}",
-          flush=True)
+        print(f"streaming: engine stats {st['stats']}; slots the decode blocks "
+              f"ran on {st['buckets']}; " + "; ".join(
+                  f"{k}: n {n}, mean {1e3 * tot / max(n, 1):.1f} ms, bucket "
+                  f"counts {counts}" for k, (n, tot, counts)
+                  in st["hist"].items()) + f"; {card}", flush=True)
+        def col(key):
+            return [float(f"{e[key]:.3g}") for e in st["exact"]]
 
-    torch.cuda.empty_cache()
-    st = streaming(torch, lm_cfg,
-                   dataclasses.replace(bc_cfg, conv_impl="mxu_fused"), "cuda",
-                   goldens_root=root,
-                   solo_plan=(("cached", "flash"), ("property", "flash"),
-                              ("property", "exact")))
-    print("streaming: first chunk of one request alone on the idle engine "
-          "(submit to first StreamChunk): " + "; ".join(
-              f"{r['kind']} {r['mode']} {r['first_chunk_ms']:.1f} ms"
-              for r in st["solo"]) + f"; {card}", flush=True)
-    print(f"streaming: 8 requests from 8 threads through stream_synthesize "
-          f"over a ContinuousEngine (8 slots, block 32, buckets 2 and 4), "
-          f"{lm_cfg.n_layer} layers x {lm_cfg.n_embd}, BiCodec conv_impl "
-          f"mxu_fused, init {st['init_s']:.2f} s, wall {st['wall_s']:.3f} s; "
-          f"{st['steps']} decode steps, {st['prefill_chunks']} prefill "
-          f"chunks, {st['windows']} vocoder windows x "
-          f"{st['conv_per_window']} conv1d launches; launches "
-          f"{st['launches']}; {card}", flush=True)
-    for i, run in enumerate(st["runs"]):
-        by_shape = {}
-        for n, sec in run["windows"]:
-            by_shape.setdefault(n, []).append(sec * 1e3)
-        print(f"streaming: request {i} ({run['kind']}, {run['mode']}): "
-              f"first chunk {run['first_chunk_ms']:.1f} ms after submit, "
-              f"{len(run['chunks'])} chunks, "
-              f"{len(run['result'].semantic_tokens)} semantic tokens; "
-              f"vocoder ms per window by latents "
-              + "; ".join(f"{n}: {len(v)} x {sum(v) / len(v):.2f} (max "
-                          f"{max(v):.2f})" for n, v in sorted(
-                              by_shape.items())), flush=True)
-    wall_ms, busy_ms, kernels, by_name = st["block"]
-    print(f"streaming: one decode block alone on the card, per step at 8 "
-          f"slots: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
-          f"({100 * busy_ms / wall_ms:.1f}%), {kernels:.0f} kernels per "
-          f"step; top kernels per step: {top_line(by_name)}", flush=True)
-    print(f"streaming: engine stats {st['stats']}; slots the decode blocks "
-          f"ran on {st['buckets']}; " + "; ".join(
-              f"{k}: n {n}, mean {1e3 * tot / max(n, 1):.1f} ms, bucket "
-              f"counts {counts}" for k, (n, tot, counts)
-              in st["hist"].items()) + f"; {card}", flush=True)
-    def col(key):
-        return [float(f"{e[key]:.3g}") for e in st["exact"]]
+        def sig(xs):
+            return [float(f"{x:.3g}") for x in xs]
 
-    def sig(xs):
-        return [float(f"{x:.3g}") for x in xs]
+        print(f"streaming: exact-mode streams against detokenize of the same "
+              f"tokens: with f32 convs max abs diff {col('native_max_abs')} "
+              f"(tolerance 1e-2); under mxu_fused RMS diff {col('stream_rms')} "
+              f"and max abs {col('stream_max_abs')} (reported), where the bf16 "
+              f"backend's own rounding moves detokenize by {col('policy_rms')} "
+              f"RMS", flush=True)
+        for e in st["exact"]:
+            c = e["chain"]
+            print(f"streaming: exact-mode chain over {c['windows']} windows, "
+                  f"largest difference of the emitted span per stage "
+                  f"{c['taps']}, of the stage's largest value: kernel vs plain "
+                  f"version in the same window {sig(c['kernel_vs_plain'])}; "
+                  f"window vs one-shot decode through the kernel "
+                  f"{sig(c['window_vs_whole'])} and through the plain version "
+                  f"{sig(c['window_vs_whole_plain'])} (first two stages held to "
+                  f"1e-3 and 2e-2); waveform RMS window vs one-shot {sig(c['rms'])}"
+                  f" (kernel, plain); every kernel call against the plain "
+                  f"version on its own inputs: {c['calls']} (tolerance bare "
+                  f"2e-5, snake 1e-3)", flush=True)
+        wit = st["witness"]
+        print(f"streaming: one cancelled request freed its slot; "
+              f"{st['goldens']} goldens requests through the continuous engine "
+              f"emit the tokens of tests/goldens.json; {st['same']} of 8 "
+              f"requests emitted the static engine's tokens for the same "
+              f"arguments (tokens in common before the two part, global then "
+              f"semantic: {st['agree']})", flush=True)
+        print(f"streaming: token witnesses against the static engine: each "
+              f"mode's 4 requests at the streaming weights as one burst through "
+              f"4 slots without buckets (the static engine's shapes): "
+              f"{wit['burst']['same']} of 8 emit the same tokens (in common "
+              f"{wit['burst']['agree']}; must be 8); the 8 requests 0.15 s apart "
+              f"over the goldens model (f32, 2 x 128) through 8 slots with "
+              f"buckets 2 and 4: {wit['staggered']['same']} of 8 (must be 8; "
+              f"blocks ran on {wit['staggered']['buckets']} slots, "
+              f"{wit['staggered']['relocations']} relocations, "
+              f"{wit['staggered']['blocks']} blocks); with f32 weights at full "
+              f"width, at most 48 semantic tokens, 1.5 s apart through 8 slots "
+              f"with buckets: {wit['f32']['same']} of 8 (reported; in common "
+              f"{wit['f32']['agree']}, semantic lengths {wit['f32']['lengths']})"
+              f"; a bucketed block against the whole block (tokens of the live "
+              f"slots that agree, of; state rel diff; other slots untouched) at "
+              f"f32: {wit['f32']['blocks']} (must agree, 1e-4), at the streaming "
+              f"weights: {st['bf16_blocks']} (reported); {card}", flush=True)
 
-    print(f"streaming: exact-mode streams against detokenize of the same "
-          f"tokens: with f32 convs max abs diff {col('native_max_abs')} "
-          f"(tolerance 1e-2); under mxu_fused RMS diff {col('stream_rms')} "
-          f"and max abs {col('stream_max_abs')} (reported), where the bf16 "
-          f"backend's own rounding moves detokenize by {col('policy_rms')} "
-          f"RMS", flush=True)
-    for e in st["exact"]:
-        c = e["chain"]
-        print(f"streaming: exact-mode chain over {c['windows']} windows, "
-              f"largest difference of the emitted span per stage "
-              f"{c['taps']}, of the stage's largest value: kernel vs plain "
-              f"version in the same window {sig(c['kernel_vs_plain'])}; "
-              f"window vs one-shot decode through the kernel "
-              f"{sig(c['window_vs_whole'])} and through the plain version "
-              f"{sig(c['window_vs_whole_plain'])} (first two stages held to "
-              f"1e-3 and 2e-2); waveform RMS window vs one-shot {sig(c['rms'])}"
-              f" (kernel, plain); every kernel call against the plain "
-              f"version on its own inputs: {c['calls']} (tolerance bare "
-              f"2e-5, snake 1e-3)", flush=True)
-    wit = st["witness"]
-    print(f"streaming: one cancelled request freed its slot; "
-          f"{st['goldens']} goldens requests through the continuous engine "
-          f"emit the tokens of tests/goldens.json; {st['same']} of 8 "
-          f"requests emitted the static engine's tokens for the same "
-          f"arguments (tokens in common before the two part, global then "
-          f"semantic: {st['agree']})", flush=True)
-    print(f"streaming: token witnesses against the static engine: each "
-          f"mode's 4 requests at the streaming weights as one burst through "
-          f"4 slots without buckets (the static engine's shapes): "
-          f"{wit['burst']['same']} of 8 emit the same tokens (in common "
-          f"{wit['burst']['agree']}; must be 8); the 8 requests 0.15 s apart "
-          f"over the goldens model (f32, 2 x 128) through 8 slots with "
-          f"buckets 2 and 4: {wit['staggered']['same']} of 8 (must be 8; "
-          f"blocks ran on {wit['staggered']['buckets']} slots, "
-          f"{wit['staggered']['relocations']} relocations, "
-          f"{wit['staggered']['blocks']} blocks); with f32 weights at full "
-          f"width, at most 48 semantic tokens, 1.5 s apart through 8 slots "
-          f"with buckets: {wit['f32']['same']} of 8 (reported; in common "
-          f"{wit['f32']['agree']}, semantic lengths {wit['f32']['lengths']})"
-          f"; a bucketed block against the whole block (tokens of the live "
-          f"slots that agree, of; state rel diff; other slots untouched) at "
-          f"f32: {wit['f32']['blocks']} (must agree, 1e-4), at the streaming "
-          f"weights: {st['bf16_blocks']} (reported); {card}", flush=True)
+        paths["streaming"] = st["launches"]
 
-    paths = {"main_path": out["launches"], "cloning": clone_launches,
-             "quantized": quant["launches"], "streaming": st["launches"],
-             "tools": tool_launches}
+    if phases is not None:
+        # a partial run proves no whole: it never prints the ok line
+        print(json.dumps({"kernel_stats": stats}, default=str), flush=True)
+        print(json.dumps({"partial": phases}), flush=True)
+        return
     kernels = []
     for name, (src, wrapper, replaces) in KERNEL_ENTRIES.items():
         s = stats[name]
@@ -2854,7 +3026,9 @@ def main() -> None:
                         "max_abs_err": s["max_abs_err"], "ms": s["ms"],
                         "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                         "bound_by": s["bound_by"],
-                        "library_ms": s.get("library_ms")})
+                        "library_ms": s.get("library_ms"),
+                        **({"shapes": s["shapes"]} if "shapes" in s
+                           else {})})
     missing = set(TPU_FUNCTIONS) - {r for e in kernels for r in e["replaces"]}
     if missing:
         fail(f"TPU functions with no kernel in the kernels line: {missing}")

@@ -206,6 +206,30 @@ def fsq_quantize(z, levels) -> Tuple[torch.Tensor, torch.Tensor]:
     return code, q / half_w.float()
 
 
+def check_semantic_tokens(tokens, codebook_size: int) -> None:
+    """Raise ``ValueError`` naming the first semantic token outside
+    [0, codebook_size). The JAX package's gather clamps such a token to the
+    last row; torch's indexing raises on the CPU and fails a device-side
+    assert on a card, which ends the process's CUDA context. ``tokens`` is
+    numpy or a tensor: a tensor on a card is read back once (its min and
+    max), which ``decode``'s caller pays beside its own readback of the
+    waveform."""
+    if isinstance(tokens, torch.Tensor):
+        if tokens.numel() == 0:
+            return
+        lo, hi = (int(v) for v in torch.stack(
+            [tokens.min(), tokens.max()]).cpu())
+    else:
+        tokens = np.asarray(tokens)
+        if tokens.size == 0:
+            return
+        lo, hi = int(tokens.min()), int(tokens.max())
+    bad = hi if hi >= codebook_size else lo if lo < 0 else None
+    if bad is not None:
+        raise ValueError(f"semantic token {bad} is outside the codebook of "
+                         f"{codebook_size} entries")
+
+
 def fvq_detokenize(p, idx):
     """indices [B, T] → z_q [B, D, T] (un-normalized codebook rows,
     out-projected)."""
@@ -470,6 +494,8 @@ def decode(params: Params, global_tokens: torch.Tensor,
             f"decode under dtype {cfg.dtype!r} needs the prenet and wave "
             f"generator cast once at load (prepare_params); the tree holds "
             f"{params['wavegen']['in_w'].dtype}")
+    check_semantic_tokens(semantic_tokens,
+                          params["quantizer"]["codebook"].shape[0])
     zq = fvq_detokenize(params["quantizer"], semantic_tokens).to(cdt)
     d = speaker_detokenize(params["speaker"], global_tokens, cfg).to(cdt)
     x = prenet_forward(params["prenet"], zq, d, cfg) + d[:, :, None]
@@ -541,6 +567,8 @@ def detokenize(params: Params, global_tokens, semantic_tokens,
     S = s.shape[1]
     if S == 0:
         return np.zeros((s.shape[0], 0), np.float32)
+    # on the host, before any token reaches the device's gather
+    check_semantic_tokens(s, params["quantizer"]["codebook"].shape[0])
     need = S + receptive_latents(cfg)
     if isinstance(bucket, int):
         padded = need + ((-need) % bucket)

@@ -49,7 +49,8 @@ __all__ = ["DENSE_KEYS", "USE_QMM_KERNEL", "LAUNCHES", "reset_launches",
            "n_layers_of", "quantize_rwkv_params", "NF4_BLOCK", "NF4_CODE",
            "quantize_tensor_nf4", "dequantize_tensor_nf4", "is_nf4",
            "INT4_GROUP", "quantize_tensor_int4", "dequantize_tensor_int4",
-           "is_int4", "qmm4_route", "qmm_route", "gemm_plan", "qmm4_plain",
+           "is_int4", "qmm4_route", "qmm_route", "gemm_plan", "qmm4_plan",
+           "QMM4_DECODE_MAX_M", "qmm4_plain",
            "qmm_plain", "qmm4", "qmm"]
 
 # the bandwidth-heavy projections; LoRA adapters and norm/shift vectors are
@@ -324,18 +325,18 @@ def qmm_route(x_shape: Sequence[int], wq_shape: Sequence[int]) -> bool:
             and wq_shape[0] % 128 == 0 and wq_shape[1] % 128 == 0)
 
 
-# the kernels' tile: 64 output columns, 64 weight rows (int8) or byte rows
-# (int4) per K-step, 16 or 64 output rows (csrc/qgemm.cuh)
+# csrc/qmm.cu's tile: 64 output columns, 64 weight rows per K-step, 16 or 64
+# output rows (csrc/qgemm.cuh)
 TILE_N, TILE_K = 64, 64
 # blocks to aim for when cutting K across blocks: two per SM of an H100
 TARGET_BLOCKS = 264
 
 
 def gemm_plan(M: int, k_rows: int, N: int) -> Tuple[int, int, int]:
-    """(block rows, K splits, K-steps per split) of a launch of either
-    kernel for an [M, ·] × [k_rows, N] weight (k_rows counts byte rows for
-    int4). Decode products have a few output tiles, so K is cut across
-    blocks until about TARGET_BLOCKS are in flight; the splits' partial
+    """(block rows, K splits, K-steps per split) of a launch of
+    ``csrc/qmm.cu`` for an [M, ·] × [k_rows, N] weight. Decode products
+    have a few output tiles, so K is cut across blocks until about
+    TARGET_BLOCKS are in flight; the splits' partial
     sums are added in split order by a second pass, so the result does not
     depend on the order in which blocks finish."""
     bm = 16 if M <= 16 else 64
@@ -344,6 +345,52 @@ def gemm_plan(M: int, k_rows: int, N: int) -> Tuple[int, int, int]:
     splits = min(max(1, -(-TARGET_BLOCKS // tiles)), steps)
     per = -(-steps // splits)
     return bm, -(-steps // per), per
+
+
+# csrc/qmm4.cu: 128 output columns a block in both regimes; the decode
+# regime walks 64 byte rows a stage, holds up to 8 m-tiles of 8 rows a block
+# and cuts K across a cluster of at most 8 blocks; the prefill regime takes
+# 256-row tiles
+QMM4_BN, QMM4_BK2, QMM4_MAX_CLUSTER = 128, 64, 8
+QMM4_DECODE_M_TILES = (1, 2, 4, 8)
+# rows up to which a product takes the decode regime: on an H100 it is
+# faster than the prefill regime at every M it takes (chip_smoke.py, the
+# qmm4 M sweep at 2048 x 8192; PERF.md)
+QMM4_DECODE_MAX_M = 64
+
+
+def qmm4_plan(M: int, K2: int, N: int, regime: str = None
+              ) -> Dict[str, Any]:
+    """The launch of ``csrc/qmm4.cu`` for x [M, 2·K2] × a [K2, N] packed
+    weight: ``regime`` ("decode" or "prefill"; by default decode for
+    M ≤ ``QMM4_DECODE_MAX_M``), ``m_tiles`` (8-row tiles a block holds),
+    ``splits`` (blocks of a cluster along K) and ``per`` (stages of
+    ``QMM4_BK2`` byte rows each of them walks). Decode products have few
+    column tiles, so K is cut across up to 8 blocks until about
+    TARGET_BLOCKS are in flight; the cluster adds its partial tiles in rank
+    order, so the result does not depend on the order in which blocks
+    finish. Raises on a shape that fits neither regime."""
+    if M < 1 or K2 < QMM4_BK2 or K2 % QMM4_BK2 or N < QMM4_BN or \
+            N % QMM4_BN:
+        raise ValueError(f"qmm4: no regime takes M = {M}, K/2 = {K2}, "
+                         f"N = {N} (K/2 a multiple of {QMM4_BK2}, N of "
+                         f"{QMM4_BN})")
+    if regime is None:
+        regime = "decode" if M <= QMM4_DECODE_MAX_M else "prefill"
+    steps = K2 // QMM4_BK2
+    if regime == "prefill":
+        return {"regime": regime, "m_tiles": 32, "splits": 1, "per": steps}
+    if regime != "decode":
+        raise ValueError(f"qmm4: unknown regime {regime!r}")
+    if M > 8 * QMM4_DECODE_M_TILES[-1]:
+        raise ValueError(f"qmm4: the decode regime takes M ≤ "
+                         f"{8 * QMM4_DECODE_M_TILES[-1]}, got {M}")
+    mt = next(m for m in QMM4_DECODE_M_TILES if 8 * m >= M)
+    tiles = N // QMM4_BN
+    splits = min(QMM4_MAX_CLUSTER, steps, max(1, -(-TARGET_BLOCKS // tiles)))
+    per = -(-steps // splits)
+    return {"regime": regime, "m_tiles": mt, "splits": -(-steps // per),
+            "per": per}
 
 
 # --------------------------------------------------------------------------
@@ -372,9 +419,13 @@ def qmm_plain(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor
 # --------------------------------------------------------------------------
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# x, w, scales, out, partials, M, K, N, w row stride, scale rows, scales
-# row stride, block rows, splits, steps per split, device, stream
-_ARGTYPES = [_P] * 5 + [_I] * 10 + [_P]
+_ARGTYPES = {
+    # x, w, scales, out, partials, M, K, N, w row stride, scale rows,
+    # scales row stride, block rows, splits, steps per split, device, stream
+    "qmm": [_P] * 5 + [_I] * 10 + [_P],
+    # x, w, scales, out, M, K, N, w row stride, scale rows, scales row
+    # stride, regime, m-tiles, splits, stages per split, device, stream
+    "qmm4": [_P] * 4 + [_I] * 11 + [_P]}
 _fns: Dict[str, object] = {}
 
 
@@ -383,7 +434,7 @@ def _kernel(name: str):
     if fn is None:
         fn = getattr(_build.load(name), name)
         fn.restype = ctypes.c_int
-        fn.argtypes = _ARGTYPES
+        fn.argtypes = _ARGTYPES[name]
         _fns[name] = fn
     return fn
 
@@ -397,6 +448,21 @@ def _check_2d(name, t, dtypes, device) -> None:
         raise TypeError(f"{name}: dtype {t.dtype} not in {dtypes}")
 
 
+def _aligned_operands(x, wq, ws):
+    """x rounded to bf16, contiguous and 16-byte aligned; the weight and
+    its scales as given where their rows keep 16-byte loads aligned (a
+    column prefix of a wider weight, the sliced head, is read in place),
+    else contiguous copies."""
+    xb = x.to(bf16).contiguous()
+    if xb.data_ptr() % 16:
+        xb = xb.clone()
+    if wq.stride(1) != 1 or wq.stride(0) % 16 or wq.data_ptr() % 16:
+        wq = wq.contiguous()
+    if ws.stride(1) != 1 or ws.stride(0) % 4 or ws.data_ptr() % 16:
+        ws = ws.contiguous()
+    return xb, wq, ws
+
+
 def _launch_gemm(name, x, wq, ws, k_rows, M, K, N):
     """Launch ``csrc/<name>.cu`` on checked arguments; returns [M, N] f32."""
     dev = x.device
@@ -404,15 +470,7 @@ def _launch_gemm(name, x, wq, ws, k_rows, M, K, N):
         raise ValueError(f"{name}: the kernel takes weight rows in multiples "
                          f"of {TILE_K} and N in multiples of {TILE_N}, got "
                          f"[{k_rows}, {N}]")
-    xb = x.to(bf16).contiguous()
-    if xb.data_ptr() % 16:
-        xb = xb.clone()
-    # a column prefix of a wider weight (the sliced head) is read in place:
-    # rows keep their stride, which must keep 16-byte loads aligned
-    if wq.stride(1) != 1 or wq.stride(0) % 16 or wq.data_ptr() % 16:
-        wq = wq.contiguous()
-    if ws.stride(1) != 1 or ws.stride(0) % 4 or ws.data_ptr() % 16:
-        ws = ws.contiguous()
+    xb, wq, ws = _aligned_operands(x, wq, ws)
     bm, splits, per = gemm_plan(M, k_rows, N)
     out = torch.empty((M, N), dtype=f32, device=dev)
     partial = (torch.empty((splits, M, N), dtype=f32, device=dev)
@@ -430,11 +488,37 @@ def _launch_gemm(name, x, wq, ws, k_rows, M, K, N):
     return out
 
 
-def qmm4(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor) -> torch.Tensor:
+def _launch_qmm4(x, wq, ws, M, K, N, regime):
+    """Launch ``csrc/qmm4.cu`` on checked arguments in the regime
+    ``qmm4_plan`` gives; returns [M, N] f32."""
+    dev = x.device
+    if ws.shape[0] * INT4_GROUP != K:
+        raise ValueError(f"qmm4: the kernel takes groups of {INT4_GROUP} "
+                         f"rows, got {K // ws.shape[0]}")
+    plan = qmm4_plan(M, K // 2, N, regime)
+    xb, wq, ws = _aligned_operands(x, wq, ws)
+    out = torch.empty((M, N), dtype=f32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _kernel("qmm4")(xb.data_ptr(), wq.data_ptr(), ws.data_ptr(),
+                          out.data_ptr(), M, K, N, wq.stride(0), ws.shape[0],
+                          ws.stride(0), int(plan["regime"] == "prefill"),
+                          plan["m_tiles"], plan["splits"], plan["per"],
+                          dev.index, stream)
+    if err:
+        raise RuntimeError(f"qmm4: kernel launch failed with CUDA error "
+                           f"{err}")
+    LAUNCHES["qmm4"] += 1
+    return out
+
+
+def qmm4(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor,
+         regime: str = None) -> torch.Tensor:
     """x [M, K] (any float dtype, rounded to bf16) @ the int4 weight wq
     [K/2, N] uint8 (hi nibble row j, lo nibble row j + K/2), ws [K/group, N]
     f32 → [M, N] f32. Counterpart of the TPU kernel
-    ``rwkv_tts_tpu/ops/quant.py:296 qmm4_pallas`` (body :273)."""
+    ``rwkv_tts_tpu/ops/quant.py:296 qmm4_pallas`` (body :273). On a card
+    ``regime`` ("decode" or "prefill") overrides the choice by M of
+    ``qmm4_plan``, for measuring both; the result is the same function."""
     dev = x.device
     _check_2d("x", x, (f32, bf16, torch.float16), dev)
     _check_2d("wq", wq, (torch.uint8,), dev)
@@ -449,7 +533,7 @@ def qmm4(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor) -> torch.Tensor:
         return qmm4_plain(x, wq, ws)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    return _launch_gemm("qmm4", x, wq, ws, K2, M, K, N)
+    return _launch_qmm4(x, wq, ws, M, K, N, regime)
 
 
 def qmm(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor) -> torch.Tensor:

@@ -202,6 +202,29 @@ def test_detokenize_matches_jax(jax_codec, params):
     assert P.detokenize(params, g[0], [], CFG).shape == (1, 0)
 
 
+def test_out_of_range_semantic_token_raises(jax_codec, params):
+    """A semantic token of 9000 against the codebook of 8192: JAX's gather
+    clamps it and decodes; the port raises a ValueError that names the
+    token and the codebook size, from ``detokenize`` (on the host) and
+    from ``decode``, so no such index reaches a device gather. A global
+    token of 5000 (FSQ digits are taken modulo their levels) still decodes
+    on both sides, to the same waveform."""
+    J, jcfg, jp = jax_codec
+    g, s = tokens(S=8, B=1, seed=3)
+    s[0, 3] = 9000
+    assert np.isfinite(np.asarray(J.detokenize(jp, g[0], s[0], jcfg))).all()
+    with pytest.raises(ValueError, match="9000.*8192"):
+        P.detokenize(params, g[0], s[0], CFG)
+    with pytest.raises(ValueError, match="9000.*8192"):
+        P.decode(params, torch.from_numpy(g), torch.from_numpy(s), CFG)
+    s[0, 3] = 17
+    g[0, 5] = 5000
+    want = np.asarray(J.decode(jp, g.astype(np.int32), s.astype(np.int32),
+                               jcfg))
+    got = P.decode(params, torch.from_numpy(g), torch.from_numpy(s), CFG)
+    chain_close(got.numpy(), want)
+
+
 @pytest.mark.parametrize("full", [False, True])
 def test_receptive_field_and_buckets_match_jax(jax_codec, full):
     J = jax_codec[0]

@@ -175,6 +175,34 @@ def test_chip_smoke_fails_alone_in_a_directory(tmp_path):
     assert '"ok"' not in out.stdout
 
 
+def test_chip_smoke_phases_argument():
+    """``--phases`` picks a subset in the script's order; no option means
+    every phase (and the ok line); an unknown or empty name fails before
+    anything touches a card."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    assert chip_smoke.parse_phases([]) is None
+    assert chip_smoke.parse_phases(["--phases", "quantized,quant_kernels"]) \
+        == ["quant_kernels", "quantized"]
+    assert chip_smoke.parse_phases(["--phases", ",".join(
+        chip_smoke.PHASES)]) == list(chip_smoke.PHASES)
+    for bad in (["--phases", "kernels,bogus"], ["--phases", ","],
+                ["--bogus"]):
+        with pytest.raises(SystemExit) as e:
+            chip_smoke.parse_phases(bad)
+        assert e.value.code != 0
+
+
+def test_chip_smoke_partial_run_fails_without_a_card():
+    out = subprocess.run([sys.executable, "chip_smoke.py", "--phases",
+                          "quant_kernels"], cwd=ROOT,
+                         env=dict(os.environ, CUDA_VISIBLE_DEVICES=""),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout and '"partial"' not in out.stdout
+
+
 def test_constants_copy_matches_jax_package():
     pytest.importorskip("jax")
     from rwkv_tts_tpu import constants as J

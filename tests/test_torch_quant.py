@@ -261,6 +261,49 @@ def test_gemm_plan_covers_k_once():
         assert splits == 1 or N // Q.TILE_N * -(-M // bm) < Q.TARGET_BLOCKS
 
 
+QMM4_PLAN_SHAPES = [(M, k2, n) for M in (1, 2, 8, 32, 33, 64, 100, 512, 2048)
+                    for k2, n in ((1024, 2048), (1024, 8192), (4096, 2048),
+                                  (1024, 8320), (256, 128), (64, 128))]
+
+
+@pytest.mark.parametrize("regime", ["decode", "prefill"])
+def test_qmm4_plan_covers_k_once(regime):
+    """In each regime the blocks along K walk the K/2 byte rows once: every
+    split has a stage, the splits cover K/2 exactly, a cluster holds at
+    most 8 blocks, and a decode block's m-tiles hold its rows."""
+    for M, k2, n in QMM4_PLAN_SHAPES:
+        if regime == "decode" and M > 64:
+            continue
+        p = Q.qmm4_plan(M, k2, n, regime)
+        steps = k2 // Q.QMM4_BK2
+        assert p["regime"] == regime
+        assert 1 <= p["splits"] <= Q.QMM4_MAX_CLUSTER
+        assert (p["splits"] - 1) * p["per"] < steps <= p["splits"] * p["per"]
+        if regime == "prefill":
+            assert (p["splits"], p["per"]) == (1, steps)
+        else:
+            assert p["m_tiles"] in Q.QMM4_DECODE_M_TILES
+            assert 8 * p["m_tiles"] >= M
+            assert p["m_tiles"] == 1 or 4 * p["m_tiles"] < M
+
+
+def test_qmm4_plan_switches_at_the_threshold():
+    t = Q.QMM4_DECODE_MAX_M
+    for M in (1, t - 1, t):
+        assert Q.qmm4_plan(M, 1024, 8192)["regime"] == "decode", M
+    for M in (t + 1, 2 * t + 1, 512, 2048):
+        assert Q.qmm4_plan(M, 1024, 8192)["regime"] == "prefill", M
+
+
+@pytest.mark.parametrize("M, k2, n, regime", [
+    (8, 1024, 8200, None), (8, 1000, 2048, None), (8, 16, 128, None),
+    (0, 1024, 2048, None), (65, 1024, 2048, "decode"),
+    (8, 1024, 2048, "dense")])
+def test_qmm4_plan_refuses_what_no_regime_takes(M, k2, n, regime):
+    with pytest.raises(ValueError):
+        Q.qmm4_plan(M, k2, n, regime)
+
+
 # -- the kernels' plain versions against the Pallas kernels ---------------
 
 @pytest.mark.parametrize("M, K, N", [(8, 512, 384), (64, 1024, 128),
@@ -403,10 +446,16 @@ def cuda_card():
 @pytest.mark.cuda
 @pytest.mark.parametrize("M, K, N", [(8, 256, 128), (8, 2048, 2048),
                                      (8, 8192, 2048), (8, 2048, 8320),
-                                     (40, 512, 384), (512, 2048, 1024)])
+                                     (40, 512, 384), (512, 2048, 1024),
+                                     (1, 2048, 2048), (2, 2048, 2048),
+                                     (4, 2048, 8192), (16, 2048, 2048),
+                                     (64, 8192, 2048), (100, 512, 384),
+                                     (2048, 2048, 1024)])
 def test_qmm4_kernel_matches_plain(cuda_card, M, K, N):
-    """The kernel against its plain version on the card: the same bf16
-    operands, f32 sums in another order: 1e-5 relative."""
+    """The kernel against its plain version on the card, in the regime
+    ``qmm4_plan`` picks (decode rows up to ``QMM4_DECODE_MAX_M``, prefill
+    rows above): the same bf16 operands, f32 sums in another order: 1e-5
+    relative."""
     gen = torch.Generator(device="cuda").manual_seed(M + K + N)
     w = 0.05 * torch.randn((K, N), generator=gen, device="cuda")
     x = torch.randn((M, K), generator=gen, device="cuda")
@@ -433,14 +482,33 @@ def test_qmm_kernel_matches_plain(cuda_card, M, K, N):
 
 
 @pytest.mark.cuda
-def test_head_slice_reads_the_weight_in_place(cuda_card):
+@pytest.mark.parametrize("regime, M, K, N", [
+    ("decode", 8, 2048, 2048), ("prefill", 8, 2048, 2048),
+    ("prefill", 2048, 512, 1024)])
+def test_qmm4_two_launches_give_the_same_bits(cuda_card, regime, M, K, N):
+    """The result does not depend on the order in which blocks finish: the
+    decode regime's cluster adds its partial tiles in rank order."""
+    gen = torch.Generator(device="cuda").manual_seed(M + K)
+    q = Q.quantize_tensor_int4(0.05 * torch.randn((K, N), generator=gen,
+                                                  device="cuda"))
+    x = torch.randn((M, K), generator=gen, device="cuda")
+    a = Q.qmm4(x, q["q4p"], q["s4"], regime=regime)
+    b = Q.qmm4(x, q["q4p"], q["s4"], regime=regime)
+    assert torch.equal(a, b)
+    assert rel_err(a.cpu(), Q.qmm4_plain(x, q["q4p"], q["s4"]).cpu()) < 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [8, 512])
+def test_head_slice_reads_the_weight_in_place(cuda_card, M):
     """A column prefix of the head (row stride 78080) goes to the kernel
-    without a copy and gives the same product as a contiguous copy."""
+    without a copy and gives the same product as a contiguous copy, at
+    decode rows and at prefill rows."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     q = Q.quantize_tensor_int4(0.05 * torch.randn((256, 78080),
                                                   generator=gen,
                                                   device="cuda"))
-    x = torch.randn((8, 256), generator=gen, device="cuda")
+    x = torch.randn((M, 256), generator=gen, device="cuda")
     sl = {k: v[..., :8320] for k, v in q.items()}
     got = Q.qmm4(x, sl["q4p"], sl["s4"])
     want = Q.qmm4(x, sl["q4p"].contiguous(), sl["s4"].contiguous())
