@@ -31,18 +31,23 @@ Phases, each fatal on failure:
              torch.profiler, and CUDA events per call), and the sequential
              prefill kernel timed on the WY kernel's inputs beside it; then
              the quantized path's kernels (phase ``quant_kernels``): qmm4
-             (int4) and qmm (int8) against their plain versions at the
-             decode products' shapes (M = 8), the 8320-wide head slice read
-             in place (qmm4 also at M = 512), qmm4 at prefill rows M = 512
-             and 2048, qmm at zrkv's 4096 × 6144 (1e-5 relative); qmm4 runs
-             one kernel per product (torch.profiler) and gives the same bits
-             from two launches (M = 8, 2048), and its M sweep (1 … 2048 at
-             2048 × 8192) holds each regime where it is legal against the
-             plain version and times it beside cuBLAS, with the crossover;
-             the fused decode step at B = 8, f32 and bf16 state,
-             other layers untouched, and on the same slot prefixes; each timed beside its plain version
-             and, for the GEMMs, cuBLAS bf16 on the weights dequantized
-             beforehand (the library column; qmm4 at M = 512 and 2048 too);
+             (int4) and qmm (int8), both on ``csrc/qgemm.cuh``'s two
+             regimes, against their plain versions at the decode products'
+             shapes (M = 8; qmm also at M = 1 and 64), the 8320-wide head
+             slice read in place (M = 8 and 512), and prefill rows (qmm4 at
+             M = 512 and 2048, qmm at M = 512 over the fused layer's four
+             shapes, zrkv's 4096 × 6144 among them) (1e-5 relative; 2e-5 in
+             qmm4's prefill regime at K > 2048, ``gemm_tol``); each runs one
+             kernel per product (torch.profiler) and gives the same bits
+             from two launches (qmm4 at M = 8, 2048; qmm at M = 8, 512), and
+             each one's M sweep at 2048 × 8192 (qmm4 1 … 2048, qmm 1 … 512)
+             holds each regime where it is legal against the plain version
+             and times it beside cuBLAS, with the crossover; the fused
+             decode step at B = 8, f32 and bf16 state, other layers
+             untouched, and on the same slot prefixes; each timed beside its
+             plain version and, for the GEMMs, cuBLAS bf16 on the weights
+             dequantized beforehand (the library column; qmm4 at M = 512
+             and 2048 and qmm at M = 512 too);
              then conv1d (phase ``conv_kernels``) against its
              plain version at the wave generator's full-width shapes of one
              exact-mode streaming window (widths 768, 384, 192, 96 at k = 7
@@ -108,7 +113,8 @@ Phases, each fatal on failure:
              step (int4: with qmm4's device ms of it); fused int8 with
              ``STEP_FUSED`` and ``USE_QMM_KERNEL`` on,
              8 requests through the engine (fused step L per decode step,
-             qmm 4·L + 1 per step and 1 per prefill chunk) and one step held
+             qmm 4·L + 1 per step and 1 per prefill chunk), one profiled
+             decode step with qmm's device ms of it, and one step held
              against the same step through the plain versions (5e-2);
   streaming  a ``ContinuousEngine`` with 8 slots (occupancy buckets 2 and
              4) at full width and ``BiCodecConfig(conv_impl="mxu_fused")``:
@@ -505,25 +511,47 @@ def gemm_bytes(name, M, K, N):
     return M * K * 2 + w + M * N * 4
 
 
+def gemm_ops(torch, Q, name):
+    """``name``'s wrapper, its plain version, its plan as plan(M, K, N,
+    regime) and its weight dequantized to bf16 as deq(wq, ws)."""
+    if name == "qmm4":
+        return (Q.qmm4, Q.qmm4_plain,
+                lambda M, K, N, r=None: Q.qmm4_plan(M, K // 2, N, r),
+                lambda wq, ws: Q.dequantize_tensor_int4(
+                    {"q4p": wq, "s4": ws}, torch.bfloat16))
+    return (Q.qmm, Q.qmm_plain, Q.qmm_plan,
+            lambda wq, ws: Q.dequantize_tensor({"q": wq, "s": ws},
+                                               torch.bfloat16))
+
+
+def gemm_tol(name, M, K, C):
+    """Relative tolerance of a GEMM kernel against its plain version: 1e-5
+    (the same bf16 operands, f32 sums in another order), except qmm4's
+    prefill regime (M > 64) at K > C: its wgmma adds a row's K / 16 partial
+    products into one register chain, rounding each step more coarsely
+    than an f32 add, so its difference from the plain version grows with K
+    (9.84e-6 at K = 8192 on an H100; PERF.md §6); there 2e-5. qmm's
+    prefill regime reads at most 5.78e-6 at K = 8192, the decode regimes
+    (short chains, partial tiles added in f32) at most 4e-7: 1e-5."""
+    return 2e-5 if name == "qmm4" and M > 64 and K > C else 1e-5
+
+
 def check_gemm(torch, Q, name, M, K, N, gen, wq=None, ws=None,
                regime=None, tol=1e-5):
     """``name``'s kernel against its plain version on the card at
     [M, K] × [K, N], bf16 activations: ``tol`` relative, 1e-5 by default
     (the same bf16 operands, f32 sums in another order). ``regime`` forces
-    qmm4's decode or prefill regime (else ``qmm4_plan`` picks by M).
+    the decode or prefill regime (else the wrapper's plan picks by M).
     Returns the max abs error."""
     if wq is None:
         wq, ws = gemm_weight(torch, Q, name, K, N, gen)
+    kern, plain, plan, _ = gemm_ops(torch, Q, name)
     x = torch.randn((M, K), generator=gen, device="cuda").bfloat16()
-    if name == "qmm4":
-        got = Q.qmm4(x, wq, ws, regime=regime)
-        want = Q.qmm4_plain(x, wq, ws)
-        regime = Q.qmm4_plan(M, K // 2, N, regime)["regime"]
-    else:
-        got, want = Q.qmm(x, wq, ws), Q.qmm_plain(x, wq, ws)
+    got, want = kern(x, wq, ws, regime=regime), plain(x, wq, ws)
+    regime = plan(M, K, N, regime)["regime"]
     torch.cuda.synchronize()
     e = rel_err(torch, got, want)
-    what = (f"{name}{f' {regime}' if regime else ''} M={M} K={K} N={N}"
+    what = (f"{name} {regime} M={M} K={K} N={N}"
             f"{' (head slice, row stride %d)' % wq.stride(0) if wq.stride(0) != N else ''}")
     if e > tol:
         fail(f"{what}: rel err {e:.3g} (tolerance {tol:g})")
@@ -545,34 +573,37 @@ def kernel_names(torch, fn):
             if str(getattr(e, "device_type", "")).endswith("CUDA")]
 
 
-# qmm4's M sweep at ffn_k's 2048 x 8192: each regime where it is legal
-# (decode M <= 64, prefill any M) beside cuBLAS on the dequantized weight
-QMM4_SWEEP_M = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 2048)
+# the GEMMs' M sweeps at ffn_k's 2048 x 8192: each regime where it is
+# legal (decode M <= 64, prefill any M) beside cuBLAS on the dequantized
+# weight; qmm's route ends at M = 512
+SWEEP_M = {"qmm4": (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 2048),
+           "qmm": (1, 8, 16, 32, 64, 128, 256, 512)}
 
 
-def qmm4_sweep(torch, Q, C, gen):
-    """Every M of ``QMM4_SWEEP_M`` through each legal regime of qmm4,
-    held against ``qmm4_plain`` (1e-5 relative) and timed (device ms, 5
+def gemm_sweep(torch, Q, name, C, gen):
+    """Every M of ``SWEEP_M[name]`` through each legal regime of ``name``,
+    held against its plain version (``gemm_tol``) and timed (device ms, 5
     calls) beside cuBLAS bf16 on the weight dequantized beforehand; prints
     one table and the crossover (the least M from which the prefill regime
     is faster at every larger M of the sweep). Returns (rows, crossover,
     max abs error)."""
-    wq, ws = gemm_weight(torch, Q, "qmm4", C, 4 * C, gen)
-    wd = Q.dequantize_tensor_int4({"q4p": wq, "s4": ws}, torch.bfloat16)
+    kern, _, plan, deq = gemm_ops(torch, Q, name)
+    wq, ws = gemm_weight(torch, Q, name, C, 4 * C, gen)
+    wd = deq(wq, ws)
     rows, err = [], 0.0
-    for M in QMM4_SWEEP_M:
+    for M in SWEEP_M[name]:
         x = torch.randn((M, C), generator=gen, device="cuda").bfloat16()
-        row = {"M": M, "plan": Q.qmm4_plan(M, C // 2, 4 * C)["regime"]}
+        row = {"M": M, "plan": plan(M, C, 4 * C)["regime"]}
         for regime in ("decode", "prefill"):
             if regime == "decode" and M > 64:
                 row[regime] = None
                 continue
-            err = max(err, check_gemm(torch, Q, "qmm4", M, C, 4 * C, gen, wq,
-                                      ws, regime))
+            err = max(err, check_gemm(torch, Q, name, M, C, 4 * C, gen, wq,
+                                      ws, regime, gemm_tol(name, M, C, C)))
             row[regime] = device_ms(
-                torch, lambda: Q.qmm4(x, wq, ws, regime=regime), 5)
+                torch, lambda: kern(x, wq, ws, regime=regime), 5)
         row["cublas"] = device_ms(torch, lambda: torch.matmul(x, wd), 5)
-        row["bound"] = bound(gemm_bytes("qmm4", M, C, 4 * C),
+        row["bound"] = bound(gemm_bytes(name, M, C, 4 * C),
                              2 * M * C * 4 * C, BF16_TC_FLOPS_PER_S)[0]
         rows.append(row)
     cross = None
@@ -580,15 +611,16 @@ def qmm4_sweep(torch, Q, C, gen):
         if row["decode"] is not None and row["decode"] <= row["prefill"]:
             break
         cross = row["M"]
-    print(f"kernels: qmm4 M sweep at K={C} N={4 * C} (device ms): M | "
+    print(f"kernels: {name} M sweep at K={C} N={4 * C} (device ms): M | "
           f"plan | decode | prefill | cuBLAS bf16 | bound", flush=True)
     for r in rows:
         dec = "-" if r["decode"] is None else f"{r['decode']:.5f}"
-        print(f"kernels: qmm4 sweep {r['M']} | {r['plan']} | {dec} | "
+        print(f"kernels: {name} sweep {r['M']} | {r['plan']} | {dec} | "
               f"{r['prefill']:.5f} | {r['cublas']:.5f} | {r['bound']:.5f}",
               flush=True)
-    print(f"kernels: qmm4 crossover: the prefill regime is faster from M = "
-          f"{cross} (QMM4_DECODE_MAX_M = {Q.QMM4_DECODE_MAX_M})", flush=True)
+    limit = {"qmm4": Q.QMM4_DECODE_MAX_M, "qmm": Q.QMM_DECODE_MAX_M}[name]
+    print(f"kernels: {name} crossover: the prefill regime is faster from M "
+          f"= {cross} ({name.upper()}_DECODE_MAX_M = {limit})", flush=True)
     return rows, cross, err
 
 
@@ -655,16 +687,20 @@ def step_fused_inputs(torch, B, H, N, gen):
 
 def phase_quant_kernels(torch, W, Q, lm_cfg):
     """The three kernels of the quantized path against their plain
-    versions (qmm4 at decode rows M = 8 for every int4 leaf shape, the
+    versions: qmm4 at decode rows M = 8 for every int4 leaf shape, the
     8320-wide head slice read in place at M = 8 and 512, and prefill rows
-    M = 512, 2048; qmm at the same decode shapes and zrkv's 4096 × 6144;
-    the fused step at B = 8 with f32 and bf16 state); qmm4's one kernel per
-    product and its bits from two launches; then timing at the path's
-    shapes: one layer's decode products at M = 8 (cycling weight sets
-    larger than L2), beside the plain versions and cuBLAS's bf16 product on
-    the same weights dequantized beforehand (the library column); qmm4 at
-    M = 512 and 2048 the same way, and its M sweep (``qmm4_sweep``); the
-    fused step at B = 8 on the full f32 stack, cycling the layers."""
+    M = 512, 2048; qmm at the fused layer's four shapes (zrkv 4096 × 6144,
+    w_o, ffn_k, ffn_v) at M = 1, 8 (decode regime), 64 and 512 (prefill
+    regime), and the head slice in place at M = 8 and 512; the fused step
+    at B = 8 with f32 and bf16 state. Each GEMM runs one kernel per product
+    (torch.profiler) and gives the same bits from two launches (qmm4 at
+    M = 8, 2048; qmm at M = 8, 512). Then timing at the path's shapes: one
+    layer's decode products at M = 8 (cycling weight sets larger than L2),
+    beside the plain versions and cuBLAS's bf16 product on the same weights
+    dequantized beforehand (the library column); qmm4 at M = 512 and 2048
+    and qmm at M = 512 the same way, and each GEMM's M sweep
+    (``gemm_sweep``); the fused step at B = 8 on the full f32 stack,
+    cycling the layers."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 7)
     H, N, L, C = lm_cfg.n_head, lm_cfg.head_size, lm_cfg.n_layer, \
@@ -673,38 +709,38 @@ def phase_quant_kernels(torch, W, Q, lm_cfg):
     B = 8
     err = {"qmm4": 0.0, "qmm": 0.0, "wkv7_step_fused": 0.0}
     for name in ("qmm4", "qmm"):
-        shapes = [(B, K, N_) for K, N_ in QMM4_LAYER[3:]]
-        shapes += ([(512, K, N_) for K, N_ in QMM4_LAYER[3:]]
-                   + [(2048, C, 4 * C)] if name == "qmm4"
-                   else [(B, 2 * C, 3 * C)])
+        if name == "qmm4":
+            shapes = [(M, K, N_) for M in (B, 512)
+                      for K, N_ in QMM4_LAYER[3:]] + [(2048, C, 4 * C)]
+        else:
+            shapes = [(M, K, N_) for M in (1, B, 64, 512)
+                      for K, N_ in QMM_LAYER]
         for M, K, N_ in shapes:
-            # the prefill regime's wgmma adds a row's K / 16 partial
-            # products into one register chain, rounding each step more
-            # coarsely than an f32 add, so its difference from the plain
-            # version grows with K (PERF.md §6, PR 7); the decode regime
-            # (short chains, partial tiles added in f32) and K = 2048 are
-            # held to 1e-5
-            tol = 2e-5 if name == "qmm4" and M > 64 and K > C else 1e-5
-            err[name] = max(err[name], check_gemm(torch, Q, name, M, K, N_,
-                                                  gen, tol=tol))
+            err[name] = max(err[name], check_gemm(
+                torch, Q, name, M, K, N_, gen, tol=gemm_tol(name, M, K, C)))
         hq, hsc = gemm_weight(torch, Q, name, C, V, gen)
-        for M in ((B, 512) if name == "qmm4" else (B,)):
+        for M in (B, 512):
             err[name] = max(err[name], check_gemm(
                 torch, Q, name, M, C, hs, gen, hq[:, :hs], hsc[:, :hs]))
         del hq, hsc
-    # qmm4: one kernel per product, the same bits from two launches
-    wq, ws = gemm_weight(torch, Q, "qmm4", C, 4 * C, gen)
-    for M in (B, 2048):
-        x = torch.randn((M, C), generator=gen, device="cuda").bfloat16()
-        names = kernel_names(torch, lambda: Q.qmm4(x, wq, ws))
-        if len(names) != 1 or "qmm4" not in names[0]:
-            fail(f"qmm4 M={M}: one product launched {names}")
-        a, b = Q.qmm4(x, wq, ws), Q.qmm4(x, wq, ws)
-        if not torch.equal(a, b):
-            fail(f"qmm4 M={M}: two launches on the same inputs differ")
-        print(f"kernels: qmm4 M={M} K={C} N={4 * C}: one kernel per product "
-              f"({names[0][:40]}), two launches bit-identical", flush=True)
-    del wq, ws
+    # one kernel per product (named by its weight format), the same bits
+    # from two launches
+    for name, fmt, Ms in (("qmm4", "qmm4_int4", (B, 2048)),
+                          ("qmm", "qmm_int8", (B, 512))):
+        kern = gemm_ops(torch, Q, name)[0]
+        wq, ws = gemm_weight(torch, Q, name, C, 4 * C, gen)
+        for M in Ms:
+            x = torch.randn((M, C), generator=gen, device="cuda").bfloat16()
+            names = kernel_names(torch, lambda: kern(x, wq, ws))
+            if len(names) != 1 or fmt not in names[0]:
+                fail(f"{name} M={M}: one product launched {names}")
+            a, b = kern(x, wq, ws), kern(x, wq, ws)
+            if not torch.equal(a, b):
+                fail(f"{name} M={M}: two launches on the same inputs differ")
+            print(f"kernels: {name} M={M} K={C} N={4 * C}: one kernel per "
+                  f"product ({short_name(names[0])}), two launches "
+                  f"bit-identical", flush=True)
+        del wq, ws
     for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
         e = check_step_fused(torch, W, B, H, N, 4, dtype, gen, tol)
         if dtype == torch.float32:
@@ -718,17 +754,12 @@ def phase_quant_kernels(torch, W, Q, lm_cfg):
     out = {}
     for name, layer, n_sets in (("qmm4", QMM4_LAYER, 4),
                                 ("qmm", QMM_LAYER, 2)):
+        kern, plain, _, deq_fn = gemm_ops(torch, Q, name)
         sets = [[gemm_weight(torch, Q, name, K, N_, gen) for K, N_ in layer]
                 for _ in range(n_sets)]
-        deq = [[(Q.dequantize_tensor_int4({"q4p": wq, "s4": ws},
-                                          torch.bfloat16) if name == "qmm4"
-                 else Q.dequantize_tensor({"q": wq, "s": ws},
-                                          torch.bfloat16))
-                for wq, ws in ws_] for ws_ in sets]
+        deq = [[deq_fn(wq, ws) for wq, ws in ws_] for ws_ in sets]
         xs = {K: torch.randn((B, K), generator=gen,
                              device="cuda").bfloat16() for K, _ in layer}
-        kern, plain = ((Q.qmm4, Q.qmm4_plain) if name == "qmm4"
-                       else (Q.qmm, Q.qmm_plain))
         it = {"i": 0}
 
         def layer_fn(fn, dequantized=False, sets=sets, deq=deq, xs=xs,
@@ -751,22 +782,25 @@ def phase_quant_kernels(torch, W, Q, lm_cfg):
                           b_ms, b_by, err[name],
                           f"one layer's decode products at M={B}")
         del sets, deq
-    # qmm4 at prefill rows: one product of ffn_k's shape
-    wq, ws = gemm_weight(torch, Q, "qmm4", C, 4 * C, gen)
-    wd = Q.dequantize_tensor_int4({"q4p": wq, "s4": ws}, torch.bfloat16)
-    out["qmm4"]["shapes"] = {}
-    for M in (512, 2048):
-        x = torch.randn((M, C), generator=gen, device="cuda").bfloat16()
-        pb = bound(gemm_bytes("qmm4", M, C, 4 * C), 2 * M * C * 4 * C,
-                   BF16_TC_FLOPS_PER_S)
-        out["qmm4"]["shapes"][f"M={M}"] = timed(
-            torch, "qmm4", lambda: Q.qmm4(x, wq, ws),
-            lambda: Q.qmm4_plain(x, wq, ws), lambda: torch.matmul(x, wd),
-            10, 2, *pb, err["qmm4"], f"prefill rows M={M} K={C} N={4 * C}")
-    del wq, ws, wd
-    rows, cross, e = qmm4_sweep(torch, Q, C, gen)
-    out["qmm4"]["sweep"] = {"rows": rows, "crossover": cross}
-    out["qmm4"]["max_abs_err"] = max(out["qmm4"]["max_abs_err"], e)
+    # prefill rows: one product of ffn_k's shape
+    for name, Ms in (("qmm4", (512, 2048)), ("qmm", (512,))):
+        kern, plain, _, deq_fn = gemm_ops(torch, Q, name)
+        wq, ws = gemm_weight(torch, Q, name, C, 4 * C, gen)
+        wd = deq_fn(wq, ws)
+        out[name]["shapes"] = {}
+        for M in Ms:
+            x = torch.randn((M, C), generator=gen, device="cuda").bfloat16()
+            pb = bound(gemm_bytes(name, M, C, 4 * C), 2 * M * C * 4 * C,
+                       BF16_TC_FLOPS_PER_S)
+            out[name]["shapes"][f"M={M}"] = timed(
+                torch, name, lambda: kern(x, wq, ws),
+                lambda: plain(x, wq, ws), lambda: torch.matmul(x, wd),
+                10, 2, *pb, err[name], f"prefill rows M={M} K={C} N={4 * C}")
+        del wq, ws, wd
+    for name in ("qmm4", "qmm"):
+        rows, cross, e = gemm_sweep(torch, Q, name, C, gen)
+        out[name]["sweep"] = {"rows": rows, "crossover": cross}
+        out[name]["max_abs_err"] = max(out[name]["max_abs_err"], e)
 
     ops, params8 = step_fused_inputs(torch, B, H, N, gen)
     stack = torch.zeros((L, B, H, N, N), device="cuda")
@@ -1367,7 +1401,7 @@ def profile_steps(torch, run, steps: int, top: int):
     step (host clock, no profiler attached), then, over as many steps under
     torch.profiler, device busy ms per step (sum of CUDA kernel time),
     kernels launched per step, and the ``top`` kernels by device time as
-    (name, ms per step, launches per step)."""
+    (full name, ms per step, launches per step)."""
     from torch.profiler import ProfilerActivity, profile
 
     run()
@@ -1383,7 +1417,7 @@ def profile_steps(torch, run, steps: int, top: int):
             us = getattr(e, "self_device_time_total", 0.0)
             busy_us += us
             kernels += e.count
-            by_name.append((e.key[:60], us / steps / 1e3, e.count / steps))
+            by_name.append((e.key, us / steps / 1e3, e.count / steps))
     by_name.sort(key=lambda t: -t[1])
     return wall_ms, busy_us / steps / 1e3, kernels / steps, by_name[:top]
 
@@ -1407,8 +1441,17 @@ def step_profile(torch, eng, steps: int = 8, top: int = 5):
     return profile_steps(torch, run, steps, top)
 
 
+def short_name(name: str) -> str:
+    """A kernel's name for a printed line: without "void " and unnamed
+    namespaces (the port's GEMM kernels are named by their weight format,
+    ``qgemm_decode<qmm4_int4, 8>``), cut at 60 characters."""
+    name = name.replace("(anonymous namespace)::", "")
+    return (name[5:] if name.startswith("void ") else name)[:60]
+
+
 def top_line(by_name) -> str:
-    return "; ".join(f"{n} {ms:.3f} ms x{c:.0f}" for n, ms, c in by_name)
+    return "; ".join(f"{short_name(n)} {ms:.3f} ms x{c:.0f}"
+                     for n, ms, c in by_name)
 
 
 # --------------------------------------------------------------------------
@@ -1635,7 +1678,8 @@ def quantized(torch, lm_cfg, bc_cfg, device: str, max_tokens: int,
             wall_ms, busy_ms, kernels, by_name = step_profile(
                 torch, run["pipe"].engine, top=10 ** 6)
             # qmm4's device ms per step, all its launches
-            run["qmm4_ms"] = sum(ms for n, ms, _ in by_name if "qmm4" in n)
+            run["qmm4_ms"] = sum(ms for n, ms, _ in by_name
+                                 if "qmm4_int4" in n)
             run["step"] = (wall_ms, busy_ms, kernels, by_name[:5])
         del run["pipe"], params
         summary[kind] = run
@@ -1678,7 +1722,12 @@ def quantized(torch, lm_cfg, bc_cfg, device: str, max_tokens: int,
         fused = {"wall_s": wall_s, "counters": c, "launches": launches,
                  "results": results}
         if device == "cuda":
-            fused["step"] = step_profile(torch, eng)
+            wall_ms, busy_ms, kernels, by_name = step_profile(
+                torch, eng, top=10 ** 6)
+            # qmm's device ms per step, all its launches
+            fused["qmm_ms"] = sum(ms for n, ms, _ in by_name
+                                  if "qmm_int8" in n)
+            fused["step"] = (wall_ms, busy_ms, kernels, by_name[:5])
 
         # one decode step through the kernels, and the same step through
         # the plain versions, from the same state
@@ -2912,6 +2961,10 @@ def main(argv=None) -> None:
               f"versions: rel err logits {fz['step_vs_plain'][0]:.3g}, state "
               f"{fz['step_vs_plain'][1]:.3g} (tolerance 5e-2); {card}",
               flush=True)
+        print(f"quantized: fused int8 decode step at batch 8: qmm "
+              f"{fz['qmm_ms']:.3f} ms of {busy_ms:.3f} busy ms "
+              f"({100 * fz['qmm_ms'] / busy_ms:.1f}%), {kernels:.0f} kernels "
+              f"per step; {card}", flush=True)
 
         paths["quantized"] = quant["launches"]
 

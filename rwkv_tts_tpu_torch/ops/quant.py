@@ -38,7 +38,7 @@ only those.
 from __future__ import annotations
 
 import ctypes
-from typing import Any, Dict, Sequence, Tuple
+from typing import Any, Dict, Sequence
 
 import torch
 
@@ -49,8 +49,8 @@ __all__ = ["DENSE_KEYS", "USE_QMM_KERNEL", "LAUNCHES", "reset_launches",
            "n_layers_of", "quantize_rwkv_params", "NF4_BLOCK", "NF4_CODE",
            "quantize_tensor_nf4", "dequantize_tensor_nf4", "is_nf4",
            "INT4_GROUP", "quantize_tensor_int4", "dequantize_tensor_int4",
-           "is_int4", "qmm4_route", "qmm_route", "gemm_plan", "qmm4_plan",
-           "QMM4_DECODE_MAX_M", "qmm4_plain",
+           "is_int4", "qmm4_route", "qmm_route", "qmm4_plan", "qmm_plan",
+           "QMM4_DECODE_MAX_M", "QMM_DECODE_MAX_M", "qmm4_plain",
            "qmm_plain", "qmm4", "qmm"]
 
 # the bandwidth-heavy projections; LoRA adapters and norm/shift vectors are
@@ -325,72 +325,69 @@ def qmm_route(x_shape: Sequence[int], wq_shape: Sequence[int]) -> bool:
             and wq_shape[0] % 128 == 0 and wq_shape[1] % 128 == 0)
 
 
-# csrc/qmm.cu's tile: 64 output columns, 64 weight rows per K-step, 16 or 64
-# output rows (csrc/qgemm.cuh)
-TILE_N, TILE_K = 64, 64
-# blocks to aim for when cutting K across blocks: two per SM of an H100
+# csrc/qgemm.cuh, the body of qmm4 and qmm: 128 output columns a block in
+# both regimes; the decode regime walks 64 weight byte rows a stage, holds
+# up to 8 m-tiles of 8 rows a block and cuts K across a cluster of at most
+# 8 blocks; the prefill regime takes 256-row tiles
+QGEMM_BN, QGEMM_BK, QGEMM_MAX_CLUSTER = 128, 64, 8
+QGEMM_DECODE_M_TILES = (1, 2, 4, 8)
+# blocks to aim for when cutting K across a cluster: two per SM of an H100
 TARGET_BLOCKS = 264
-
-
-def gemm_plan(M: int, k_rows: int, N: int) -> Tuple[int, int, int]:
-    """(block rows, K splits, K-steps per split) of a launch of
-    ``csrc/qmm.cu`` for an [M, ·] × [k_rows, N] weight. Decode products
-    have a few output tiles, so K is cut across blocks until about
-    TARGET_BLOCKS are in flight; the splits' partial
-    sums are added in split order by a second pass, so the result does not
-    depend on the order in which blocks finish."""
-    bm = 16 if M <= 16 else 64
-    tiles = (N // TILE_N) * -(-M // bm)
-    steps = k_rows // TILE_K
-    splits = min(max(1, -(-TARGET_BLOCKS // tiles)), steps)
-    per = -(-steps // splits)
-    return bm, -(-steps // per), per
-
-
-# csrc/qmm4.cu: 128 output columns a block in both regimes; the decode
-# regime walks 64 byte rows a stage, holds up to 8 m-tiles of 8 rows a block
-# and cuts K across a cluster of at most 8 blocks; the prefill regime takes
-# 256-row tiles
-QMM4_BN, QMM4_BK2, QMM4_MAX_CLUSTER = 128, 64, 8
-QMM4_DECODE_M_TILES = (1, 2, 4, 8)
-# rows up to which a product takes the decode regime: on an H100 it is
-# faster than the prefill regime at every M it takes (chip_smoke.py, the
-# qmm4 M sweep at 2048 x 8192; PERF.md)
+# rows up to which a product takes the decode regime (chip_smoke.py, the M
+# sweeps at 2048 x 8192; PERF.md). qmm4's is faster than its prefill
+# regime at every M it takes. qmm's prefill regime is level with the
+# decode regime or 8-10% faster at M = 64, and every M from 33 to 64 runs
+# the decode regime's same 8-m-tile kernel, so qmm's decode rows end at 32
 QMM4_DECODE_MAX_M = 64
+QMM_DECODE_MAX_M = 32
+
+
+def _qgemm_plan(name: str, rows_name: str, M: int, rows: int, N: int,
+                regime: str, decode_max_m: int) -> Dict[str, Any]:
+    """The launch of ``csrc/<name>.cu`` (body ``csrc/qgemm.cuh``) for
+    x [M, ·] × a weight of ``rows`` byte rows and N columns: ``regime``
+    ("decode" or "prefill"; by default decode for M ≤ ``decode_max_m``),
+    ``m_tiles`` (8-row tiles a block holds), ``splits`` (blocks of a cluster
+    along K) and ``per`` (stages of ``QGEMM_BK`` byte rows each of them
+    walks). Decode products have few column tiles, so K is cut across up to
+    8 blocks until about TARGET_BLOCKS are in flight; the cluster adds its
+    partial tiles in rank order, so the result does not depend on the order
+    in which blocks finish. Raises on a shape that fits neither regime."""
+    if M < 1 or rows < QGEMM_BK or rows % QGEMM_BK or N < QGEMM_BN or \
+            N % QGEMM_BN:
+        raise ValueError(f"{name}: no regime takes M = {M}, {rows_name} = "
+                         f"{rows}, N = {N} ({rows_name} a multiple of "
+                         f"{QGEMM_BK}, N of {QGEMM_BN})")
+    if regime is None:
+        regime = "decode" if M <= decode_max_m else "prefill"
+    steps = rows // QGEMM_BK
+    if regime == "prefill":
+        return {"regime": regime, "m_tiles": 32, "splits": 1, "per": steps}
+    if regime != "decode":
+        raise ValueError(f"{name}: unknown regime {regime!r}")
+    if M > 8 * QGEMM_DECODE_M_TILES[-1]:
+        raise ValueError(f"{name}: the decode regime takes M ≤ "
+                         f"{8 * QGEMM_DECODE_M_TILES[-1]}, got {M}")
+    mt = next(m for m in QGEMM_DECODE_M_TILES if 8 * m >= M)
+    tiles = N // QGEMM_BN
+    splits = min(QGEMM_MAX_CLUSTER, steps,
+                 max(1, -(-TARGET_BLOCKS // tiles)))
+    per = -(-steps // splits)
+    return {"regime": regime, "m_tiles": mt, "splits": -(-steps // per),
+            "per": per}
 
 
 def qmm4_plan(M: int, K2: int, N: int, regime: str = None
               ) -> Dict[str, Any]:
     """The launch of ``csrc/qmm4.cu`` for x [M, 2·K2] × a [K2, N] packed
-    weight: ``regime`` ("decode" or "prefill"; by default decode for
-    M ≤ ``QMM4_DECODE_MAX_M``), ``m_tiles`` (8-row tiles a block holds),
-    ``splits`` (blocks of a cluster along K) and ``per`` (stages of
-    ``QMM4_BK2`` byte rows each of them walks). Decode products have few
-    column tiles, so K is cut across up to 8 blocks until about
-    TARGET_BLOCKS are in flight; the cluster adds its partial tiles in rank
-    order, so the result does not depend on the order in which blocks
-    finish. Raises on a shape that fits neither regime."""
-    if M < 1 or K2 < QMM4_BK2 or K2 % QMM4_BK2 or N < QMM4_BN or \
-            N % QMM4_BN:
-        raise ValueError(f"qmm4: no regime takes M = {M}, K/2 = {K2}, "
-                         f"N = {N} (K/2 a multiple of {QMM4_BK2}, N of "
-                         f"{QMM4_BN})")
-    if regime is None:
-        regime = "decode" if M <= QMM4_DECODE_MAX_M else "prefill"
-    steps = K2 // QMM4_BK2
-    if regime == "prefill":
-        return {"regime": regime, "m_tiles": 32, "splits": 1, "per": steps}
-    if regime != "decode":
-        raise ValueError(f"qmm4: unknown regime {regime!r}")
-    if M > 8 * QMM4_DECODE_M_TILES[-1]:
-        raise ValueError(f"qmm4: the decode regime takes M ≤ "
-                         f"{8 * QMM4_DECODE_M_TILES[-1]}, got {M}")
-    mt = next(m for m in QMM4_DECODE_M_TILES if 8 * m >= M)
-    tiles = N // QMM4_BN
-    splits = min(QMM4_MAX_CLUSTER, steps, max(1, -(-TARGET_BLOCKS // tiles)))
-    per = -(-steps // splits)
-    return {"regime": regime, "m_tiles": mt, "splits": -(-steps // per),
-            "per": per}
+    int4 weight (``_qgemm_plan``; decode for M ≤ ``QMM4_DECODE_MAX_M``)."""
+    return _qgemm_plan("qmm4", "K/2", M, K2, N, regime, QMM4_DECODE_MAX_M)
+
+
+def qmm_plan(M: int, K: int, N: int, regime: str = None) -> Dict[str, Any]:
+    """The launch of ``csrc/qmm.cu`` for x [M, K] × a [K, N] int8 weight
+    (``_qgemm_plan``; decode for M ≤ ``QMM_DECODE_MAX_M``)."""
+    return _qgemm_plan("qmm", "K", M, K, N, regime, QMM_DECODE_MAX_M)
 
 
 # --------------------------------------------------------------------------
@@ -419,13 +416,10 @@ def qmm_plain(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor
 # --------------------------------------------------------------------------
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = {
-    # x, w, scales, out, partials, M, K, N, w row stride, scale rows,
-    # scales row stride, block rows, splits, steps per split, device, stream
-    "qmm": [_P] * 5 + [_I] * 10 + [_P],
-    # x, w, scales, out, M, K, N, w row stride, scale rows, scales row
-    # stride, regime, m-tiles, splits, stages per split, device, stream
-    "qmm4": [_P] * 4 + [_I] * 11 + [_P]}
+# both entries: x, w, scales, out, M, K, N, w row stride, scale rows,
+# scales row stride, regime, m-tiles, splits, stages per split, device,
+# stream
+_ARGTYPES = {name: [_P] * 4 + [_I] * 11 + [_P] for name in ("qmm4", "qmm")}
 _fns: Dict[str, object] = {}
 
 
@@ -463,51 +457,22 @@ def _aligned_operands(x, wq, ws):
     return xb, wq, ws
 
 
-def _launch_gemm(name, x, wq, ws, k_rows, M, K, N):
-    """Launch ``csrc/<name>.cu`` on checked arguments; returns [M, N] f32."""
+def _launch(name, x, wq, ws, M, K, N, plan):
+    """Launch ``csrc/<name>.cu`` on checked arguments in the regime of
+    ``plan``; returns [M, N] f32."""
     dev = x.device
-    if k_rows % TILE_K or N % TILE_N:
-        raise ValueError(f"{name}: the kernel takes weight rows in multiples "
-                         f"of {TILE_K} and N in multiples of {TILE_N}, got "
-                         f"[{k_rows}, {N}]")
     xb, wq, ws = _aligned_operands(x, wq, ws)
-    bm, splits, per = gemm_plan(M, k_rows, N)
     out = torch.empty((M, N), dtype=f32, device=dev)
-    partial = (torch.empty((splits, M, N), dtype=f32, device=dev)
-               if splits > 1 else out)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _kernel(name)(xb.data_ptr(), wq.data_ptr(), ws.data_ptr(),
-                        out.data_ptr(), partial.data_ptr(), M, K, N,
-                        wq.stride(0), ws.shape[0], ws.stride(0), bm, splits,
-                        per,
+                        out.data_ptr(), M, K, N, wq.stride(0), ws.shape[0],
+                        ws.stride(0), int(plan["regime"] == "prefill"),
+                        plan["m_tiles"], plan["splits"], plan["per"],
                         dev.index, stream)
     if err:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
                            f"{err}")
     LAUNCHES[name] += 1
-    return out
-
-
-def _launch_qmm4(x, wq, ws, M, K, N, regime):
-    """Launch ``csrc/qmm4.cu`` on checked arguments in the regime
-    ``qmm4_plan`` gives; returns [M, N] f32."""
-    dev = x.device
-    if ws.shape[0] * INT4_GROUP != K:
-        raise ValueError(f"qmm4: the kernel takes groups of {INT4_GROUP} "
-                         f"rows, got {K // ws.shape[0]}")
-    plan = qmm4_plan(M, K // 2, N, regime)
-    xb, wq, ws = _aligned_operands(x, wq, ws)
-    out = torch.empty((M, N), dtype=f32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _kernel("qmm4")(xb.data_ptr(), wq.data_ptr(), ws.data_ptr(),
-                          out.data_ptr(), M, K, N, wq.stride(0), ws.shape[0],
-                          ws.stride(0), int(plan["regime"] == "prefill"),
-                          plan["m_tiles"], plan["splits"], plan["per"],
-                          dev.index, stream)
-    if err:
-        raise RuntimeError(f"qmm4: kernel launch failed with CUDA error "
-                           f"{err}")
-    LAUNCHES["qmm4"] += 1
     return out
 
 
@@ -533,14 +498,21 @@ def qmm4(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor,
         return qmm4_plain(x, wq, ws)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    return _launch_qmm4(x, wq, ws, M, K, N, regime)
+    if G * INT4_GROUP != K:
+        raise ValueError(f"qmm4: the kernel takes groups of {INT4_GROUP} "
+                         f"rows, got {K // G}")
+    return _launch("qmm4", x, wq, ws, M, K, N, qmm4_plan(M, K2, N, regime))
 
 
-def qmm(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor) -> torch.Tensor:
+def qmm(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor,
+        regime: str = None) -> torch.Tensor:
     """x [M, K] (any float dtype, rounded to bf16) @ the int8 weight wq
     [K, N], times the column scales ws [1, N] f32 → [M, N] f32. Counterpart
     of the TPU kernel ``rwkv_tts_tpu/ops/quant.py:367 qmm_pallas`` (body
-    :361)."""
+    :361). On a card the kernel takes K a multiple of 64 and N of 128
+    (``qmm_route`` guarantees both), and ``regime`` ("decode" or "prefill")
+    overrides the choice by M of ``qmm_plan``, for measuring both; the
+    result is the same function."""
     dev = x.device
     _check_2d("x", x, (f32, bf16, torch.float16), dev)
     _check_2d("wq", wq, (torch.int8,), dev)
@@ -554,4 +526,4 @@ def qmm(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor) -> torch.Tensor:
         return qmm_plain(x, wq, ws)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    return _launch_gemm("qmm", x, wq, ws, K, M, K, N)
+    return _launch("qmm", x, wq, ws, M, K, N, qmm_plan(M, K, N, regime))

@@ -251,40 +251,50 @@ def test_flagship_int4_leaves_all_route_to_the_kernel():
         assert Q.qmm4_route((k_in // 2, n)), (k_in, n)
 
 
-def test_gemm_plan_covers_k_once():
-    for M, rows, N in ((8, 1024, 2048), (8, 4096, 2048), (8, 1024, 8320),
-                       (512, 1024, 8192), (2048, 1024, 8192), (8, 2, 64),
-                       (8, 2048, 6144), (33, 64, 128)):
-        bm, splits, per = Q.gemm_plan(M, rows * Q.TILE_K, N)
-        assert bm == (16 if M <= 16 else 64)
-        assert (splits - 1) * per < rows <= splits * per
-        assert splits == 1 or N // Q.TILE_N * -(-M // bm) < Q.TARGET_BLOCKS
-
-
 QMM4_PLAN_SHAPES = [(M, k2, n) for M in (1, 2, 8, 32, 33, 64, 100, 512, 2048)
                     for k2, n in ((1024, 2048), (1024, 8192), (4096, 2048),
                                   (1024, 8320), (256, 128), (64, 128))]
+# qmm's route: M ≤ 512 in multiples of 8 (and M = 1 for measuring), K and N
+# multiples of 128; the fused layer's products and the head slice
+QMM_PLAN_SHAPES = [(M, k, n) for M in (1, 8, 16, 32, 64, 72, 256, 512)
+                   for k, n in ((4096, 6144), (2048, 2048), (2048, 8192),
+                                (8192, 2048), (2048, 8320), (128, 128))]
+
+
+def check_plan_covers_k_once(p, rows, M, regime):
+    """The blocks along K walk the byte rows once: every split has a stage,
+    the splits cover the rows exactly, a cluster holds at most 8 blocks,
+    and a decode block's m-tiles hold its rows."""
+    steps = rows // Q.QGEMM_BK
+    assert p["regime"] == regime
+    assert 1 <= p["splits"] <= Q.QGEMM_MAX_CLUSTER
+    assert (p["splits"] - 1) * p["per"] < steps <= p["splits"] * p["per"]
+    if regime == "prefill":
+        assert (p["splits"], p["per"]) == (1, steps)
+    else:
+        assert p["m_tiles"] in Q.QGEMM_DECODE_M_TILES
+        assert 8 * p["m_tiles"] >= M
+        assert p["m_tiles"] == 1 or 4 * p["m_tiles"] < M
 
 
 @pytest.mark.parametrize("regime", ["decode", "prefill"])
 def test_qmm4_plan_covers_k_once(regime):
-    """In each regime the blocks along K walk the K/2 byte rows once: every
-    split has a stage, the splits cover K/2 exactly, a cluster holds at
-    most 8 blocks, and a decode block's m-tiles hold its rows."""
+    """In each regime the blocks along K walk the K/2 byte rows once."""
     for M, k2, n in QMM4_PLAN_SHAPES:
         if regime == "decode" and M > 64:
             continue
-        p = Q.qmm4_plan(M, k2, n, regime)
-        steps = k2 // Q.QMM4_BK2
-        assert p["regime"] == regime
-        assert 1 <= p["splits"] <= Q.QMM4_MAX_CLUSTER
-        assert (p["splits"] - 1) * p["per"] < steps <= p["splits"] * p["per"]
-        if regime == "prefill":
-            assert (p["splits"], p["per"]) == (1, steps)
-        else:
-            assert p["m_tiles"] in Q.QMM4_DECODE_M_TILES
-            assert 8 * p["m_tiles"] >= M
-            assert p["m_tiles"] == 1 or 4 * p["m_tiles"] < M
+        check_plan_covers_k_once(Q.qmm4_plan(M, k2, n, regime), k2, M,
+                                 regime)
+
+
+@pytest.mark.parametrize("regime", ["decode", "prefill"])
+def test_qmm_plan_covers_k_once(regime):
+    """In each regime the blocks along K walk the K rows of the int8
+    weight once (one k row a byte row)."""
+    for M, k, n in QMM_PLAN_SHAPES:
+        if regime == "decode" and M > 64:
+            continue
+        check_plan_covers_k_once(Q.qmm_plan(M, k, n, regime), k, M, regime)
 
 
 def test_qmm4_plan_switches_at_the_threshold():
@@ -295,6 +305,16 @@ def test_qmm4_plan_switches_at_the_threshold():
         assert Q.qmm4_plan(M, 1024, 8192)["regime"] == "prefill", M
 
 
+def test_qmm_plan_switches_at_the_threshold():
+    """Decode rows up to ``QMM_DECODE_MAX_M``, prefill rows above, over
+    qmm's whole route (M ≤ 512)."""
+    t = Q.QMM_DECODE_MAX_M
+    for M in (1, 8, t - 8, t):
+        assert Q.qmm_plan(M, 2048, 8192)["regime"] == "decode", M
+    for M in (t + 8, 2 * t, 512):
+        assert Q.qmm_plan(M, 2048, 8192)["regime"] == "prefill", M
+
+
 @pytest.mark.parametrize("M, k2, n, regime", [
     (8, 1024, 8200, None), (8, 1000, 2048, None), (8, 16, 128, None),
     (0, 1024, 2048, None), (65, 1024, 2048, "decode"),
@@ -302,6 +322,19 @@ def test_qmm4_plan_switches_at_the_threshold():
 def test_qmm4_plan_refuses_what_no_regime_takes(M, k2, n, regime):
     with pytest.raises(ValueError):
         Q.qmm4_plan(M, k2, n, regime)
+
+
+@pytest.mark.parametrize("M, k, n, regime", [
+    (8, 2048, 8200, None),      # N not a multiple of 128
+    (8, 2000, 2048, None),      # K not a multiple of 64
+    (8, 32, 128, None),         # K below one stage
+    (8, 2048, 64, None),        # N below one block
+    (0, 2048, 2048, None),      # no rows
+    (72, 2048, 2048, "decode"),  # beyond the decode regime's 8 m-tiles
+    (8, 2048, 2048, "dense")])  # no such regime
+def test_qmm_plan_refuses_what_no_regime_takes(M, k, n, regime):
+    with pytest.raises(ValueError):
+        Q.qmm_plan(M, k, n, regime)
 
 
 # -- the kernels' plain versions against the Pallas kernels ---------------
@@ -468,17 +501,45 @@ def test_qmm4_kernel_matches_plain(cuda_card, M, K, N):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M, K, N", [(8, 256, 128), (8, 2048, 2048),
-                                     (8, 4096, 6144), (8, 2048, 8320),
-                                     (64, 512, 384), (512, 2048, 1024)])
-def test_qmm_kernel_matches_plain(cuda_card, M, K, N):
+@pytest.mark.parametrize("regime, M, K, N", [
+    ("decode", 1, 2048, 2048), ("decode", 8, 256, 128),
+    ("decode", 8, 2048, 2048), ("decode", 8, 4096, 6144),
+    ("decode", 8, 8192, 2048), ("decode", 8, 2048, 8320),
+    ("decode", 16, 2048, 8192), ("prefill", 64, 512, 384),
+    ("prefill", 100, 512, 384), ("prefill", 256, 2048, 8192),
+    ("prefill", 512, 2048, 1024)])
+def test_qmm_kernel_matches_plain(cuda_card, regime, M, K, N):
+    """The kernel against its plain version on the card, in the regime
+    ``qmm_plan`` picks (decode rows up to ``QMM_DECODE_MAX_M``, prefill rows
+    above; each case names it): the same bf16 operands, f32 sums in another
+    order, the column scale applied once after the sum: 1e-5 relative."""
+    assert Q.qmm_plan(M, K, N)["regime"] == regime
     gen = torch.Generator(device="cuda").manual_seed(M + K + N)
     w = 0.05 * torch.randn((K, N), generator=gen, device="cuda")
     x = torch.randn((M, K), generator=gen, device="cuda")
     q = Q.quantize_tensor(w)
+    Q.reset_launches()
     got = Q.qmm(x, q["q"], q["s"])
     torch.cuda.synchronize()
+    assert Q.LAUNCHES["qmm"] == 1
     assert rel_err(got.cpu(), Q.qmm_plain(x, q["q"], q["s"]).cpu()) < 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("regime, M, K, N", [
+    ("decode", 8, 2048, 2048), ("prefill", 512, 2048, 2048)])
+def test_qmm_two_launches_give_the_same_bits(cuda_card, regime, M, K, N):
+    """One launch per product and no atomics: the decode regime's cluster
+    adds its partial tiles in rank order, so two launches agree bit for
+    bit."""
+    gen = torch.Generator(device="cuda").manual_seed(M + K)
+    q = Q.quantize_tensor(0.05 * torch.randn((K, N), generator=gen,
+                                             device="cuda"))
+    x = torch.randn((M, K), generator=gen, device="cuda")
+    a = Q.qmm(x, q["q"], q["s"], regime=regime)
+    b = Q.qmm(x, q["q"], q["s"], regime=regime)
+    assert torch.equal(a, b)
+    assert rel_err(a.cpu(), Q.qmm_plain(x, q["q"], q["s"]).cpu()) < 1e-5
 
 
 @pytest.mark.cuda
@@ -499,19 +560,24 @@ def test_qmm4_two_launches_give_the_same_bits(cuda_card, regime, M, K, N):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["int4", "int8"])
 @pytest.mark.parametrize("M", [8, 512])
-def test_head_slice_reads_the_weight_in_place(cuda_card, M):
-    """A column prefix of the head (row stride 78080) goes to the kernel
-    without a copy and gives the same product as a contiguous copy, at
-    decode rows and at prefill rows."""
+def test_head_slice_reads_the_weight_in_place(cuda_card, kind, M):
+    """A column prefix of the head (row stride 78080 codes: bytes for int8,
+    packed byte pairs for int4) goes to the kernel without a copy and gives
+    the same product as a contiguous copy, at decode rows and at prefill
+    rows."""
     gen = torch.Generator(device="cuda").manual_seed(3)
-    q = Q.quantize_tensor_int4(0.05 * torch.randn((256, 78080),
-                                                  generator=gen,
-                                                  device="cuda"))
+    w = 0.05 * torch.randn((256, 78080), generator=gen, device="cuda")
     x = torch.randn((M, 256), generator=gen, device="cuda")
-    sl = {k: v[..., :8320] for k, v in q.items()}
-    got = Q.qmm4(x, sl["q4p"], sl["s4"])
-    want = Q.qmm4(x, sl["q4p"].contiguous(), sl["s4"].contiguous())
+    if kind == "int4":
+        q, fn = Q.quantize_tensor_int4(w), Q.qmm4
+    else:
+        q, fn = Q.quantize_tensor(w), Q.qmm
+    sl = [v[..., :8320] for v in q.values()]
+    assert sl[0].stride(0) == 78080
+    got = fn(x, *sl)
+    want = fn(x, *(v.contiguous() for v in sl))
     assert torch.equal(got, want)
 
 

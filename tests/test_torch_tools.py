@@ -9,7 +9,8 @@ import pytest
 import torch
 
 from rwkv_tts_tpu_torch.ops import wkv7 as W
-from rwkv_tts_tpu_torch.tools import (profile_prefill_pieces,
+from rwkv_tts_tpu_torch.ops import quant as Q
+from rwkv_tts_tpu_torch.tools import (profile_prefill_pieces, profile_qgemm,
                                       profile_stack_kernel,
                                       profile_step_pieces)
 
@@ -38,6 +39,12 @@ CASES = {
         profile_prefill_pieces,
         ["--batch", "2", "--T", "16", "--layers", "2", "--embd", "128",
          "--iters", "1"]),
+    "qgemm_int8": (
+        profile_qgemm, ["--kind", "int8", "--batch", "2", "--embd", "128",
+                        "--iters", "1"]),
+    "qgemm_int4": (
+        profile_qgemm, ["--kind", "int4", "--batch", "2", "--embd", "128",
+                        "--iters", "1"]),
 }
 
 
@@ -55,13 +62,23 @@ def times_in(obj):
 def test_tool_runs_on_the_cpu(name, capsys):
     module, argv = CASES[name]
     W.reset_launches()
+    Q.reset_launches()
     out = module.main(argv, device="cpu")
     printed = capsys.readouterr().out.strip().splitlines()
     assert json.loads(printed[-1]) == json.loads(json.dumps(out))
     assert out["device"] == "cpu"
     assert not any(out["launches"].values())
-    assert not any(W.LAUNCHES.values())
-    if name == "stack_kernel":
+    assert not any(W.LAUNCHES.values()) and not any(Q.LAUNCHES.values())
+    if name.startswith("qgemm"):
+        # each product of the layer with its byte bound and the plan the
+        # kernel would take; no K-split variants without a card
+        kind = name.split("_")[1]
+        assert set(out["products"]) == set(
+            profile_qgemm.layer_shapes(kind, 128))
+        for p in out["products"].values():
+            assert p["bound_ms"] > 0 and p["plan"]["regime"] == "decode"
+            assert "splits_ms" not in p
+    elif name == "stack_kernel":
         got = out["batches"]["2"]
         assert set(got["variants"]) == {"serve", "serve_nok", "merged",
                                         "merged_nok"}
