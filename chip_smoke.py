@@ -52,12 +52,18 @@ Phases, each fatal on failure:
              plain version at the wave generator's full-width shapes of one
              exact-mode streaming window (widths 768, 384, 192, 96 at k = 7
              with dilation 1, 3, 9 and k = 1, and the 1024 -> 1536 input
-             conv; bare, snake, snake + residual; f32 and bf16 compute),
-             each shape timed beside cuDNN on bf16 operands, and one
-             window's 25 calls timed as a whole; and the 25 calls of every
-             other window length the streaming vocoder decodes (interior
-             and flush window of each latency mode, lengths taken from
-             ``StreamingVocoder``) against the plain version; then the
+             conv; bare, snake, snake + residual; f32 compute, and bf16
+             compute from the plain and from the packed weight), its
+             prologue against the prologue's plain version, B = 2 at one
+             call of each width, two launches bit for bit at a k = 7, a
+             k = 1 and the input conv, each call's plan printed and its
+             main kernel and prologue timed beside cuDNN on bf16 operands
+             and both bounds, and one window's 25 calls timed as a whole
+             (prologues included) and its 25 prologues alone; and the
+             calls of every other window length the streaming vocoder
+             decodes (interior and flush window of each latency mode,
+             lengths taken from ``StreamingVocoder``) against the plain
+             version, from both weight forms; then the
              kernels off the serving paths: the out-of-place decode
              (``wkv7_decode_out``) at B = 8 and 128, f32 and bf16 state, its
              input state bit-unchanged and its bf16 state its own f32
@@ -129,7 +135,8 @@ Phases, each fatal on failure:
              the one-shot decode after the input conv and the first
              upsampling block, and the growth of the difference from block
              to block is printed for the kernel and for the plain version;
-             conv1d was launched 25 times per vocoder window; a cancelled
+             conv1d and its prologue were launched 25 times each per
+             vocoder window and no weight was packed in one; a cancelled
              request frees its slot; the goldens requests through the
              continuous engine emit ``tests/goldens.json``; with f32 weights
              at the same width the same 8 requests emit the static engine's
@@ -826,15 +833,17 @@ def phase_quant_kernels(torch, W, Q, lm_cfg):
 
 
 def timed(torch, name, kern, plain, library, n_k, n_p, b_ms, b_by, err,
-          shape):
+          shape, want=None):
     """Device time per call (torch.profiler) of a kernel, its plain version
     and its library yardstick (or None), with CUDA-event times per call
     beside (those also hold the host's launch work between calls); returns
-    the kernel's stats row."""
+    the kernel's stats row. With ``want`` (``kernel_ms``'s), the kernel's
+    device time is the sum over its kernels, their launches checked."""
     call_ms, plain_call_ms = cuda_ms(torch, kern, n_k), cuda_ms(torch, plain,
                                                                n_p)
-    dev_ms, plain_dev_ms = device_ms(torch, kern, n_k), device_ms(torch,
-                                                                  plain, n_p)
+    dev_ms = (device_ms(torch, kern, n_k) if want is None
+              else sum(kernel_ms(torch, kern, n_k, want).values()))
+    plain_dev_ms = device_ms(torch, plain, n_p)
     lib_ms = device_ms(torch, library, n_k) if library else None
     print(f"kernels: {name} at {shape}: device {dev_ms:.5f} ms, plain "
           f"{plain_dev_ms:.5f} ms, library "
@@ -1777,27 +1786,6 @@ def quantized(torch, lm_cfg, bc_cfg, device: str, max_tokens: int,
 # conv1d: the wave generator's stride-1 convs
 # --------------------------------------------------------------------------
 
-def wavegen_conv_shapes(bc_cfg, window: int):
-    """The ``ops.conv1d`` calls of one ``decode`` of ``window`` latents under
-    ``conv_impl="mxu_fused"``, in order, as (Ci, O, T, K, dilation,
-    variant): the input conv (bare), then per upsampling block three
-    residual units of a k = 7 conv (snake) and a k = 1 conv (snake +
-    residual). Convs narrower than 96 channels stay on the library and are
-    not listed."""
-    calls = []
-    ch, T = bc_cfg.dec_channels, window
-    if min(bc_cfg.encoder_out, ch) >= 96:
-        calls.append((bc_cfg.encoder_out, ch, T, 7, 1, "bare"))
-    for rate in bc_cfg.dec_rates:
-        ch, T = ch // 2, T * rate
-        if ch < 96:
-            continue
-        for d in (1, 3, 9):
-            calls.append((ch, ch, T, 7, d, "snake"))
-            calls.append((ch, ch, T, 1, 1, "snake_res"))
-    return calls
-
-
 def stream_window_lengths(bc_cfg):
     """{latency mode: (interior, flush)}: the two padded window lengths, in
     latents, that ``StreamingVocoder`` decodes in each mode."""
@@ -1810,24 +1798,12 @@ def stream_window_lengths(bc_cfg):
     return out
 
 
-def conv_bound(Ci, O, T, K, variant, B=1):
-    """One call's bound: x (f32), the weights (f32 as stored), bias, alpha
-    and residual each read once, y (f32) written once, against 2·K·Ci·O·T·B
-    operations at the bf16 tensor cores' peak."""
-    nbytes = 4 * (B * Ci * T + O * Ci * K + O + B * O * T)
-    if variant != "bare":
-        nbytes += 4 * Ci
-    if variant == "snake_res":
-        nbytes += 4 * B * O * T
-    return bound(nbytes, 2.0 * K * Ci * O * T * B, BF16_TC_FLOPS_PER_S)
-
-
-def conv_case(torch, Ci, O, T, K, dil, variant, gen):
+def conv_case(torch, Ci, O, T, K, dil, variant, gen, B=1):
     """Seeded operands of one call at the wave generator's magnitudes."""
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda")
 
-    x = 2.0 * randn(1, Ci, T)
+    x = 2.0 * randn(B, Ci, T)
     w = randn(O, Ci, K) / (Ci * K) ** 0.5
     b = 0.1 * randn(O)
     kw = {"dilation": dil, "padding": (K - 1) * dil // 2}
@@ -1835,7 +1811,7 @@ def conv_case(torch, Ci, O, T, K, dil, variant, gen):
         kw["snake_alpha"] = 0.1 + 1.9 * torch.rand((Ci,), generator=gen,
                                                    device="cuda")
     if variant == "snake_res":
-        kw["residual"] = 2.0 * randn(1, O, T)
+        kw["residual"] = 2.0 * randn(B, O, T)
     return x, w, b, kw
 
 
@@ -1860,51 +1836,138 @@ def library_conv(torch, C1, x, w, b, kw):
     return run
 
 
+def kernel_ms(torch, fn, iters: int, want):
+    """Device ms per call of ``fn`` by kernel name (torch.profiler), over
+    ``iters`` calls after one (``rwkv_tts_tpu_torch.utils.timing``).
+    ``want`` maps a part of a kernel's name to its launches per call. The
+    profiler now and then loses a kernel's events: it measures again, up to
+    3 times, until each such kernel shows that many launches, and fails if
+    one never does."""
+    from rwkv_tts_tpu_torch.utils.timing import device_ms_by_kernel
+    for _ in range(3):
+        counts = {}
+        by = device_ms_by_kernel(fn, iters, counts=counts)
+        seen = {w: sum(c for k, c in counts.items() if w in k) for w in want}
+        if all(abs(seen[w] - n) < 1e-6 for w, n in want.items()):
+            return by
+    fail(f"the profiler saw {seen} launches per call, expected {want}")
+
+
+def conv_tol(torch, cdt, variant) -> float:
+    """conv1d against its plain version, of the output's largest value:
+    2e-5 (the same rounded operands, f32 sums in another order), and 1e-3
+    for bf16 compute with a snake prologue (a snake value within an f32
+    ulp of a bf16 rounding boundary rounds the other way between ``sinf``
+    and ``torch.sin``, 2^-9 of one operand)."""
+    return 1e-3 if (cdt == torch.bfloat16 and variant != "bare") else 2e-5
+
+
+def plan_text(p) -> str:
+    return (f"{p.regime} {p.bm}x{p.bn} cluster {p.cluster} x {p.per} "
+            f"slabs, {p.blocks} blocks")
+
+
 def phase_conv_kernels(torch, C1, bc_cfg):
     """conv1d against its plain version on the card at every shape the wave
     generator gives it in one exact-mode streaming window (B = 1): each
     width at k = 7 with dilation 1, 3, 9 and at k = 1, and the input conv,
-    as bare, snake and snake + residual calls, with f32 and bf16 compute,
-    f32 in and out. Tolerances, of the output's largest value: 2e-5 (the
-    same rounded operands, f32 sums in another order), and 1e-3 for bf16
-    compute with a snake prologue (a snake value within an f32 ulp of a
-    bf16 rounding boundary rounds the other way between ``sinf`` and
-    ``torch.sin``, 2^-9 of one operand). Then the time of each of the
-    window's calls beside cuDNN on bf16 operands (CUDA events), and the
-    window's 25 calls as a whole (torch.profiler) beside their plain
-    versions and the library's."""
+    as bare, snake and snake + residual calls; f32 compute (the FFMA
+    kernel, plain weight) and bf16 compute (prologue + implicit GEMM) from
+    the plain weight and from its packed form (``conv_tol``); the
+    prologue against its plain version (bit for bit bare, one bf16 ulp
+    behind a snake); B = 2 at one call of each width; two launches bit for
+    bit at a k = 7, a k = 1 and the input conv. Then each of the window's
+    calls under its plan: main kernel and prologue device ms
+    (torch.profiler) beside cuDNN on bf16 operands and both bounds, and
+    the window's 25 calls as a whole, prologues included, beside their
+    plain versions and the library's; the window's 25 prologues alone."""
     from rwkv_tts_tpu_torch.models import bicodec
+    from rwkv_tts_tpu_torch.tools.profile_conv1d import (conv_bound,
+                                                         prologue_bound)
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 11)
     window = 2 * bicodec.receptive_latents(bc_cfg) + 32
-    calls = wavegen_conv_shapes(bc_cfg, window)
+    calls = bicodec.kernel_conv_calls(bc_cfg, window)
     shapes = sorted(set((Ci, O, T, K, d) for Ci, O, T, K, d, _ in calls),
                     key=lambda t: (-t[0], -t[3], t[4]))
-    worst, n_checks = 0.0, 0
+    worst, worst_pro, n_checks = 0.0, 0.0, 0
+
+    def check(x, w, b, kw, cdt, variant, what):
+        """Both weight forms (one for f32 compute) against the plain
+        version; the largest abs error."""
+        nonlocal n_checks
+        want = C1.conv1d_plain(x, w, b, kw["dilation"], kw["padding"], cdt,
+                               None, kw.get("snake_alpha"),
+                               kw.get("residual"))
+        forms = [w] if cdt == torch.float32 else [w, C1.pack_weight(w)]
+        tol, err = conv_tol(torch, cdt, variant), 0.0
+        for form in forms:
+            got = C1.conv1d(x, form, b, compute_dtype=cdt, **kw)
+            torch.cuda.synchronize()
+            e = rel_err(torch, got, want)
+            if not e <= tol:
+                fail(f"conv1d {what} {cdt} "
+                     f"{'packed' if form is not w else 'plain'} weight: rel "
+                     f"err {e:.3g} (tolerance {tol})")
+            err = max(err, float((got - want).abs().max()))
+            n_checks += 1
+        return err
+
+    def check_prologue(x, kw, what):
+        nonlocal worst_pro
+        alpha = kw.get("snake_alpha")
+        ci_p = -(-x.shape[1] // 32) * 32
+        got = C1.prologue(x, alpha, ci_p).float()
+        want = C1.prologue_plain(x, alpha, ci_p).float()
+        diff = (got - want).abs()
+        if alpha is None and not torch.equal(got, want):
+            fail(f"conv1d prologue {what}: not the plain version's bits")
+        if not bool((diff <= 2 ** -7 * want.abs()).all()):
+            fail(f"conv1d prologue {what}: more than one bf16 ulp off")
+        worst_pro = max(worst_pro, float(diff.max()))
+
     for Ci, O, T, K, d in shapes:
         for variant in ("bare", "snake", "snake_res"):
             x, w, b, kw = conv_case(torch, Ci, O, T, K, d, variant, gen)
-            for cdt in (torch.float32, torch.bfloat16):
-                got = C1.conv1d(x, w, b, compute_dtype=cdt, **kw)
-                torch.cuda.synchronize()
-                want = C1.conv1d_plain(x, w, b, kw["dilation"], kw["padding"],
-                                       cdt, None, kw.get("snake_alpha"),
-                                       kw.get("residual"))
-                e = rel_err(torch, got, want)
-                tol = 1e-3 if (cdt == torch.bfloat16
-                               and variant != "bare") else 2e-5
-                if not e <= tol:
-                    fail(f"conv1d {Ci}->{O} T={T} K={K} dil={d} {variant} "
-                         f"{cdt}: rel err {e:.3g} (tolerance {tol})")
-                if cdt == torch.bfloat16:
-                    worst = max(worst, float((got - want).abs().max()))
-                n_checks += 1
+            what = f"{Ci}->{O} T={T} K={K} dil={d} {variant}"
+            check(x, w, b, kw, torch.float32, variant, what)
+            worst = max(worst, check(x, w, b, kw, torch.bfloat16, variant,
+                                     what))
+            check_prologue(x, kw, what)
             del x, w, b, kw
     print(f"kernels: conv1d: {n_checks} checks against the plain version at "
           f"{len(shapes)} shapes of a {window}-latent window (bare, snake, "
-          f"snake + residual; f32 and bf16 compute) pass; largest abs err "
-          f"with bf16 compute {worst:.3g}", flush=True)
+          f"snake + residual; f32 compute, bf16 compute from the plain and "
+          f"the packed weight) pass; largest abs err with bf16 compute "
+          f"{worst:.3g}; the prologue within one bf16 ulp (bit for bit "
+          f"bare), largest abs err {worst_pro:.3g}", flush=True)
+
+    # B = 2 at one call of each width; two launches, the same bits
+    for Ci, O, T, K, d in shapes:
+        if K == 1 or (d != 3 and Ci != 1024):
+            continue
+        variant = "bare" if Ci == 1024 else "snake_res"
+        x, w, b, kw = conv_case(torch, Ci, O, T, K, d, variant, gen, B=2)
+        check(x, w, b, kw, torch.bfloat16, variant,
+              f"B=2 {Ci}->{O} T={T} K={K} dil={d} {variant}")
+        del x, w, b, kw
+    for key in ((768, 768, 1616, 7, 3, "snake"),
+                (96, 96, 64640, 1, 1, "snake_res"),
+                (1024, 1536, 202, 7, 1, "bare")):
+        if key[:5] not in shapes:
+            continue
+        x, w, b, kw = conv_case(torch, *key, gen)
+        pw = C1.pack_weight(w)
+        first = C1.conv1d(x, pw, b, **kw)
+        second = C1.conv1d(x, pw, b, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(first, second):
+            fail(f"conv1d {key}: two launches differ")
+        del x, w, b, kw, pw, first, second
+    print(f"kernels: conv1d: B = 2 at one call of each width passes; two "
+          f"launches give the same bits at a k = 7, a k = 1 and the input "
+          f"conv", flush=True)
 
     # every other window length the streaming vocoder decodes: the calls of
     # one window as the path makes them (its variant, bf16 compute)
@@ -1917,61 +1980,63 @@ def phase_conv_kernels(torch, C1, bc_cfg):
             if n_lat == window:
                 continue
             worst_n, seen = 0.0, set()
-            for key in wavegen_conv_shapes(bc_cfg, n_lat):
+            for key in bicodec.kernel_conv_calls(bc_cfg, n_lat):
                 if key in seen:
                     continue
                 seen.add(key)
                 Ci, O, T, K, d, variant = key
                 x, w, b, kw = conv_case(torch, Ci, O, T, K, d, variant, gen)
-                got = C1.conv1d(x, w, b, compute_dtype=torch.bfloat16, **kw)
-                torch.cuda.synchronize()
-                want = C1.conv1d_plain(x, w, b, d, kw["padding"],
-                                       torch.bfloat16, None,
-                                       kw.get("snake_alpha"),
-                                       kw.get("residual"))
-                e = rel_err(torch, got, want)
-                tol = 2e-5 if variant == "bare" else 1e-3
-                if not e <= tol:
-                    fail(f"conv1d {Ci}->{O} T={T} K={K} dil={d} {variant} "
-                         f"({mode} window of {n_lat} latents): rel err "
-                         f"{e:.3g} (tolerance {tol})")
-                worst_n = max(worst_n, float((got - want).abs().max()))
-                del x, w, b, kw, got, want
-            worst = max(worst, worst_n)
+                worst_n = max(worst_n, check(
+                    x, w, b, kw, torch.bfloat16, variant,
+                    f"{Ci}->{O} T={T} K={K} dil={d} {variant} ({mode} "
+                    f"window of {n_lat} latents)"))
+                del x, w, b, kw
             print(f"kernels: conv1d: the {len(seen)} distinct calls of a "
                   f"{mode} window of {n_lat} latents pass against the plain "
-                  f"version (bf16 compute); largest abs err {worst_n:.3g}",
-                  flush=True)
+                  f"version (bf16 compute, plain and packed weight); largest "
+                  f"abs err {worst_n:.3g}", flush=True)
 
-    # each of the window's distinct calls, kernel and library, in turns
+    # each of the window's distinct calls under its plan: main kernel and
+    # prologue device time beside the library's
     cases = []
     for Ci, O, T, K, d, variant in calls:
+        x, w, b, kw = conv_case(torch, Ci, O, T, K, d, variant, gen)
         cases.append(((Ci, O, T, K, d, variant),
-                      conv_case(torch, Ci, O, T, K, d, variant, gen)))
-    seen = set()
-    for key, (x, w, b, kw) in cases:
+                      (x, C1.pack_weight(w), w, b, kw)))
+    seen, rows = set(), []
+    for key, (x, pw, w, b, kw) in cases:
         if key in seen:
             continue
         seen.add(key)
         Ci, O, T, K, d, variant = key
-        kern = lambda: C1.conv1d(x, w, b, compute_dtype=torch.bfloat16, **kw)
-        f32 = lambda: C1.conv1d(x, w, b, compute_dtype=torch.float32, **kw)
-        lib = library_conv(torch, C1, x, w, b, kw)
-        k_ms = min(cuda_ms(torch, kern, 10), cuda_ms(torch, kern, 10))
-        l_ms = min(cuda_ms(torch, lib, 10), cuda_ms(torch, lib, 10))
-        f_ms = cuda_ms(torch, f32, 5)
+        plan = C1.conv1d_plan(1, Ci, O, T, K, d)
+        by = kernel_ms(torch, lambda: C1.conv1d(x, pw, b, **kw), 10,
+                       {"conv1d_wgmma": 1, "conv1d_prologue": 1})
+        main_ms = sum(v for k, v in by.items() if "conv1d_wgmma" in k)
+        pro_ms = sum(v for k, v in by.items() if "conv1d_prologue" in k)
+        l_ms = device_ms(torch, library_conv(torch, C1, x, w, b, kw), 10)
+        f_ms = device_ms(torch, lambda: C1.conv1d(
+            x, w, b, compute_dtype=torch.float32, **kw), 3)
         b_ms, b_by = conv_bound(Ci, O, T, K, variant)
+        s_ms, s_by = conv_bound(Ci, O, T, K, variant, w_bytes=4)
         flops = 2.0 * K * Ci * O * T
+        tot = main_ms + pro_ms
+        rows.append({"call": f"{Ci}->{O} T={T} K={K} dil={d} {variant}",
+                     "plan": plan_text(plan), "ms": main_ms,
+                     "prologue_ms": pro_ms, "library_ms": l_ms,
+                     "bound_ms": b_ms, "bound_f32_weights_ms": s_ms})
         print(f"kernels: conv1d {Ci}->{O} T={T} K={K} dil={d} {variant}: "
-              f"{k_ms:.5f} ms ({flops / k_ms / 1e9:.1f} TFLOP/s), library "
-              f"{l_ms:.5f} ms, bound {b_ms:.5f} ms by {b_by} "
-              f"({100 * b_ms / k_ms:.1f}% reached); f32 compute {f_ms:.5f} "
-              f"ms ({flops / f_ms / 1e9:.1f} TFLOP/s, "
-              f"{100 * flops / F32_FLOPS_PER_S * 1e3 / f_ms:.1f}% of the "
-              f"f32 peak)", flush=True)
+              f"plan {plan_text(plan)}; main {main_ms:.5f} ms "
+              f"({flops / main_ms / 1e9:.1f} TFLOP/s) + prologue "
+              f"{pro_ms:.5f} ms = {tot:.5f} ms, library {l_ms:.5f} ms "
+              f"({l_ms / tot:.2f}x); bound with the packed bf16 weights "
+              f"{b_ms:.5f} ms by {b_by} ({100 * b_ms / tot:.1f}% reached), "
+              f"with the f32 weights as stored {s_ms:.5f} ms by {s_by}; f32 "
+              f"compute {f_ms:.5f} ms ({flops / f_ms / 1e9:.1f} TFLOP/s)",
+              flush=True)
 
     def window_fn(make):
-        fns = [make(x, w, b, kw) for _, (x, w, b, kw) in cases]
+        fns = [make(x, pw, w, b, kw) for _, (x, pw, w, b, kw) in cases]
 
         def run():
             for fn in fns:
@@ -1980,19 +2045,40 @@ def phase_conv_kernels(torch, C1, bc_cfg):
 
     bounds = [conv_bound(*k[:4], k[5]) for k, _ in cases]
     b_ms = sum(ms for ms, _ in bounds)
+    stored_ms = sum(conv_bound(*k[:4], k[5], w_bytes=4)[0] for k, _ in cases)
     by_ops = sum(ms for ms, by in bounds if by == "operations")
-    return {"conv1d": timed(
+    stats = {"conv1d": timed(
         torch, "conv1d",
-        window_fn(lambda x, w, b, kw: lambda: C1.conv1d(
-            x, w, b, compute_dtype=torch.bfloat16, **kw)),
-        window_fn(lambda x, w, b, kw: lambda: C1.conv1d_plain(
-            x, w, b, kw["dilation"], kw["padding"], torch.bfloat16, None,
+        window_fn(lambda x, pw, w, b, kw: lambda: C1.conv1d(
+            x, pw, b, compute_dtype=torch.bfloat16, **kw)),
+        window_fn(lambda x, pw, w, b, kw: lambda: C1.conv1d_plain(
+            x, pw, b, kw["dilation"], kw["padding"], torch.bfloat16, None,
             kw.get("snake_alpha"), kw.get("residual"))),
-        window_fn(lambda x, w, b, kw: library_conv(torch, C1, x, w, b, kw)),
+        window_fn(lambda x, pw, w, b, kw: library_conv(torch, C1, x, w, b,
+                                                      kw)),
         5, 5, b_ms, "operations" if by_ops >= b_ms - by_ops else "bytes",
         worst, f"the {len(cases)} calls of one {window}-latent window, "
-        f"B=1 (bound: the sum of the calls' bounds, "
-        f"{100 * by_ops / b_ms:.0f}% of it from calls bound by operations)")}
+        f"B=1, prologues included (bound: the sum of the calls' bounds with "
+        f"the packed bf16 weights, {100 * by_ops / b_ms:.0f}% of it from "
+        f"calls bound by operations; with the f32 weights as stored "
+        f"{stored_ms:.5f} ms)",
+        {"conv1d_wgmma": len(cases), "conv1d_prologue": len(cases)})}
+    stats["conv1d"]["shapes"] = rows
+    stats["conv1d"]["note"] = (
+        f"ms, plain_ms and library_ms are the whole function over the "
+        f"window's {len(cases)} calls, the {len(cases)} prologues included: "
+        f"conv1d_prologue's ms is part of this ms, not to be added to it")
+    pb_ms = sum(prologue_bound(k[0], k[2], k[5])[0] for k, _ in cases)
+    stats["conv1d_prologue"] = timed(
+        torch, "conv1d_prologue",
+        window_fn(lambda x, pw, w, b, kw: lambda: C1.prologue(
+            x, kw.get("snake_alpha"), pw.kc.shape[2])),
+        window_fn(lambda x, pw, w, b, kw: lambda: C1.prologue_plain(
+            x, kw.get("snake_alpha"), pw.kc.shape[2])),
+        None, 5, 5, pb_ms, "bytes", worst_pro,
+        f"the {len(cases)} prologues of one {window}-latent window, B=1",
+        {"conv1d_prologue": len(cases)})
+    return stats
 
 
 # --------------------------------------------------------------------------
@@ -2411,7 +2497,7 @@ def streaming(torch, lm_cfg, bc_cfg, device: str, engine_cfg=None,
                               slots=STREAM_SLOTS, buckets=STREAM_BUCKETS,
                               device=device)
     init_s = time.perf_counter() - t0
-    n_conv = len(wavegen_conv_shapes(bc_cfg, 1))
+    n_conv = len(bicodec.kernel_conv_calls(bc_cfg, 1))
 
     # what the engine hands each request, by request
     results = {}
@@ -2516,7 +2602,7 @@ def streaming(torch, lm_cfg, bc_cfg, device: str, engine_cfg=None,
         if device == "cuda":
             torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-        launches = launch_counts()
+        launches, packs = launch_counts(), dict(C1.PACKS)
         stats = dict(eng.stats)
         hist = {k: (h.n, h.total, list(h.counts))
                 for k, h in eng.hist.items()}
@@ -2557,10 +2643,14 @@ def streaming(torch, lm_cfg, bc_cfg, device: str, engine_cfg=None,
         steps = stats["blocks"] * block + pipe.engine.counters["decode_steps"]
         chunks_pf = (eng.inner.counters["prefill_chunks"]
                      + pipe.engine.counters["prefill_chunks"])
+        if packs["conv1d"]:
+            fail(f"streaming: {packs['conv1d']} conv weights packed during "
+                 f"the windows; the tree carries them packed from load")
         if device == "cuda":
-            if launches["conv1d"] != n_conv * n_windows:
-                fail(f"streaming: conv1d launched {launches['conv1d']} "
-                     f"times, expected {n_conv} x {n_windows} windows")
+            for name in ("conv1d", "conv1d_prologue"):
+                if launches[name] != n_conv * n_windows:
+                    fail(f"streaming: {name} launched {launches[name]} "
+                         f"times, expected {n_conv} x {n_windows} windows")
             if launches["wkv7_decode"] != L * steps:
                 fail(f"streaming: wkv7_decode launched "
                      f"{launches['wkv7_decode']} times, expected {L} x "
@@ -2744,7 +2834,7 @@ def streaming(torch, lm_cfg, bc_cfg, device: str, engine_cfg=None,
             "agree": agree, "solo": solo, "block": profiled,
             "steps": steps, "prefill_chunks": chunks_pf, "goldens": goldens,
             "witness": witness, "bf16_blocks": bf16_blocks,
-            "conv_per_window": n_conv}
+            "conv_per_window": n_conv, "packs": packs}
 
 
 # every function of the JAX package that reaches pl.pallas_call (the
@@ -2784,6 +2874,8 @@ KERNEL_ENTRIES = {
     "qmm": (_CSRC + "qmm.cu", "ops.quant.qmm", TPU_FUNCTIONS[10:11]),
     "conv1d": (_CSRC + "conv1d.cu", "ops.conv1d.conv1d",
                TPU_FUNCTIONS[11:12]),
+    "conv1d_prologue": (_CSRC + "conv1d.cu", "ops.conv1d.prologue",
+                        TPU_FUNCTIONS[11:12]),
 }
 
 
@@ -2985,8 +3077,10 @@ def main(argv=None) -> None:
               f"mxu_fused, init {st['init_s']:.2f} s, wall {st['wall_s']:.3f} s; "
               f"{st['steps']} decode steps, {st['prefill_chunks']} prefill "
               f"chunks, {st['windows']} vocoder windows x "
-              f"{st['conv_per_window']} conv1d launches; launches "
-              f"{st['launches']}; {card}", flush=True)
+              f"{st['conv_per_window']} conv1d and as many conv1d_prologue "
+              f"launches, conv weights packed during the windows "
+              f"{st['packs']['conv1d']}; launches {st['launches']}; {card}",
+              flush=True)
         for i, run in enumerate(st["runs"]):
             by_shape = {}
             for n, sec in run["windows"]:
@@ -3080,8 +3174,7 @@ def main(argv=None) -> None:
                         "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                         "bound_by": s["bound_by"],
                         "library_ms": s.get("library_ms"),
-                        **({"shapes": s["shapes"]} if "shapes" in s
-                           else {})})
+                        **{k: s[k] for k in ("note", "shapes") if k in s}})
     missing = set(TPU_FUNCTIONS) - {r for e in kernels for r in e["replaces"]}
     if missing:
         fail(f"TPU functions with no kernel in the kernels line: {missing}")

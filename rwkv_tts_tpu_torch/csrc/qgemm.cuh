@@ -47,20 +47,9 @@
 
 #pragma once
 
-#include <cooperative_groups.h>
-#include <cuda.h>
-#include <cudaTypedefs.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "sm90.cuh"
 
 namespace {
-
-namespace cg = cooperative_groups;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // 16 bytes global -> shared, asynchronously; zero-filled when !valid
 __device__ __forceinline__ void cp16(void* dst, const void* src, bool valid) {
@@ -126,96 +115,6 @@ constexpr int kPBTile = 2 * kPBHalf;
 // byte offset of 16-byte chunk c of row r in a 64-byte-swizzled half tile
 __device__ __forceinline__ int swz64(int r, int c) {
   return r * 64 + ((c ^ ((r >> 1) & 3)) << 4);
-}
-
-// --------------------------------------------------------------------------
-// mbarriers, TMA and wgmma
-// --------------------------------------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint64_t* b, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(b)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* b) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(b))
-               : "memory");
-}
-
-// arrive, and expect `bytes` more from asynchronous copies
-__device__ __forceinline__ void mbar_expect(uint64_t* b, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(b)),
-      "r"(bytes)
-      : "memory");
-}
-
-// returns once the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* b, int parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(b)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// a box of the 2-D tensor map at (col, row) into shared memory, completing
-// on mbarrier `bar`
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         int col, int row, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row),
-      "r"(smem_u32(bar))
-      : "memory");
-}
-
-// K-major operand half tile with the 64-byte swizzle: rows of 64 bytes,
-// 8-row groups 512 bytes apart
-__device__ __forceinline__ uint64_t tile_desc(const void* p) {
-  const uint64_t addr = smem_u32(p);
-  return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | (32ull << 32) | (2ull << 62);
-}
-
-// d = a . b (+ d where accumulate is nonzero)
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
-                                                 uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, "
-      "%27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
-      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate)
-      : "memory");
 }
 
 // --------------------------------------------------------------------------
@@ -856,40 +755,6 @@ qgemm_prefill(const __grid_constant__ CUtensorMap x_map,
 // --------------------------------------------------------------------------
 // host side
 // --------------------------------------------------------------------------
-
-PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
-  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
-                                cudaEnableDefault, &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
-  }
-  return encode;
-}
-
-// a 2-D tensor map over rows x cols elements at `ptr`, rows `pitch` bytes
-// apart, in boxes of box_rows x box_cols
-int encode_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr,
-               long long rows, long long cols,
-               long long pitch, int box_rows, int box_cols,
-               CUtensorMapSwizzle swizzle) {
-  const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
-  if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
-                              static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(pitch)};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
-                             static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t estr[2] = {1, 1};
-  const CUresult r = encode(map, type, 2, const_cast<void*>(ptr), dims,
-                            strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
-}
 
 // the format's scale map: int4's group scales, one box of 128 columns a
 // row; none for a column scale, which the epilogue reads from `ws`

@@ -35,19 +35,22 @@ then the wave generator's stride-1 convs of at least 96 channels each way
 go through ``ops.conv1d.conv1d`` (a hand-written kernel on a card), and
 "mxu_fused" also folds each residual unit's two snakes and its residual add
 into those calls (``_wavegen_conv`` and ``_residual_unit_fused``, :458 and
-:494 there).
+:494 there). Those convs take their weights packed once at load
+(``pack_params``, which ``prepare_params`` runs; ``decode`` refuses a tree
+without them), so no window packs one.
 ``utils.device.resolve_device`` keeps cuDNN out of TF32.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..config import BiCodecConfig
+from ..ops.conv1d import PackedWeight, pack_weight
 from ..ops.conv1d import conv1d as conv1d_kernel
 from ..ops.conv1d import snake as snake_f32
 from ..utils.device import resolve_device
@@ -384,6 +387,53 @@ def prenet_forward(p, zq, cond, cfg: BiCodecConfig):
 
 
 KERNEL_MIN_CHANNELS = 96     # narrower convs stay on F.conv1d
+KERNEL_IMPLS = ("mxu", "mxu_fused")
+PACKED = "_packed"           # suffix of a weight's packed copy in the tree
+
+
+def _routed(w) -> bool:
+    """Whether a stride-1, groups-1 conv of weight ``w`` goes to
+    ``ops.conv1d`` under a kernel ``conv_impl``."""
+    return min(w.shape[:2]) >= KERNEL_MIN_CHANNELS
+
+
+def kernel_conv_calls(cfg: BiCodecConfig, window: int):
+    """The ``ops.conv1d`` calls of one ``decode`` of ``window`` latents
+    under ``conv_impl="mxu_fused"``, in order, as (Ci, O, T, K, dilation,
+    variant): the input conv ("bare"), then per upsampling block wide
+    enough three residual units of a k = 7 conv ("snake") and a k = 1 conv
+    ("snake_res": snake + residual)."""
+    calls = []
+    ch, T = cfg.dec_channels, window
+    if min(cfg.encoder_out, ch) >= KERNEL_MIN_CHANNELS:
+        calls.append((cfg.encoder_out, ch, T, 7, 1, "bare"))
+    for rate in cfg.dec_rates:
+        ch, T = ch // 2, T * rate
+        if ch < KERNEL_MIN_CHANNELS:
+            continue
+        for d in (1, 3, 9):
+            calls.append((ch, ch, T, 7, d, "snake"))
+            calls.append((ch, ch, T, 1, 1, "snake_res"))
+    return calls
+
+
+def _weight(p, key: str, kernel: bool):
+    """``p[key]``, or its packed copy (``pack_params``) where the conv runs
+    on ``ops.conv1d``: a routed weight always has one there, ``decode``
+    refuses a tree without."""
+    return p[key + PACKED] if kernel and _routed(p[key]) else p[key]
+
+
+def _unpacked(wavegen) -> List[str]:
+    """The routed conv weights of a wave generator tree that have no packed
+    copy, by path."""
+    out = [] if not _routed(wavegen["in_w"]) or "in_w" + PACKED in wavegen \
+        else ["in_w"]
+    for i, blk in enumerate(wavegen["blocks"]):
+        for j, ru in enumerate(blk["res"]):
+            out += [f"blocks[{i}].res[{j}].{k}" for k in ("w1", "w2")
+                    if _routed(ru[k]) and k + PACKED not in ru]
+    return out
 
 
 def _wavegen_conv(cfg: BiCodecConfig):
@@ -391,15 +441,15 @@ def _wavegen_conv(cfg: BiCodecConfig):
     "mxu_fused" send the stride-1, groups-1 convs of at least 96 channels
     each way (the generator's bulk) to ``ops.conv1d`` with bf16 compute and
     the input's type out; transposed convs, the 1-channel output conv and
-    narrow convs stay on ``F.conv1d``."""
-    if cfg.conv_impl not in ("mxu", "mxu_fused"):
+    narrow convs stay on ``F.conv1d``. ``w`` may be a ``PackedWeight``
+    for a routed conv."""
+    if cfg.conv_impl not in KERNEL_IMPLS:
         if cfg.conv_impl != "native":
             raise ValueError(f"unknown conv_impl {cfg.conv_impl!r}")
         return _conv1d
 
     def conv(x, w, b=None, dilation=1, groups=1, padding=0, stride=1):
-        O, Ci, _ = w.shape
-        if stride == 1 and groups == 1 and min(O, Ci) >= KERNEL_MIN_CHANNELS:
+        if stride == 1 and groups == 1 and _routed(w):
             return conv1d_kernel(x, w, b, dilation=dilation, padding=padding,
                                  compute_dtype=torch.bfloat16,
                                  out_dtype=x.dtype)
@@ -408,11 +458,13 @@ def _wavegen_conv(cfg: BiCodecConfig):
     return conv
 
 
-def _residual_unit(p, x, dilation, conv=_conv1d):
+def _residual_unit(p, x, dilation, conv=_conv1d, packed=False):
+    """x + conv_k1(snake(conv_k7(snake(x)))); ``packed`` hands ``conv``
+    the tree's packed weights where it holds them."""
     k = p["w1"].shape[-1]
-    h = conv(_snake(x, p["alpha1"]), p["w1"], p["b1"], dilation=dilation,
-             padding=(k - 1) * dilation // 2)
-    h = conv(_snake(h, p["alpha2"]), p["w2"], p["b2"])
+    h = conv(_snake(x, p["alpha1"]), _weight(p, "w1", packed), p["b1"],
+             dilation=dilation, padding=(k - 1) * dilation // 2)
+    h = conv(_snake(h, p["alpha2"]), _weight(p, "w2", packed), p["b2"])
     return x + h
 
 
@@ -422,29 +474,31 @@ def _residual_unit_fused(p, x, dilation):
     one's epilogue, so the unit makes no separate pass over the [B, C, T]
     activations."""
     k = p["w1"].shape[-1]
-    h = conv1d_kernel(x, p["w1"], p["b1"], dilation=dilation,
+    h = conv1d_kernel(x, _weight(p, "w1", True), p["b1"], dilation=dilation,
                       padding=(k - 1) * dilation // 2,
                       compute_dtype=torch.bfloat16, out_dtype=x.dtype,
                       snake_alpha=p["alpha1"])
-    return conv1d_kernel(h, p["w2"], p["b2"], compute_dtype=torch.bfloat16,
-                         out_dtype=x.dtype, snake_alpha=p["alpha2"],
-                         residual=x)
+    return conv1d_kernel(h, _weight(p, "w2", True), p["b2"],
+                         compute_dtype=torch.bfloat16, out_dtype=x.dtype,
+                         snake_alpha=p["alpha2"], residual=x)
 
 
 def wave_generator(p, x, cfg: BiCodecConfig):
     """x [B, 1024, S] → wav [B, S·320] in (−1, 1), f32."""
     conv = _wavegen_conv(cfg)
+    kernel = cfg.conv_impl in KERNEL_IMPLS
     fused = cfg.conv_impl == "mxu_fused"
-    h = conv(x, p["in_w"], p["in_b"], padding=p["in_w"].shape[-1] // 2)
+    h = conv(x, _weight(p, "in_w", kernel), p["in_b"],
+             padding=p["in_w"].shape[-1] // 2)
     for blk, rate, k in zip(p["blocks"], cfg.dec_rates, cfg.dec_kernels):
         h = _snake(h, blk["alpha"])
         h = _tconv1d(h, blk["up_w"], blk["up_b"], stride=rate,
                      padding=(k - rate) // 2)
         for ru, d in zip(blk["res"], (1, 3, 9)):
-            if fused and min(ru["w1"].shape[:2]) >= KERNEL_MIN_CHANNELS:
+            if fused and _routed(ru["w1"]):
                 h = _residual_unit_fused(ru, h, d)
             else:
-                h = _residual_unit(ru, h, d, conv=conv)
+                h = _residual_unit(ru, h, d, conv=conv, packed=kernel)
     h = _snake(h, p["alpha_out"])
     h = _conv1d(h, p["out_w"], p["out_b"], padding=p["out_w"].shape[-1] // 2)
     return torch.tanh(h[:, 0, :].float())
@@ -494,6 +548,14 @@ def decode(params: Params, global_tokens: torch.Tensor,
             f"decode under dtype {cfg.dtype!r} needs the prenet and wave "
             f"generator cast once at load (prepare_params); the tree holds "
             f"{params['wavegen']['in_w'].dtype}")
+    if cfg.conv_impl in KERNEL_IMPLS:
+        missing = _unpacked(params["wavegen"])
+        if missing:
+            # no packing in here either: it would pack each weight per call
+            raise ValueError(
+                f"decode under conv_impl {cfg.conv_impl!r} needs the routed "
+                f"conv weights packed once at load (pack_params, which "
+                f"prepare_params runs); no packed copy of {missing}")
     check_semantic_tokens(semantic_tokens,
                           params["quantizer"]["codebook"].shape[0])
     zq = fvq_detokenize(params["quantizer"], semantic_tokens).to(cdt)
@@ -510,21 +572,46 @@ def _cast_tree(x, dtype):
         return {k: _cast_tree(v, dtype) for k, v in x.items()}
     if isinstance(x, (list, tuple)):
         return type(x)(_cast_tree(v, dtype) for v in x)
+    if isinstance(x, PackedWeight):     # bf16 already, whatever the policy
+        return x
     return x.to(dtype) if x.dtype == torch.float32 else x
 
 
-def prepare_params(params: Params, cfg: BiCodecConfig) -> Params:
-    """One-time cast to the ``cfg.dtype`` compute policy, of the
-    decode-only subtrees (prenet and wave generator, where the vocoder's
-    operations are). The encoder, quantizer and speaker subtrees are shared
-    with ``encode`` and stay f32. Call it at load: ``decode`` takes a tree
-    cast for its ``cfg.dtype`` and casts nothing itself."""
-    cdt = _DTYPES[cfg.dtype]
-    if cdt == torch.float32:
+def pack_params(params: Params, cfg: BiCodecConfig) -> Params:
+    """Under a ``conv_impl`` that routes to ``ops.conv1d``, a tree whose
+    wave generator also holds, beside each routed conv weight ``w``, its
+    ``PackedWeight`` under ``w + PACKED`` (the input conv's ``in_w``, each
+    wide residual unit's ``w1`` and ``w2``), made once here so that no call
+    packs a weight; the plain weights stay for the other backends. Any
+    ``cfg.dtype``: the packing rounds to bf16 either way. Other backends
+    come back as they are; a weight packed already is kept."""
+    if cfg.conv_impl not in KERNEL_IMPLS or "wavegen" not in params:
         return params
-    cast = {k: _cast_tree(params[k], cdt) for k in ("prenet", "wavegen")
-            if k in params}
-    return {**params, **cast}
+
+    def packed(p, keys):
+        return {**p, **{k + PACKED: pack_weight(p[k]) for k in keys
+                        if _routed(p[k]) and k + PACKED not in p}}
+
+    wg = packed(params["wavegen"], ("in_w",))
+    wg["blocks"] = [{**blk, "res": [packed(ru, ("w1", "w2"))
+                                    for ru in blk["res"]]}
+                    for blk in wg["blocks"]]
+    return {**params, "wavegen": wg}
+
+
+def prepare_params(params: Params, cfg: BiCodecConfig) -> Params:
+    """One-time preparation at load: the cast to the ``cfg.dtype`` compute
+    policy of the decode-only subtrees (prenet and wave generator, where
+    the vocoder's operations are), then ``pack_params``. The encoder,
+    quantizer and speaker subtrees are shared with ``encode`` and stay f32.
+    ``decode`` takes a tree cast for its ``cfg.dtype`` and casts nothing
+    itself."""
+    cdt = _DTYPES[cfg.dtype]
+    if cdt != torch.float32:
+        cast = {k: _cast_tree(params[k], cdt) for k in ("prenet", "wavegen")
+                if k in params}
+        params = {**params, **cast}
+    return pack_params(params, cfg)
 
 
 def receptive_latents(cfg: BiCodecConfig) -> int:

@@ -68,15 +68,19 @@ class TtsPipeline:
         (``BiCodecConfig.dtype``) and casts the decode subtrees once, here;
         ``codec_conv_impl`` sets the wave generator's conv backend
         (``BiCodecConfig.conv_impl``), as the JAX pipeline's loader does
-        (``pipeline.py:164-178``)."""
+        (``pipeline.py:164-178``). Under a backend that routes to
+        ``ops.conv1d`` the routed conv weights are packed here, once
+        (``bicodec.pack_params``)."""
         self.device = resolve_device(device)
+        if codec_conv_impl is not None:
+            bicodec_cfg = dataclasses.replace(bicodec_cfg,
+                                              conv_impl=codec_conv_impl)
         if codec_dtype is not None:
             bicodec_cfg = dataclasses.replace(bicodec_cfg, dtype=codec_dtype)
             bicodec_params = bicodec.prepare_params(bicodec_params,
                                                     bicodec_cfg)
-        if codec_conv_impl is not None:
-            bicodec_cfg = dataclasses.replace(bicodec_cfg,
-                                              conv_impl=codec_conv_impl)
+        else:
+            bicodec_params = bicodec.pack_params(bicodec_params, bicodec_cfg)
         self.engine = TtsEngine(lm_params, lm_cfg, engine_cfg,
                                 tokenizer=tokenizer, device=self.device)
         self.bicodec_params = bicodec_params

@@ -9,7 +9,7 @@ is the summed duration of the CUDA kernels the calls ran, from
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -49,3 +49,31 @@ def device_ms(fn: Callable[[], object], iters: int,
              for e in prof.key_averages()
              if str(getattr(e, "device_type", "")).endswith("CUDA"))
     return us / iters / 1e3 if us > 0 else None
+
+
+def device_ms_by_kernel(fn: Callable[[], object], iters: int,
+                        warmup: int = 1,
+                        counts: Optional[Dict[str, float]] = None
+                        ) -> Dict[str, float]:
+    """``device_ms`` split by kernel name: device ms per call of ``fn`` of
+    each CUDA kernel it ran (the profiler's full names); ``counts``, where
+    given, receives each kernel's launches per call as the profiler saw
+    them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out: Dict[str, float] = {}
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            us = getattr(e, "self_device_time_total", 0.0)
+            out[e.key] = out.get(e.key, 0.0) + us / iters / 1e3
+            if counts is not None:
+                counts[e.key] = counts.get(e.key, 0.0) + e.count / iters
+    return out

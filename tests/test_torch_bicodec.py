@@ -312,7 +312,8 @@ def test_residual_units_through_conv1d_match_jax(wide, impl, block):
     J, jcfg, jp, cfg, pt = wide
     jc = dataclasses.replace(jcfg, conv_impl=impl)
     pc = dataclasses.replace(cfg, conv_impl=impl)
-    bj, bt = jp["wavegen"]["blocks"][block], pt["wavegen"]["blocks"][block]
+    bj = jp["wavegen"]["blocks"][block]
+    bt = P.pack_params(pt, pc)["wavegen"]["blocks"][block]
     ch = bj["res"][0]["w1"].shape[0]
     assert ch >= P.KERNEL_MIN_CHANNELS
     x = (np.random.default_rng(block).standard_normal((2, ch, 160)) * 3.0
@@ -430,3 +431,78 @@ def test_prepare_params_casts_what_jax_casts(wide):
     again = P.prepare_params(mine, pc)
     assert all(x is y for x, y in zip(leaves(again).values(),
                                       leaves(mine).values()))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tree_packed_at_load_decodes_as_the_plain_tree(wide, dtype,
+                                                        monkeypatch):
+    """Under "mxu_fused", ``prepare_params`` packs each routed conv weight
+    once (the input conv, each wide residual unit's two convs), beside the
+    plain weight it keeps: the packed tree decodes to the same waveform,
+    bit for bit, as one that hands ``conv1d`` the plain weights (packed per
+    call), and its own decode packs nothing. A second call, and the native
+    backend, leave a tree as it is."""
+    from rwkv_tts_tpu_torch.ops import conv1d as C1
+
+    _, _, _, cfg, pt = wide
+    pc = dataclasses.replace(cfg, conv_impl="mxu_fused", dtype=dtype)
+    cast = P.prepare_params(pt, dataclasses.replace(pc, conv_impl="native"))
+    packed = P.prepare_params(pt, pc)
+    wg = packed["wavegen"]
+    n_routed = int(min(wg["in_w"].shape[:2]) >= P.KERNEL_MIN_CHANNELS)
+    for blk in wg["blocks"]:
+        for ru in blk["res"]:
+            wide_unit = min(ru["w1"].shape[:2]) >= P.KERNEL_MIN_CHANNELS
+            assert ("w1" + P.PACKED in ru) == wide_unit
+            assert ("w2" + P.PACKED in ru) == wide_unit
+            if wide_unit:
+                assert torch.equal(ru["w1" + P.PACKED].unpack(),
+                                   ru["w1"].bfloat16())
+                assert ru["w1"].dtype == cast["wavegen"]["blocks"][0][
+                    "res"][0]["w1"].dtype
+            n_routed += 2 * wide_unit
+    assert n_routed >= 12
+    g, s = (torch.from_numpy(a) for a in tokens(S=8, B=2))
+    # the plain tree: its "packed" copies are the plain weights themselves
+    with monkeypatch.context() as m:
+        m.setattr(P, "pack_weight", lambda w: w)
+        plain = P.pack_params(cast, pc)
+    C1.reset_launches()
+    want = P.decode(plain, g, s, pc)
+    assert C1.PACKS == {"conv1d": n_routed}
+    C1.reset_launches()
+    got = P.decode(packed, g, s, pc)
+    assert C1.PACKS == {"conv1d": 0}
+    assert torch.equal(got, want)
+    again = P.prepare_params(packed, pc)
+
+    def leaves(tree):
+        if isinstance(tree, dict):
+            return [x for v in tree.values() for x in leaves(v)]
+        if isinstance(tree, list):
+            return [x for v in tree for x in leaves(v)]
+        return [tree]
+
+    assert all(x is y for x, y in zip(leaves(again), leaves(packed)))
+    assert len(leaves(again)) == len(leaves(packed))
+    assert P.pack_params(pt, cfg) is pt
+
+
+@pytest.mark.parametrize("impl", ["mxu", "mxu_fused"])
+def test_decode_refuses_a_tree_without_packed_weights(wide, impl):
+    """Under a backend that routes to ``ops.conv1d``, ``decode`` takes only
+    a tree whose routed conv weights were packed at load, and names the
+    weights that were not: it packs nothing per call itself. The native
+    backend takes the unpacked tree."""
+    _, _, _, cfg, pt = wide
+    pc = dataclasses.replace(cfg, conv_impl=impl)
+    g, s = (torch.from_numpy(a) for a in tokens(S=8, B=1))
+    with pytest.raises(ValueError,
+                       match=r"pack_params.*'blocks\[0\]\.res\[0\]\.w1'"):
+        P.decode(pt, g, s, pc)
+    packed = P.pack_params(pt, pc)
+    packed["wavegen"]["blocks"][1]["res"][2].pop("w2" + P.PACKED)
+    with pytest.raises(ValueError, match=r"\['blocks\[1\]\.res\[2\]\.w2'\]"):
+        P.decode(packed, g, s, pc)
+    wav = P.decode(pt, g, s, dataclasses.replace(pc, conv_impl="native"))
+    assert wav.shape == (1, 8 * 320)

@@ -257,6 +257,7 @@ def test_chip_smoke_streaming_phase_at_tiny_shapes():
     assert len(out["exact"]) == 2
     assert out["conv_per_window"] == 12 and out["windows"] >= 16
     assert out["launches"]["conv1d"] == 0           # the CPU launches none
+    assert out["packs"] == {"conv1d": 0}            # packed at load
     assert {r["mode"] for r in out["runs"]} == {"exact", "low", "ultra",
                                                 "flash"}
     assert out["hist"]["queue_wait"][0] == 8

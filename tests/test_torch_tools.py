@@ -4,13 +4,15 @@ JSON line holding every piece it times, a CPU run names no device time, and
 no kernel is launched."""
 
 import json
+import re
 
 import pytest
 import torch
 
 from rwkv_tts_tpu_torch.ops import wkv7 as W
 from rwkv_tts_tpu_torch.ops import quant as Q
-from rwkv_tts_tpu_torch.tools import (profile_prefill_pieces, profile_qgemm,
+from rwkv_tts_tpu_torch.tools import (profile_conv1d,
+                                      profile_prefill_pieces, profile_qgemm,
                                       profile_stack_kernel,
                                       profile_step_pieces)
 
@@ -98,3 +100,63 @@ def test_tool_runs_on_the_cpu(name, capsys):
     times = list(times_in(out))
     assert times and all(t["device_ms"] is None
                          and isinstance(t["wall_ms"], float) for t in times)
+
+
+@pytest.mark.parametrize("call,want", [
+    # the input conv: 22 MB of packed bf16 weights set the bound
+    ((1024, 1536, 202, 7, 1, "bare"),
+     (4 * (1024 * 202 + 1536 + 1536 * 202) + 2 * 1536 * 1024 * 7, "bytes")),
+    # a residual unit's k = 7 conv at 384 channels: the tensor cores
+    ((384, 384, 8080, 7, 3, "snake"), (2.0 * 7 * 384 * 384 * 8080,
+                                       "operations")),
+    # a k = 1 conv: x, residual and y in f32 beside a small weight
+    ((96, 96, 64640, 1, 1, "snake_res"),
+     (4 * (96 * 64640 + 96 + 2 * 96 * 64640 + 96) + 2 * 96 * 96, "bytes")),
+], ids=["input conv", "k7", "k1 residual"])
+def test_conv_bound_counts_what_the_call_must_move(call, want):
+    """The one bound formula of a conv1d call (the tool's, which
+    ``chip_smoke.py`` uses): the packed bf16 weight at 2 bytes an element,
+    every f32 operand read once and y written once, against 2·K·Ci·O·T
+    operations; 3.35 TB/s and 989 TFLOP/s bf16 (H100 SXM)."""
+    amount, by = want
+    rate = 3.35e12 if by == "bytes" else 989e12
+    Ci, O, T, K, _, variant = call
+    ms, got_by = profile_conv1d.conv_bound(Ci, O, T, K, variant)
+    assert got_by == by
+    assert ms == pytest.approx(amount / rate * 1e3, rel=1e-12)
+    # the f32 weights as stored cost 2 bytes more an element
+    stored = profile_conv1d.conv_bound(Ci, O, T, K, variant, w_bytes=4)[0]
+    assert stored >= ms
+    if by == "bytes":
+        assert (stored - ms) * 3.35e12 / 1e3 == pytest.approx(
+            2 * O * Ci * K, rel=1e-9)
+
+
+@pytest.mark.parametrize("window", [8, 28])
+def test_profile_conv1d_runs_on_the_cpu(window, capsys):
+    """The conv1d tool on the CPU: each distinct kernel call of the window
+    with its bound and the plan ``conv1d_plan`` picks, no time, nothing
+    launched."""
+    import dataclasses
+
+    from rwkv_tts_tpu_torch.config import BiCodecConfig
+    from rwkv_tts_tpu_torch.models import bicodec
+    from rwkv_tts_tpu_torch.ops import conv1d as C1
+
+    out = profile_conv1d.main(["--window", str(window), "--dec-channels",
+                               "384"], device="cpu")
+    printed = capsys.readouterr().out.strip().splitlines()
+    assert json.loads(printed[-1]) == json.loads(json.dumps(out))
+    assert out["device"] == "cpu" and not any(out["launches"].values())
+    assert not any(C1.LAUNCHES.values())
+    cfg = dataclasses.replace(BiCodecConfig(), dec_channels=384)
+    calls = bicodec.kernel_conv_calls(cfg, window)
+    assert len(out["calls"]) == len(set(calls)) and "window_ms" not in out
+    for row in out["calls"].values():
+        assert row["plan_ms"] is None
+        Ci, O, T, K = (int(v) for v in re.findall(r"\d+", row["call"])[:4])
+        variant = row["call"].rsplit(" ", 1)[1]
+        assert row["bound_ms"] == profile_conv1d.conv_bound(Ci, O, T, K,
+                                                            variant)[0] > 0
+        assert row["plan"]["regime"] in ("tile", "cluster")
+        assert 1 <= row["plan"]["cluster"] <= 8

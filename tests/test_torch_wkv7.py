@@ -223,7 +223,7 @@ def test_c_entry_point_matches_ctypes_signature(name):
     assert m, f"no extern \"C\" int {name}(...) in {name}.cu"
     from rwkv_tts_tpu_torch.ops import conv1d as C1
 
-    argtypes = {**W._ARGTYPES, **Q._ARGTYPES, "conv1d": C1._ARGTYPES}
+    argtypes = {**W._ARGTYPES, **Q._ARGTYPES, **C1._ARGTYPES}
     assert len(m.group(1).split(",")) == len(argtypes[name])
 
 
