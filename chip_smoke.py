@@ -29,7 +29,13 @@ Phases, each fatal on failure:
              scan at T = 256 (L = 64) and T = 1028 (L = 4); each kernel and
              plain version timed at its path's shapes (device time from
              torch.profiler, and CUDA events per call), and the sequential
-             prefill kernel timed on the WY kernel's inputs beside it; then
+             prefill kernel timed on the WY kernel's inputs beside it; the
+             sequential prefill kernel (through ``wkv7_prefill``'s entry)
+             against the scan at T = 1, 3, 61, 64, 256 with masked tails and
+             B = 1, 8, 130 from a nonzero state (1e-4), the same bits from
+             two launches, from ``wkv7_seq``, and for a request alone
+             (B = 1) as inside the batch, its own plan equal to
+             ``prefill_plan``'s; then
              the quantized path's kernels (phase ``quant_kernels``): qmm4
              (int4) and qmm (int8), both on ``csrc/qgemm.cuh``'s two
              regimes, against their plain versions at the decode products'
@@ -73,18 +79,20 @@ Phases, each fatal on failure:
              128-slot stack (the tools' shape), f32 and bf16, bit-identical
              to L launches of ``wkv7_decode_`` and within tolerance of the
              plain version, the other slots untouched; the
-             sequential entry ``wkv7_seq`` at T = 64, 61, 256; the paired
+             sequential entry ``wkv7_seq`` at every (B, T) of the sequential
+             prefill's check (above), with the same bits checks; the paired
              phase A against ``wkv7_chunk_pair`` and, with the chunk
              combine, against the scan at (B, T, L) = (8, 64, 4),
              (8, 256, 16), (28, 64, 4), (32, 512, 32), masked tails; each
              timed beside its plain version (phase ``rest_kernels``);
   sweep     the prefill dispatch sweep at every (B, T) of the JAX package's
              ``tools/tpu_smoke.py`` ((8, 64), (28, 256), (7, 16), (130, 64),
-             (32, 512), (128, 64), (3, 12)): ``wkv7_prefill`` and each
-             formulation that applies (sequential, WY + combine where
-             4 | T, pair + combine where ``prefill_chunk_for(T)`` is
-             defined) against the scan, each formulation timed; one table.
-             ``prefill_route`` is not changed;
+             (32, 512), (128, 64), (3, 12)) and at (8, 512), (8, 1024):
+             ``wkv7_prefill`` and each formulation that applies (sequential,
+             WY + combine where 4 | T, pair + combine where
+             ``prefill_chunk_for(T)`` is defined) against the scan, each
+             formulation timed, the sequential kernel beside its bound and
+             share; one table. ``prefill_route`` is not changed;
   tools     the three kernel-attribution tools
              (``rwkv_tts_tpu_torch/tools``) at full width with few steps:
              ``profile_stack_kernel`` (B = 128 and 8, bf16 state),
@@ -283,19 +291,67 @@ def check_decode(torch, W, B, H, N, L, dtype, gen, tol, bucket=None):
                      .abs().max()))
 
 
-def check_prefill(torch, W, B, T, H, N, gen, masked_tail):
-    r, w, k, v, a, b = wkv_inputs(torch, (B, T, H, N), gen, masked_tail)
+# the sequential prefill kernel's checks: every (T, masked tail) at every
+# batch, each under another plan (B = 1 cuts a (b, h) over 4 blocks of one
+# row a thread; 8 and 130 hold 4 rows a thread, in runs of 16 and 8 tokens)
+SEQ_CHECK_T = ((1, 0), (3, 1), (61, 0), (64, 5), (256, 37))
+SEQ_CHECK_B = (1, 8, 130)
+
+
+def check_seq_kernel(torch, W, entry, B, T, H, N, gen, masked_tail):
+    """The sequential kernel through C entry ``entry`` (``wkv7_prefill``:
+    the wrapper where ``prefill_route`` takes the kernel, else the launch
+    behind it; ``wkv7_seq``: its wrapper) against the scan, 1e-4 of each
+    output's largest value, masked tail and nonzero state; one launch under
+    the entry's own count; the same bits from a second launch, from the
+    other entry, and for request B // 2 launched alone (B = 1, the plan of
+    one request). Returns the max abs error."""
+    x = wkv_inputs(torch, (B, T, H, N), gen, masked_tail)
     s0 = 0.1 * torch.randn((B, H, N, N), generator=gen, device="cuda")
-    y_ref, s_ref = W.wkv7_scan(r, w, k, v, a, b, s0)
-    y, s = W.wkv7_prefill(r, w, k, v, a, b, s0)
+
+    def run(xs, s, name=entry):
+        if name == "wkv7_seq":
+            return W.wkv7_seq(*xs, s)
+        if W.prefill_route(xs[0].shape[0], T) == "seq":
+            return W.wkv7_prefill(*xs, s)
+        return W._seq_prefill(*xs, s)
+
+    W.reset_launches()
+    y, s = run(x, s0)
+    if W.LAUNCHES != {**{k: 0 for k in W.LAUNCHES}, entry: 1}:
+        fail(f"{entry} B={B} T={T} launched {W.LAUNCHES}")
+    y_ref, s_ref = W.wkv7_scan(*x, s0)
     torch.cuda.synchronize()
     e_y, e_s = rel_err(torch, y, y_ref), rel_err(torch, s, s_ref)
     if e_y > 1e-4 or e_s > 1e-4:
-        fail(f"prefill B={B} T={T}: rel err y {e_y:.3g}, state {e_s:.3g} "
+        fail(f"{entry} B={B} T={T}: rel err y {e_y:.3g}, state {e_s:.3g} "
              "(tolerance 1e-4)")
-    print(f"kernels: prefill B={B} T={T} H={H} (last {masked_tail} masked): "
-          f"rel err y {e_y:.3g} state {e_s:.3g}", flush=True)
+    other = "wkv7_seq" if entry == "wkv7_prefill" else "wkv7_prefill"
+    i = B // 2
+    alone = run([t[i:i + 1].contiguous() for t in x],
+                s0[i:i + 1].contiguous())
+    for what, (y2, s2), yw, sw in (
+            ("a second launch", run(x, s0), y, s),
+            (other, run(x, s0, other), y, s),
+            (f"request {i} alone", alone, y[i:i + 1], s[i:i + 1])):
+        if not (torch.equal(y2, yw) and torch.equal(s2, sw)):
+            fail(f"{entry} B={B} T={T}: {what} gave other bits")
+    print(f"kernels: {entry} (sequential kernel, plan "
+          f"{W.prefill_plan(B, T, H)}) B={B} T={T} H={H} (last {masked_tail} "
+          f"masked): rel err y {e_y:.3g} state {e_s:.3g}; same bits from a "
+          f"second launch, from {other}, and for request {i} alone (plan "
+          f"{W.prefill_plan(1, T, H)})", flush=True)
     return max(float((y - y_ref).abs().max()), float((s - s_ref).abs().max()))
+
+
+def check_seq_plans(W, H):
+    """The kernel's own plan (its ``plan_for``) is ``prefill_plan``'s."""
+    for B in (1, 2, 3, 7, 8, 16, 28, 32, 64, 128, 130, 512):
+        for T in (1, 12, 64, 256, 1024):
+            got, want = W.kernel_prefill_plan(B, T, H), W.prefill_plan(B, T, H)
+            if got != want:
+                fail(f"sequential prefill plan at B={B} T={T} H={H}: the "
+                     f"kernel's {got}, prefill_plan's {want}")
 
 
 def bound(nbytes: float, flops: float, flops_per_s: float = F32_FLOPS_PER_S):
@@ -368,8 +424,9 @@ def wy_algorithm_flops(W, B, T, H, N, L):
 
 def phase_kernels(torch, W, lm_cfg):
     """Correctness at B ∈ {1, 8, 128} (decode, f32 and bf16 state; 128 is
-    the attribution tools' batch), T ∈ {64, 61} (sequential prefill) and
-    (B, T) ∈ {(8, 256), (2, 1028)}
+    the attribution tools' batch), T ∈ {1, 3, 61, 64, 256} × B ∈ {1, 8,
+    130} (sequential prefill, ``check_seq_kernel``) and (B, T) ∈ {(8, 256),
+    (2, 1028)}
     (WY prefill), then timing at the paths' shapes: decode at B = 8 on the
     full L-layer f32 stack (cycling the layers, as the decode step does, so
     no slab stays in L2), sequential prefill at B = 8, T = 64 over four
@@ -393,10 +450,14 @@ def phase_kernels(torch, W, lm_cfg):
                              bucket)
             if dtype == torch.float32:
                 err["wkv7_decode"] = max(err["wkv7_decode"], e)
-    for T, tail in ((64, 5), (61, 0)):
-        e = check_prefill(torch, W, 8, T, H, N, gen, tail)
-        if T == 64:
-            err["wkv7_prefill"] = e
+    check_seq_plans(W, H)
+    for B in SEQ_CHECK_B:
+        for T, tail in SEQ_CHECK_T:
+            e = check_seq_kernel(torch, W, "wkv7_prefill", B, T, H, N, gen,
+                                 tail)
+            if (B, T) == (8, 64):
+                err["wkv7_prefill"] = e
+        torch.cuda.empty_cache()
     for B, T, tail in ((8, 256, 37), (2, 1028, 9)):
         e = check_wy(torch, W, B, T, H, N, gen, tail)
         if T == 256:
@@ -948,24 +1009,6 @@ def check_decode_layers(torch, W, H, N, L, dtype, gen, slots=None,
     return max(d_y, d_s)
 
 
-def check_seq(torch, W, B, T, H, N, gen, masked_tail):
-    x = wkv_inputs(torch, (B, T, H, N), gen, masked_tail)
-    s0 = 0.1 * torch.randn((B, H, N, N), generator=gen, device="cuda")
-    W.reset_launches()
-    y, s = W.wkv7_seq(*x, s0)
-    if W.LAUNCHES != {**{k: 0 for k in W.LAUNCHES}, "wkv7_seq": 1}:
-        fail(f"seq B={B} T={T} launched {W.LAUNCHES}")
-    y_ref, s_ref = W.wkv7_scan(*x, s0)
-    torch.cuda.synchronize()
-    e_y, e_s = rel_err(torch, y, y_ref), rel_err(torch, s, s_ref)
-    if e_y > 1e-4 or e_s > 1e-4:
-        fail(f"seq B={B} T={T}: rel err y {e_y:.3g}, state {e_s:.3g} "
-             "(tolerance 1e-4)")
-    print(f"kernels: seq (row 7's entry) B={B} T={T} (last {masked_tail} "
-          f"masked): rel err y {e_y:.3g} state {e_s:.3g}", flush=True)
-    return max(float((y - y_ref).abs().max()), float((s - s_ref).abs().max()))
-
-
 def check_pair(torch, W, B, T, H, N, L, gen, masked_tail):
     """The paired phase A against its plain version (1e-4 of each output's
     largest value: same algorithm, other summation order), and phase A +
@@ -1005,7 +1048,8 @@ def phase_rest_kernels(torch, W, lm_cfg):
     decode at B ∈ {8, 128} with f32 and bf16 state; the all-layer decode at
     B = 8 on the whole stack and on the slot prefixes [:, :2] and [:, :4],
     and at B = 128 on the whole stack (f32 and bf16 state);
-    the sequential entry at T ∈ {64, 61, 256}; the paired phase A at (B, T,
+    the sequential entry at ``check_seq_kernel``'s (B, T); the paired phase
+    A at (B, T,
     L) ∈ {(8, 64, 4), (8, 256, 16), (28, 64, 4), (32, 512, 32)}. Then
     timing at the paths' shapes beside the plain versions: decode_out at
     B = 8 cycling the L layers of an f32 stack, decode_layers over the same
@@ -1033,10 +1077,12 @@ def phase_rest_kernels(torch, W, lm_cfg):
         if dtype == torch.float32:
             err["wkv7_decode_layers"] = max(err["wkv7_decode_layers"], e)
         torch.cuda.empty_cache()
-    for T, tail in ((64, 5), (61, 0), (256, 37)):
-        e = check_seq(torch, W, 8, T, H, N, gen, tail)
-        if T == 64:
-            err["wkv7_seq"] = e
+    for B in SEQ_CHECK_B:
+        for T, tail in SEQ_CHECK_T:
+            e = check_seq_kernel(torch, W, "wkv7_seq", B, T, H, N, gen, tail)
+            if (B, T) == (8, 64):
+                err["wkv7_seq"] = e
+        torch.cuda.empty_cache()
     for B, T, Lc, tail in ((8, 64, 4, 5), (8, 256, 16, 37), (28, 64, 4, 9),
                            (32, 512, 32, 77)):
         e = check_pair(torch, W, B, T, H, N, Lc, gen, tail)
@@ -1112,9 +1158,10 @@ def phase_rest_kernels(torch, W, lm_cfg):
     return out
 
 
-# every (B, T) of the TPU smoke's prefill dispatch sweep (tools/tpu_smoke.py)
+# every (B, T) of the TPU smoke's prefill dispatch sweep (tools/tpu_smoke.py),
+# and one request batch at longer prompts
 SWEEP = ((8, 64), (28, 256), (7, 16), (130, 64), (32, 512), (128, 64),
-         (3, 12))
+         (3, 12), (8, 512), (8, 1024))
 
 
 def prefill_sweep(torch, W, H, N):
@@ -1124,7 +1171,8 @@ def prefill_sweep(torch, W, H, N):
     sequential kernel, the WY route (phase A at ``wy_chunk_for(T)`` + the
     combine) where 4 | T, the pair route (paired phase A at
     ``prefill_chunk_for(T)`` + the combine) where that is defined, each
-    also held against the scan. The dispatch rule is not changed."""
+    also held against the scan; the sequential kernel's plan, bound and
+    share of it. The dispatch rule is not changed."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 13)
     rows = []
@@ -1146,8 +1194,11 @@ def prefill_sweep(torch, W, H, N):
             forms["wy"] = (wy_route, 3e-4)
         if Lp is not None:
             forms["pair"] = (lambda: W.wkv7_chunked_fused(*x, s0, Lp), 5e-4)
+        seq_bound, seq_by = bound(7 * B * T * H * N * 4 + 2 * B * H * N * N * 4,
+                                  9 * B * T * H * N * N)
         row = {"B": B, "T": T, "route": route, "wy_chunk": Lw,
-               "pair_chunk": Lp}
+               "pair_chunk": Lp, "seq_plan": W.prefill_plan(B, T, H),
+               "seq_bound_ms": seq_bound, "seq_bound_by": seq_by}
         for name, (fn, tol) in forms.items():
             y, s = fn()
             torch.cuda.synchronize()
@@ -1160,23 +1211,28 @@ def prefill_sweep(torch, W, H, N):
                 row[f"{name}_ms"] = device_ms(torch, fn, 5)
         del x, y_ref, s_ref
         torch.cuda.empty_cache()
-        times = {k[:-3]: v for k, v in row.items() if k.endswith("_ms")}
+        times = {k[:-3]: row[k] for k in ("seq_ms", "wy_ms", "pair_ms")
+                 if k in row}
         row["fastest"] = min(times, key=times.get)
+        row["seq_share"] = seq_bound / row["seq_ms"]
         rows.append(row)
 
     def ms(row, k):
         return f"{row[k]:.5f}" if k in row else "—"
 
     print("prefill sweep (device ms per layer, each formulation held against "
-          "the scan; the dispatch route in force is the TPU's rule):\n"
+          "the scan; the dispatch route in force is the TPU's rule; the "
+          "sequential kernel's bound and share of it):\n"
           "  B    T    route  wy L  pair L  seq ms    wy ms     pair ms   "
-          "fastest  dispatch rel err", flush=True)
+          "fastest  dispatch rel err  seq bound ms  seq share", flush=True)
     for r in rows:
         print(f"  {r['B']:<4} {r['T']:<4} {r['route']:<6} "
               f"{str(r['wy_chunk']):<5} {str(r['pair_chunk']):<7} "
               f"{ms(r, 'seq_ms'):<9} {ms(r, 'wy_ms'):<9} "
               f"{ms(r, 'pair_ms'):<9} {r['fastest']:<8} "
-              f"{r['dispatch_err']:.3g}", flush=True)
+              f"{r['dispatch_err']:<16.3g} "
+              f"{r['seq_bound_ms']:.5f} ({r['seq_bound_by']})  "
+              f"{100 * r['seq_share']:.1f}%", flush=True)
     print(f"prefill sweep: {json.dumps(rows)}", flush=True)
     return rows
 

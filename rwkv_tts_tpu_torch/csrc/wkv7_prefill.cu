@@ -3,10 +3,10 @@
 // Replaces the TPU kernels rwkv_tts_tpu/ops/wkv7.py:483 wkv7_seq_bt_pallas
 // (body :450) and :1329 wkv7_pallas_packed (body :1278), both behind the
 // entry point `wkv7_prefill`, and :103 wkv7_pallas (body :72, one block per
-// (b, h) with the state resident, the design of this kernel) behind the
-// entry point `wkv7_seq`: all three compute the function of the oracle
-// wkv7_scan (:42), and both entry points launch the one kernel below, each
-// under its own launch count. Per (batch b, head h), for t = 0 .. T-1:
+// (b, h) with the state resident) behind the entry point `wkv7_seq`: all
+// three compute the function of the oracle wkv7_scan (:42), and both entry
+// points launch the one kernel below, each under its own launch count. Per
+// (batch b, head h), for t = 0 .. T-1:
 //
 //     S <- S * diag(exp(-exp(w_t))) + (S a_t) b_t^T + v_t k_t^T,  y_t = S r_t
 //
@@ -16,121 +16,339 @@
 // position's w = -30 must give a decay of exactly 1.0f). Any T works, so
 // prompt lengths with 4 not dividing T need no second kernel.
 //
-// Bound: bytes. The kernel reads the six sequence tensors and the state once
-// and writes y and the state once; per element of the sequence tensors it
-// does ~9 N flops, below the card's ops-per-byte balance at N = 64.
-// Design: one block per (b, h) walks T with the 64 x 64 state in registers:
-// each of 8 warps owns 8 rows, each lane the key columns lane and lane + 32
-// (16 floats per thread). The step's vectors are read straight from global
-// memory (all warps share them through L1), and the next step's are loaded
-// before this step's arithmetic so the loads overlap it. S a and S r are
-// warp-shuffle reductions. No shared memory, no block barrier.
+// Bound: bytes, with the FP32 pipe close behind. The kernel reads the six
+// sequence tensors and the state once and writes y and the state once; per
+// state element and token it issues 5 FP32 instructions (S a, the update's
+// three, S r), which at N = 64 takes about as long as the bytes. On the
+// H100 it reaches 30-45% of the byte bound: the FP32 pipe issues about
+// half the time, and removing shared-memory reads does not move it (the
+// measurements are in PERF.md). So the design spends as little as it can
+// beside those FMAs:
+//
+// - Lanes. kLanes = 8 lanes share a state row, each holding kCols = 8 key
+//   columns of it for each of the R rows it holds: a row sum is 8 FMAs in
+//   two chains and 3 shuffles (xor 1, 2, 4). 8 lanes measured faster than
+//   4 (16 columns) and 2 (32 columns) at B = 8 and level at B = 128.
+// - Rows. A thread holds R rows (the plan's thread_rows): the columns'
+//   decay, a, b, k and r it reads serve all R of them.
+// - Steps. Token t's S a_t and token t-1's S r_(t-1) read the same S, so
+//   one pass computes both and their 2 R sums share the shuffles.
+// - Staging. A block walks T in runs of `tc` tokens. Thread 0 brings each
+//   run's six [tc, 64] vectors into shared memory as TMA boxes of a 2-D map
+//   over [B*T rows, H*64 columns] (row pitch H*64*4 bytes), double-buffered
+//   behind mbarriers, so the next run arrives while this one is computed.
+//   Box rows past the (b, h)'s T tokens belong to the next batch row (or
+//   lie past the tensor and arrive as zeros); they are never used.
+// - Decays. The block computes each run's exp(-exp(w)) once per element
+//   into shared memory, not once per row.
+// - Reads. A lane reads its columns as float4 broadcasts: chunk m of lane
+//   q is columns 4 (kLanes m + q) .. + 3, so a row's lanes read one
+//   contiguous run and the warp's rows the same run.
+// - Writes. y gathers in shared memory and leaves once a run, in float4
+//   stores of whole rows; the state is read and written as float4.
+// - Grid. A block owns `rows` of the 64 state rows of one (b, h); below 128
+//   (b, h) pairs the plan (plan_for) cuts a (b, h) over 4 blocks of one row
+//   a thread, so that every SM has warps. Rows are independent, so this
+//   changes no result.
+//
+// Batch invariance: a row's arithmetic, summation order included, depends
+// only on the lane's place in its row, never on B, T, the plan or the other
+// rows, and explicit fmaf / __fmul_rn / __fadd_rn leave the compiler no
+// contraction to choose. A request's prefill is the same alone or batched.
 
-#include <cuda_runtime.h>
+#include "sm90.cuh"
 
 namespace {
 
-constexpr int kN = 64;              // head size
-constexpr int kWarps = 8;
-constexpr int kRows = kN / kWarps;  // state rows per warp
+constexpr int kN = 64;               // head size
+constexpr int kLanes = 8;            // lanes that share a state row
+constexpr int kCols = kN / kLanes;   // key columns a lane holds
+constexpr int kChunks = kCols / 4;   // ... as float4 chunks
+constexpr int kVecs = 6;             // r, w, k, v, a, b: the maps' order
+constexpr int kMaxTc = 64;           // tokens a run at most
+constexpr int kAlign = 128;          // TMA destinations' alignment
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// One position's inputs as one lane needs them: its two key columns of
-// r, w, k, a, b and the v entries of its warp's rows.
-struct Step {
-  float r0, r1, w0, w1, k0, k1, a0, a1, b0, b1;
-  float v[kRows];
+struct Maps {
+  CUtensorMap m[kVecs];
 };
 
-__device__ __forceinline__ void load_step(
-    Step& x, const float* __restrict__ r, const float* __restrict__ w,
-    const float* __restrict__ k, const float* __restrict__ v,
-    const float* __restrict__ a, const float* __restrict__ b, long long off,
-    int lane, int row0) {
-  x.r0 = r[off + lane];
-  x.r1 = r[off + lane + 32];
-  x.w0 = w[off + lane];
-  x.w1 = w[off + lane + 32];
-  x.k0 = k[off + lane];
-  x.k1 = k[off + lane + 32];
-  x.a0 = a[off + lane];
-  x.a1 = a[off + lane + 32];
-  x.b0 = b[off + lane];
-  x.b1 = b[off + lane + 32];
-#pragma unroll
-  for (int q = 0; q < kRows; ++q) x.v[q] = v[off + row0 + q];
+// the shared memory a block of `rows` rows needs for runs of `tc` tokens:
+// two stages of the six vectors, the decays, the gathered y, the two
+// barriers, and slack to align the stages
+__host__ __device__ constexpr int smem_bytes(int rows, int tc) {
+  return (2 * kVecs + 1) * tc * kN * 4 + tc * rows * 4 + 16 + kAlign;
 }
 
-__global__ void __launch_bounds__(kWarps * 32)
-wkv7_prefill_kernel(const float* __restrict__ r, const float* __restrict__ w,
-                    const float* __restrict__ k, const float* __restrict__ v,
-                    const float* __restrict__ a, const float* __restrict__ b,
+// first key column of lane q's chunk m
+__device__ __forceinline__ int col(int m, int q) {
+  return 4 * (kLanes * m + q);
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// the lane's share of a row sum: kCols products in two chains (x and z
+// components in one, y and w in the other), the chains added
+__device__ __forceinline__ float dot(const float (&s)[kCols],
+                                     const float4 (&x)[kChunks]) {
+  float e = __fmul_rn(s[0], x[0].x);
+  float o = __fmul_rn(s[1], x[0].y);
+  e = fmaf(s[2], x[0].z, e);
+  o = fmaf(s[3], x[0].w, o);
+#pragma unroll
+  for (int m = 1; m < kChunks; ++m) {
+    e = fmaf(s[4 * m], x[m].x, e);
+    o = fmaf(s[4 * m + 1], x[m].y, o);
+    e = fmaf(s[4 * m + 2], x[m].z, e);
+    o = fmaf(s[4 * m + 3], x[m].w, o);
+  }
+  return __fadd_rn(e, o);
+}
+
+// the rows' sums from their lanes' shares, by xor butterflies (all R
+// rows' shuffles in flight at once): every lane of a row ends with the
+// same bits
+template <int R>
+__device__ __forceinline__ void row_sums(float (&x)[R]) {
+#pragma unroll
+  for (int o = 1; o < kLanes; o <<= 1) {
+    float t[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) t[i] = __shfl_xor_sync(0xffffffffu, x[i], o);
+#pragma unroll
+    for (int i = 0; i < R; ++i) x[i] = __fadd_rn(x[i], t[i]);
+  }
+}
+
+__device__ __forceinline__ float upd(float s, float d, float sa, float b,
+                                     float v, float k) {
+  return fmaf(s, d, fmaf(sa, b, __fmul_rn(v, k)));
+}
+
+// R state rows a thread: a block of `rows` rows has rows * kLanes / R
+// threads
+template <int R>
+__global__ void __launch_bounds__(kN * kLanes / R)
+wkv7_prefill_kernel(const __grid_constant__ Maps maps,
                     const float* __restrict__ s_in, float* __restrict__ y,
-                    float* __restrict__ s_out, int T, int H) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int bh = blockIdx.x;
+                    float* __restrict__ s_out, int T, int H, int rows,
+                    int tc) {
+  // pointer arithmetic on the shared array (not integer casts) keeps the
+  // compiler's knowledge that these are shared-memory addresses
+  extern __shared__ unsigned char smem_raw[];
+  float* stage = reinterpret_cast<float*>(
+      smem_raw + ((kAlign - (smem_u32(smem_raw) & (kAlign - 1))) &
+                  (kAlign - 1)));                // [2][6][tc][64]
+  const int run = tc * kN;                       // floats a vector
+  float* dec = stage + 2 * kVecs * run;          // [tc][64]
+  float* ybuf = dec + run;                       // [tc][rows]
+  uint64_t* full = reinterpret_cast<uint64_t*>(ybuf + tc * rows);
+
+  const int split = kN / rows;
+  const int bh = blockIdx.x / split;
+  const int part = blockIdx.x - bh * split;
   const int bb = bh / H;
   const int h = bh - bb * H;
-  const int row0 = warp * kRows;
+  const int tid = threadIdx.x;
+  const int q = tid % kLanes;
+  const int lrow = (tid / kLanes) * R;    // the thread's first row, local
+  const int row0 = part * rows + lrow;    // ... and in the head
+  const int nrun = (T + tc - 1) / tc;
+
+  if (tid == 0) {
+    mbar_init(&full[0], 1);
+    mbar_init(&full[1], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  auto issue = [&](int c) {
+    const int s = c & 1;
+    mbar_expect(&full[s], kVecs * run * 4);
+#pragma unroll
+    for (int j = 0; j < kVecs; ++j)
+      tma_load(stage + (s * kVecs + j) * run, &maps.m[j], h * kN,
+               bb * T + c * tc, &full[s]);
+  };
+  if (tid == 0) {
+    issue(0);
+    if (nrun > 1) issue(1);
+  }
+
   const long long tile = static_cast<long long>(bh) * kN * kN;
-
-  float s0[kRows], s1[kRows];
+  float S[R][kCols];
 #pragma unroll
-  for (int q = 0; q < kRows; ++q) {
-    s0[q] = s_in[tile + (row0 + q) * kN + lane];
-    s1[q] = s_in[tile + (row0 + q) * kN + lane + 32];
-  }
-
-  // element (bb, t, h, :) of a [B, T, H, N] tensor
-  const long long stride_t = static_cast<long long>(H) * kN;
-  long long off = (static_cast<long long>(bb) * T * H + h) * kN;
-  Step cur{}, nxt{};
-  if (T > 0) load_step(cur, r, w, k, v, a, b, off, lane, row0);
-  for (int t = 0; t < T; ++t) {
-    if (t + 1 < T) load_step(nxt, r, w, k, v, a, b, off + stride_t, lane, row0);
-    const float d0 = expf(-expf(cur.w0));
-    const float d1 = expf(-expf(cur.w1));
+  for (int i = 0; i < R; ++i)
 #pragma unroll
-    for (int q = 0; q < kRows; ++q) {
-      const float sa = warp_sum(s0[q] * cur.a0 + s1[q] * cur.a1);
-      s0[q] = s0[q] * d0 + sa * cur.b0 + cur.v[q] * cur.k0;
-      s1[q] = s1[q] * d1 + sa * cur.b1 + cur.v[q] * cur.k1;
-      const float yi = warp_sum(s0[q] * cur.r0 + s1[q] * cur.r1);
-      if (lane == 0) y[off + row0 + q] = yi;
+    for (int m = 0; m < kChunks; ++m) {
+      const float4 x = ld4(s_in + tile + (row0 + i) * kN + col(m, q));
+      S[i][4 * m] = x.x;
+      S[i][4 * m + 1] = x.y;
+      S[i][4 * m + 2] = x.z;
+      S[i][4 * m + 3] = x.w;
     }
-    off += stride_t;
-    cur = nxt;
+
+  for (int c = 0; c < nrun; ++c) {
+    const int s = c & 1;
+    const int n = min(tc, T - c * tc);
+    const float* xr = stage + (s * kVecs + 0) * run;
+    const float* xw = stage + (s * kVecs + 1) * run;
+    const float* xk = stage + (s * kVecs + 2) * run;
+    const float* xv = stage + (s * kVecs + 3) * run;
+    const float* xa = stage + (s * kVecs + 4) * run;
+    const float* xb = stage + (s * kVecs + 5) * run;
+    mbar_wait(&full[s], (c >> 1) & 1);
+    for (int e = tid; e < n * kN; e += blockDim.x) dec[e] = expf(-expf(xw[e]));
+    __syncthreads();
+
+    // Token tt's S a_tt and token tt - 1's S r_(tt-1) both read S after
+    // token tt - 1: one pass computes the two, and their row sums go
+    // through the shuffles together (2 R sums in flight). Token tt - 1's
+    // y thus leaves in step tt; the run's last y after the loop. a and r
+    // of the next step are read during this step's update.
+    float4 fa[kChunks], fr[kChunks];
+#pragma unroll
+    for (int m = 0; m < kChunks; ++m) {
+      fa[m] = ld4(xa + col(m, q));
+      fr[m] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+    for (int tt = 0; tt < n; ++tt) {
+      const int o = tt * kN;
+      float sums[2 * R], v[R];
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        sums[i] = dot(S[i], fa);
+        sums[R + i] = dot(S[i], fr);
+        v[i] = xv[o + row0 + i];
+      }
+      row_sums<2 * R>(sums);
+      if (q == 0 && tt > 0) {
+#pragma unroll
+        for (int i = 0; i < R; ++i)
+          ybuf[(tt - 1) * rows + lrow + i] = sums[R + i];
+      }
+#pragma unroll
+      for (int m = 0; m < kChunks; ++m) {
+        fr[m] = ld4(xr + o + col(m, q));
+        if (tt + 1 < n) fa[m] = ld4(xa + o + kN + col(m, q));
+      }
+#pragma unroll
+      for (int m = 0; m < kChunks; ++m) {
+        const float4 d = ld4(dec + o + col(m, q));
+        const float4 b = ld4(xb + o + col(m, q));
+        const float4 k = ld4(xk + o + col(m, q));
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          const float sa = sums[i];
+          S[i][4 * m] = upd(S[i][4 * m], d.x, sa, b.x, v[i], k.x);
+          S[i][4 * m + 1] = upd(S[i][4 * m + 1], d.y, sa, b.y, v[i], k.y);
+          S[i][4 * m + 2] = upd(S[i][4 * m + 2], d.z, sa, b.z, v[i], k.z);
+          S[i][4 * m + 3] = upd(S[i][4 * m + 3], d.w, sa, b.w, v[i], k.w);
+        }
+      }
+    }
+    float yl[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) yl[i] = dot(S[i], fr);
+    row_sums<R>(yl);
+    if (q == 0) {
+#pragma unroll
+      for (int i = 0; i < R; ++i) ybuf[(n - 1) * rows + lrow + i] = yl[i];
+    }
+    __syncthreads();  // stage s and ybuf are complete
+    if (tid == 0 && c + 2 < nrun) issue(c + 2);
+    // y of the run: n rows of `rows` values, 16-byte stores
+    const int per = rows / 4;
+    for (int u = tid; u < n * per; u += blockDim.x) {
+      const int tt = u / per;
+      const int j = (u - tt * per) * 4;
+      const long long at =
+          (static_cast<long long>(bb * T + c * tc + tt) * H + h) * kN +
+          part * rows + j;
+      *reinterpret_cast<float4*>(y + at) = ld4(ybuf + tt * rows + j);
+    }
   }
 
 #pragma unroll
-  for (int q = 0; q < kRows; ++q) {
-    s_out[tile + (row0 + q) * kN + lane] = s0[q];
-    s_out[tile + (row0 + q) * kN + lane + 32] = s1[q];
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int m = 0; m < kChunks; ++m)
+      *reinterpret_cast<float4*>(s_out + tile + (row0 + i) * kN +
+                                 col(m, q)) =
+          make_float4(S[i][4 * m], S[i][4 * m + 1], S[i][4 * m + 2],
+                      S[i][4 * m + 3]);
+}
+
+// A launch plan: state rows of a (b, h) per block, tokens per staged run,
+// state rows per thread.
+struct Plan {
+  int rows, tc, thread_rows;
+};
+
+// ops/wkv7.prefill_plan's rule (the card checks that the two agree)
+Plan plan_for(int batch, int T, int H) {
+  const long long heads = static_cast<long long>(batch) * H;
+  if (heads < 128) return {16, 16, 1};
+  if (heads < 512) return {64, T >= 512 ? 32 : 16, 4};
+  return {64, 8, 4};
+}
+
+template <int R>
+int launch_r(const Maps& maps, const float* state_in, float* y,
+             float* state_out, int batch, int T, int H, int rows, int tc,
+             cudaStream_t st) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      wkv7_prefill_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes(kN, kMaxTc));
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid(batch * H * (kN / rows)), block(rows * kLanes / R);
+  wkv7_prefill_kernel<R><<<grid, block, smem_bytes(rows, tc), st>>>(
+      maps, state_in, y, state_out, T, H, rows, tc);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch(const float* r, const float* w, const float* k, const float* v,
+           const float* a, const float* b, const float* state_in, float* y,
+           float* state_out, int batch, int T, int H, Plan p, int device,
+           void* stream) {
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  if (batch < 1 || T < 1 || H < 1 || p.tc < 1 || p.tc > kMaxTc ||
+      (p.rows != 16 && p.rows != 32 && p.rows != 64) ||
+      (p.thread_rows != 1 && p.thread_rows != 4) ||
+      (p.rows * kLanes / p.thread_rows) % 32 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Maps maps;
+  const float* src[kVecs] = {r, w, k, v, a, b};
+  for (int j = 0; j < kVecs; ++j) {
+    const int err = encode_map(
+        &maps.m[j], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, src[j],
+        static_cast<long long>(batch) * T, static_cast<long long>(H) * kN,
+        static_cast<long long>(H) * kN * 4, p.tc, kN,
+        CU_TENSOR_MAP_SWIZZLE_NONE);
+    if (err) return err;
   }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (p.thread_rows == 4)
+    return launch_r<4>(maps, state_in, y, state_out, batch, T, H, p.rows,
+                       p.tc, st);
+  return launch_r<1>(maps, state_in, y, state_out, batch, T, H, p.rows, p.tc,
+                     st);
 }
 
 }  // namespace
 
 // r, w, k, v, a, b, y: [B, T, H, 64] f32; state_in, state_out: [B, H, 64,
 // 64] f32; all contiguous, state_out distinct from state_in. Launches on
-// `stream` of card `device` and returns cudaGetLastError().
+// `stream` of card `device` under plan_for's plan and returns a CUDA error
+// code (0 on success).
 extern "C" int wkv7_prefill(const float* r, const float* w, const float* k,
                             const float* v, const float* a, const float* b,
                             const float* state_in, float* y, float* state_out,
                             int batch, int T, int H, int device,
                             void* stream) {
-  const cudaError_t set = cudaSetDevice(device);
-  if (set != cudaSuccess) return static_cast<int>(set);
-  const dim3 grid(batch * H), block(kWarps * 32);
-  wkv7_prefill_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      r, w, k, v, a, b, state_in, y, state_out, T, H);
-  return static_cast<int>(cudaGetLastError());
+  return launch(r, w, k, v, a, b, state_in, y, state_out, batch, T, H,
+                plan_for(batch, T, H), device, stream);
 }
 
 // The same kernel and arguments as wkv7_prefill, launched through the entry
@@ -141,4 +359,28 @@ extern "C" int wkv7_seq(const float* r, const float* w, const float* k,
                         int batch, int T, int H, int device, void* stream) {
   return wkv7_prefill(r, w, k, v, a, b, state_in, y, state_out, batch, T, H,
                       device, stream);
+}
+
+// The same kernel under a given plan (`rows` of 16, 32 or 64 state rows a
+// block, runs of `tc` <= 64 tokens, `thread_rows` of 1 or 4 rows a
+// thread), for measuring the plans.
+extern "C" int wkv7_prefill_planned(const float* r, const float* w,
+                                    const float* k, const float* v,
+                                    const float* a, const float* b,
+                                    const float* state_in, float* y,
+                                    float* state_out, int batch, int T, int H,
+                                    int rows, int tc, int thread_rows,
+                                    int device, void* stream) {
+  return launch(r, w, k, v, a, b, state_in, y, state_out, batch, T, H,
+                {rows, tc, thread_rows}, device, stream);
+}
+
+// plan_for's plan, for the check that it is ops/wkv7.prefill_plan's.
+extern "C" int wkv7_prefill_plan(int batch, int T, int H, int* rows, int* tc,
+                                 int* thread_rows) {
+  const Plan p = plan_for(batch, T, H);
+  *rows = p.rows;
+  *tc = p.tc;
+  *thread_rows = p.thread_rows;
+  return 0;
 }

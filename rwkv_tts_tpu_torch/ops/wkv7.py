@@ -49,6 +49,7 @@ __all__ = ["wkv7_scan", "wkv7_single", "wkv7_chunk_wy", "wkv7_chunked_wy",
            "wkv7_step_fused_", "prefill_chunk_for", "wkv7_chunked",
            "wkv7_chunk_pair", "wkv7_seq", "wkv7_chunk_pair_phase_a",
            "wkv7_chunked_fused", "wkv7_decode_out", "wkv7_decode_layers_",
+           "prefill_plan", "plan_ok", "prefill_smem", "kernel_prefill_plan",
            "LAUNCHES", "reset_launches"]
 
 LAUNCHES: Dict[str, int] = {"wkv7_decode": 0, "wkv7_prefill": 0,
@@ -76,6 +77,10 @@ _ARGTYPES = {
     # r, w, k, v, a, b, state_in, y, state_out, B, T, H, device, stream
     "wkv7_prefill": [_P] * 9 + [ctypes.c_int] * 4 + [_P],
     "wkv7_seq": [_P] * 9 + [ctypes.c_int] * 4 + [_P],
+    # the same and the plan's rows, tc, thread_rows before device, stream
+    "wkv7_prefill_planned": [_P] * 9 + [ctypes.c_int] * 7 + [_P],
+    # B, T, H, out rows, out tc, out thread_rows
+    "wkv7_prefill_plan": [ctypes.c_int] * 3 + [_P] * 3,
     # r, w, k, v, a, b, y_loc, rho, s_loc, P, M (chunks), L, H, device,
     # stream
     "wkv7_chunk_pair": [_P] * 10 + [ctypes.c_int] * 4 + [_P],
@@ -92,7 +97,9 @@ _ARGTYPES = {
 
 # the source each C entry point is compiled from, where it is not its own
 LIBRARY = {"wkv7_decode_out": "wkv7_decode",
-           "wkv7_decode_layers": "wkv7_decode", "wkv7_seq": "wkv7_prefill"}
+           "wkv7_decode_layers": "wkv7_decode", "wkv7_seq": "wkv7_prefill",
+           "wkv7_prefill_planned": "wkv7_prefill",
+           "wkv7_prefill_plan": "wkv7_prefill"}
 
 # the TPU dispatch's lines (wkv7_prefill_tpu, rwkv_tts_tpu/ops/wkv7.py:1249,
 # :1262): the sequential kernel from this batch up, WY from these tokens up
@@ -121,13 +128,16 @@ def _softplus(x):
     return torch.logaddexp(x, torch.zeros_like(x))
 
 
-def _launch(name: str, device: torch.device, *args) -> None:
+def _launch(name: str, device: torch.device, *args,
+            count: Optional[str] = None) -> None:
+    """Launch C entry ``name`` on ``device``'s current stream and count it
+    under ``count`` (default ``name``)."""
     stream = torch.cuda.current_stream(device).cuda_stream
     err = _kernel(name)(*args, device.index, stream)
     if err:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
                            f"{err}")
-    LAUNCHES[name] += 1
+    LAUNCHES[count or name] += 1
 
 
 # --------------------------------------------------------------------------
@@ -223,6 +233,51 @@ def prefill_route(B: int, T: int) -> str:
             and B * T >= WY_MIN_TOKENS:
         return "wy"
     return "seq"
+
+
+# the sequential kernel's plans (csrc/wkv7_prefill.cu): state rows of a
+# (b, h) per block, tokens per staged run, state rows per thread (8 lanes
+# share a row), and the shared memory a block may take (227 KB)
+SEQ_ROWS = (64, 32, 16)
+SEQ_MAX_TC = 64
+SEQ_THREAD_ROWS = (4, 1)
+SEQ_LANES = 8
+SMEM_LIMIT = 232448
+
+
+def prefill_plan(B: int, T: int, H: int) -> Dict[str, int]:
+    """The sequential kernel's launch plan for a [B, T, H, 64] prompt
+    chunk: ``rows`` state rows of a (b, h) per block (a (b, h) is cut over
+    64 / rows blocks, so small batches still give the card's 132 SMs
+    warps), ``tc`` tokens per run staged in shared memory, and
+    ``thread_rows`` state rows per thread (the more, the more FMAs per
+    shared-memory read; the fewer, the more warps). Fitted to
+    ``tools/profile_prefill.py``'s measurements. A plan sets the grid, the
+    staging and which rows a thread holds, never a row's arithmetic, so a
+    request's prefill does not depend on its batch-mates. The kernel's own
+    ``plan_for`` is this rule (``kernel_prefill_plan``; the card checks
+    that the two agree)."""
+    heads = B * H
+    if heads < 128:
+        return {"rows": 16, "tc": 16, "thread_rows": 1}
+    if heads < 512:
+        return {"rows": 64, "tc": 32 if T >= 512 else 16, "thread_rows": 4}
+    return {"rows": 64, "tc": 8, "thread_rows": 4}
+
+
+def plan_ok(plan: Dict[str, int]) -> bool:
+    """Whether the sequential kernel takes ``plan``: its values in range and
+    a block of whole warps."""
+    return (plan["rows"] in SEQ_ROWS and 1 <= plan["tc"] <= SEQ_MAX_TC
+            and plan["thread_rows"] in SEQ_THREAD_ROWS
+            and plan["rows"] * SEQ_LANES // plan["thread_rows"] % 32 == 0)
+
+
+def prefill_smem(rows: int, tc: int) -> int:
+    """Bytes of shared memory a block of the sequential kernel takes
+    (``smem_bytes``): two stages of the six [tc, 64] vectors, the decays,
+    the gathered y, two barriers and 128 bytes of alignment slack."""
+    return 13 * tc * 64 * 4 + tc * rows * 4 + 16 + 128
 
 
 def wkv7_chunk_wy(r, w, k, v, a, b):
@@ -572,16 +627,37 @@ def wkv7_seq(r, w, k, v, a, b, state) -> Tuple[torch.Tensor, torch.Tensor]:
     return _seq_prefill(r, w, k, v, a, b, state, entry="wkv7_seq")
 
 
-def _seq_prefill(r, w, k, v, a, b, state, entry: str = "wkv7_prefill"):
+def _seq_prefill(r, w, k, v, a, b, state, entry: str = "wkv7_prefill",
+                 plan: Optional[Dict[str, int]] = None):
     """Launch ``csrc/wkv7_prefill.cu`` through ``entry`` on checked
-    arguments."""
+    arguments, under the kernel's own plan (``prefill_plan``'s) or, for
+    measuring, under ``plan``; counted under ``entry`` either way."""
     B, T, H, _ = r.shape
     y = torch.empty_like(r)
     s_out = torch.empty_like(state)
-    _launch(entry, r.device, r.data_ptr(), w.data_ptr(), k.data_ptr(),
-            v.data_ptr(), a.data_ptr(), b.data_ptr(), state.data_ptr(),
-            y.data_ptr(), s_out.data_ptr(), B, T, H)
+    args = (r.data_ptr(), w.data_ptr(), k.data_ptr(), v.data_ptr(),
+            a.data_ptr(), b.data_ptr(), state.data_ptr(), y.data_ptr(),
+            s_out.data_ptr(), B, T, H)
+    if plan is None:
+        _launch(entry, r.device, *args)
+    else:
+        if not plan_ok(plan):
+            raise ValueError(f"prefill plan {plan}: rows in {SEQ_ROWS}, tc in "
+                             f"[1, {SEQ_MAX_TC}], thread_rows in "
+                             f"{SEQ_THREAD_ROWS}, whole warps")
+        _launch("wkv7_prefill_planned", r.device, *args, plan["rows"],
+                plan["tc"], plan["thread_rows"], count=entry)
     return y, s_out
+
+
+def kernel_prefill_plan(B: int, T: int, H: int) -> Dict[str, int]:
+    """The plan ``csrc/wkv7_prefill.cu`` picks itself for a [B, T, H, 64]
+    chunk (its ``plan_for``); needs the built kernel. ``prefill_plan`` is
+    the same rule, which the card checks."""
+    out = {k: ctypes.c_int() for k in ("rows", "tc", "thread_rows")}
+    _kernel("wkv7_prefill_plan")(B, T, H, *(ctypes.addressof(v)
+                                            for v in out.values()))
+    return {k: v.value for k, v in out.items()}
 
 
 def wkv7_chunk_pair_phase_a(r, w, k, v, a, b, chunk: int):

@@ -11,7 +11,7 @@ import torch
 
 from rwkv_tts_tpu_torch.ops import wkv7 as W
 from rwkv_tts_tpu_torch.ops import quant as Q
-from rwkv_tts_tpu_torch.tools import (profile_conv1d,
+from rwkv_tts_tpu_torch.tools import (profile_conv1d, profile_prefill,
                                       profile_prefill_pieces, profile_qgemm,
                                       profile_stack_kernel,
                                       profile_step_pieces)
@@ -160,3 +160,37 @@ def test_profile_conv1d_runs_on_the_cpu(window, capsys):
                                                             variant)[0] > 0
         assert row["plan"]["regime"] in ("tile", "cluster")
         assert 1 <= row["plan"]["cluster"] <= 8
+
+
+@pytest.mark.parametrize("B,T", [(8, 64), (128, 64)])
+def test_seq_bound_counts_what_the_call_must_move(B, T):
+    """The sequential prefill's bound (the tool's, which ``chip_smoke.py``
+    counts the same way): six [B, T, 32, 64] f32 inputs and y once, the
+    f32 state in and out once, at 3.35 TB/s; 9 f32 operations a state
+    element and token at 67 TFLOP/s are less."""
+    H, N = 32, 64
+    ms, by = profile_prefill.seq_bound(B, T, H)
+    nbytes = 7 * B * T * H * N * 4 + 2 * B * H * N * N * 4
+    assert by == "bytes"
+    assert ms == pytest.approx(nbytes / 3.35e12 * 1e3, rel=1e-12)
+    assert 9 * B * T * H * N * N / 67e12 * 1e3 < ms
+
+
+def test_profile_prefill_runs_on_the_cpu(capsys):
+    """The sequential prefill tool on the CPU: each shape's plan, bound and
+    shared memory, no time, nothing launched; builds of other sources are
+    refused without a card."""
+    out = profile_prefill.main(["--shapes", "1,3", "8,64", "130,64"],
+                               device="cpu")
+    printed = capsys.readouterr().out.strip().splitlines()
+    assert json.loads(printed[-1]) == json.loads(json.dumps(out))
+    assert out["device"] == "cpu" and not any(out["launches"].values())
+    for row in out["shapes"]:
+        assert row["ms"] is None
+        assert row["plan"] == W.prefill_plan(row["B"], row["T"], 32)
+        assert 0 < row["smem"] <= W.SMEM_LIMIT
+        assert row["bound_ms"] == profile_prefill.seq_bound(
+            row["B"], row["T"], 32)[0]
+    with pytest.raises(ValueError, match="card"):
+        profile_prefill.main(["--shapes", "1,3", "--variant", "2"],
+                             device="cpu")

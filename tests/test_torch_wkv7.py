@@ -201,6 +201,90 @@ def test_prefill_wrapper_rejects(fault):
         W.wkv7_prefill(*x, s0)
 
 
+PLAN_SHAPES = [(1, 1, 32), (1, 64, 32), (3, 12, 32), (7, 16, 32),
+               (8, 64, 32), (8, 1024, 32), (28, 256, 32), (128, 64, 32),
+               (130, 64, 32), (2, 5, 1)]
+
+
+def block_owners(B, H, plan):
+    """{(b, h, part): block} of ``csrc/wkv7_prefill.cu``'s grid under
+    ``plan``, transcribed from its indexing: block x owns rows
+    part·rows .. + rows of (b, h) = divmod(x // split, H), part = x % split,
+    split = 64 / rows."""
+    split = 64 // plan["rows"]
+    out = {}
+    for blk in range(B * H * split):
+        bh, part = divmod(blk, split)
+        key = (*divmod(bh, H), part)
+        assert key not in out, f"{key} owned twice"
+        out[key] = blk
+    return out
+
+
+def element_places(plan):
+    """{(row, column): (lane q, register slot)} of one (b, h)'s state
+    under ``plan``, transcribed from the kernel's indexing: thread tid of
+    part p holds row p·rows + (tid // kLanes)·kR + i, and lane
+    q = tid % kLanes holds columns 4·(kLanes·m + q) + c in slot 4·m + c."""
+    lanes, r_per, N, rows = W.SEQ_LANES, plan["thread_rows"], 64, plan["rows"]
+    out = {}
+    for part in range(N // rows):
+        for tid in range(rows * lanes // r_per):
+            q, lrow = tid % lanes, (tid // lanes) * r_per
+            for i in range(r_per):
+                for m in range(N // lanes // 4):
+                    for c in range(4):
+                        key = (part * rows + lrow + i,
+                               4 * (lanes * m + q) + c)
+                        assert key not in out, f"{key} covered twice"
+                        out[key] = (q, 4 * m + c)
+    return out
+
+
+@pytest.mark.parametrize("B,T,H", PLAN_SHAPES)
+def test_prefill_plan_covers_every_row_once(B, T, H):
+    """Under ``prefill_plan`` every part of every (b, h) has exactly one
+    block, every element of a (b, h)'s state exactly one thread, and a
+    block's threads are whole warps."""
+    plan = W.prefill_plan(B, T, H)
+    assert W.plan_ok(plan)
+    assert plan["rows"] * W.SEQ_LANES // plan["thread_rows"] % 32 == 0
+    assert len(block_owners(B, H, plan)) == B * H * (64 // plan["rows"])
+    assert len(element_places(plan)) == 64 * 64
+
+
+@pytest.mark.parametrize("B,T,H", PLAN_SHAPES)
+def test_prefill_plan_fits_shared_memory(B, T, H):
+    """A block's staging fits the card's 227 KB, and so does the largest
+    plan the kernel accepts."""
+    plan = W.prefill_plan(B, T, H)
+    assert W.prefill_smem(plan["rows"], plan["tc"]) <= W.SMEM_LIMIT
+    assert W.prefill_smem(max(W.SEQ_ROWS), W.SEQ_MAX_TC) <= W.SMEM_LIMIT
+    src = (_build.CSRC / "wkv7_prefill.cu").read_text()
+    assert re.search(r"constexpr int kMaxTc = %d;" % W.SEQ_MAX_TC, src)
+    assert re.search(r"constexpr int kLanes = %d;" % W.SEQ_LANES, src)
+
+
+def test_prefill_plan_keeps_each_row_arithmetic():
+    """A row's arithmetic does not depend on B: every state element has the
+    same lane and register slot in a batch of 1 as in batches of 8 and 130,
+    and under every plan the kernel takes, and a plan sets nothing but the
+    block's rows, the run length and the rows a thread holds."""
+    alone = element_places(W.prefill_plan(1, 64, 32))
+    plans = set()
+    for B in (1, 8, 130):
+        plan = W.prefill_plan(B, 64, 32)
+        assert set(plan) == {"rows", "tc", "thread_rows"}
+        plans.add((plan["rows"], plan["thread_rows"]))
+        assert element_places(plan) == alone
+    for rows in W.SEQ_ROWS:
+        for tr in W.SEQ_THREAD_ROWS:
+            plan = {"rows": rows, "tc": 16, "thread_rows": tr}
+            if W.plan_ok(plan):
+                assert element_places(plan) == alone
+    assert len(plans) > 1, "the check should span plans"
+
+
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     """A missing compiler is an error, never a fallback."""
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
@@ -257,16 +341,70 @@ def test_decode_kernel_matches_plain_on_card(cuda_card, B, dtype, tol):
     assert torch.equal(stack[others], before[others])
 
 
+def seq_kernel(x, s0):
+    """The sequential kernel through ``wkv7_prefill``'s entry: the wrapper
+    where ``prefill_route`` takes it, else the launch behind it."""
+    B, T = x[0].shape[:2]
+    if W.prefill_route(B, T) == "seq":
+        return W.wkv7_prefill(*x, s0)
+    return W._seq_prefill(*x, s0)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("T,tail", [(64, 5), (61, 0)])
-def test_prefill_kernel_matches_plain_on_card(cuda_card, T, tail):
-    x = [t(v).cuda() for v in inputs((8, T, 32, 64), seed=T, masked_tail=tail)]
-    s0 = t(state((8, 32, 64, 64), seed=17)).cuda()
+@pytest.mark.parametrize("B", [1, 8, 130])
+@pytest.mark.parametrize("T,tail", [(1, 0), (3, 1), (61, 0), (64, 5),
+                                    (256, 37)])
+def test_prefill_kernel_matches_plain_on_card(cuda_card, B, T, tail):
+    """The sequential kernel against the scan within 1e-4 of each output's
+    largest value, masked tails and a nonzero state, at every plan's batch
+    (B = 1 cuts a (b, h) over four blocks, 130 over one)."""
+    x = [t(v).cuda() for v in inputs((B, T, 32, 64), seed=T + B,
+                                     masked_tail=tail)]
+    s0 = t(state((B, 32, 64, 64), seed=17)).cuda()
     y_ref, s_ref = W.wkv7_scan(*x, s0)
-    y, s = W.wkv7_prefill(*x, s0)
+    W.reset_launches()
+    y, s = seq_kernel(x, s0)
     torch.cuda.synchronize()
+    assert W.LAUNCHES["wkv7_prefill"] == 1 and W.LAUNCHES["wkv7_wy"] == 0
     assert (y - y_ref).abs().max() <= 1e-4 * y_ref.abs().max()
     assert (s - s_ref).abs().max() <= 1e-4 * s_ref.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,tail", [(3, 1), (64, 5), (256, 37)])
+def test_prefill_kernel_bits_are_batch_invariant_on_card(cuda_card, T, tail):
+    """The same bits from two launches, for each request of a batch of 8
+    launched alone (B = 1, another plan), under every plan, and from the
+    ``wkv7_seq`` entry."""
+    x = [t(v).cuda() for v in inputs((8, T, 32, 64), seed=T,
+                                     masked_tail=tail)]
+    s0 = t(state((8, 32, 64, 64), seed=18)).cuda()
+    y, s = seq_kernel(x, s0)
+    y2, s2 = seq_kernel(x, s0)
+    assert torch.equal(y, y2) and torch.equal(s, s2)
+    for i in (0, 5):
+        yi, si = seq_kernel([v[i:i + 1].contiguous() for v in x],
+                            s0[i:i + 1].contiguous())
+        assert torch.equal(yi, y[i:i + 1]) and torch.equal(si, s[i:i + 1])
+    for rows in W.SEQ_ROWS:
+        for tr in W.SEQ_THREAD_ROWS:
+            for tc in (7, 16, 64):
+                plan = {"rows": rows, "tc": tc, "thread_rows": tr}
+                if W.plan_ok(plan):
+                    yp, sp = W._seq_prefill(*x, s0, plan=plan)
+                    assert torch.equal(yp, y) and torch.equal(sp, s)
+    ys, ss = W.wkv7_seq(*x, s0)
+    assert torch.equal(ys, y) and torch.equal(ss, s)
+
+
+@pytest.mark.cuda
+def test_kernel_prefill_plan_is_prefill_plan_on_card(cuda_card):
+    """The kernel's own plan (``plan_for``) is ``prefill_plan``'s rule."""
+    for B in (1, 2, 3, 4, 7, 8, 16, 28, 32, 64, 128, 130, 512):
+        for T in (1, 12, 64, 256, 1024):
+            for H in (1, 32):
+                assert W.kernel_prefill_plan(B, T, H) == \
+                    W.prefill_plan(B, T, H), (B, T, H)
 
 
 @pytest.mark.cuda

@@ -351,10 +351,16 @@ def test_decode_layers_kernel_is_per_layer_launches_on_card(cuda_card, slots):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T,tail", [(64, 5), (61, 0), (256, 37)])
-def test_seq_kernel_matches_plain_on_card(cuda_card, T, tail):
-    x = cuda_inputs((8, T, 32, 64), seed=T, masked_tail=tail)
-    s0 = t(state((8, 32, 64, 64), seed=3)).cuda()
+@pytest.mark.parametrize("B", [1, 8, 130])
+@pytest.mark.parametrize("T,tail", [(1, 0), (3, 1), (61, 0), (64, 5),
+                                    (256, 37)])
+def test_seq_kernel_matches_plain_on_card(cuda_card, B, T, tail):
+    """``wkv7_seq`` against the scan within 1e-4 of each output's largest
+    value (masked tails, a nonzero state), one launch under its own count;
+    the same bits from two launches, for a request alone as inside the
+    batch, and as ``wkv7_prefill``'s entry."""
+    x = cuda_inputs((B, T, 32, 64), seed=T + B, masked_tail=tail)
+    s0 = t(state((B, 32, 64, 64), seed=3)).cuda()
     W.reset_launches()
     y, s = W.wkv7_seq(*x, s0)
     assert W.LAUNCHES["wkv7_seq"] == 1 and W.LAUNCHES["wkv7_prefill"] == 0
@@ -362,6 +368,14 @@ def test_seq_kernel_matches_plain_on_card(cuda_card, T, tail):
     torch.cuda.synchronize()
     assert (y - y_ref).abs().max() <= 1e-4 * y_ref.abs().max()
     assert (s - s_ref).abs().max() <= 1e-4 * s_ref.abs().max()
+    y2, s2 = W.wkv7_seq(*x, s0)
+    assert torch.equal(y, y2) and torch.equal(s, s2)
+    i = B // 2
+    yi, si = W.wkv7_seq(*(v[i:i + 1].contiguous() for v in x),
+                        s0[i:i + 1].contiguous())
+    assert torch.equal(yi, y[i:i + 1]) and torch.equal(si, s[i:i + 1])
+    yp, sp = W._seq_prefill(*x, s0)
+    assert torch.equal(yp, y) and torch.equal(sp, s)
 
 
 @pytest.mark.cuda
