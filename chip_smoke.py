@@ -17,19 +17,23 @@ name fails.
 Phases, each fatal on failure:
 
   build      compile every kernel of every path from ``csrc/`` with nvcc
-             for sm_90a, one process per source, all at once (eight);
+             for sm_90a, one process per source, all at once (seven);
   kernels    each kernel's wrapper against its plain PyTorch version on
              the card, with stated tolerances; decode (B = 1, 8, 128) must
              leave the other layers of the state stack untouched, also on
              the slot prefixes
              ``stack[:, :2]`` and ``stack[:, :4]`` of an 8-slot stack (the
              views the streaming path's bucketed block hands it), where the
-             other slots must stay untouched too; the WY prefill (kernel +
-             PyTorch chunk combine) against the plain chunked WY and the
-             scan at T = 256 (L = 64) and T = 1028 (L = 4); each kernel and
-             plain version timed at its path's shapes (device time from
-             torch.profiler, and CUDA events per call), and the sequential
-             prefill kernel timed on the WY kernel's inputs beside it; the
+             other slots must stay untouched too; the WY route of the
+             prefill (kernel + PyTorch chunk combine, forced with
+             ``wkv7._prefill_by("wy", ...)``) against the plain chunked
+             WY and the scan at T = 256 (L = 64) and T = 1028 (L = 4),
+             the kernel alone against the plain phase A; each kernel and plain version timed at its
+             path's shapes (device time from torch.profiler, and CUDA events
+             per call), the sequential prefill kernel, the WY route and the
+             combine alone timed on the WY kernel's inputs beside it, and
+             the WY kernel's bound on the units it runs (3xTF32 tensor
+             cores) with the f32 figure beside; the
              sequential prefill kernel (through ``wkv7_prefill``'s entry)
              against the scan at T = 1, 3, 61, 64, 256 with masked tails and
              B = 1, 8, 130 from a nonzero state (1e-4), the same bits from
@@ -81,18 +85,25 @@ Phases, each fatal on failure:
              plain version, the other slots untouched; the
              sequential entry ``wkv7_seq`` at every (B, T) of the sequential
              prefill's check (above), with the same bits checks; the paired
-             phase A against ``wkv7_chunk_pair`` and, with the chunk
-             combine, against the scan at (B, T, L) = (8, 64, 4),
-             (8, 256, 16), (28, 64, 4), (32, 512, 32), masked tails; each
-             timed beside its plain version (phase ``rest_kernels``);
-  sweep     the prefill dispatch sweep at every (B, T) of the JAX package's
-             ``tools/tpu_smoke.py`` ((8, 64), (28, 256), (7, 16), (130, 64),
-             (32, 512), (128, 64), (3, 12)) and at (8, 512), (8, 1024):
-             ``wkv7_prefill`` and each formulation that applies (sequential,
-             WY + combine where 4 | T, pair + combine where
-             ``prefill_chunk_for(T)`` is defined) against the scan, each
-             formulation timed, the sequential kernel beside its bound and
-             share; one table. ``prefill_route`` is not changed;
+             phase A (the sequential kernel's paired mode) against
+             ``wkv7_chunk_pair`` and, with the chunk combine, against the
+             scan at (B, T, L) = (8, 64, 4), (8, 256, 16), (28, 64, 4),
+             (32, 512, 32), masked tails; its own plan equal to
+             ``pair_plan``'s and the same bits under every plan it takes at
+             (8, 256, 16) and (1, 2048, 128); each timed beside its plain
+             version (phase ``rest_kernels``);
+  sweep     the card's prefill route, measured (``SWEEP``): every (B, T)
+             of the JAX package's ``tools/tpu_smoke.py``, (8, 512),
+             (8, 1024), the cloning prompt's (8, 256), and few requests at
+             long prompts ((1, 2048), (2, 1028), (1, 512), (1, 1024),
+             (2, 1024), (4, 1024), (2, 2048), (4, 2048)):
+             ``wkv7_prefill`` (the route ``card_prefill_route`` picks) and
+             each formulation that applies, forced by ``wkv7._prefill_by``
+             (sequential, WY + combine where 4 | T, pair + combine where
+             ``prefill_chunk_for(T)`` is defined), against the scan, each
+             timed with its phase A alone beside, the TPU's rule beside the
+             card's, the sequential kernel beside its bound and share; one
+             table;
   tools     the three kernel-attribution tools
              (``rwkv_tts_tpu_torch/tools``) at full width with few steps:
              ``profile_stack_kernel`` (B = 128 and 8, bf16 state),
@@ -115,9 +126,10 @@ Phases, each fatal on failure:
              one at 24 kHz so resampling runs, each used twice) and 2 by
              voice_id from a store holding the two shipped voices, with
              texts of 100-220 tokens so the prompts pad to T = 256 and
-             prefill through the WY kernel (32 launches per chunk, no
-             sequential prefill launch); each request keeps its voice's
-             global tokens, a repeated clip hits the extraction cache, and
+             prefill through the sequential kernel (32 ``wkv7_prefill``
+             launches per chunk, no other prefill launch); each request
+             keeps its voice's global tokens, a repeated clip hits the
+             extraction cache, and
              every waveform is finite and len(semantic) × 320 samples;
   quantized  the LM at full width in the JAX package's serving layouts,
              built on the card by ``make_serving_params``: int8 as deployed
@@ -299,9 +311,8 @@ SEQ_CHECK_B = (1, 8, 130)
 
 
 def check_seq_kernel(torch, W, entry, B, T, H, N, gen, masked_tail):
-    """The sequential kernel through C entry ``entry`` (``wkv7_prefill``:
-    the wrapper where ``prefill_route`` takes the kernel, else the launch
-    behind it; ``wkv7_seq``: its wrapper) against the scan, 1e-4 of each
+    """The sequential kernel through C entry ``entry`` (``wkv7_prefill`` or
+    ``wkv7_seq``, each through its wrapper) against the scan, 1e-4 of each
     output's largest value, masked tail and nonzero state; one launch under
     the entry's own count; the same bits from a second launch, from the
     other entry, and for request B // 2 launched alone (B = 1, the plan of
@@ -312,9 +323,7 @@ def check_seq_kernel(torch, W, entry, B, T, H, N, gen, masked_tail):
     def run(xs, s, name=entry):
         if name == "wkv7_seq":
             return W.wkv7_seq(*xs, s)
-        if W.prefill_route(xs[0].shape[0], T) == "seq":
-            return W.wkv7_prefill(*xs, s)
-        return W._seq_prefill(*xs, s)
+        return W.wkv7_prefill(*xs, s)
 
     W.reset_launches()
     y, s = run(x, s0)
@@ -362,17 +371,19 @@ def bound(nbytes: float, flops: float, flops_per_s: float = F32_FLOPS_PER_S):
 
 def check_wy(torch, W, B, T, H, N, gen, masked_tail):
     """The WY route of the prefill wrapper (kernel 3 + the PyTorch chunk
-    combine) against the plain chunked WY and the scan, both on the card,
-    relative error ≤ 3e-4 (the JAX suite's WY bound); then kernel 3 alone
-    against the plain phase A, ≤ 1e-4 (same algorithm, other summation
-    order). Returns phase A's max abs error."""
+    combine, forced by ``wkv7._prefill_by``: the TPU rule takes it at these
+    shapes, the card's rule does not) against the plain chunked WY and the
+    scan, both on the card, relative error ≤ 3e-4 (the JAX suite's WY
+    bound); then kernel 3 alone against the plain phase A, ≤ 1e-4 (3xTF32
+    and a blocked substitution against f32 doublings). Returns phase A's
+    max abs error."""
     x = wkv_inputs(torch, (B, T, H, N), gen, masked_tail)
     s0 = 0.1 * torch.randn((B, H, N, N), generator=gen, device="cuda")
     L = W.wy_chunk_for(T)
     if W.prefill_route(B, T) != "wy":
-        fail(f"wy: B={B} T={T} does not route to the WY kernel")
+        fail(f"wy: B={B} T={T} is not a shape the TPU rule sends to WY")
     W.reset_launches()
-    y, s = W.wkv7_prefill(*x, s0)
+    y, s = W._prefill_by("wy", *x, s0)
     torch.cuda.synchronize()
     if W.LAUNCHES != {**{k: 0 for k in W.LAUNCHES}, "wkv7_wy": 1}:
         fail(f"wy: B={B} T={T} launched {W.LAUNCHES}")
@@ -399,40 +410,18 @@ def check_wy(torch, W, B, T, H, N, gen, masked_tail):
     return max(float((g - w).abs().max()) for g, w in zip(got, want))
 
 
-def wy_flops(B, T, H, N, L):
-    """f32 operations that phase A's function needs, 2 per multiply-add.
-    Per (batch, chunk, head) cell: the four scores over their triangles
-    (2·L²·N), K v and the two forward substitutions (I − G) h = K v and
-    (I − G) xa = â over the strict triangle (1.5·L·(L − 1)·N), the
-    lower-triangular applications R1 h, R2 v and R1 xa (1.5·L·(L + 1)·N),
-    and the three outer-product sums over L positions (3·N²·L):
-    5·L²·N + 3·N²·L multiply-adds."""
-    per_cell = 5 * L * L * N + 3 * N * N * L
-    return 2 * per_cell * B * (T // L) * H
-
-
-def wy_algorithm_flops(W, B, T, H, N, L):
-    """f32 operations of kernel 3's algorithm as written, which does more
-    than ``wy_flops``: full L × L products whose upper triangle is masked,
-    and X = (I − G)⁻¹ formed by 2 products per doubling. Per cell: 4
-    scores (L·L·N), 2·wy_doublings(L) doubling products (L³), 6
-    applications (L·L·N) and 3 outer products (N·N·L)."""
-    per_cell = (10 * L * L * N + 2 * W.wy_doublings(L) * L ** 3
-                + 3 * N * N * L)
-    return 2 * per_cell * B * (T // L) * H
-
-
 def phase_kernels(torch, W, lm_cfg):
     """Correctness at B ∈ {1, 8, 128} (decode, f32 and bf16 state; 128 is
     the attribution tools' batch), T ∈ {1, 3, 61, 64, 256} × B ∈ {1, 8,
     130} (sequential prefill, ``check_seq_kernel``) and (B, T) ∈ {(8, 256),
     (2, 1028)}
-    (WY prefill), then timing at the paths' shapes: decode at B = 8 on the
+    (WY route), then timing at the paths' shapes: decode at B = 8 on the
     full L-layer f32 stack (cycling the layers, as the decode step does, so
     no slab stays in L2), sequential prefill at B = 8, T = 64 over four
     input sets (more than L2 holds), and the WY kernel at the cloning
-    path's B = 8, T = 256 over two input sets (100 MB each), with the
-    sequential kernel and the whole WY route on the same inputs."""
+    prompt's B = 8, T = 256 over two input sets (100 MB each), with the
+    sequential kernel, the whole WY route and the combine alone on the
+    same inputs."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     H, N, L = lm_cfg.n_head, lm_cfg.head_size, lm_cfg.n_layer
@@ -500,8 +489,10 @@ def phase_kernels(torch, W, lm_cfg):
             it["i"] += 1
         return run
 
+    from rwkv_tts_tpu_torch.tools.profile_prefill import (wy_algorithm_flops,
+                                                          wy_bound, wy_flops)
     seq_wy = B * Tw * H * N * 4
-    cells_sum = B * (Tw // Lw) * H * N * N * 4
+    wy_ms, wy_by, wy_f32_ms = wy_bound(B, Tw, H, Lw)
     slab, seq = B * H * N * N * 4, B * T * H * N * 4
     cases = {
         "wkv7_decode": (dec_kernel, dec_plain, 10 * L, 2 * L,
@@ -513,8 +504,7 @@ def phase_kernels(torch, W, lm_cfg):
         "wkv7_wy": (wy(lambda x, s0: W.wkv7_wy_phase_a(*x, Lw)),
                     wy(lambda x, s0: W.wkv7_chunk_wy(
                         *(t.reshape(-1, Lw, H, N) for t in x))), 20, 4,
-                    bound(8 * seq_wy + 2 * cells_sum,
-                          wy_flops(B, Tw, H, N, Lw))),
+                    (wy_ms, wy_by)),
     }
     out = {}
     for name, (kern, plain, n_k, n_p, (b_ms, b_by)) in cases.items():
@@ -525,32 +515,40 @@ def phase_kernels(torch, W, lm_cfg):
 
     # the prefill at the WY kernel's shape: the sequential kernel, and the
     # whole WY route (kernel 3 + the PyTorch chunk combine), on the same
-    # inputs, in turns
+    # inputs, in turns; then the combine alone on one phase A's outputs
     def seq_on_wy(x, s0):
-        W._seq_prefill(*x, s0)
+        W._prefill_by("seq", *x, s0)
+
+    def wy_route(x, s0):
+        W._prefill_by("wy", *x, s0)
 
     turns = {}
-    for name, fn in (("seq", wy(seq_on_wy)), ("wy_route", wy(
-            lambda x, s0: W.wkv7_prefill(*x, s0))), ("wy_route2", wy(
-            lambda x, s0: W.wkv7_prefill(*x, s0))), ("seq2", wy(seq_on_wy))):
-        turns[name] = device_ms(torch, fn, 20)
+    for name, fn in (("seq", seq_on_wy), ("wy_route", wy_route),
+                     ("wy_route2", wy_route), ("seq2", seq_on_wy)):
+        turns[name] = device_ms(torch, wy(fn), 20)
+    xa_, s0a = wy_sets[0]
+    parts = W.wkv7_wy_phase_a(*xa_, Lw)
+    combine_ms = device_ms(torch, lambda: W._chunk_combine(
+        s0a, *parts, B, Tw, Lw, H, N), 20)
     seq_ms = min(turns["seq"], turns["seq2"])
     route_ms = min(turns["wy_route"], turns["wy_route2"])
     print(f"kernels: prefill at B={B}, T={Tw}: sequential kernel "
           f"{turns['seq']:.5f} / {turns['seq2']:.5f} ms, WY route (kernel + "
           f"combine) {turns['wy_route']:.5f} / {turns['wy_route2']:.5f} ms, "
-          f"WY kernel alone {out['wkv7_wy']['ms']:.5f} ms; sequential bound "
+          f"WY kernel alone {out['wkv7_wy']['ms']:.5f} ms, the PyTorch "
+          f"combine alone {combine_ms:.5f} ms; sequential bound "
           f"{bound(7 * seq_wy + 2 * B * H * N * N * 4, 9 * B * Tw * H * N * N)[0]:.5f}"
           f" ms; faster: {'WY route' if route_ms < seq_ms else 'sequential'}"
-          f" by {max(seq_ms, route_ms) / min(seq_ms, route_ms):.3f}x",
-          flush=True)
-    algo = wy_algorithm_flops(W, B, Tw, H, N, Lw)
+          f" by {max(seq_ms, route_ms) / min(seq_ms, route_ms):.3f}x; the "
+          f"card's route there: {W.card_prefill_route(B, Tw)}", flush=True)
+    out["wkv7_wy"]["combine_ms"] = combine_ms
+    algo = wy_algorithm_flops(B, Tw, H, Lw)
     print(f"kernels: wkv7_wy at B={B}, T={Tw}: the function needs "
-          f"{wy_flops(B, Tw, H, N, Lw) / 1e9:.4f} GFLOP (bound "
-          f"{out['wkv7_wy']['bound_ms']:.5f} ms, "
-          f"{100 * out['wkv7_wy']['bound_ms'] / out['wkv7_wy']['ms']:.1f}% "
-          f"reached); its algorithm as written runs {algo / 1e9:.4f} GFLOP "
-          f"({algo / F32_FLOPS_PER_S * 1e3:.5f} ms at the f32 peak)",
+          f"{wy_flops(B, Tw, H, Lw) / 1e9:.4f} GFLOP, the kernel's algorithm "
+          f"runs {algo / 1e9:.4f} GFLOP on the tensor cores at 3xTF32; bound "
+          f"{wy_ms:.5f} ms by {wy_by} on those units ({100 * wy_ms / out['wkv7_wy']['ms']:.1f}% "
+          f"reached), {wy_f32_ms:.5f} ms by the function's operations at the "
+          f"f32 peak ({100 * wy_f32_ms / out['wkv7_wy']['ms']:.1f}%)",
           flush=True)
     return out
 
@@ -1036,11 +1034,35 @@ def check_pair(torch, W, B, T, H, N, L, gen, masked_tail):
     return max(float((g - w).abs().max()) for g, w in zip(got, want))
 
 
-def pair_flops(B, T, H, N):
-    """f32 operations of the paired phase A, per position and head: the
-    state's update as the decode step's (S a, the update, S r: 9 N²) and
-    the transition's without the write (P a, the update, P r: 7 N²)."""
-    return 16 * B * T * H * N * N
+def check_pair_plans(torch, W, H, N, gen):
+    """The paired mode's own plan (its ``pair_plan_for``) is ``pair_plan``'s,
+    and every plan it takes gives the bits of its own at the cloning
+    prompt's (8, 256, L = 16) and at (1, 2048, L = 128)."""
+    for M in (1, 3, 16, 64, 128, 512, 2048):
+        for L in (1, 3, 4, 16, 64, 128):
+            got, want = W.kernel_pair_plan(M, L, H), W.pair_plan(M, L, H)
+            if got != want:
+                fail(f"pair plan at M={M} L={L} H={H}: the kernel's {got}, "
+                     f"pair_plan's {want}")
+    for B, T, L in ((8, 256, 16), (1, 2048, 128)):
+        x = wkv_inputs(torch, (B, T, H, N), gen, L + 1)
+        M = B * (T // L)
+        own = W.wkv7_chunk_pair_phase_a(*x, L)
+        n = 0
+        for rows in W.SEQ_ROWS:
+            for tc in (1, 3, 8, 16, W.PAIR_MAX_TC):
+                for tr in W.SEQ_THREAD_ROWS:
+                    plan = {"rows": rows, "tc": tc, "thread_rows": tr}
+                    if not W.plan_ok(plan, pair=True):
+                        continue
+                    got = W._pair_phase_a(*x, M, L, plan=plan)
+                    if not all(torch.equal(g, o) for g, o in zip(got, own)):
+                        fail(f"pair B={B} T={T} L={L}: plan {plan} changed "
+                             "the bits")
+                    n += 1
+        print(f"kernels: pair B={B} T={T} L={L}: the same bits under {n} "
+              f"plans; own plan {W.pair_plan(M, L, H)} = the kernel's",
+              flush=True)
 
 
 def phase_rest_kernels(torch, W, lm_cfg):
@@ -1088,6 +1110,7 @@ def phase_rest_kernels(torch, W, lm_cfg):
         e = check_pair(torch, W, B, T, H, N, Lc, gen, tail)
         if T == 256:
             err["wkv7_chunk_pair"] = e
+    check_pair_plans(torch, W, H, N, gen)
     torch.cuda.empty_cache()
 
     B = 8
@@ -1130,8 +1153,9 @@ def phase_rest_kernels(torch, W, lm_cfg):
             it["i"] += 1
         return run
 
+    from rwkv_tts_tpu_torch.tools.profile_prefill import pair_bound
     slab, vec = B * H * N * N * 4, B * H * N * 4
-    seq, seq_p = B * T * H * N * 4, B * Tp * H * N * 4
+    seq = B * T * H * N * 4
     cases = {
         "wkv7_decode_out": (out_kernel, out_plain, 10 * L, 2 * L,
                             bound(2 * slab + 7 * vec, 9 * B * H * N * N),
@@ -1147,9 +1171,9 @@ def phase_rest_kernels(torch, W, lm_cfg):
             pair(lambda x: W.wkv7_chunk_pair_phase_a(*x, Lp)),
             pair(lambda x: W.wkv7_chunk_pair(
                 *(t.reshape(Mp, Lp, H, N) for t in x))), 20, 2,
-            bound(8 * seq_p + 2 * Mp * H * N * N * 4,
-                  pair_flops(B, Tp, H, N)),
-            f"B={B}, T={Tp}, L={Lp} (phase A alone)"),
+            pair_bound(B, Tp, H, Lp),
+            f"B={B}, T={Tp}, L={Lp} (phase A alone, the paired mode of "
+            f"the sequential kernel, plan {W.pair_plan(Mp, Lp, H)})"),
     }
     out = {}
     for name, (kern, plain, n_k, n_p, (b_ms, b_by), shape) in cases.items():
@@ -1159,20 +1183,24 @@ def phase_rest_kernels(torch, W, lm_cfg):
 
 
 # every (B, T) of the TPU smoke's prefill dispatch sweep (tools/tpu_smoke.py),
-# and one request batch at longer prompts
+# one request batch at longer prompts, the cloning prompt's chunk, the
+# small-B, long-T shapes the TPU rule sends to WY, and few requests at the
+# engine's 512 and 1024 buckets
 SWEEP = ((8, 64), (28, 256), (7, 16), (130, 64), (32, 512), (128, 64),
-         (3, 12), (8, 512), (8, 1024))
+         (3, 12), (8, 512), (8, 1024), (8, 256), (1, 2048), (2, 1028),
+         (1, 512), (1, 1024), (2, 1024), (4, 1024), (2, 2048), (4, 2048))
 
 
 def prefill_sweep(torch, W, H, N):
-    """D1's measured sweep: at each (B, T), ``wkv7_prefill`` (the route
-    ``prefill_route`` picks) against the scan, and every exact formulation
-    that applies timed on the same inputs (device time per layer): the
+    """The card's prefill route, measured: at each (B, T), ``wkv7_prefill``
+    (the route ``card_prefill_route`` picks) against the scan, and every
+    exact formulation that applies, forced by ``_prefill_by``, timed on
+    the same inputs (device time per layer) and held against the scan: the
     sequential kernel, the WY route (phase A at ``wy_chunk_for(T)`` + the
     combine) where 4 | T, the pair route (paired phase A at
     ``prefill_chunk_for(T)`` + the combine) where that is defined, each
-    also held against the scan; the sequential kernel's plan, bound and
-    share of it. The dispatch rule is not changed."""
+    phase A also alone; the sequential kernel's plan, bound and share; the
+    TPU's rule (``prefill_route``) beside the card's."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 13)
     rows = []
@@ -1180,35 +1208,36 @@ def prefill_sweep(torch, W, H, N):
         x = wkv_inputs(torch, (B, T, H, N), gen)
         s0 = 0.1 * torch.randn((B, H, N, N), generator=gen, device="cuda")
         y_ref, s_ref = W.wkv7_scan(*x, s0)
-        route = W.prefill_route(B, T)
+        route = W.card_prefill_route(B, T)
         Lw, Lp = W.wy_chunk_for(T), W.prefill_chunk_for(T)
-
-        def wy_route():
-            y_loc, rho, s_loc, P = W.wkv7_wy_phase_a(*x, Lw)
-            return W._chunk_combine(s0, y_loc, rho, s_loc, P, B, T, Lw, H, N)
-
-        forms = {"dispatch": (lambda: W.wkv7_prefill(*x, s0),
-                              3e-4 if route == "wy" else 1e-4),
-                 "seq": (lambda: W.wkv7_seq(*x, s0), 1e-4)}
-        if Lw is not None:
-            forms["wy"] = (wy_route, 3e-4)
-        if Lp is not None:
-            forms["pair"] = (lambda: W.wkv7_chunked_fused(*x, s0, Lp), 5e-4)
+        tol = {"seq": 1e-4, "wy": 3e-4, "pair": 5e-4}
+        forms = {"dispatch": (lambda: W.wkv7_prefill(*x, s0), tol[route])}
+        for name, L in (("seq", 1), ("wy", Lw), ("pair", Lp)):
+            if L is not None:
+                forms[name] = (lambda name=name: W._prefill_by(
+                    name, *x, s0), tol[name])
         seq_bound, seq_by = bound(7 * B * T * H * N * 4 + 2 * B * H * N * N * 4,
                                   9 * B * T * H * N * N)
-        row = {"B": B, "T": T, "route": route, "wy_chunk": Lw,
-               "pair_chunk": Lp, "seq_plan": W.prefill_plan(B, T, H),
+        row = {"B": B, "T": T, "route": route, "tpu_route":
+               W.prefill_route(B, T), "wy_chunk": Lw, "pair_chunk": Lp,
+               "seq_plan": W.prefill_plan(B, T, H),
                "seq_bound_ms": seq_bound, "seq_bound_by": seq_by}
-        for name, (fn, tol) in forms.items():
+        for name, (fn, tol_) in forms.items():
             y, s = fn()
             torch.cuda.synchronize()
             e = max(rel_err(torch, y, y_ref), rel_err(torch, s, s_ref))
-            if e > tol:
+            if e > tol_:
                 fail(f"prefill sweep B={B} T={T} {name}: rel err {e:.3g} "
-                     f"against the scan (tolerance {tol})")
+                     f"against the scan (tolerance {tol_})")
             row[f"{name}_err"] = e
             if name != "dispatch":
                 row[f"{name}_ms"] = device_ms(torch, fn, 5)
+        if Lw is not None:
+            row["wy_phase_a_ms"] = device_ms(
+                torch, lambda: W.wkv7_wy_phase_a(*x, Lw), 5)
+        if Lp is not None:
+            row["pair_phase_a_ms"] = device_ms(
+                torch, lambda: W.wkv7_chunk_pair_phase_a(*x, Lp), 5)
         del x, y_ref, s_ref
         torch.cuda.empty_cache()
         times = {k[:-3]: row[k] for k in ("seq_ms", "wy_ms", "pair_ms")
@@ -1221,15 +1250,18 @@ def prefill_sweep(torch, W, H, N):
         return f"{row[k]:.5f}" if k in row else "—"
 
     print("prefill sweep (device ms per layer, each formulation held against "
-          "the scan; the dispatch route in force is the TPU's rule; the "
-          "sequential kernel's bound and share of it):\n"
-          "  B    T    route  wy L  pair L  seq ms    wy ms     pair ms   "
-          "fastest  dispatch rel err  seq bound ms  seq share", flush=True)
+          "the scan, routes with the combine, phase A alone in brackets; the "
+          "route in force is the card's, card_prefill_route; the TPU's rule "
+          "beside it; the sequential kernel's bound and share of it):\n"
+          "  B    T    card  tpu  wy L  pair L  seq ms    wy ms (A)            "
+          "pair ms (A)          fastest  dispatch rel err  seq bound ms  "
+          "seq share", flush=True)
     for r in rows:
-        print(f"  {r['B']:<4} {r['T']:<4} {r['route']:<6} "
+        print(f"  {r['B']:<4} {r['T']:<4} {r['route']:<5} {r['tpu_route']:<4} "
               f"{str(r['wy_chunk']):<5} {str(r['pair_chunk']):<7} "
               f"{ms(r, 'seq_ms'):<9} {ms(r, 'wy_ms'):<9} "
-              f"{ms(r, 'pair_ms'):<9} {r['fastest']:<8} "
+              f"({ms(r, 'wy_phase_a_ms'):<8}) {ms(r, 'pair_ms'):<9} "
+              f"({ms(r, 'pair_phase_a_ms'):<8}) {r['fastest']:<8} "
               f"{r['dispatch_err']:<16.3g} "
               f"{r['seq_bound_ms']:.5f} ({r['seq_bound_by']})  "
               f"{100 * r['seq_share']:.1f}%", flush=True)
@@ -1679,7 +1711,7 @@ def cloning(torch, lm_cfg, bc_cfg, w2v_cfg, device: str, max_tokens: int,
         L = lm_cfg.n_layer
         want = {**{k: 0 for k in launches},
                 "wkv7_decode": L * counters["decode_steps"],
-                "wkv7_wy": L * counters["prefill_chunks"]}
+                "wkv7_prefill": L * counters["prefill_chunks"]}
         if counters["prefill_chunks"] != 1:
             fail(f"cloning: {counters['prefill_chunks']} prefill chunks, "
                  "expected 1")
@@ -2711,10 +2743,11 @@ def streaming(torch, lm_cfg, bc_cfg, device: str, engine_cfg=None,
                 fail(f"streaming: wkv7_decode launched "
                      f"{launches['wkv7_decode']} times, expected {L} x "
                      f"{steps} steps")
-            if launches["wkv7_prefill"] + launches["wkv7_wy"] != \
-                    L * chunks_pf:
+            if launches["wkv7_prefill"] != L * chunks_pf or \
+                    launches["wkv7_wy"] or launches["wkv7_chunk_pair"]:
                 fail(f"streaming: prefill kernels launched {launches}, "
-                     f"expected {L} x {chunks_pf} chunks")
+                     f"expected wkv7_prefill {L} x {chunks_pf} chunks and "
+                     "no other prefill kernel")
         bucket_set = sorted(set(block_slots))
         if stats["relocations"] < 1 and len(bucket_set) < 2:
             fail(f"streaming: no compaction and no bucket change (buckets "
@@ -2921,7 +2954,7 @@ KERNEL_ENTRIES = {
                  TPU_FUNCTIONS[6:7]),
     "wkv7_wy": (_CSRC + "wkv7_wy.cu", "ops.wkv7.wkv7_wy_phase_a",
                 TPU_FUNCTIONS[3:4]),
-    "wkv7_chunk_pair": (_CSRC + "wkv7_chunk_pair.cu",
+    "wkv7_chunk_pair": (_CSRC + "wkv7_prefill.cu",
                         "ops.wkv7.wkv7_chunk_pair_phase_a",
                         TPU_FUNCTIONS[8:9]),
     "wkv7_step_fused": (_CSRC + "wkv7_step_fused.cu",

@@ -55,6 +55,27 @@
 // only on the lane's place in its row, never on B, T, the plan or the other
 // rows, and explicit fmaf / __fmul_rn / __fadd_rn leave the compiler no
 // contraction to choose. A request's prefill is the same alone or batched.
+//
+// The paired mode (entry wkv7_chunk_pair) is the same body, instantiated
+// with kPair. It replaces the TPU kernel rwkv_tts_tpu/ops/wkv7.py:851
+// wkv7_chunk_pair_bt_pallas (body :804), the phase A of wkv7_chunked_fused
+// (:896); its plain version is ops/wkv7.wkv7_chunk_pair. A [B, T, H, N]
+// prompt is cut into M = B * T / L chunks of L positions, which is the same
+// memory as [M, L, H, N]: the kernel walks it as M "batch rows" of L
+// tokens, so the grid covers M * H chunk-heads and the TMA boxes, decays,
+// lanes and rows are the sequential mode's. Per (chunk m, head h), for
+// t = 0 .. L-1, with M_t = diag(exp(-exp(w_t))) + a_t b_t^T:
+//
+//     S <- S M_t + v_t k_t^T,  y_loc_t = S r_t        (S starts at zero)
+//     P <- P M_t,              rho_t   = P r_t        (P starts at I)
+//
+// and s_loc = S, P at the end (ops/wkv7._chunk_combine joins the chunks).
+// A thread holds a second slab, P's R rows beside S's, whose row sums share
+// the shuffle rounds with S's (4 R sums a step); rho gathers beside y. P
+// takes the state's update without the write, so its decay acts on the key
+// (column) index as the state's does. Bound: bytes; per chunk-head the two
+// N x N slabs written at the end weigh as much as 2 N^2 / (8 N) = 16
+// positions of the eight sequence tensors.
 
 #include "sm90.cuh"
 
@@ -66,6 +87,7 @@ constexpr int kCols = kN / kLanes;   // key columns a lane holds
 constexpr int kChunks = kCols / 4;   // ... as float4 chunks
 constexpr int kVecs = 6;             // r, w, k, v, a, b: the maps' order
 constexpr int kMaxTc = 64;           // tokens a run at most
+constexpr int kMaxPairTc = 32;       // ... in the paired mode (two y buffers)
 constexpr int kAlign = 128;          // TMA destinations' alignment
 
 struct Maps {
@@ -73,10 +95,12 @@ struct Maps {
 };
 
 // the shared memory a block of `rows` rows needs for runs of `tc` tokens:
-// two stages of the six vectors, the decays, the gathered y, the two
-// barriers, and slack to align the stages
-__host__ __device__ constexpr int smem_bytes(int rows, int tc) {
-  return (2 * kVecs + 1) * tc * kN * 4 + tc * rows * 4 + 16 + kAlign;
+// two stages of the six vectors, the decays, the gathered y (and rho in
+// the paired mode), the two barriers, and slack to align the stages
+__host__ __device__ constexpr int smem_bytes(int rows, int tc,
+                                             bool pair = false) {
+  return (2 * kVecs + 1) * tc * kN * 4 + (pair ? 2 : 1) * tc * rows * 4 +
+         16 + kAlign;
 }
 
 // first key column of lane q's chunk m
@@ -126,13 +150,20 @@ __device__ __forceinline__ float upd(float s, float d, float sa, float b,
   return fmaf(s, d, fmaf(sa, b, __fmul_rn(v, k)));
 }
 
+// the transition's update: the state's without the write
+__device__ __forceinline__ float upd_t(float p, float d, float pa, float b) {
+  return fmaf(p, d, __fmul_rn(pa, b));
+}
+
 // R state rows a thread: a block of `rows` rows has rows * kLanes / R
-// threads
-template <int R>
+// threads. With kPair: the paired mode (s_in unused; rho and p_out
+// written).
+template <int R, bool kPair>
 __global__ void __launch_bounds__(kN * kLanes / R)
 wkv7_prefill_kernel(const __grid_constant__ Maps maps,
                     const float* __restrict__ s_in, float* __restrict__ y,
-                    float* __restrict__ s_out, int T, int H, int rows,
+                    float* __restrict__ s_out, float* __restrict__ rho,
+                    float* __restrict__ p_out, int T, int H, int rows,
                     int tc) {
   // pointer arithmetic on the shared array (not integer casts) keeps the
   // compiler's knowledge that these are shared-memory addresses
@@ -143,7 +174,9 @@ wkv7_prefill_kernel(const __grid_constant__ Maps maps,
   const int run = tc * kN;                       // floats a vector
   float* dec = stage + 2 * kVecs * run;          // [tc][64]
   float* ybuf = dec + run;                       // [tc][rows]
-  uint64_t* full = reinterpret_cast<uint64_t*>(ybuf + tc * rows);
+  float* rbuf = ybuf + tc * rows;                // [tc][rows], kPair only
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(ybuf + (kPair ? 2 : 1) * tc * rows);
 
   const int split = kN / rows;
   const int bh = blockIdx.x / split;
@@ -177,15 +210,24 @@ wkv7_prefill_kernel(const __grid_constant__ Maps maps,
 
   const long long tile = static_cast<long long>(bh) * kN * kN;
   float S[R][kCols];
+  float Pm[R][kCols];  // the paired mode's transition rows
 #pragma unroll
   for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int m = 0; m < kChunks; ++m) {
-      const float4 x = ld4(s_in + tile + (row0 + i) * kN + col(m, q));
-      S[i][4 * m] = x.x;
-      S[i][4 * m + 1] = x.y;
-      S[i][4 * m + 2] = x.z;
-      S[i][4 * m + 3] = x.w;
+      if constexpr (kPair) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          S[i][4 * m + e] = 0.0f;
+          Pm[i][4 * m + e] = col(m, q) + e == row0 + i ? 1.0f : 0.0f;
+        }
+      } else {
+        const float4 x = ld4(s_in + tile + (row0 + i) * kN + col(m, q));
+        S[i][4 * m] = x.x;
+        S[i][4 * m + 1] = x.y;
+        S[i][4 * m + 2] = x.z;
+        S[i][4 * m + 3] = x.w;
+      }
     }
 
   for (int c = 0; c < nrun; ++c) {
@@ -212,20 +254,29 @@ wkv7_prefill_kernel(const __grid_constant__ Maps maps,
       fa[m] = ld4(xa + col(m, q));
       fr[m] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     }
+    // the paired mode adds P a_tt and P r_(tt-1) as sums 2R .. 4R-1
+    constexpr int kSums = kPair ? 4 * R : 2 * R;
     for (int tt = 0; tt < n; ++tt) {
       const int o = tt * kN;
-      float sums[2 * R], v[R];
+      float sums[kSums], v[R];
 #pragma unroll
       for (int i = 0; i < R; ++i) {
         sums[i] = dot(S[i], fa);
         sums[R + i] = dot(S[i], fr);
         v[i] = xv[o + row0 + i];
+        if constexpr (kPair) {
+          sums[2 * R + i] = dot(Pm[i], fa);
+          sums[3 * R + i] = dot(Pm[i], fr);
+        }
       }
-      row_sums<2 * R>(sums);
+      row_sums<kSums>(sums);
       if (q == 0 && tt > 0) {
 #pragma unroll
-        for (int i = 0; i < R; ++i)
+        for (int i = 0; i < R; ++i) {
           ybuf[(tt - 1) * rows + lrow + i] = sums[R + i];
+          if constexpr (kPair)
+            rbuf[(tt - 1) * rows + lrow + i] = sums[3 * R + i];
+        }
       }
 #pragma unroll
       for (int m = 0; m < kChunks; ++m) {
@@ -244,16 +295,40 @@ wkv7_prefill_kernel(const __grid_constant__ Maps maps,
           S[i][4 * m + 1] = upd(S[i][4 * m + 1], d.y, sa, b.y, v[i], k.y);
           S[i][4 * m + 2] = upd(S[i][4 * m + 2], d.z, sa, b.z, v[i], k.z);
           S[i][4 * m + 3] = upd(S[i][4 * m + 3], d.w, sa, b.w, v[i], k.w);
+          if constexpr (kPair) {
+            const float pa = sums[2 * R + i];
+            Pm[i][4 * m] = upd_t(Pm[i][4 * m], d.x, pa, b.x);
+            Pm[i][4 * m + 1] = upd_t(Pm[i][4 * m + 1], d.y, pa, b.y);
+            Pm[i][4 * m + 2] = upd_t(Pm[i][4 * m + 2], d.z, pa, b.z);
+            Pm[i][4 * m + 3] = upd_t(Pm[i][4 * m + 3], d.w, pa, b.w);
+          }
         }
       }
     }
-    float yl[R];
+    if constexpr (kPair) {
+      float yl[2 * R];
 #pragma unroll
-    for (int i = 0; i < R; ++i) yl[i] = dot(S[i], fr);
-    row_sums<R>(yl);
-    if (q == 0) {
+      for (int i = 0; i < R; ++i) {
+        yl[i] = dot(S[i], fr);
+        yl[R + i] = dot(Pm[i], fr);
+      }
+      row_sums<2 * R>(yl);
+      if (q == 0) {
 #pragma unroll
-      for (int i = 0; i < R; ++i) ybuf[(n - 1) * rows + lrow + i] = yl[i];
+        for (int i = 0; i < R; ++i) {
+          ybuf[(n - 1) * rows + lrow + i] = yl[i];
+          rbuf[(n - 1) * rows + lrow + i] = yl[R + i];
+        }
+      }
+    } else {
+      float yl[R];
+#pragma unroll
+      for (int i = 0; i < R; ++i) yl[i] = dot(S[i], fr);
+      row_sums<R>(yl);
+      if (q == 0) {
+#pragma unroll
+        for (int i = 0; i < R; ++i) ybuf[(n - 1) * rows + lrow + i] = yl[i];
+      }
     }
     __syncthreads();  // stage s and ybuf are complete
     if (tid == 0 && c + 2 < nrun) issue(c + 2);
@@ -266,17 +341,25 @@ wkv7_prefill_kernel(const __grid_constant__ Maps maps,
           (static_cast<long long>(bb * T + c * tc + tt) * H + h) * kN +
           part * rows + j;
       *reinterpret_cast<float4*>(y + at) = ld4(ybuf + tt * rows + j);
+      if constexpr (kPair)
+        *reinterpret_cast<float4*>(rho + at) = ld4(rbuf + tt * rows + j);
     }
   }
 
 #pragma unroll
   for (int i = 0; i < R; ++i)
 #pragma unroll
-    for (int m = 0; m < kChunks; ++m)
+    for (int m = 0; m < kChunks; ++m) {
       *reinterpret_cast<float4*>(s_out + tile + (row0 + i) * kN +
                                  col(m, q)) =
           make_float4(S[i][4 * m], S[i][4 * m + 1], S[i][4 * m + 2],
                       S[i][4 * m + 3]);
+      if constexpr (kPair)
+        *reinterpret_cast<float4*>(p_out + tile + (row0 + i) * kN +
+                                   col(m, q)) =
+            make_float4(Pm[i][4 * m], Pm[i][4 * m + 1], Pm[i][4 * m + 2],
+                        Pm[i][4 * m + 3]);
+    }
 }
 
 // A launch plan: state rows of a (b, h) per block, tokens per staged run,
@@ -293,27 +376,48 @@ Plan plan_for(int batch, int T, int H) {
   return {64, 8, 4};
 }
 
-template <int R>
+// the paired mode's plan for M chunks of L positions: ops/wkv7.pair_plan's
+// rule, plan_for's with M chunk-heads walking L tokens, runs no longer
+// than L
+Plan pair_plan_for(int chunks, int L, int H) {
+  Plan p = plan_for(chunks, L, H);
+  if (p.tc > L) p.tc = L;
+  return p;
+}
+
+// the paired mode's outputs
+struct PairOut {
+  float* rho;
+  float* p_out;
+};
+
+template <int R, bool kPair>
 int launch_r(const Maps& maps, const float* state_in, float* y,
-             float* state_out, int batch, int T, int H, int rows, int tc,
-             cudaStream_t st) {
+             float* state_out, PairOut po, int batch, int T, int H, int rows,
+             int tc, cudaStream_t st) {
   static const cudaError_t attr = cudaFuncSetAttribute(
-      wkv7_prefill_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes(kN, kMaxTc));
+      wkv7_prefill_kernel<R, kPair>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kPair ? smem_bytes(kN, kMaxPairTc, true) : smem_bytes(kN, kMaxTc));
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid(batch * H * (kN / rows)), block(rows * kLanes / R);
-  wkv7_prefill_kernel<R><<<grid, block, smem_bytes(rows, tc), st>>>(
-      maps, state_in, y, state_out, T, H, rows, tc);
+  wkv7_prefill_kernel<R, kPair>
+      <<<grid, block, smem_bytes(rows, tc, kPair), st>>>(
+          maps, state_in, y, state_out, po.rho, po.p_out, T, H, rows, tc);
   return static_cast<int>(cudaGetLastError());
 }
 
+// the sequential mode (po.rho null) or the paired mode over `batch` chunks
+// of T positions
 int launch(const float* r, const float* w, const float* k, const float* v,
            const float* a, const float* b, const float* state_in, float* y,
            float* state_out, int batch, int T, int H, Plan p, int device,
-           void* stream) {
+           void* stream, PairOut po = {nullptr, nullptr}) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
-  if (batch < 1 || T < 1 || H < 1 || p.tc < 1 || p.tc > kMaxTc ||
+  const bool pair = po.rho != nullptr;
+  if (batch < 1 || T < 1 || H < 1 || p.tc < 1 ||
+      p.tc > (pair ? kMaxPairTc : kMaxTc) ||
       (p.rows != 16 && p.rows != 32 && p.rows != 64) ||
       (p.thread_rows != 1 && p.thread_rows != 4) ||
       (p.rows * kLanes / p.thread_rows) % 32 != 0)
@@ -329,11 +433,18 @@ int launch(const float* r, const float* w, const float* k, const float* v,
     if (err) return err;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (pair) {
+    if (p.thread_rows == 4)
+      return launch_r<4, true>(maps, state_in, y, state_out, po, batch, T, H,
+                               p.rows, p.tc, st);
+    return launch_r<1, true>(maps, state_in, y, state_out, po, batch, T, H,
+                             p.rows, p.tc, st);
+  }
   if (p.thread_rows == 4)
-    return launch_r<4>(maps, state_in, y, state_out, batch, T, H, p.rows,
-                       p.tc, st);
-  return launch_r<1>(maps, state_in, y, state_out, batch, T, H, p.rows, p.tc,
-                     st);
+    return launch_r<4, false>(maps, state_in, y, state_out, po, batch, T, H,
+                              p.rows, p.tc, st);
+  return launch_r<1, false>(maps, state_in, y, state_out, po, batch, T, H,
+                            p.rows, p.tc, st);
 }
 
 }  // namespace
@@ -379,6 +490,44 @@ extern "C" int wkv7_prefill_planned(const float* r, const float* w,
 extern "C" int wkv7_prefill_plan(int batch, int T, int H, int* rows, int* tc,
                                  int* thread_rows) {
   const Plan p = plan_for(batch, T, H);
+  *rows = p.rows;
+  *tc = p.tc;
+  *thread_rows = p.thread_rows;
+  return 0;
+}
+
+// The paired phase A: r, w, k, v, a, b, y_loc, rho: [M, L, H, 64] f32
+// (M = chunks, L >= 1); s_loc, P: [M, H, 64, 64] f32; all contiguous.
+// Launches on `stream` of card `device` under pair_plan_for's plan and
+// returns a CUDA error code (0 on success).
+extern "C" int wkv7_chunk_pair(const float* r, const float* w, const float* k,
+                               const float* v, const float* a, const float* b,
+                               float* y_loc, float* rho, float* s_loc,
+                               float* P, int chunks, int L, int H, int device,
+                               void* stream) {
+  return launch(r, w, k, v, a, b, nullptr, y_loc, s_loc, chunks, L, H,
+                pair_plan_for(chunks, L, H), device, stream, {rho, P});
+}
+
+// The paired phase A under a given plan (`rows` of 16, 32 or 64 state rows
+// a block, runs of `tc` <= 32 tokens, `thread_rows` of 1 or 4), for
+// measuring the plans.
+extern "C" int wkv7_chunk_pair_planned(const float* r, const float* w,
+                                       const float* k, const float* v,
+                                       const float* a, const float* b,
+                                       float* y_loc, float* rho,
+                                       float* s_loc, float* P, int chunks,
+                                       int L, int H, int rows, int tc,
+                                       int thread_rows, int device,
+                                       void* stream) {
+  return launch(r, w, k, v, a, b, nullptr, y_loc, s_loc, chunks, L, H,
+                {rows, tc, thread_rows}, device, stream, {rho, P});
+}
+
+// pair_plan_for's plan, for the check that it is ops/wkv7.pair_plan's.
+extern "C" int wkv7_chunk_pair_plan(int chunks, int L, int H, int* rows,
+                                    int* tc, int* thread_rows) {
+  const Plan p = pair_plan_for(chunks, L, H);
   *rows = p.rows;
   *tc = p.tc;
   *thread_rows = p.thread_rows;

@@ -25,8 +25,8 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "rwkv_tts_tpu_torch"
-KERNELS = ("wkv7_decode", "wkv7_prefill", "wkv7_wy", "wkv7_chunk_pair",
-           "wkv7_step_fused", "qmm4", "qmm", "conv1d")
+KERNELS = ("wkv7_decode", "wkv7_prefill", "wkv7_wy", "wkv7_step_fused",
+           "qmm4", "qmm", "conv1d")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -17,16 +17,18 @@ paired phase A (``:610-642``, ``:804-847``, ``:1158-1186``);
 ``wkv7_wy_phase_a``, ``wkv7_chunk_pair_phase_a``, ``wkv7_decode_``,
 ``wkv7_decode_out``, ``wkv7_decode_layers_`` and ``wkv7_step_fused_`` check
 their arguments and then take the plain version for tensors on the CPU, or
-launch the CUDA kernel (``csrc/wkv7_prefill.cu``, ``csrc/wkv7_wy.cu``,
-``csrc/wkv7_chunk_pair.cu``, ``csrc/wkv7_decode.cu``,
-``csrc/wkv7_step_fused.cu``) for tensors on a card. On a card they launch
+launch the CUDA kernel (``csrc/wkv7_prefill.cu``, whose paired mode serves
+``wkv7_chunk_pair_phase_a`` too, ``csrc/wkv7_wy.cu``,
+``csrc/wkv7_decode.cu``, ``csrc/wkv7_step_fused.cu``) for tensors on a
+card. On a card they launch
 or raise: there is no fallback.
 
-On a card, ``wkv7_prefill`` picks its kernel by ``prefill_route(B, T)``,
-the JAX package's TPU rule (``wkv7_prefill_tpu``, ``:1208-1265``): the WY
-kernel plus the PyTorch chunk combine for B < 128, 4 | T and B·T ≥ 2048,
-the sequential kernel otherwise. On the CPU it returns ``wkv7_scan``, as
-the JAX model does off the TPU.
+On a card, ``wkv7_prefill`` picks its formulation by
+``card_prefill_route(B, T)`` (the sequential kernel at every shape); the
+JAX package's TPU rule (``wkv7_prefill_tpu``, ``:1208-1265``: the WY kernel
+plus the chunk combine for B < 128, 4 | T and B·T ≥ 2048, the sequential
+kernel otherwise) stays ``prefill_route``. On the CPU it returns
+``wkv7_scan``, as the JAX model does off the TPU.
 
 ``LAUNCHES`` counts kernel launches per C entry point, and only those:
 ``wkv7_decode`` counts ``wkv7_decode_``, ``wkv7_decode_layers`` counts
@@ -44,12 +46,14 @@ import torch
 from . import _build
 
 __all__ = ["wkv7_scan", "wkv7_single", "wkv7_chunk_wy", "wkv7_chunked_wy",
-           "wy_doublings", "wy_chunk_for", "prefill_route", "wkv7_prefill",
+           "wy_doublings", "wy_chunk_for", "prefill_route",
+           "card_prefill_route", "wkv7_prefill",
            "wkv7_wy_phase_a", "wkv7_decode_", "wkv7_step_fused",
            "wkv7_step_fused_", "prefill_chunk_for", "wkv7_chunked",
            "wkv7_chunk_pair", "wkv7_seq", "wkv7_chunk_pair_phase_a",
            "wkv7_chunked_fused", "wkv7_decode_out", "wkv7_decode_layers_",
            "prefill_plan", "plan_ok", "prefill_smem", "kernel_prefill_plan",
+           "pair_plan", "kernel_pair_plan",
            "LAUNCHES", "reset_launches"]
 
 LAUNCHES: Dict[str, int] = {"wkv7_decode": 0, "wkv7_prefill": 0,
@@ -84,6 +88,10 @@ _ARGTYPES = {
     # r, w, k, v, a, b, y_loc, rho, s_loc, P, M (chunks), L, H, device,
     # stream
     "wkv7_chunk_pair": [_P] * 10 + [ctypes.c_int] * 4 + [_P],
+    # the same and the plan's rows, tc, thread_rows before device, stream
+    "wkv7_chunk_pair_planned": [_P] * 10 + [ctypes.c_int] * 7 + [_P],
+    # M, L, H, out rows, out tc, out thread_rows
+    "wkv7_chunk_pair_plan": [ctypes.c_int] * 3 + [_P] * 3,
     # r, w, k, v, a, b, y_loc, rho, s_loc, P, B, T, H, L, device, stream
     "wkv7_wy": [_P] * 10 + [ctypes.c_int] * 5 + [_P],
     # r, lo_w, lo_a, lo_v, k, v, g, v_first, their 8 batch strides,
@@ -99,7 +107,10 @@ _ARGTYPES = {
 LIBRARY = {"wkv7_decode_out": "wkv7_decode",
            "wkv7_decode_layers": "wkv7_decode", "wkv7_seq": "wkv7_prefill",
            "wkv7_prefill_planned": "wkv7_prefill",
-           "wkv7_prefill_plan": "wkv7_prefill"}
+           "wkv7_prefill_plan": "wkv7_prefill",
+           "wkv7_chunk_pair": "wkv7_prefill",
+           "wkv7_chunk_pair_planned": "wkv7_prefill",
+           "wkv7_chunk_pair_plan": "wkv7_prefill"}
 
 # the TPU dispatch's lines (wkv7_prefill_tpu, rwkv_tts_tpu/ops/wkv7.py:1249,
 # :1262): the sequential kernel from this batch up, WY from these tokens up
@@ -225,13 +236,30 @@ def wy_chunk_for(T: int) -> Optional[int]:
 
 
 def prefill_route(B: int, T: int) -> str:
-    """Which kernel ``wkv7_prefill`` launches for a [B, T] prompt chunk on a
-    card: ``"wy"`` (``csrc/wkv7_wy.cu`` + ``_chunk_combine``) where the TPU
-    dispatch takes its WY Pallas kernel, else ``"seq"``
-    (``csrc/wkv7_prefill.cu``)."""
+    """The TPU's dispatch rule (``wkv7_prefill_tpu``) for a [B, T] prompt
+    chunk: ``"wy"`` where it takes its WY Pallas kernel, else ``"seq"``.
+    The card does not follow it (``card_prefill_route``)."""
     if B < SEQ_MIN_BATCH and wy_chunk_for(T) is not None \
             and B * T >= WY_MIN_TOKENS:
         return "wy"
+    return "seq"
+
+
+def card_prefill_route(B: int, T: int) -> str:
+    """Which formulation ``wkv7_prefill`` runs for a [B, T] prompt chunk on
+    a card: "seq" (``csrc/wkv7_prefill.cu``) at every shape.
+
+    ``chip_smoke.py``'s prefill sweep (an H100, 32 heads) has the
+    sequential kernel ahead of the WY route (``csrc/wkv7_wy.cu`` +
+    ``_chunk_combine``) and the pair route (the paired mode +
+    ``_chunk_combine``) at every shape the engine sends (buckets up to
+    1024 tokens) with B ≥ 2, the cloning prompt's (8, 256) among them
+    (2.6× ahead of WY). Only a lone request at the 512 and 1024 buckets
+    runs faster chunked: 9% (WY) and 14% (pair) of one layer's WKV time,
+    under a millisecond a prompt, not measured end to end. Taking it would
+    make a request's prefill bits depend on whether it arrives alone or in
+    a burst, which the sequential kernel never does (a plan moves no
+    arithmetic), so the rule keeps that kernel everywhere."""
     return "seq"
 
 
@@ -240,6 +268,7 @@ def prefill_route(B: int, T: int) -> str:
 # share a row), and the shared memory a block may take (227 KB)
 SEQ_ROWS = (64, 32, 16)
 SEQ_MAX_TC = 64
+PAIR_MAX_TC = 32    # the paired mode gathers rho beside y
 SEQ_THREAD_ROWS = (4, 1)
 SEQ_LANES = 8
 SMEM_LIMIT = 232448
@@ -265,19 +294,32 @@ def prefill_plan(B: int, T: int, H: int) -> Dict[str, int]:
     return {"rows": 64, "tc": 8, "thread_rows": 4}
 
 
-def plan_ok(plan: Dict[str, int]) -> bool:
-    """Whether the sequential kernel takes ``plan``: its values in range and
-    a block of whole warps."""
-    return (plan["rows"] in SEQ_ROWS and 1 <= plan["tc"] <= SEQ_MAX_TC
+def pair_plan(M: int, L: int, H: int) -> Dict[str, int]:
+    """The paired mode's plan for M chunks of L positions (the same kernel,
+    ``csrc/wkv7_prefill.cu``, walking M·H chunk-heads of L tokens):
+    ``prefill_plan``'s for a [M, L] prompt, its runs no longer than L. A
+    plan never changes a row's arithmetic. The kernel's ``pair_plan_for``
+    is this rule (``kernel_pair_plan``)."""
+    plan = prefill_plan(M, L, H)
+    plan["tc"] = min(plan["tc"], L)
+    return plan
+
+
+def plan_ok(plan: Dict[str, int], pair: bool = False) -> bool:
+    """Whether the sequential kernel (``pair``: its paired mode) takes
+    ``plan``: its values in range and a block of whole warps."""
+    return (plan["rows"] in SEQ_ROWS
+            and 1 <= plan["tc"] <= (PAIR_MAX_TC if pair else SEQ_MAX_TC)
             and plan["thread_rows"] in SEQ_THREAD_ROWS
             and plan["rows"] * SEQ_LANES // plan["thread_rows"] % 32 == 0)
 
 
-def prefill_smem(rows: int, tc: int) -> int:
+def prefill_smem(rows: int, tc: int, pair: bool = False) -> int:
     """Bytes of shared memory a block of the sequential kernel takes
     (``smem_bytes``): two stages of the six [tc, 64] vectors, the decays,
-    the gathered y, two barriers and 128 bytes of alignment slack."""
-    return 13 * tc * 64 * 4 + tc * rows * 4 + 16 + 128
+    the gathered y (and rho in the paired mode), two barriers and 128 bytes
+    of alignment slack."""
+    return 13 * tc * 64 * 4 + (2 if pair else 1) * tc * rows * 4 + 16 + 128
 
 
 def wkv7_chunk_wy(r, w, k, v, a, b):
@@ -603,19 +645,35 @@ def wkv7_prefill(r, w, k, v, a, b, state) -> Tuple[torch.Tensor, torch.Tensor]:
     [B, H, N, N] f32). Counterpart of the TPU dispatch
     ``rwkv_tts_tpu/ops/wkv7.py:1208 wkv7_prefill_tpu`` and its kernels
     ``:483 wkv7_seq_bt_pallas``, ``:1329 wkv7_pallas_packed`` and ``:1120
-    wkv7_chunked_wy_pallas``; ``prefill_route`` picks one on a card."""
+    wkv7_chunked_wy_pallas``; ``card_prefill_route`` picks the formulation
+    on a card."""
     B, T, H, N, dev = _check_sequence(r, w, k, v, a, b, state)
     if dev.type == "cpu":
         return wkv7_scan(r, w, k, v, a, b, state)
-    if prefill_route(B, T) == "wy":
-        L = wy_chunk_for(T)
-        y_loc, rho, s_loc, P = wkv7_wy_phase_a(r, w, k, v, a, b, L)
-        return _chunk_combine(state, y_loc, rho, s_loc, P, B, T, L, H, N)
-    return _seq_prefill(r, w, k, v, a, b, state)
+    return _prefill_by(card_prefill_route(B, T), r, w, k, v, a, b, state)
+
+
+def _prefill_by(route: str, r, w, k, v, a, b, state):
+    """``wkv7_prefill``'s card branch as formulation ``route`` on checked
+    card arguments: "seq" (``csrc/wkv7_prefill.cu``), "wy"
+    (``csrc/wkv7_wy.cu`` at ``wy_chunk_for(T)`` + ``_chunk_combine``) or
+    "pair" (the paired mode at ``prefill_chunk_for(T)`` +
+    ``_chunk_combine``). The prefill sweep and the card tests force each
+    through it."""
+    B, T, H, N = r.shape
+    if route == "seq":
+        return _seq_prefill(r, w, k, v, a, b, state)
+    L = {"wy": wy_chunk_for, "pair": prefill_chunk_for}[route](T)
+    if L is None:
+        raise ValueError(f"route {route!r} takes no chunk length at T = {T}")
+    if route == "pair":
+        return wkv7_chunked_fused(r, w, k, v, a, b, state, L)
+    y_loc, rho, s_loc, P = wkv7_wy_phase_a(r, w, k, v, a, b, L)
+    return _chunk_combine(state, y_loc, rho, s_loc, P, B, T, L, H, N)
 
 
 def wkv7_seq(r, w, k, v, a, b, state) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The sequential prefill kernel whatever ``prefill_route`` says;
+    """The sequential prefill kernel whatever ``card_prefill_route`` says;
     ``wkv7_prefill``'s contract (any T, f32 state in and out). Counterpart
     of the TPU kernel ``rwkv_tts_tpu/ops/wkv7.py:103 wkv7_pallas`` (one
     block per (b, h), the state resident across the T walk, body ``:72``),
@@ -650,14 +708,24 @@ def _seq_prefill(r, w, k, v, a, b, state, entry: str = "wkv7_prefill",
     return y, s_out
 
 
+def _kernel_plan(entry: str, *shape: int) -> Dict[str, int]:
+    out = {k: ctypes.c_int() for k in ("rows", "tc", "thread_rows")}
+    _kernel(entry)(*shape, *(ctypes.addressof(v) for v in out.values()))
+    return {k: v.value for k, v in out.items()}
+
+
 def kernel_prefill_plan(B: int, T: int, H: int) -> Dict[str, int]:
     """The plan ``csrc/wkv7_prefill.cu`` picks itself for a [B, T, H, 64]
     chunk (its ``plan_for``); needs the built kernel. ``prefill_plan`` is
     the same rule, which the card checks."""
-    out = {k: ctypes.c_int() for k in ("rows", "tc", "thread_rows")}
-    _kernel("wkv7_prefill_plan")(B, T, H, *(ctypes.addressof(v)
-                                            for v in out.values()))
-    return {k: v.value for k, v in out.items()}
+    return _kernel_plan("wkv7_prefill_plan", B, T, H)
+
+
+def kernel_pair_plan(M: int, L: int, H: int) -> Dict[str, int]:
+    """The plan of the kernel's paired mode for M chunks of L positions
+    (its ``pair_plan_for``); needs the built kernel. ``pair_plan`` is the
+    same rule, which the card checks."""
+    return _kernel_plan("wkv7_chunk_pair_plan", M, L, H)
 
 
 def wkv7_chunk_pair_phase_a(r, w, k, v, a, b, chunk: int):
@@ -666,7 +734,8 @@ def wkv7_chunk_pair_phase_a(r, w, k, v, a, b, chunk: int):
     [B·n_c, chunk, H, N] f32, s_loc, P [B·n_c, H, N, N] f32),
     ``wkv7_chunk_pair``'s function. Counterpart of the TPU kernel
     ``rwkv_tts_tpu/ops/wkv7.py:851 wkv7_chunk_pair_bt_pallas`` (body
-    ``:804``); the card runs ``csrc/wkv7_chunk_pair.cu``."""
+    ``:804``); the card runs the paired mode of ``csrc/wkv7_prefill.cu``
+    under ``pair_plan``."""
     B, T, H, N, dev = _check_sequence(r, w, k, v, a, b)
     L = int(chunk)
     if L < 1 or T % L:
@@ -675,13 +744,31 @@ def wkv7_chunk_pair_phase_a(r, w, k, v, a, b, chunk: int):
     if dev.type == "cpu":
         return wkv7_chunk_pair(*(x.reshape(M, L, H, N)
                                  for x in (r, w, k, v, a, b)))
+    return _pair_phase_a(r, w, k, v, a, b, M, L)
+
+
+def _pair_phase_a(r, w, k, v, a, b, M: int, L: int,
+                  plan: Optional[Dict[str, int]] = None):
+    """Launch the paired mode on checked arguments under ``pair_plan``'s
+    plan or, for measuring, under ``plan``; counted under
+    ``wkv7_chunk_pair`` either way."""
+    H, N, dev = r.shape[2], r.shape[3], r.device
     y_loc = torch.empty((M, L, H, N), dtype=torch.float32, device=dev)
     rho = torch.empty_like(y_loc)
     s_loc = torch.empty((M, H, N, N), dtype=torch.float32, device=dev)
     P = torch.empty_like(s_loc)
-    _launch("wkv7_chunk_pair", dev, r.data_ptr(), w.data_ptr(), k.data_ptr(),
-            v.data_ptr(), a.data_ptr(), b.data_ptr(), y_loc.data_ptr(),
-            rho.data_ptr(), s_loc.data_ptr(), P.data_ptr(), M, L, H)
+    args = (r.data_ptr(), w.data_ptr(), k.data_ptr(), v.data_ptr(),
+            a.data_ptr(), b.data_ptr(), y_loc.data_ptr(), rho.data_ptr(),
+            s_loc.data_ptr(), P.data_ptr(), M, L, H)
+    if plan is None:
+        _launch("wkv7_chunk_pair", dev, *args)
+    else:
+        if not plan_ok(plan, pair=True):
+            raise ValueError(f"pair plan {plan}: rows in {SEQ_ROWS}, tc in "
+                             f"[1, {PAIR_MAX_TC}], thread_rows in "
+                             f"{SEQ_THREAD_ROWS}, whole warps")
+        _launch("wkv7_chunk_pair_planned", dev, *args, plan["rows"],
+                plan["tc"], plan["thread_rows"], count="wkv7_chunk_pair")
     return y_loc, rho, s_loc, P
 
 
@@ -690,8 +777,8 @@ def wkv7_chunked_fused(r, w, k, v, a, b, state, chunk: int
     """Chunkwise-parallel WKV-7 with the paired phase A and the PyTorch
     chunk combine; ``wkv7_scan``'s contract (f32 state, not modified).
     ``chunk`` divides T. Counterpart of ``rwkv_tts_tpu/ops/wkv7.py:896
-    wkv7_chunked_fused``. No dispatch routes here: ``prefill_route`` keeps
-    the TPU's rule."""
+    wkv7_chunked_fused``. No card route takes it: ``card_prefill_route``
+    keeps the sequential kernel."""
     B, T, H, N, _ = _check_sequence(r, w, k, v, a, b, state)
     y_loc, rho, s_loc, P = wkv7_chunk_pair_phase_a(r, w, k, v, a, b, chunk)
     return _chunk_combine(state, y_loc, rho, s_loc, P, B, T, int(chunk), H,

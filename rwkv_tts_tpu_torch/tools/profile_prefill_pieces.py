@@ -7,7 +7,8 @@ state, it times:
 
   forward(lengths)      ``rwkv7.forward`` with ``lengths`` (what the engine
                         runs) and without them;
-  wkv_dispatch          ``wkv7_prefill`` (the route ``prefill_route`` picks)
+  wkv_dispatch          ``wkv7_prefill`` (the route ``card_prefill_route``
+                        picks)
                         L times, the state flowing through, at one layer's
                         shape;
   seq, wy, pair         each exact formulation L times: the sequential
@@ -85,7 +86,7 @@ def pieces(params, cfg: RwkvConfig, B: int, T: int, iters: int,
                device),
            "forward_no_lengths": timed(lambda: rwkv7.forward(
                params, tokens, state0, cfg)[0], iters, device),
-           "route": W.prefill_route(B, T) if device.type == "cuda"
+           "route": W.card_prefill_route(B, T) if device.type == "cuda"
            else "scan",
            "wkv_dispatch": timed(layers(W.wkv7_prefill), iters, device),
            "seq": timed(layers(W.wkv7_seq), iters, device)}

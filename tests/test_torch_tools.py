@@ -194,3 +194,68 @@ def test_profile_prefill_runs_on_the_cpu(capsys):
     with pytest.raises(ValueError, match="card"):
         profile_prefill.main(["--shapes", "1,3", "--variant", "2"],
                              device="cpu")
+
+
+def test_wy_bound_counts_what_the_call_must_move():
+    """WY phase A at the cloning prompt's (8, 256, L = 64): six inputs and
+    y_loc, rho once (8 · B·T·H·64 f32) and s_loc, P once
+    (2 · B·T/L·H·64² f32) at 3.35 TB/s; its function's 5·L²·N + 3·N²·L
+    multiply-adds a cell, three TF32 products each at 495 TFLOP/s, take
+    less; at the f32 peak they would take 0.0641 ms. The kernel's algorithm
+    runs 2,355,200 multiply-adds a cell (rows in blocks of 16)."""
+    B, T, H, N, L = 8, 256, 32, 64, 64
+    ms, by, f32_ms = profile_prefill.wy_bound(B, T, H, L)
+    nbytes = 8 * B * T * H * N * 4 + 2 * B * (T // L) * H * N * N * 4
+    assert by == "bytes"
+    assert ms == pytest.approx(nbytes / 3.35e12 * 1e3, rel=1e-12)
+    flops = profile_prefill.wy_flops(B, T, H, L)
+    assert flops == 2 * (5 * L * L * N + 3 * N * N * L) * B * (T // L) * H
+    assert 3 * flops / 495e12 * 1e3 < ms
+    assert f32_ms == pytest.approx(flops / 67e12 * 1e3, rel=1e-12)
+    assert profile_prefill.wy_algorithm_flops(B, T, H, L) == \
+        2 * 2355200 * B * (T // L) * H
+    # below 16 rows, 16 / L cells share a tile: at L = 4, 514 cells in 129
+    # tiles of one 16-row block (146432 multiply-adds each), and each cell's
+    # P and s_loc over one step of 8 positions
+    assert profile_prefill.wy_algorithm_flops(2, 1028, H, 4) == \
+        2 * (129 * 146432 + 514 * 3 * N * N * 8) * H
+
+
+def test_pair_bound_counts_what_the_call_must_move():
+    """The paired phase A at (8, 256, L = 16): the same bytes as WY's at
+    its chunk count; 16 f32 operations a state element and position."""
+    B, T, H, N, L = 8, 256, 32, 64, 16
+    ms, by = profile_prefill.pair_bound(B, T, H, L)
+    nbytes = 8 * B * T * H * N * 4 + 2 * B * (T // L) * H * N * N * 4
+    assert by == "bytes"
+    assert ms == pytest.approx(nbytes / 3.35e12 * 1e3, rel=1e-12)
+    assert 16 * B * T * H * N * N / 67e12 * 1e3 < ms
+
+
+@pytest.mark.parametrize("kernel", ["wy", "pair"])
+def test_profile_prefill_chunk_kernels_run_on_the_cpu(kernel, capsys):
+    """``--kernel wy`` and ``--kernel pair`` on the CPU: each shape's chunk
+    length from the route's chunk rule (shapes it gives none skipped), its
+    bound, the pair's plan, no time, nothing launched; ``--variant``
+    belongs to the sequential kernel only."""
+    out = profile_prefill.main(["--kernel", kernel, "--shapes", "8,256",
+                                "2,1028", "1,2048", "1,3"], device="cpu")
+    printed = capsys.readouterr().out.strip().splitlines()
+    assert json.loads(printed[-1]) == json.loads(json.dumps(out))
+    assert out["kernel"] == kernel and not any(out["launches"].values())
+    rule = W.wy_chunk_for if kernel == "wy" else W.prefill_chunk_for
+    assert [(r["B"], r["T"]) for r in out["shapes"]] == [
+        (8, 256), (2, 1028), (1, 2048)]
+    for row in out["shapes"]:
+        assert row["ms"] is None and row["L"] == rule(row["T"])
+        if kernel == "wy":
+            assert row["bound_ms"] == profile_prefill.wy_bound(
+                row["B"], row["T"], 32, row["L"])[0]
+        else:
+            assert row["bound_ms"] == profile_prefill.pair_bound(
+                row["B"], row["T"], 32, row["L"])[0]
+            assert row["plan"] == W.pair_plan(
+                row["B"] * row["T"] // row["L"], row["L"], 32)
+    with pytest.raises(ValueError, match="sequential"):
+        profile_prefill.main(["--kernel", kernel, "--variant", "2"],
+                             device="cpu")

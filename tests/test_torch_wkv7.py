@@ -341,15 +341,6 @@ def test_decode_kernel_matches_plain_on_card(cuda_card, B, dtype, tol):
     assert torch.equal(stack[others], before[others])
 
 
-def seq_kernel(x, s0):
-    """The sequential kernel through ``wkv7_prefill``'s entry: the wrapper
-    where ``prefill_route`` takes it, else the launch behind it."""
-    B, T = x[0].shape[:2]
-    if W.prefill_route(B, T) == "seq":
-        return W.wkv7_prefill(*x, s0)
-    return W._seq_prefill(*x, s0)
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("B", [1, 8, 130])
 @pytest.mark.parametrize("T,tail", [(1, 0), (3, 1), (61, 0), (64, 5),
@@ -363,7 +354,7 @@ def test_prefill_kernel_matches_plain_on_card(cuda_card, B, T, tail):
     s0 = t(state((B, 32, 64, 64), seed=17)).cuda()
     y_ref, s_ref = W.wkv7_scan(*x, s0)
     W.reset_launches()
-    y, s = seq_kernel(x, s0)
+    y, s = W.wkv7_prefill(*x, s0)
     torch.cuda.synchronize()
     assert W.LAUNCHES["wkv7_prefill"] == 1 and W.LAUNCHES["wkv7_wy"] == 0
     assert (y - y_ref).abs().max() <= 1e-4 * y_ref.abs().max()
@@ -379,12 +370,12 @@ def test_prefill_kernel_bits_are_batch_invariant_on_card(cuda_card, T, tail):
     x = [t(v).cuda() for v in inputs((8, T, 32, 64), seed=T,
                                      masked_tail=tail)]
     s0 = t(state((8, 32, 64, 64), seed=18)).cuda()
-    y, s = seq_kernel(x, s0)
-    y2, s2 = seq_kernel(x, s0)
+    y, s = W.wkv7_prefill(*x, s0)
+    y2, s2 = W.wkv7_prefill(*x, s0)
     assert torch.equal(y, y2) and torch.equal(s, s2)
     for i in (0, 5):
-        yi, si = seq_kernel([v[i:i + 1].contiguous() for v in x],
-                            s0[i:i + 1].contiguous())
+        yi, si = W.wkv7_prefill(*(v[i:i + 1].contiguous() for v in x),
+                                s0[i:i + 1].contiguous())
         assert torch.equal(yi, y[i:i + 1]) and torch.equal(si, s[i:i + 1])
     for rows in W.SEQ_ROWS:
         for tr in W.SEQ_THREAD_ROWS:

@@ -9,6 +9,7 @@ tests/test_torch_wkv7_rest.py``.
 """
 
 import re
+from collections import Counter
 
 import numpy as np
 import pytest
@@ -16,6 +17,8 @@ import torch
 
 from rwkv_tts_tpu_torch.ops import _build
 from rwkv_tts_tpu_torch.ops import wkv7 as W
+
+from test_torch_wkv7 import element_places
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -210,6 +213,84 @@ def test_chunk_pair_matches_pair_bt_pallas(J, L):
         assert torch.equal(g, h)
 
 
+def pair_walk(B, T, L, H, plan):
+    """The paired mode's walk, transcribed from ``csrc/wkv7_prefill.cu``'s
+    indexing with M = B·T/L chunks as its batch rows of L tokens: block x
+    owns state rows part·rows .. + rows of chunk-head bh = x // split
+    (chunk m = bh // H, head h = bh % H; split = 64 / rows, part =
+    x % split); run c's TMA box starts at row m·L + c·tc of the [B·T, H·64]
+    view, and its first n = min(tc, L − c·tc) tokens are walked; token tt
+    of run c stores y_loc and rho at that row, and the block stores its
+    rows of the two slabs at bh. Returns ({(m, h, part): rows walked, in
+    order}, {(row, h, part): stores}, {(bh, part): slab stores})."""
+    M, split, tc = B * T // L, 64 // plan["rows"], plan["tc"]
+    walked, stores, slabs = {}, Counter(), Counter()
+    for x in range(M * H * split):
+        bh, part = divmod(x, split)
+        m, h = divmod(bh, H)
+        rows = []
+        for c in range((L + tc - 1) // tc):
+            for tt in range(min(tc, L - c * tc)):
+                rows.append(m * L + c * tc + tt)
+                stores[(m * L + c * tc + tt, h, part)] += 1
+        walked[(m, h, part)] = rows
+        slabs[(bh, part)] += 1
+    return walked, stores, slabs
+
+
+PAIR_CASES = [(2, 96, 3), (1, 2048, 128), (8, 256, 16), (1, 12, 12),
+              (3, 20, 5), (2, 64, 4)]
+
+
+@pytest.mark.parametrize("B,T,L", PAIR_CASES)
+def test_pair_walk_covers_each_chunk_once(B, T, L):
+    """Under ``pair_plan`` and every other plan the paired mode takes (runs
+    from 1 to 32 tokens, so tails shorter than a run, L not a power of two
+    and L past a run all occur): every block walks exactly its chunk's L
+    token rows in order, never a row of the next chunk its last box holds;
+    y_loc and rho are stored once for every (row, head, part), and each
+    chunk-head's slabs once per part."""
+    H = 2
+    M = B * T // L
+    plans = [W.pair_plan(M, L, H)] + [
+        {"rows": rows, "tc": tc, "thread_rows": tr}
+        for rows in W.SEQ_ROWS for tc in (1, 3, 8, W.PAIR_MAX_TC)
+        for tr in W.SEQ_THREAD_ROWS]
+    for plan in filter(lambda p: W.plan_ok(p, pair=True), plans):
+        walked, stores, slabs = pair_walk(B, T, L, H, plan)
+        split = 64 // plan["rows"]
+        assert len(walked) == M * H * split
+        for (m, h, part), rows in walked.items():
+            assert rows == list(range(m * L, m * L + L)), (plan, m, h, part)
+        assert set(stores) == {(r, h, p) for r in range(B * T)
+                               for h in range(H) for p in range(split)}
+        assert set(stores.values()) == {1}
+        assert set(slabs) == {(bh, p) for bh in range(M * H)
+                              for p in range(split)}
+        assert set(slabs.values()) == {1}
+
+
+@pytest.mark.parametrize("B,T,L", PAIR_CASES)
+def test_pair_plan_is_one_the_kernel_takes(B, T, L):
+    """``pair_plan``: ``prefill_plan``'s grid and rows for M chunk-heads,
+    runs no longer than L, within the paired mode's limits and the card's
+    shared memory; P's identity lands on the diagonal of every plan's
+    element layout (one 1 a row, the kernel's own column formula)."""
+    M = B * T // L
+    plan = W.pair_plan(M, L, 32)
+    base = W.prefill_plan(M, L, 32)
+    assert (plan["rows"], plan["thread_rows"]) == (base["rows"],
+                                                   base["thread_rows"])
+    assert plan["tc"] == min(base["tc"], L)
+    assert W.plan_ok(plan, pair=True)
+    assert W.prefill_smem(plan["rows"], plan["tc"], pair=True) \
+        <= W.prefill_smem(64, W.PAIR_MAX_TC, pair=True) <= W.SMEM_LIMIT
+    src = (_build.CSRC / "wkv7_prefill.cu").read_text()
+    assert re.search(r"constexpr int kMaxPairTc = %d;" % W.PAIR_MAX_TC, src)
+    ones = {rc for rc in element_places(plan) if rc[0] == rc[1]}
+    assert sorted(r for r, _ in ones) == list(range(64))
+
+
 @pytest.mark.parametrize("fn", ["chunked", "chunked_fused"])
 @pytest.mark.parametrize("B,T,L,tail", [(2, 16, 4, 5), (1, 24, 8, 0)])
 def test_chunked_matches_jax_and_scan(J, fn, B, T, L, tail):
@@ -380,15 +461,18 @@ def test_seq_kernel_matches_plain_on_card(cuda_card, B, T, tail):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,T,L", [(8, 64, 4), (8, 256, 16), (28, 64, 4),
-                                   (2, 96, 3)])
+                                   (2, 96, 3), (1, 2048, 128)])
 def test_chunk_pair_kernel_matches_plain_on_card(cuda_card, B, T, L):
     """Phase A within 1e-4 of the plain version (same algorithm, other
     summation order); phase A + combine within 5e-4 of the scan, which a
-    transposed P would fail."""
+    transposed P would fail; one launch, and the same bits under every
+    plan the paired mode takes (a plan moves no arithmetic)."""
     x = cuda_inputs((B, T, 32, 64), seed=T + L, masked_tail=L + 1)
     s0 = t(state((B, 32, 64, 64), seed=4)).cuda()
     M = B * (T // L)
+    W.reset_launches()
     got = W.wkv7_chunk_pair_phase_a(*x, L)
+    assert W.LAUNCHES["wkv7_chunk_pair"] == 1
     want = W.wkv7_chunk_pair(*(v.reshape(M, L, 32, 64) for v in x))
     y, s = W.wkv7_chunked_fused(*x, s0, L)
     y_ref, s_ref = W.wkv7_scan(*x, s0)
@@ -397,3 +481,22 @@ def test_chunk_pair_kernel_matches_plain_on_card(cuda_card, B, T, L):
         assert (g - w_).abs().max() <= 1e-4 * w_.abs().max()
     assert (y - y_ref).abs().max() <= 5e-4 * y_ref.abs().max()
     assert (s - s_ref).abs().max() <= 5e-4 * s_ref.abs().max()
+    for rows in W.SEQ_ROWS:
+        for tc in (1, 3, 8, 16, W.PAIR_MAX_TC):
+            for tr in W.SEQ_THREAD_ROWS:
+                plan = {"rows": rows, "tc": tc, "thread_rows": tr}
+                if W.plan_ok(plan, pair=True):
+                    other = W._pair_phase_a(*x, M, L, plan=plan)
+                    assert all(torch.equal(g, o) for g, o in
+                               zip(got, other)), plan
+
+
+@pytest.mark.cuda
+def test_kernel_pair_plan_is_pair_plan_on_card(cuda_card):
+    """The paired mode's own plan (``pair_plan_for``) is ``pair_plan``'s
+    rule."""
+    for M in (1, 3, 16, 64, 128, 512, 2048):
+        for L in (1, 3, 4, 16, 64, 128):
+            for H in (1, 32):
+                assert W.kernel_pair_plan(M, L, H) == W.pair_plan(M, L, H), \
+                    (M, L, H)
