@@ -765,8 +765,9 @@ def phase_quant_kernels(torch, W, Q, lm_cfg):
     beside the plain versions and cuBLAS's bf16 product on the same weights
     dequantized beforehand (the library column); qmm4 at M = 512 and 2048
     and qmm at M = 512 the same way, and each GEMM's M sweep
-    (``gemm_sweep``); the fused step at B = 8 on the full f32 stack,
-    cycling the layers."""
+    (``gemm_sweep``); the fused step at B = 8 on the full f32 stack and
+    at B = 128 on a bf16 one, cycling the layers, each with its bound
+    (``tools/profile_step_fused.step_bound``)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 7)
     H, N, L, C = lm_cfg.n_head, lm_cfg.head_size, lm_cfg.n_layer, \
@@ -868,26 +869,35 @@ def phase_quant_kernels(torch, W, Q, lm_cfg):
         out[name]["sweep"] = {"rows": rows, "crossover": cross}
         out[name]["max_abs_err"] = max(out[name]["max_abs_err"], e)
 
-    ops, params8 = step_fused_inputs(torch, B, H, N, gen)
-    stack = torch.zeros((L, B, H, N, N), device="cuda")
-    it = {"i": 0}
+    # the fused step on the full stack, cycling the layers: B = 8 with f32
+    # state (row 8's figure), then bench.py's batch, 128, with bf16 state
+    from rwkv_tts_tpu_torch.tools.profile_step_fused import step_bound
+    for Bs, sdt in ((B, torch.float32), (128, torch.bfloat16)):
+        ops, params8 = step_fused_inputs(torch, Bs, H, N, gen)
+        stack = torch.zeros((L, Bs, H, N, N), dtype=sdt, device="cuda")
+        it = {"i": 0}
 
-    def fused_kernel():
-        W.wkv7_step_fused_(*ops, params8, stack, it["i"] % L, 1.0)
-        it["i"] += 1
+        def fused_kernel(ops=ops, params8=params8, stack=stack, it=it):
+            W.wkv7_step_fused_(*ops, params8, stack, it["i"] % L, 1.0)
+            it["i"] += 1
 
-    def fused_plain():
-        l = it["i"] % L
-        _, s_new = W.wkv7_step_fused(*ops, stack[l], params8, 1.0)
-        stack[l].copy_(s_new)
-        it["i"] += 1
+        def fused_plain(ops=ops, params8=params8, stack=stack, it=it):
+            l = it["i"] % L
+            _, s_new = W.wkv7_step_fused(*ops, stack[l], params8, 1.0)
+            stack[l].copy_(s_new)
+            it["i"] += 1
 
-    slab = B * H * N * N * 4
-    op_bytes = B * C * (3 * 2 + 5 * 4) + 8 * C * 4 + B * C * 4
-    b_ms, b_by = bound(2 * slab + op_bytes, 9 * B * H * N * N)
-    out["wkv7_step_fused"] = timed(
-        torch, "wkv7_step_fused", fused_kernel, fused_plain, None, 10 * L,
-        2 * L, b_ms, b_by, err["wkv7_step_fused"], f"B={B}, f32 state")
+        b_ms, b_by = step_bound(Bs, H, sdt.itemsize)
+        shape = f"B={Bs}, {'f32' if sdt == torch.float32 else 'bf16'} state"
+        row = timed(torch, "wkv7_step_fused", fused_kernel, fused_plain,
+                    None, 10 * L, 2 * L, b_ms, b_by, err["wkv7_step_fused"],
+                    shape)
+        if Bs == B:
+            out["wkv7_step_fused"] = row
+            out["wkv7_step_fused"]["shapes"] = {}
+        else:
+            out["wkv7_step_fused"]["shapes"][shape] = row
+        del ops, params8, stack
     return out
 
 

@@ -23,9 +23,10 @@ through the in-place decode kernels) and returns it.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from ..config import RwkvConfig
 from ..ops.quant import qmatmul, quantize_rwkv_params
@@ -46,6 +47,14 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 # the batch in the TPU's 128 lanes; the port's kernel has no lanes and
 # serves every batch.
 STEP_FUSED = False
+
+# the fused step's per-head vectors, in params8's order
+_PARAMS8 = ("k_k", "k_a", "w0", "a0", "v0", "r_k", "ln_x_w", "ln_x_b")
+# a fused segment's params8, one [8, H, N] f32 view a layer of one packed
+# [L, 8, H, N], packed at its first fused step and kept while the segment's
+# k_k leaf lives (keyed by identity, checked against the eight leaves'
+# storage and version counters)
+_packed_params8 = WeakIdKeyDictionary()
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -442,12 +451,13 @@ def step(params: Params, token: torch.Tensor, state: State, cfg: RwkvConfig,
         return t.reshape(B, H, N).contiguous()
 
     v_first = None
+    p8 = _fused_params8(params["blocks"], H, N) if STEP_FUSED else None
     for l, lp in enumerate(_layers(params["blocks"])):
         h = _layer_norm(x, lp["ln1_w"], lp["ln1_b"], cfg.ln_eps)
         xx = state["att_x"][l].to(cdt) - h
         if STEP_FUSED and "zrkv" in lp:
             att, v_first = _step_fused(lp, h, xx, v_first, state["wkv"], l,
-                                       cfg, cdt)
+                                       cfg, cdt, p8[l])
         else:
             r, w, k_in, v, kk, a, g, v_first = _front(lp, h, xx, v_first,
                                                       l == 0, cfg, cdt)
@@ -478,11 +488,34 @@ def step(params: Params, token: torch.Tensor, state: State, cfg: RwkvConfig,
     return qmatmul(x, head).float(), state
 
 
-def _step_fused(lp, h, xx, v_first, wkv, layer, cfg, cdt):
+def _fused_params8(blocks, H: int, N: int) -> List[Optional[torch.Tensor]]:
+    """Every layer's params8 [8, H, N] f32 (``_PARAMS8``' vectors stacked),
+    None for a layer without the fused layout; each segment is packed once
+    and cached (``_packed_params8``) rather than on every step."""
+    out: List[Optional[torch.Tensor]] = []
+    for seg in (blocks if isinstance(blocks, (tuple, list)) else (blocks,)):
+        L = int(seg["ln1_w"].shape[0])
+        if "zrkv" not in seg:
+            out.extend([None] * L)
+            continue
+        leaves = [seg[n] for n in _PARAMS8]
+        sig = tuple((t.data_ptr(), t._version) for t in leaves)
+        hit = _packed_params8.get(seg["k_k"])
+        if hit is None or hit[0] != sig:
+            packed = torch.stack([t.reshape(L, H * N).float()
+                                  for t in leaves], dim=1)
+            hit = (sig, packed.reshape(L, 8, H, N).contiguous().unbind(0))
+            _packed_params8[seg["k_k"]] = hit
+        out.extend(hit[1])
+    return out
+
+
+def _step_fused(lp, h, xx, v_first, wkv, layer, cfg, cdt, params8):
     """A fused-layout layer's time mix under ``STEP_FUSED``
     (``rwkv7.step``, :709-737): the raw projections, then one kernel for
     the per-head soup and the WKV update of ``wkv[layer]`` in place, then
-    w_o. Returns (the attention output [B, C], v_first)."""
+    w_o; ``params8`` is the layer's packed vectors (``_fused_params8``).
+    Returns (the attention output [B, C], v_first)."""
     B = h.shape[0]
     C, H, N = cfg.n_embd, cfg.n_head, cfg.head_size
     r, k, v, lo = _fused_projections(lp, h, xx, cfg, cdt, raw=True)
@@ -490,10 +523,6 @@ def _step_fused(lp, h, xx, v_first, wkv, layer, cfg, cdt):
     def hv(t):              # a view: the slices keep their row stride
         return t.reshape(B, H, N)
 
-    params8 = torch.stack([
-        lp["k_k"], lp["k_a"], lp["w0"], lp["a0"], lp["v0"],
-        lp["r_k"].reshape(-1), lp["ln_x_w"], lp["ln_x_b"],
-    ]).float().reshape(8, H, N)
     first = v_first is None
     vf = torch.zeros((B, C), dtype=torch.float32, device=h.device) \
         if first else v_first

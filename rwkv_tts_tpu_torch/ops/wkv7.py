@@ -322,6 +322,13 @@ def prefill_smem(rows: int, tc: int, pair: bool = False) -> int:
     return 13 * tc * 64 * 4 + (2 if pair else 1) * tc * rows * 4 + 16 + 128
 
 
+# the fused step kernel's layout (csrc/wkv7_step_fused.cu's kThreads and
+# kR): one block a head, of this many threads, each holding this many
+# state rows (8 lanes share a row)
+STEP_THREADS = 128
+STEP_THREAD_ROWS = 4
+
+
 def wkv7_chunk_wy(r, w, k, v, a, b):
     """WY phase A over independent chunks: inputs [M, L, H, N] (M = B·n_c
     chunks), returns (y_loc, rho [M, L, H, N] f32, s_loc, P [M, H, N, N]
@@ -854,11 +861,23 @@ def wkv7_step_fused_(r, lo_w, lo_a, lo_v, k, v, g, v_first, params8,
                                  gn_eps)
         state_stack[layer].copy_(s)
         return out
+    if state_stack.data_ptr() % 16:
+        raise ValueError("state_stack: the kernel copies tiles in 16-byte "
+                         "units; its data must start 16-byte aligned")
     out = torch.empty((B, H, N), dtype=torch.float32, device=dev)
-    _launch("wkv7_step_fused", dev, *(t.data_ptr() for t in ops.values()),
-            *(t.stride(0) for t in ops.values()),
-            int(r.dtype == torch.bfloat16), params8.data_ptr(),
-            state_stack.data_ptr(), int(state_stack.dtype == torch.bfloat16),
-            layer, state_stack.stride(0), out.data_ptr(), B, H,
-            float(notfirst), float(gn_eps))
+    _launch("wkv7_step_fused", dev,
+            *_step_fused_args(list(ops.values()), params8, state_stack,
+                              layer, notfirst, gn_eps, out))
     return out
+
+
+def _step_fused_args(ops, params8, state_stack, layer, notfirst, gn_eps,
+                     out) -> tuple:
+    """The C entry ``wkv7_step_fused``'s arguments before device and stream,
+    from checked tensors (``ops``: the eight operands in its order)."""
+    _, B, H, _, _ = state_stack.shape
+    return (*(t.data_ptr() for t in ops), *(t.stride(0) for t in ops),
+            int(ops[0].dtype == torch.bfloat16), params8.data_ptr(),
+            state_stack.data_ptr(), int(state_stack.dtype == torch.bfloat16),
+            int(layer), state_stack.stride(0), out.data_ptr(), B, H,
+            float(notfirst), float(gn_eps))

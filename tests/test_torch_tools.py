@@ -14,6 +14,7 @@ from rwkv_tts_tpu_torch.ops import quant as Q
 from rwkv_tts_tpu_torch.tools import (profile_conv1d, profile_prefill,
                                       profile_prefill_pieces, profile_qgemm,
                                       profile_stack_kernel,
+                                      profile_step_fused,
                                       profile_step_pieces)
 
 
@@ -47,6 +48,9 @@ CASES = {
     "qgemm_int4": (
         profile_qgemm, ["--kind", "int4", "--batch", "2", "--embd", "128",
                         "--iters", "1"]),
+    "step_fused": (
+        profile_step_fused, ["--shapes", "2,f32", "1,bf16,3", "--heads", "2",
+                             "--iters", "1", "--cold-mb", "1"]),
 }
 
 
@@ -86,6 +90,21 @@ def test_tool_runs_on_the_cpu(name, capsys):
                                         "merged_nok"}
         assert {"state_floor_ms", "per_call_overhead_ms", "kernel_serve_ms",
                 "kernel_merged_ms"} <= set(got)
+    elif name == "step_fused":
+        # each shape's bound and the kernel's launch; the plain version's
+        # host time, no kernel time
+        assert [(r["B"], r["state"], r["slots"])
+                for r in out["shapes"].values()] == [(2, "f32", 2),
+                                                     (1, "bf16", 3)]
+        for row in out["shapes"].values():
+            assert row["ms"] is None and "turns" not in row
+            assert row["launch"] == {"blocks": 2 * row["B"], "threads": 128,
+                                     "thread_rows": 4}
+            assert row["bound_ms"] == profile_step_fused.step_bound(
+                row["B"], 2, 4 if row["state"] == "f32" else 2)[0] > 0
+        with pytest.raises(ValueError, match="card"):
+            module.main(["--shapes", "2,f32", "--against", "."],
+                        device="cpu")
     elif name == "step_pieces":
         got = out["batches"]["2"]
         assert {"soup", "lora", "sampler", "wkv_out", "wkv_in",
@@ -174,6 +193,39 @@ def test_seq_bound_counts_what_the_call_must_move(B, T):
     assert by == "bytes"
     assert ms == pytest.approx(nbytes / 3.35e12 * 1e3, rel=1e-12)
     assert 9 * B * T * H * N * N / 67e12 * 1e3 < ms
+
+
+@pytest.mark.parametrize("B,state_bytes", [(8, 4), (8, 2), (128, 4),
+                                           (128, 2)])
+def test_step_bound_counts_what_the_call_must_move(B, state_bytes):
+    """The fused step's bound (the tool's, which ``chip_smoke.py`` counts
+    the same way): the layer's [B, 32, 64, 64] state slab in and out once,
+    r, k, v (bf16) and lo_w, lo_a, lo_v, g, v_first (f32) read once,
+    params8 [8, 32, 64] f32 once and out [B, 32, 64] f32 once, at 3.35 TB/s;
+    9 f32 operations a state element at 67 TFLOP/s take less. At B = 8, f32
+    state, that is row 8's 0.00267 ms."""
+    H, N = 32, 64
+    ms, by = profile_step_fused.step_bound(B, H, state_bytes)
+    nbytes = (2 * B * H * N * N * state_bytes + 3 * B * H * N * 2
+              + 5 * B * H * N * 4 + 8 * H * N * 4 + B * H * N * 4)
+    assert by == "bytes"
+    assert ms == pytest.approx(nbytes / 3.35e12 * 1e3, rel=1e-12)
+    assert 9 * B * H * N * N / 67e12 * 1e3 < ms
+    if (B, state_bytes) == (8, 4):
+        assert round(ms, 5) == 0.00267
+
+
+@pytest.mark.parametrize("name", sorted(profile_step_fused.CUTS))
+def test_step_fused_cuts_apply_to_the_source(name):
+    """Every cut of the fused step's source finds its markers in the
+    committed kernel and changes it; without a card ``--cut`` is
+    refused."""
+    src = (W._build.CSRC / "wkv7_step_fused.cu").read_text()
+    cut = profile_step_fused.cut_source(name)
+    assert cut != src and 'extern "C" int wkv7_step_fused(' in cut
+    with pytest.raises(ValueError, match="card"):
+        profile_step_fused.main(["--shapes", "1,f32", "--cut", name],
+                                device="cpu")
 
 
 def test_profile_prefill_runs_on_the_cpu(capsys):
