@@ -9,7 +9,7 @@ Run from the root of a checkout on a machine with one CUDA card:
 Without ``--phases`` every phase runs and the last line is the ok line.
 With it, the build runs and then only the named phases (``PHASES``: kernels,
 quant_kernels, conv_kernels, rest_kernels, sweep, tools, goldens,
-main_path, cloning, quantized, streaming), and the last line is
+main_path, cloning, quantized, streaming, server), and the last line is
 ``{"partial": [...]}``: a partial run never prints the ok line, and the
 all-kernels check of the kernels line runs only in a whole run. An unknown
 name fails.
@@ -163,7 +163,29 @@ Phases, each fatal on failure:
              tokens through the continuous engine (at least 6 of 8) and a
              bucketed block equals the whole block; first-chunk times,
              stage histograms, loop stats and vocoder ms per window are
-             printed.
+             printed;
+  server     the port's HTTP server (``rwkv_tts_tpu_torch.server.app``) on
+             127.0.0.1 in a thread, over one full-width pipeline (the LM
+             above, ``BiCodecConfig(conv_impl="mxu_fused")``, 24 × 1024
+             wav2vec2, a voice store in a temporary directory, at most 48
+             semantic tokens a request through ``EngineConfig``), after
+             ``TtsPipeline.warmup`` at batch 1 and the first bucket, driven
+             with ``http.client`` only: ``/healthz`` (200, 32 × 2048); 4
+             seeded property requests to ``/api/tts`` at once through the
+             continuous engine, each a 16 kHz mono WAV; one request alone
+             twice, byte-equal; the same request streamed in flash and in
+             exact mode (lines in order, one final line last, as many
+             samples as its WAV; first chunk over HTTP printed); a voice
+             extracted from a seeded multipart WAV, listed, used, deleted,
+             then 404; ``/metrics`` with continuous blocks and the request
+             histograms; a second app with ``tts_engine="static"``
+             answering 2 requests through ``DynamicBatcher`` (whether its
+             WAV equals the continuous one is printed: bf16 products
+             depend on the batch); an MP3 round trip through
+             ``save_audio`` where libmp3lame and libmpg123 load;
+             ``/debug/trace`` after the requests; ``wkv7_decode``,
+             ``wkv7_prefill``, ``conv1d`` and ``conv1d_prologue``
+             launched, as the ``server`` path.
 
 Prints the card's name and power limit early, a ``{"kernels": [...]}``
 line second to last (one entry per C entry point, ``replaces`` the list
@@ -2936,6 +2958,360 @@ def streaming(torch, lm_cfg, bc_cfg, device: str, engine_cfg=None,
             "conv_per_window": n_conv, "packs": packs}
 
 
+# --------------------------------------------------------------------------
+# server: the HTTP front door over the continuous engine and the batcher
+# --------------------------------------------------------------------------
+
+SERVER_TEXT = "The server answers this request over HTTP."
+
+
+def http_call(port: int, method: str, path: str, body=None, headers=None,
+              timeout: float = 900.0):
+    """One request to the server on 127.0.0.1 (``http.client``): returns
+    (status, headers, body bytes). A dict body goes as JSON."""
+    import http.client
+
+    headers = dict(headers or {})
+    if isinstance(body, dict):
+        body = json.dumps(body).encode()
+        headers["Content-Type"] = "application/json"
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request(method, path, body=body, headers=headers)
+        r = conn.getresponse()
+        return r.status, {k.lower(): v for k, v in r.getheaders()}, r.read()
+    finally:
+        conn.close()
+
+
+def http_stream(port: int, payload: dict, timeout: float = 900.0):
+    """POST /api/tts/stream; returns (status, NDJSON lines, ms from sending
+    the request to the first line, total ms)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        t0 = time.perf_counter()
+        conn.request("POST", "/api/tts/stream", body=json.dumps(payload),
+                     headers={"Content-Type": "application/json"})
+        r = conn.getresponse()
+        lines, first_ms = [], None
+        for raw in r:
+            if raw.strip():
+                if first_ms is None:
+                    first_ms = (time.perf_counter() - t0) * 1e3
+                lines.append(json.loads(raw))
+        return r.status, lines, first_ms, (time.perf_counter() - t0) * 1e3
+    finally:
+        conn.close()
+
+
+def multipart_body(fields: dict):
+    """``multipart/form-data`` bytes for {name: str or (filename, bytes)};
+    returns (body, content type)."""
+    boundary = "chipsmokeboundary7f3a"
+    out = []
+    for name, value in fields.items():
+        if isinstance(value, tuple):
+            fn, data = value
+            head = (f'Content-Disposition: form-data; name="{name}"; '
+                    f'filename="{fn}"\r\nContent-Type: audio/wav')
+        else:
+            head = f'Content-Disposition: form-data; name="{name}"'
+            data = value.encode()
+        out.append(f"--{boundary}\r\n{head}\r\n\r\n".encode() + data
+                   + b"\r\n")
+    out.append(f"--{boundary}--\r\n".encode())
+    return b"".join(out), f"multipart/form-data; boundary={boundary}"
+
+
+def server(torch, lm_cfg, bc_cfg, w2v_cfg, device: str, engine_cfg=None,
+           w2v_layers=None):
+    """The ``server`` phase on ``device``: one pipeline, the port's server
+    on 127.0.0.1 (port 0) in a thread, driven with ``http.client`` only,
+    with every check (see the module docstring); then a second app over
+    the same pipeline with ``tts_engine="static"``. Whether the static
+    engine's WAV equals the continuous one is asserted on the CPU (f32,
+    the same tokens) and reported on a card (bf16 products depend on the
+    batch). Returns a summary."""
+    import base64
+    import tempfile
+    import threading
+
+    import numpy as np
+
+    from rwkv_tts_tpu_torch.audio import mp3 as M
+    from rwkv_tts_tpu_torch.audio.io import (encode_wav_16bit,
+                                             read_audio_file, read_wav)
+    from rwkv_tts_tpu_torch.config import BatchConfig, EngineConfig
+    from rwkv_tts_tpu_torch.models import bicodec, rwkv7, wav2vec2
+    from rwkv_tts_tpu_torch.runtime.pipeline import (SynthesisResult,
+                                                     TtsPipeline)
+    from rwkv_tts_tpu_torch.runtime.voice_store import VoiceStore
+    from rwkv_tts_tpu_torch.server import app as A
+
+    ecfg = engine_cfg or EngineConfig(max_semantic_tokens=48)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 5)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_server_")
+    t_phase = time.perf_counter()
+    pipe = TtsPipeline(
+        rwkv7.init_params(lm_cfg, gen, device), lm_cfg,
+        bicodec.init_params(bc_cfg, gen, device), bc_cfg,
+        wav2vec2.init_params(w2v_cfg, gen, device), w2v_cfg,
+        voice_store=VoiceStore(os.path.join(tmp, "raf")), engine_cfg=ecfg,
+        w2v_output_layers=w2v_layers or wav2vec2.OUTPUT_LAYERS,
+        device=device)
+    init_s = time.perf_counter() - t_phase
+    # the server's --warmup, cut to batch 1 and the first bucket: each
+    # serving shape once before the first request
+    warm = pipe.warmup(prefill_buckets=ecfg.prefill_buckets[:1],
+                       detok_buckets=(64,), batch_ladder=(1,))
+    batch_cfg = BatchConfig(max_batch_size=4, collect_timeout_ms=20,
+                            inference_timeout_ms=900000)
+    servers = []
+
+    def serve(app):
+        srv = A.make_server(app, "127.0.0.1", 0)
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        servers.append((srv, app))
+        return srv.server_address[1]
+
+    def wav_of(status, body, what):
+        if status != 200:
+            fail(f"server: {what}: status {status}: {body[:300]!r}")
+        j = json.loads(body)
+        if not j.get("success"):
+            fail(f"server: {what}: {j}")
+        blob = base64.b64decode(j["audio_base64"])
+        wav, sr, ch = read_wav(blob)
+        if sr != 16000 or ch != 1 or not len(wav) or len(wav) % 320 or \
+                not np.all(np.isfinite(wav)):
+            fail(f"server: {what}: WAV of {len(wav)} samples at {sr} Hz, "
+                 f"{ch} channels")
+        return j, blob, wav
+
+    props = [dict(gender="female", emotion="HAPPY", speed=4.2),
+             dict(gender="male", emotion="SAD", speed="slow"),
+             dict(gender="female", age="elderly", pitch="low_pitch"),
+             dict(gender="male", emotion="NEUTRAL", speed=5.0)]
+    requests = [dict(text=TEXTS[i], seed=500 + i, **props[i])
+                for i in range(4)]
+    alone = dict(text=SERVER_TEXT, seed=521)
+    out = {"requests": [], "warmup": warm}
+    reset_launch_counts()
+    try:
+        app = A.create_app(pipe, batch_cfg, stream_block=16)
+        port = serve(app)
+        status, _, body = http_call(port, "GET", "/healthz")
+        hz = json.loads(body)
+        if status != 200 or hz["status"] != "ok" or hz["model"]["n_layer"] \
+                != lm_cfg.n_layer or hz["model"]["n_embd"] != lm_cfg.n_embd:
+            fail(f"server: /healthz {status} {hz}")
+
+        # four property requests at once, through the continuous engine
+        box = [None] * len(requests)
+
+        def call(i):
+            t0 = time.perf_counter()
+            st, _, b = http_call(port, "POST", "/api/tts", requests[i])
+            box[i] = (st, b, (time.perf_counter() - t0) * 1e3)
+
+        threads = [threading.Thread(target=call, args=(i,))
+                   for i in range(len(requests))]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900.0)
+        if any(t.is_alive() for t in threads):
+            fail("server: a concurrent /api/tts request did not end in 900 s")
+        out["concurrent_s"] = time.perf_counter() - t0
+        for i, (st, b, ms) in enumerate(box):
+            j, _, wav = wav_of(st, b, f"concurrent request {i}")
+            out["requests"].append({
+                "what": f"concurrent {i}", "status": st, "wall_ms": ms,
+                "samples": len(wav), "rtf": j["rtf"],
+                "timings_ms": j["timings_ms"]})
+
+        # one request alone, twice: the same bytes
+        alone_wavs = []
+        for k in range(2):
+            t0 = time.perf_counter()
+            st, _, b = http_call(port, "POST", "/api/tts", alone)
+            j, blob, wav = wav_of(st, b, f"alone {k}")
+            alone_wavs.append(blob)
+            out["requests"].append({
+                "what": f"alone {k}", "status": st,
+                "wall_ms": (time.perf_counter() - t0) * 1e3,
+                "samples": len(wav), "rtf": j["rtf"],
+                "timings_ms": j["timings_ms"]})
+        if alone_wavs[0] != alone_wavs[1]:
+            a, b = (read_wav(w)[0] for w in alone_wavs)
+            fail(f"server: the same seeded request alone twice gave two "
+                 f"WAVs: {len(a)} and {len(b)} samples"
+                 + (f", max abs diff {np.abs(a - b).max():.3g}"
+                    if len(a) == len(b) else ""))
+        n_alone = len(read_wav(alone_wavs[0])[0])
+
+        # the same request streamed, flash and exact: lines in order, one
+        # final line last, as many samples as the WAV
+        out["streams"] = []
+        for mode in ("flash", "exact"):
+            st, lines, first_ms, total_ms = http_stream(
+                port, dict(alone, latency_mode=mode))
+            if st != 200 or not lines or "error" in lines[-1]:
+                fail(f"server: {mode} stream: status {st}, last line "
+                     f"{lines[-1] if lines else None}")
+            if [ln["seq"] for ln in lines] != list(range(len(lines))) or \
+                    not lines[-1]["final"] or \
+                    any(ln["final"] for ln in lines[:-1]):
+                fail(f"server: {mode} stream: lines out of order or no "
+                     f"single final line last: "
+                     f"{[(ln['seq'], ln['final']) for ln in lines]}")
+            pieces = [base64.b64decode(ln["audio_base64"]) for ln in lines]
+            n = sum(len(p) for p in pieces) // 2
+            if n != n_alone or any(ln["sample_rate"] != 16000
+                                   for ln in lines):
+                fail(f"server: {mode} stream: {n} samples, the WAV of the "
+                     f"same request {n_alone}")
+            out["streams"].append({
+                "mode": mode, "lines": len(lines), "samples": n,
+                "first_line_ms": first_ms, "total_ms": total_ms,
+                "first_chunk_ms": lines[-1]["first_chunk_ms"]})
+
+        # a voice's life: extract, list, use, delete, then 404
+        clip = encode_wav_16bit(reference_clip(SEED + 7, 16000, 4.0), 16000)
+        body, ctype = multipart_body({
+            "voice_name": "chip smoke voice",
+            "prompt_text": "a seeded reference clip",
+            "audio_file": ("ref.wav", clip)})
+        t0 = time.perf_counter()
+        st, _, b = http_call(port, "POST", "/api/voice-clone/extract", body,
+                             {"Content-Type": ctype})
+        extract_ms = (time.perf_counter() - t0) * 1e3
+        j = json.loads(b)
+        if st != 200 or not j.get("success"):
+            fail(f"server: extract: {st} {j}")
+        vid = j["voice_id"]
+        st, _, b = http_call(port, "GET", "/api/voice-clone/list")
+        if st != 200 or vid not in [v["id"] for v in json.loads(b)["voices"]]:
+            fail(f"server: list: {st}, {vid} not in {b[:300]!r}")
+        t0 = time.perf_counter()
+        st, _, b = http_call(port, "POST", "/api/tts",
+                             {"text": TEXTS[0], "voice_id": vid})
+        j, _, wav = wav_of(st, b, "tts by voice_id")
+        out["requests"].append({
+            "what": "by voice_id", "status": st,
+            "wall_ms": (time.perf_counter() - t0) * 1e3,
+            "samples": len(wav), "rtf": j["rtf"],
+            "timings_ms": j["timings_ms"]})
+        st_del, _, b = http_call(port, "POST", "/api/voice-clone/delete",
+                                 {"voice_id": vid})
+        st_gone, _, _ = http_call(port, "POST", "/api/tts",
+                                  {"text": TEXTS[0], "voice_id": vid})
+        if st_del != 200 or st_gone != 404:
+            fail(f"server: delete gave {st_del}, tts after it {st_gone} "
+                 "(expected 200, 404)")
+        out["voice"] = {"voice_id": vid, "extract_ms": extract_ms,
+                        "delete": st_del, "after_delete": st_gone}
+
+        st, _, b = http_call(port, "GET", "/metrics")
+        text = b.decode()
+        blocks = [ln for ln in text.splitlines()
+                  if ln.startswith("rwkv_tts_continuous_blocks ")]
+        out["continuous_blocks"] = int(blocks[0].split()[1]) if blocks else 0
+        for name in ("rwkv_tts_request_seconds", "rwkv_tts_rtf",
+                     "rwkv_tts_stage_first_chunk_seconds",
+                     "rwkv_tts_stage_queue_wait_seconds",
+                     "rwkv_tts_stage_first_emit_seconds"):
+            if f"# TYPE {name} histogram" not in text:
+                fail(f"server: /metrics has no {name} histogram")
+        if st != 200 or out["continuous_blocks"] <= 0:
+            fail(f"server: /metrics {st}, continuous blocks "
+                 f"{out['continuous_blocks']}")
+
+        # the static engine: a second app over the same pipeline
+        sapp = A.create_app(pipe, batch_cfg, tts_engine="static")
+        sport = serve(sapp)
+        sbox = [None, None]
+
+        def scall(i, payload):
+            st, _, b = http_call(sport, "POST", "/api/tts", payload)
+            sbox[i] = (st, b)
+
+        threads = [threading.Thread(target=scall, args=(i, p)) for i, p in
+                   enumerate((alone, requests[0]))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900.0)
+        if any(t.is_alive() for t in threads):
+            fail("server: a static-engine request did not end in 900 s")
+        static_blobs = []
+        for i, (st, b) in enumerate(sbox):
+            j, blob, _ = wav_of(st, b, f"static request {i}")
+            static_blobs.append(blob)
+        bstats = dict(sapp["batcher"].stats)
+        if bstats["batched_requests"] != 2:
+            fail(f"server: the batcher ran {bstats}")
+        out["static"] = {"same_as_continuous": static_blobs[0]
+                         == alone_wavs[0], "batcher": bstats}
+        if device == "cpu" and not out["static"]["same_as_continuous"]:
+            fail("server: the static engine's WAV differs from the "
+                 "continuous engine's for the same seeded request")
+
+        # MP3 out and back in, where the libraries load
+        if M.lame_available() and M.mpg123_available():
+            samples = read_wav(alone_wavs[0])[0]
+            path = os.path.join(tmp, "alone.mp3")
+            TtsPipeline.save_audio(SynthesisResult(
+                audio=samples, sample_rate=16000, global_tokens=[],
+                semantic_tokens=[], timings_ms={}, rtf=0.0), path)
+            dec, rate, ch = read_audio_file(path)
+            if rate != 16000 or ch != 1 or \
+                    abs(len(dec) - len(samples)) > 2304 or \
+                    not np.all(np.isfinite(dec)):
+                fail(f"server: MP3 round trip: {len(dec)} samples at {rate} "
+                     f"Hz, {ch} channels, from {len(samples)}")
+            out["mp3"] = (f"MP3 round trip through libmp3lame and libmpg123: "
+                          f"{len(samples)} samples in, {len(dec)} out at "
+                          f"{rate} Hz, {os.path.getsize(path)} bytes")
+        else:
+            out["mp3"] = ("MP3 check not run: libmp3lame "
+                          f"{'loads' if M.lame_available() else 'does not load'}"
+                          f", libmpg123 "
+                          f"{'loads' if M.mpg123_available() else 'does not load'}"
+                          " on this host")
+
+        # the profiler over a short window, after every request is done
+        st, _, b = http_call(port, "POST", "/debug/trace",
+                             {"seconds": 0.5, "dir": os.path.join(tmp, "trace")})
+        j = json.loads(b)
+        if st != 200 or not os.path.isfile(os.path.join(j["trace_dir"],
+                                                        "trace.json")):
+            fail(f"server: /debug/trace {st} {j}")
+        if device == "cuda":
+            torch.cuda.synchronize()
+        out["launches"] = launch_counts()
+    finally:
+        for srv, app in servers:
+            srv.shutdown()
+            srv.server_close()
+            app.close()
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+    if device == "cuda":
+        zero = [k for k in ("wkv7_decode", "wkv7_prefill", "conv1d",
+                            "conv1d_prologue") if not out["launches"][k]]
+        if zero:
+            fail(f"server: kernels not launched by the server's requests: "
+                 f"{zero} ({out['launches']})")
+    out["wall_s"] = time.perf_counter() - t_phase
+    out["init_s"] = init_s
+    return out
+
+
 # every function of the JAX package that reaches pl.pallas_call (the
 # table in PERF.md), by file:line of its definition
 TPU_FUNCTIONS = (
@@ -2980,7 +3356,7 @@ KERNEL_ENTRIES = {
 
 PHASES = ("kernels", "quant_kernels", "conv_kernels", "rest_kernels",
           "sweep", "tools", "goldens", "main_path", "cloning", "quantized",
-          "streaming")
+          "streaming", "server")
 
 
 def parse_phases(argv):
@@ -3253,6 +3629,43 @@ def main(argv=None) -> None:
               f"weights: {st['bf16_blocks']} (reported); {card}", flush=True)
 
         paths["streaming"] = st["launches"]
+        del st
+        torch.cuda.empty_cache()
+
+    if "server" in selected:
+        sv = server(torch, lm_cfg,
+                    dataclasses.replace(bc_cfg, conv_impl="mxu_fused"),
+                    Wav2Vec2Config(), "cuda")
+        print(f"server: {lm_cfg.n_layer} layers x {lm_cfg.n_embd}, BiCodec "
+              f"mxu_fused, wav2vec2 24 x 1024, at most 48 semantic tokens a "
+              f"request; phase wall {sv['wall_s']:.1f} s (init "
+              f"{sv['init_s']:.2f} s), 4 concurrent /api/tts in "
+              f"{sv['concurrent_s']:.2f} s; {card}", flush=True)
+        print(f"server: TtsPipeline.warmup at batch 1, the first bucket, "
+              f"detokenize 64 (s by step): {sv['warmup']}", flush=True)
+        for r in sv["requests"]:
+            print(f"server: /api/tts {r['what']}: {r['status']}, "
+                  f"{r['samples']} samples, wall {r['wall_ms']:.1f} ms, RTF "
+                  f"{r['rtf']:.4f}, stage timings (ms) {r['timings_ms']}; "
+                  f"{card}", flush=True)
+        for r in sv["streams"]:
+            print(f"server: /api/tts/stream {r['mode']}: {r['lines']} lines "
+                  f"in order, final last, {r['samples']} samples (the WAV's); "
+                  f"first chunk over HTTP {r['first_line_ms']:.1f} ms from "
+                  f"sending the request (server-side first_chunk_ms "
+                  f"{r['first_chunk_ms']}), whole stream "
+                  f"{r['total_ms']:.1f} ms; {card}", flush=True)
+        v = sv["voice"]
+        print(f"server: voice {v['voice_id']} extracted in "
+              f"{v['extract_ms']:.1f} ms, listed, used (200), deleted "
+              f"({v['delete']}), then /api/tts with it {v['after_delete']}; "
+              f"/metrics continuous blocks {sv['continuous_blocks']}; "
+              f"static engine (DynamicBatcher, {sv['static']['batcher']}): "
+              f"its WAV for the alone request equals the continuous engine's:"
+              f" {sv['static']['same_as_continuous']} (reported: bf16 "
+              f"products depend on the batch); {sv['mp3']}; launches "
+              f"{sv['launches']}", flush=True)
+        paths["server"] = sv["launches"]
 
     if phases is not None:
         # a partial run proves no whole: it never prints the ok line

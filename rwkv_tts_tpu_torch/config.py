@@ -1,11 +1,11 @@
 """Configuration dataclasses of the PyTorch port.
 
 Own copies of ``RwkvConfig``, ``SamplingConfig``, ``EngineConfig``,
-``Wav2Vec2Config``, ``BiCodecConfig`` and ``TtsArgs`` from
-``rwkv_tts_tpu/config.py``, with the same defaults. Fields that only
-choose between the JAX package's TPU code paths
+``BatchConfig``, ``ServerConfig``, ``Wav2Vec2Config``, ``BiCodecConfig``
+and ``TtsArgs`` from ``rwkv_tts_tpu/config.py``, with the same defaults.
+Fields that only choose between the JAX package's TPU code paths
 (``EngineConfig.chunk_size``/``use_pallas``), or that nothing in the port
-reads yet (``EngineConfig.global_tokens``, ``with_token_chunk``), have no
+reads (``EngineConfig.global_tokens``, ``MeshConfig``), have no
 counterpart here.
 """
 
@@ -62,6 +62,46 @@ class EngineConfig:
     # the semantic loop checks on the host whether every slot is done once
     # per this many steps (the emitted tokens do not depend on it)
     decode_block: int = 16
+
+    def with_token_chunk(self, n: int) -> "EngineConfig":
+        """Map the reference's --token-chunk-size (bin/server.rs:1263-1268)
+        onto the prefill-bucket ladder: the largest bucket, the prompt chunk
+        one prefill call takes, becomes ``n``; the smaller buckets stay, to
+        limit padding on short prompts."""
+        n = max(16, int(n))
+        buckets = tuple(b for b in self.prefill_buckets if b < n) + (n,)
+        return dataclasses.replace(self, prefill_buckets=buckets)
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchConfig:
+    """Static-engine batching policy (analog of DynamicBatchConfig,
+    src/batch_types.rs:67-97): collect window, batch cap, timeout, queue
+    bound."""
+
+    max_batch_size: int = 8
+    collect_timeout_ms: float = 10.0
+    inference_timeout_ms: float = 60000.0
+    max_queue: int = 256
+
+
+@dataclasses.dataclass(frozen=True)
+class ServerConfig:
+    """HTTP serving configuration (CLI parity: bin/server.rs:1203-1269)."""
+
+    host: str = "0.0.0.0"
+    port: int = 3000
+    model_path: str = "assets/model/webrwkv.safetensors"
+    vocab_path: str = "assets/model/tokenizer.json"
+    raf_dir: str = "assets/raf"
+    wav2vec2_path: str = "assets/model/wav2vec2-large-xlsr-53"
+    bicodec_path: str = "assets/model/BiCodec"
+    quant_type: str = "none"                 # none | int8
+    quant_layers: int = 0
+    batch_size: int = 8
+    batch_timeout_ms: float = 20.0
+    inference_timeout_ms: float = 120000.0
+    token_chunk_size: int = 256
 
 
 @dataclasses.dataclass(frozen=True)

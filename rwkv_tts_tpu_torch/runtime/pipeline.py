@@ -10,7 +10,10 @@ a property-controlled request reuses 32 speaker tokens cached by
 (properties, seed) and runs the zero-shot chain, skipping the global stage.
 ``synthesize_batch`` keeps the JAX pipeline's mode grouping, stage timings
 and RTF accounting (``pipeline.py:309-349``); ``assemble_result`` packages
-one continuous-engine generation the same way.
+one continuous-engine generation the same way. ``enroll_voice`` extracts a
+reference file's tokens into the voice store, ``save_audio`` writes WAV or
+MP3, and ``warmup`` runs every serving shape once before traffic
+(``pipeline.py:400-638``).
 """
 
 from __future__ import annotations
@@ -21,19 +24,21 @@ import hashlib
 import logging
 import os
 import threading
+import time
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from .. import constants as C
 from ..audio import io as audio_io
 from ..audio.frontend import load_and_process, zero_mean_unit_variance
 from ..config import (BiCodecConfig, EngineConfig, RwkvConfig, TtsArgs,
                       Wav2Vec2Config)
-from ..models import bicodec, wav2vec2
+from ..models import bicodec, rwkv7, wav2vec2
 from ..utils.device import resolve_device
 from ..utils.rtf import StageTimer
-from .engine import GenerationResult, TtsEngine
+from .engine import GenerationResult, TtsEngine, global_stage, semantic_stage
 from .voice_store import VoiceStore
 
 log = logging.getLogger(__name__)
@@ -257,11 +262,151 @@ class TtsPipeline:
                                 timings_ms=timer.as_ms(), rtf=batch_rtf)
                 for g, wav in zip(gens, audios)]
 
+    def enroll_voice(self, audio_path: str, name: str, prompt_text: str = ""):
+        """Extract a reference file's tokens and save them as a voice of the
+        store; returns its ``VoiceFeature``."""
+        if self.voice_store is None:
+            raise RuntimeError("no voice store configured")
+        glob, sem, dur = self.extract_voice_tokens(audio_path)
+        return self.voice_store.save(
+            name=name, prompt_text=prompt_text, global_tokens=glob,
+            semantic_tokens=sem, audio_duration=dur,
+            sample_rate=C.SAMPLE_RATE)
+
     @staticmethod
     def save_audio(result: SynthesisResult, path: str) -> None:
-        """16-bit PCM WAV (MP3 is not ported yet)."""
+        """MP3 by the path's suffix (``audio_io.encode_mp3``), else 16-bit
+        PCM WAV."""
         if path.lower().endswith(".mp3"):
-            raise NotImplementedError("MP3 output is not ported yet")
+            blob = audio_io.encode_mp3(result.audio, result.sample_rate)
+        else:
+            blob = audio_io.encode_wav_16bit(result.audio, result.sample_rate)
         with open(path, "wb") as f:
-            f.write(audio_io.encode_wav_16bit(result.audio,
-                                              result.sample_rate))
+            f.write(blob)
+
+    def warmup(self, prefill_buckets=None, detok_buckets=(64, 256, 1024),
+               zero_shot_too: bool = True, batch_ladder=None,
+               budget_s: Optional[float] = None) -> Dict[str, object]:
+        """Run every serving shape once before traffic arrives, each with a
+        hard limit of one semantic token: eager PyTorch compiles nothing,
+        but the first call of a shape builds and loads the kernels, creates
+        the library handles and grows the allocator's pools. Returns wall
+        seconds by step, under the JAX pipeline's labels
+        (``_warmup_pipeline``, ``pipeline.py:428``).
+
+        ``batch_ladder``: the static engine's batch widths to run, by
+        default every width ``generate_batch`` can pad to, {1, 2, 4, …} ∪
+        {batch_size}. ``budget_s``: once this much wall time has passed,
+        the remaining steps are skipped and listed under ``"skipped"``.
+        The steps run in the JAX order: the batch ladder over the first two
+        prefill buckets and both modes, a prompt longer than the largest
+        bucket through prefill, the global and the semantic stage, the
+        speaker cache (when it is the default), the detokenize buckets,
+        then both vocoder windows of every streaming latency mode."""
+        from .streaming import StreamingVocoder
+
+        eng = self.engine
+        cfg, ecfg, dev = eng.cfg, eng.engine_cfg, eng.device
+        out: Dict[str, object] = {}
+        skipped: List[str] = []
+        t_warm0 = time.perf_counter()
+
+        def over(label: str) -> bool:
+            if budget_s is not None and \
+                    time.perf_counter() - t_warm0 > budget_s:
+                skipped.append(label)
+                return True
+            return False
+
+        def timed(label: str, fn) -> None:
+            t0 = time.perf_counter()
+            fn()
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            out[label] = round(time.perf_counter() - t0, 2)
+
+        def ones(B):
+            return torch.ones((B,), dtype=torch.int64, device=dev)
+
+        def semantic(state, logits, B, zs):
+            semantic_stage(eng.params, state, logits, eng._keys([0] * B, 0),
+                           ones(B), ones(B) - 1, cfg,
+                           ecfg.max_semantic_tokens, zs, feed_tag1=not zs,
+                           decode_block=ecfg.decode_block)
+
+        def lm(B, T, zs):
+            # the static engine's serving chain at (B, T) on zero tokens
+            logits, st = eng.prefill([[0] * T] * B,
+                                     rwkv7.init_state(cfg, B, device=dev))
+            if not zs:
+                _, st, logits = global_stage(eng.params, st, logits,
+                                             eng._keys([0] * B, 0), cfg)
+            semantic(st, logits, B, zs)
+
+        modes = (False, True) if zero_shot_too else (False,)
+        buckets = prefill_buckets or ecfg.prefill_buckets[:2]
+        if batch_ladder is None:
+            batch_ladder, b = [], 1
+            while b < ecfg.batch_size:
+                batch_ladder.append(b)
+                b *= 2
+            batch_ladder.append(ecfg.batch_size)
+        for B in batch_ladder:
+            for T in buckets:
+                for zs in modes:
+                    label = f"lm_{'zs' if zs else 'normal'}_{T}_b{B}"
+                    if not over(label):
+                        timed(label, lambda: lm(B, T, zs))
+        # a prompt longer than the largest bucket prefills in chunks of
+        # that bucket; the stages feed each other, so one budget guard
+        if not over("staged_long_prompt"):
+            Tmax = ecfg.prefill_buckets[-1]
+            box = {}
+
+            def prefill():
+                box["lg"], box["st"] = eng.prefill(
+                    [[0] * Tmax], rwkv7.init_state(cfg, 1, device=dev))
+
+            def glob():
+                _, box["st"], box["lg"] = global_stage(
+                    eng.params, box["st"], box["lg"], eng._keys([0], 0), cfg)
+
+            timed(f"prefill_{Tmax}", prefill)
+            timed("global_stage", glob)
+            for zs in modes:
+                # semantic_stage updates the state in place: each mode
+                # starts from its own copy
+                timed(f"semantic_{'zs' if zs else 'normal'}", lambda: semantic(
+                    {k: v.clone() for k, v in box["st"].items()}, box["lg"],
+                    1, zs))
+        if self.cached_speaker_default and not over("speaker_cache"):
+            # requests without a seed resolve under the seed=None key, a
+            # speaker of its own: warm both keys
+            timed("speaker_cache", lambda: (
+                self.get_cached_speaker(TtsArgs(text="", seed=0)),
+                self.get_cached_speaker(TtsArgs(text="", seed=None))))
+        for S in detok_buckets:
+            if not over(f"detokenize_{S}"):
+                timed(f"detokenize_{S}", lambda: bicodec.detokenize(
+                    self.bicodec_params, [0] * 32, [0] * S,
+                    self.bicodec_cfg))
+        # streaming decodes two window lengths per latency mode (interior
+        # and flush), outside the detokenize buckets
+        codebook_dev = self.bicodec_params["quantizer"]["codebook"].device
+        for mode in ("exact", "low", "ultra", "flash"):
+            sv = StreamingVocoder(self.bicodec_params, self.bicodec_cfg,
+                                  [0] * 32, latency_mode=mode)
+            for W in sorted({sv.window_bucket, sv.flush_bucket}):
+                if not over(f"stream_{mode}_{W}"):
+                    timed(f"stream_{mode}_{W}", lambda: bicodec.decode(
+                        self.bicodec_params,
+                        torch.zeros((1, 32), dtype=torch.int64,
+                                    device=codebook_dev),
+                        torch.zeros((1, W), dtype=torch.int64,
+                                    device=codebook_dev), self.bicodec_cfg))
+        if skipped:
+            out["skipped"] = skipped
+            log.warning("warmup budget %.1fs exhausted: %d steps skipped "
+                        "(%s…); they warm on first use", budget_s or 0.0,
+                        len(skipped), ", ".join(skipped[:4]))
+        return out

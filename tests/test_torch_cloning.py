@@ -143,7 +143,7 @@ def test_voice_chain_falls_down_as_jax_does(pipe, jpipe, workdir, caplog):
         "bad audio file": TtsArgs(text="x", ref_audio_path=str(bad), seed=9),
         "missing file": TtsArgs(text="x", ref_audio_path=str(
             workdir / "missing.wav"), seed=2),
-        "mp3 (not ported here)": TtsArgs(text="x", ref_audio_path=str(mp3),
+        "corrupt mp3 file": TtsArgs(text="x", ref_audio_path=str(mp3),
                                          seed=2),
     }
     with caplog.at_level("WARNING"):

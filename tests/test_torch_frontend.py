@@ -90,11 +90,18 @@ def test_read_wav_rejects_what_jax_rejects(J, blob):
         J["io"].read_wav(blob)
 
 
-def test_mp3_input_raises_not_ported(tmp_path):
+def test_mp3_input_raises_not_ported(J, tmp_path):
+    """MP3 input is ported (tests/test_torch_mp3.py holds it against the
+    JAX reader): a file named .mp3 that holds no MP3 stream raises the JAX
+    reader's error, word for word."""
     path = tmp_path / "ref.mp3"
     path.write_bytes(b"ID3" + b"\x00" * 100)
-    with pytest.raises(NotImplementedError, match="MP3"):
+    with pytest.raises(Exception) as mine:
         Pio.read_audio_file(str(path))
+    with pytest.raises(Exception) as theirs:
+        J["io"].read_audio_file(str(path))
+    assert type(mine.value).__name__ == type(theirs.value).__name__
+    assert str(mine.value) == str(theirs.value)
 
 
 @pytest.mark.parametrize("rates", [(24000, 16000), (44100, 16000),

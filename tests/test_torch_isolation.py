@@ -1,8 +1,9 @@
 """The PyTorch port stands alone: nothing under ``rwkv_tts_tpu_torch/`` and
-not ``chip_smoke.py`` imports JAX or the JAX package; the package imports
-with no JAX, no nvcc and no card; entry points refuse to run on the CPU
-unless asked, and a kernel wrapper never gives way to its plain version on
-another device; its own copies of host-only modules equal the originals."""
+not ``chip_smoke.py`` imports JAX, aiohttp or the JAX package; the package
+imports with no JAX, no aiohttp, no nvcc and no card; entry points refuse
+to run on the CPU unless asked, and a kernel wrapper never gives way to its
+plain version on another device; its own copies of host-only modules (the
+server's UI page among them) equal the originals."""
 
 import ast
 import dataclasses
@@ -29,7 +30,7 @@ def one_torch_thread():
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "rwkv_tts_tpu_torch").rglob("*.py")) + \
     [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "rwkv_tts_tpu")
+FORBIDDEN = ("jax", "jaxlib", "rwkv_tts_tpu", "aiohttp")
 
 
 def imported_modules(path: Path):
@@ -54,11 +55,12 @@ def _run(code, cwd=ROOT, env=None):
 
 
 def test_package_imports_without_jax_nvcc_or_card(tmp_path):
-    """Every module imports with JAX made unimportable and no nvcc on
-    PATH, and none pulls in the JAX package."""
+    """Every module imports with JAX and aiohttp made unimportable and no
+    nvcc on PATH, and none pulls in the JAX package."""
     code = (
         "import sys, pkgutil, importlib\n"
         "sys.modules['jax'] = None\n"
+        "sys.modules['aiohttp'] = None\n"
         "sys.modules['rwkv_tts_tpu'] = None\n"
         "import rwkv_tts_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
@@ -77,6 +79,27 @@ def no_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
+def test_server_and_cli_import_without_jax_or_aiohttp():
+    """The server and the CLI are the standard library's: both import, and
+    the server's module builds an app class, with JAX, aiohttp and the JAX
+    package unimportable."""
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'aiohttp', 'rwkv_tts_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import rwkv_tts_tpu_torch.server.app as a\n"
+        "import rwkv_tts_tpu_torch.cli as c\n"
+        "import rwkv_tts_tpu_torch.runtime.batching as b\n"
+        "import rwkv_tts_tpu_torch.audio.mp3 as m\n"
+        "assert callable(a.create_app) and callable(c.main)\n"
+        "assert not any(k.split('.')[0] in ('jax', 'aiohttp') and v\n"
+        "               for k, v in sys.modules.items())\n"
+        "print('imported')\n")
+    out = _run(code, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    assert out.returncode == 0, out.stderr
+    assert "imported" in out.stdout
+
+
 def test_entry_points_refuse_the_cpu_without_asking(no_card):
     import numpy as np
 
@@ -89,6 +112,7 @@ def test_entry_points_refuse_the_cpu_without_asking(no_card):
     from rwkv_tts_tpu_torch.runtime.engine import TtsEngine
     from rwkv_tts_tpu_torch.runtime.pipeline import TtsPipeline
     from rwkv_tts_tpu_torch.runtime.streaming import stream_synthesize
+    from rwkv_tts_tpu_torch.server import app as server_app
     from rwkv_tts_tpu_torch.tools import (profile_prefill_pieces,
                                           profile_stack_kernel,
                                           profile_step_pieces)
@@ -131,9 +155,30 @@ def test_entry_points_refuse_the_cpu_without_asking(no_card):
                  lambda: bridge.wav2vec2_params({}),
                  lambda: profile_stack_kernel.main([]),
                  lambda: profile_step_pieces.main([]),
-                 lambda: profile_prefill_pieces.main([])):
+                 lambda: profile_prefill_pieces.main([]),
+                 lambda: server_app.build_dev_pipeline(),
+                 lambda: server_app.device_from_env()):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
+
+
+def test_card_device_keeps_float32_and_deterministic_cudnn(monkeypatch):
+    """``resolve_device("cuda")`` switches TF32 off and keeps cuDNN to
+    deterministic algorithms (a seeded request then gives the same audio
+    twice: the vocoder's transposed convolutions otherwise may get an
+    algorithm that adds with atomics). The CPU leaves the flags alone."""
+    from rwkv_tts_tpu_torch.utils.device import resolve_device
+
+    flags = (torch.backends.cuda.matmul, "allow_tf32"), \
+        (torch.backends.cudnn, "allow_tf32"), \
+        (torch.backends.cudnn, "deterministic")
+    for mod, name in flags:
+        monkeypatch.setattr(mod, name, name == "allow_tf32")
+    assert resolve_device("cpu").type == "cpu"
+    assert [getattr(m, n) for m, n in flags] == [True, True, False]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert resolve_device(None).type == "cuda"
+    assert [getattr(m, n) for m, n in flags] == [False, False, True]
 
 
 def test_conv1d_has_no_quiet_fallback(no_card, tmp_path, monkeypatch):
@@ -277,3 +322,30 @@ def test_tokenizer_copy_matches_jax_package():
     for text in texts:
         assert mine.encode(text) == theirs.encode(text), text
         assert mine.decode(mine.encode(text)) == text
+
+
+def test_server_copies_match_jax_package():
+    """The server's copied pieces: the UI page byte for byte, the latency
+    and RTF buckets, ``coerce_speed``'s thresholds, and the ``BatchConfig``
+    and ``ServerConfig`` defaults."""
+    pytest.importorskip("jax")
+    pytest.importorskip("aiohttp")
+    from rwkv_tts_tpu import config as JC
+    from rwkv_tts_tpu.server import app as JA
+    from rwkv_tts_tpu.utils import metrics as JM
+
+    from rwkv_tts_tpu_torch import config as PC
+    from rwkv_tts_tpu_torch.server import app as PA
+    from rwkv_tts_tpu_torch.utils import metrics as PM
+    page = "server/static/index.html"
+    assert (ROOT / "rwkv_tts_tpu_torch" / page).read_bytes() == \
+        (ROOT / "rwkv_tts_tpu" / page).read_bytes()
+    assert PA.STATIC_DIR != JA.STATIC_DIR
+    assert PM.LATENCY_BUCKETS == JM.LATENCY_BUCKETS
+    assert PM.RTF_BUCKETS == JM.RTF_BUCKETS
+    for x in [None, "slow", "nope"] + [round(2.0 + 0.01 * i, 2)
+                                       for i in range(400)]:
+        assert PA.coerce_speed(x) == JA.coerce_speed(x), x
+    for name in ("BatchConfig", "ServerConfig"):
+        assert dataclasses.asdict(getattr(PC, name)()) == \
+            dataclasses.asdict(getattr(JC, name)()), name

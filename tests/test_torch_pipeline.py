@@ -99,8 +99,18 @@ def test_save_audio_writes_the_jax_wav_bytes(tmp_path):
     path = tmp_path / "out.wav"
     TtsPipeline.save_audio(res, str(path))
     assert path.read_bytes() == encode_wav_16bit(audio, 16000)
-    with pytest.raises(NotImplementedError):
-        TtsPipeline.save_audio(res, str(tmp_path / "out.mp3"))
+    # MP3 by the suffix, as the JAX pipeline writes it (where no encoder
+    # loads, both raise the same error)
+    from rwkv_tts_tpu.audio.io import encode_mp3
+    mp3 = tmp_path / "out.mp3"
+    try:
+        want = encode_mp3(audio, 16000)
+    except Exception as e:  # noqa: BLE001: compared below
+        with pytest.raises(type(e), match=str(e)):
+            TtsPipeline.save_audio(res, str(mp3))
+    else:
+        TtsPipeline.save_audio(res, str(mp3))
+        assert mp3.read_bytes() == want
 
 
 def test_voice_chain_rungs(pipe, caplog):
@@ -145,3 +155,65 @@ def test_chip_smoke_main_path_at_tiny_shapes():
     # 32 global steps, TAG_1, and semantic steps until the block check
     # finds every slot done
     assert out["counters"]["decode_steps"] == 32 + 1 + 8
+
+
+def warm_pipe(jax_weights, **kw):
+    lm, bc = jax_weights
+    return TtsPipeline(bridge.rwkv7_params(lm, "cpu"), LM_CFG,
+                       bridge.bicodec_params(bc, "cpu"), BiCodecConfig.tiny(),
+                       engine_cfg=EngineConfig(prefill_buckets=(16, 32),
+                                               max_semantic_tokens=8,
+                                               batch_size=2),
+                       device="cpu", **kw)
+
+
+def warm_labels(pipe, detok_buckets):
+    """The labels of the JAX pipeline's warmup (``_warmup_pipeline``) for
+    this pipeline's engine configuration, outside tensor parallelism."""
+    from rwkv_tts_tpu_torch.runtime.streaming import StreamingVocoder
+
+    ecfg = pipe.engine.engine_cfg
+    assert ecfg.batch_size == 2
+    labels = {f"lm_{m}_{T}_b{B}" for B in (1, 2)     # {1} ∪ {batch_size}
+              for T in ecfg.prefill_buckets[:2] for m in ("normal", "zs")}
+    labels |= {f"prefill_{ecfg.prefill_buckets[-1]}", "global_stage",
+               "semantic_normal", "semantic_zs"}
+    labels |= {f"detokenize_{S}" for S in detok_buckets}
+    for mode in ("exact", "low", "ultra", "flash"):
+        sv = StreamingVocoder(pipe.bicodec_params, pipe.bicodec_cfg,
+                              [0] * 32, latency_mode=mode)
+        labels |= {f"stream_{mode}_{W}"
+                   for W in (sv.window_bucket, sv.flush_bucket)}
+    if pipe.cached_speaker_default:
+        labels.add("speaker_cache")
+    return labels
+
+
+def test_warmup_runs_every_serving_shape(jax_weights):
+    """``warmup`` runs the JAX warmup's steps under its labels: the batch
+    ladder {1, 2, …} ∪ {batch_size} over the first two prefill buckets in
+    both modes, a long prompt's chunked prefill and stages, the speaker
+    cache when it is the default, the detokenize buckets and both windows
+    of every streaming mode; each step's wall seconds."""
+    pipe = warm_pipe(jax_weights, cached_speaker_default=True)
+    times = pipe.warmup(detok_buckets=(64,))
+    assert set(times) == warm_labels(pipe, (64,))
+    assert all(isinstance(v, float) and v >= 0 for v in times.values())
+    # the cached-speaker entries for seed 0 and for no seed are in place
+    assert len(pipe._speaker_cache) == 2
+
+
+def test_warmup_budget_skips_and_lists(jax_weights):
+    """An exhausted ``budget_s`` skips the remaining steps and lists them
+    under "skipped" (the staged chain under one label), never errors; an
+    unbounded warmup on the same pipeline skips nothing."""
+    pipe = warm_pipe(jax_weights)
+    times = pipe.warmup(detok_buckets=(64,), budget_s=0.0)
+    skipped = times.pop("skipped")
+    assert skipped and not set(skipped) & set(times)
+    staged = {"prefill_32", "global_stage", "semantic_normal",
+              "semantic_zs"}
+    want = warm_labels(pipe, (64,))
+    assert set(times) | set(skipped) == \
+        (want - staged) | {"staged_long_prompt"}
+    assert "skipped" not in pipe.warmup(detok_buckets=(64,), budget_s=1e9)
