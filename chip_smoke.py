@@ -9,10 +9,10 @@ Run from the root of a checkout on a machine with one CUDA card:
 Without ``--phases`` every phase runs and the last line is the ok line.
 With it, the build runs and then only the named phases (``PHASES``: kernels,
 quant_kernels, conv_kernels, rest_kernels, sweep, tools, goldens,
-main_path, cloning, quantized, streaming, server), and the last line is
-``{"partial": [...]}``: a partial run never prints the ok line, and the
-all-kernels check of the kernels line runs only in a whole run. An unknown
-name fails.
+main_path, cloning, quantized, streaming, server, checkpoint), and the last
+line is ``{"partial": [...]}``: a partial run never prints the ok line, and
+the all-kernels check of the kernels line runs only in a whole run. An
+unknown name fails.
 
 Phases, each fatal on failure:
 
@@ -185,7 +185,28 @@ Phases, each fatal on failure:
              ``save_audio`` where libmp3lame and libmpg123 load;
              ``/debug/trace`` after the requests; ``wkv7_decode``,
              ``wkv7_prefill``, ``conv1d`` and ``conv1d_prologue``
-             launched, as the ``server`` path.
+             launched, as the ``server`` path;
+  checkpoint  the port's server started on model files: in a temporary
+             directory, the main path's seeded LM (32 × 2048, bf16
+             matrices, f32 vectors, V = 77923) as webrwkv.safetensors in
+             BlinkDL's names, a seeded full-size BiCodec
+             (``tests/torch_bicodec_ref.py``) as BiCodec.safetensors plus
+             BiCodecTokenize.onnx and BiCodecDetokenize.onnx with the
+             reference's input and output names, and a 24 × 1024 wav2vec2
+             as wav2vec2-large-xlsr-53.onnx only (layer mix baked in);
+             ``build_pipeline_from_args`` with ``--model-path`` and
+             ``--quant-type int8``; the loaded LM equal to the written
+             parameters bit for bit before and after
+             ``quantize_rwkv_params``; the BiCodec cross-validation passed
+             on the card (native import served; decode error and token
+             match printed); ``OnnxWav2Vec2.extract`` within 1e-4 of the
+             in-memory extractor; over HTTP ``/healthz``, 2 property
+             requests, a flash stream and a voice extracted through the
+             graph then used, at most 32 semantic tokens a request; one
+             64-latent window through the BiCodecDetokenize graph against
+             the native decode (5e-3), both timed; every load step timed;
+             ``wkv7_decode`` and ``wkv7_prefill`` launched, as the
+             ``checkpoint`` path.
 
 Prints the card's name and power limit early, a ``{"kernels": [...]}``
 line second to last (one entry per C entry point, ``replaces`` the list
@@ -201,6 +222,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -649,16 +671,23 @@ def check_gemm(torch, Q, name, M, K, N, gen, wq=None, ws=None,
 
 def kernel_names(torch, fn):
     """The CUDA kernels one call of ``fn`` launches, by torch.profiler, in
-    order."""
+    order. The profiler now and then loses every event of a window: a
+    window that saw no kernel at all is measured again, up to 3 times (as
+    ``kernel_ms`` does), and an empty list is returned only if each did."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events()
-            if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    names = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if str(getattr(e, "device_type", "")).endswith("CUDA")]
+        if names:
+            break
+    return names
 
 
 # the GEMMs' M sweeps at ffn_k's 2048 x 8192: each regime where it is
@@ -3312,6 +3341,564 @@ def server(torch, lm_cfg, bc_cfg, w2v_cfg, device: str, engine_cfg=None,
     return out
 
 
+# --------------------------------------------------------------------------
+# checkpoint: the server started on model files
+# --------------------------------------------------------------------------
+
+_ST_NAMES = {"float32": "F32", "bfloat16": "BF16", "float16": "F16",
+             "int64": "I64", "int32": "I32", "uint8": "U8"}
+
+
+def write_safetensors(torch, path: str, tensors) -> None:
+    """name → tensor (f32, bf16, f16 or an integer type, on any device) →
+    one .safetensors file, written one tensor at a time (one host copy at a
+    time)."""
+    import struct
+
+    header, off = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": _ST_NAMES[str(t.dtype).split(".")[-1]],
+                        "shape": list(t.shape), "data_offsets": [off, off + n]}
+        off += n
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)          # every tensor 8-byte aligned
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)) + head)
+        for t in tensors.values():
+            x = t.detach().contiguous().cpu()
+            if x.dtype == torch.bfloat16:
+                x = x.view(torch.int16)
+            f.write(x.numpy().tobytes())
+
+
+def canonical_lm(params, cfg):
+    """Zero, in place, what a checkpoint file cannot carry: the padded
+    vocabulary rows of ``emb`` and columns of ``head``, and layer 0's
+    v-lora, which BlinkDL's files omit (layer 0 takes the v_first branch and
+    never reads it; the loader fills zeros)."""
+    V = cfg.vocab_size
+    params["emb"][V:] = 0
+    params["head"][:, V:] = 0
+    for k in ("v0", "v1", "v2"):
+        params["blocks"][k][0] = 0
+    return params
+
+
+def webrwkv_tensors(params, cfg):
+    """A ``models/rwkv7`` tree under BlinkDL's RWKV-7 names and layouts (the
+    inverse of ``convert.load_rwkv7``'s mapping): torch Linear weights
+    [out, in], loras [C, D] and [D, C], mix vectors [1, 1, C], r_k [H, N];
+    no v-lora at layer 0. Views of the tree, in its dtypes."""
+    V, b = cfg.vocab_size, params["blocks"]
+    t = {"emb.weight": params["emb"][:V],
+         "head.weight": params["head"][:, :V].T,
+         "ln_out.weight": params["ln_out_w"],
+         "ln_out.bias": params["ln_out_b"],
+         "blocks.0.ln0.weight": params["ln0_w"],
+         "blocks.0.ln0.bias": params["ln0_b"]}
+    for i in range(cfg.n_layer):
+        p = f"blocks.{i}."
+        for nm in ("ln1", "ln2"):
+            t[p + f"{nm}.weight"] = b[f"{nm}_w"][i]
+            t[p + f"{nm}.bias"] = b[f"{nm}_b"][i]
+        for nm in ("x_r", "x_w", "x_k", "x_v", "x_a", "x_g", "w0", "a0",
+                   "k_k", "k_a") + (("v0",) if i else ()):
+            t[p + f"att.{nm}"] = b[nm][i].reshape(1, 1, -1)
+        for nm, k in (("receptance", "w_r"), ("key", "w_k"),
+                      ("value", "w_v"), ("output", "w_o")):
+            t[p + f"att.{nm}.weight"] = b[k][i].T
+        for nm in ("w1", "w2", "a1", "a2", "g1", "g2") + (
+                ("v1", "v2") if i else ()):
+            t[p + f"att.{nm}"] = b[nm][i]
+        t[p + "att.r_k"] = b["r_k"][i]
+        t[p + "att.ln_x.weight"] = b["ln_x_w"][i]
+        t[p + "att.ln_x.bias"] = b["ln_x_b"][i]
+        t[p + "ffn.x_k"] = b["ffn_x_k"][i].reshape(1, 1, -1)
+        t[p + "ffn.key.weight"] = b["ffn_k"][i].T
+        t[p + "ffn.value.weight"] = b["ffn_v"][i].T
+    return t
+
+
+def onnx_export(torch, module, args, path: str, **kw) -> None:
+    """``torch.onnx.export`` of ``module`` in eval mode through the
+    TorchScript exporter, opset 17, offline: its last step re-serializes
+    through the ``onnx`` package only to inline custom onnxscript functions
+    (none here), and that package is not installed, so the step is made a
+    no-op."""
+    import importlib
+
+    for name in ("torch.onnx._internal.torchscript_exporter.onnx_proto_utils",
+                 "torch.onnx._internal.onnx_proto_utils"):
+        try:
+            mod = importlib.import_module(name)
+        except ImportError:
+            continue
+        if hasattr(mod, "_add_onnxscript_fn"):
+            mod._add_onnxscript_fn = lambda model_bytes, custom_opsets: \
+                model_bytes
+    module.eval()
+    with torch.no_grad():
+        torch.onnx.export(module, args, path, opset_version=17, dynamo=False,
+                          **kw)
+    # the exporter restores the mode it found, recursively: keep every
+    # submodule in eval mode (a wrapper built in training mode would put a
+    # wrapped model back into it)
+    module.eval()
+
+
+def bicodec_files(torch, d: str, cfg, seed: int):
+    """A seeded torch BiCodec (``tests/torch_bicodec_ref.py``, the public
+    SparkTTS module tree, batch-norm statistics drawn too) written into
+    ``d`` as ``BiCodec.safetensors`` (its state dict, weight norm unfolded)
+    and as the reference's two exports with their input and output names
+    (ref_audio_utilities.rs:1109-1296). Returns the module (CPU, eval)."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    from torch_bicodec_ref import TorchBiCodec
+
+    nn = torch.nn
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        m = TorchBiCodec(cfg)
+        with torch.no_grad():
+            for mod in m.modules():
+                if isinstance(mod, nn.BatchNorm1d):
+                    mod.running_mean.normal_(0, 0.1)
+                    mod.running_var.uniform_(0.5, 1.5)
+        mel = torch.randn(1, cfg.mel_bins, cfg.ref_mel_frames)
+        feat = torch.randn(1, 30, cfg.feat_dim)
+        g = torch.randint(0, cfg.global_codebook, (1, 1, 32))
+        s = torch.randint(0, cfg.semantic_codebook, (1, 24))
+    m.eval()
+    write_safetensors(torch, os.path.join(d, "BiCodec.safetensors"),
+                      m.state_dict())
+
+    class Tokenize(nn.Module):
+        """(ref_wav_mel [1, 128, 301], feat [1, T, 1024]) →
+        (semantic_tokens [1, L], global_tokens [1, 1, 32])."""
+
+        def __init__(self):
+            super().__init__()
+            self.m = m
+
+        def forward(self, ref_wav_mel, feat):
+            sem, glob = self.m.tokenize(feat, ref_wav_mel)
+            return sem, glob.unsqueeze(1)
+
+    class Detokenize(nn.Module):
+        """(global_tokens [1, 1, 32], semantic_tokens [1, S]) → wav_rec."""
+
+        def __init__(self):
+            super().__init__()
+            self.m = m
+
+        def forward(self, global_tokens, semantic_tokens):
+            return self.m.detokenize(semantic_tokens,
+                                     global_tokens.squeeze(1))
+
+    onnx_export(torch, Tokenize(), (mel, feat),
+                os.path.join(d, "BiCodecTokenize.onnx"),
+                input_names=["ref_wav_mel", "feat"],
+                output_names=["semantic_tokens", "global_tokens"],
+                dynamic_axes={"feat": {1: "T"}, "ref_wav_mel": {2: "F"},
+                              "semantic_tokens": {1: "L"}})
+    onnx_export(torch, Detokenize(), (g, s),
+                os.path.join(d, "BiCodecDetokenize.onnx"),
+                input_names=["global_tokens", "semantic_tokens"],
+                output_names=["wav_rec"],
+                dynamic_axes={"semantic_tokens": {1: "S"},
+                              "wav_rec": {1: "N"}})
+    return m
+
+
+def wav2vec2_file(torch, path: str, params, cfg, layers) -> None:
+    """The port's wav2vec2 extractor over ``params`` (CPU) exported as the
+    reference's ``wav2vec2-large-xlsr-53.onnx`` is: [1, N] z-normalized
+    waveform → [1, T, hidden], the mean of hidden states ``layers`` baked
+    into the graph."""
+    from rwkv_tts_tpu_torch.models import wav2vec2
+
+    # the layers past the last mixed one never reach the output: leave
+    # their weights out of the export (the exporter's shape inference pass
+    # takes time in proportion to the weights it is given)
+    last = min(max(layers), cfg.num_layers)
+    params = {**params, "layers": {k: v[:last]
+                                   for k, v in params["layers"].items()}}
+    leaves = []
+
+    def flatten(node):
+        if isinstance(node, dict):
+            return {k: flatten(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [flatten(v) for v in node]
+        leaves.append(node)
+        return len(leaves) - 1
+
+    shape = flatten(params)
+
+    class Extractor(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            for i, t in enumerate(leaves):
+                self.register_buffer(f"w{i}", t)
+
+        def tree(self, node):
+            if isinstance(node, dict):
+                return {k: self.tree(v) for k, v in node.items()}
+            if isinstance(node, list):
+                return [self.tree(v) for v in node]
+            return getattr(self, f"w{node}")
+
+        def forward(self, wav):
+            return wav2vec2.extract_features(self.tree(shape), wav, cfg,
+                                             output_layers=layers,
+                                             device="cpu")
+
+    onnx_export(torch, Extractor(), (torch.zeros(1, 8000),), path,
+                input_names=["input"], output_names=["output"],
+                dynamic_axes={"input": {1: "N"}, "output": {1: "T"}})
+
+
+class LogRecords:
+    """Collects the port's log records (INFO and up) while it is open: the
+    loaders report their timings and the codec cross-validation there."""
+
+    def __init__(self):
+        self.records = []
+        self.handler = logging.Handler(logging.INFO)
+        self.handler.emit = self.records.append
+        self.logger = logging.getLogger("rwkv_tts_tpu_torch")
+
+    def __enter__(self):
+        self.level = self.logger.level
+        self.logger.setLevel(logging.INFO)
+        self.logger.addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+        self.logger.setLevel(self.level)
+
+    def args_of(self, prefix: str):
+        """The arguments of the first record whose message starts with
+        ``prefix``, or None."""
+        for r in self.records:
+            if r.msg.startswith(prefix):
+                return r.args
+        return None
+
+
+CHECKPOINT_TEXT = "The server loads its model from files on disk."
+
+
+def tree_to(tree, device):
+    """A tree of dicts and lists of tensors, copied to ``device``."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def checkpoint(torch, lm_cfg, bc_cfg, w2v_cfg, device: str,
+               max_tokens: int = 32, w2v_layers=None):
+    """The ``checkpoint`` phase on ``device``: model files written into a
+    temporary directory (the seeded LM of the main path as
+    webrwkv.safetensors in BlinkDL's names, a seeded BiCodec as a state
+    dict and its two exports, a wav2vec2 export only), the port's server
+    started on them through its own startup path
+    (``build_pipeline_from_args`` with ``--model-path`` and
+    ``--quant-type int8``), the loaded LM held against the in-memory
+    parameters bit for bit, the codec resolution and cross-validation, the
+    transpiled wav2vec2 against the in-memory extractor, requests over
+    HTTP, and one vocoder window through the BiCodec graph against the
+    native decode. ``w2v_layers`` is the layer mix baked into the export
+    (the published (11, 14, 16) by default); the loader serves the graph.
+    Returns a summary."""
+    import base64
+    import shutil
+    import tempfile
+    import threading
+
+    import numpy as np
+
+    from rwkv_tts_tpu_torch.audio.io import encode_wav_16bit, read_wav
+    from rwkv_tts_tpu_torch.config import BatchConfig
+    from rwkv_tts_tpu_torch.models import bicodec, convert, rwkv7, wav2vec2
+    from rwkv_tts_tpu_torch.ops.quant import quantize_rwkv_params
+    from rwkv_tts_tpu_torch.server import app as A
+
+    layers = tuple(w2v_layers or wav2vec2.OUTPUT_LAYERS)
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_checkpoint_")
+    model_dir = os.path.join(tmp, "model")
+    os.makedirs(model_dir)
+    out, times = {"times_s": {}}, {}
+    servers = []
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    try:
+        # 1. the model files
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=device)
+        gen.manual_seed(SEED)                # the main path's LM
+        lm = canonical_lm(rwkv7.init_params(lm_cfg, gen, device), lm_cfg)
+        lm_path = os.path.join(model_dir, "webrwkv.safetensors")
+        write_safetensors(torch, lm_path, webrwkv_tensors(lm, lm_cfg))
+        times["write LM"] = time.perf_counter() - t0
+        out["lm_file_bytes"] = os.path.getsize(lm_path)
+        t0 = time.perf_counter()
+        torch_bc = bicodec_files(torch, model_dir, bc_cfg, SEED + 11)
+        times["write BiCodec state dict and 2 exports"] = \
+            time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu_gen = torch.Generator().manual_seed(SEED + 12)
+        w2v_cpu = wav2vec2.init_params(w2v_cfg, cpu_gen, "cpu")
+        w2v_path = os.path.join(model_dir, "wav2vec2-large-xlsr-53.onnx")
+        wav2vec2_file(torch, w2v_path, w2v_cpu, w2v_cfg, layers)
+        times["write wav2vec2 export"] = time.perf_counter() - t0
+        out["file_bytes"] = {f: os.path.getsize(os.path.join(model_dir, f))
+                             for f in sorted(os.listdir(model_dir))}
+
+        # 2. the server's own startup path on those files
+        argv = ["--model-path", model_dir, "--quant-type", "int8",
+                "--raf-dir", os.path.join(tmp, "raf"), "--no-download"]
+        t0 = time.perf_counter()
+        with LogRecords() as logs:
+            pipe = A.build_pipeline_from_args(A.parse_args(argv))
+            sync()
+        times["build_pipeline_from_args"] = time.perf_counter() - t0
+        for key, prefix, idx in (
+                ("LM read, map, to device", "LM %s", 4),
+                ("quantize int8", "LM quantized", 2),
+                ("BiCodec state dict import", "BiCodec: native import", 1),
+                ("BiCodec graphs parse and place", "BiCodec: ONNX graphs", 1),
+                ("BiCodec cross-validation", "BiCodec: cross-validation", 0),
+                ("wav2vec2 graph parse and place", "wav2vec2: ONNX graph", 0),
+                ("codec resolve in all", "codecs from", 1)):
+            a = logs.args_of(prefix)
+            times[key] = float(a[idx]) if a else None
+        if device == "cuda" and None in times.values():
+            fail(f"checkpoint: a load step left no timing: {times}")
+        err = logs.args_of("BiCodec decode native-vs-ONNX")
+        match = logs.args_of("BiCodec encode native-vs-ONNX")
+        out["parity"] = {"decode_max_abs": err and float(err[0]),
+                         "semantic_match": match and float(match[0]) / 100,
+                         "global_match": match and float(match[1]) / 100}
+        if not isinstance(pipe.bicodec_params, dict) or \
+                logs.args_of("BiCodec: native import matches") is None:
+            fail(f"checkpoint: the BiCodec cross-validation did not admit "
+                 f"the native import: {out['parity']}")
+        if not isinstance(pipe.w2v_params, wav2vec2.OnnxWav2Vec2):
+            fail(f"checkpoint: wav2vec2 is served by "
+                 f"{type(pipe.w2v_params).__name__}, not the ONNX graph")
+        cfg = pipe.engine.cfg
+        if (cfg.n_layer, cfg.n_embd, cfg.vocab_size) != (
+                lm_cfg.n_layer, lm_cfg.n_embd, lm_cfg.vocab_size):
+            fail(f"checkpoint: loaded config {cfg}, written {lm_cfg}")
+
+        # 3. the loaded LM is the written one, bit for bit, before and
+        # after quantize_rwkv_params (the padded vocabulary cut to the
+        # loader's padding: zero past V on both sides)
+        PV = cfg.padded_vocab_size
+        ref = {**lm, "emb": lm["emb"][:PV], "head": lm["head"][:, :PV]}
+        t0 = time.perf_counter()
+        loaded, _ = convert.load_rwkv7(lm_path, device=device)
+        times["LM load for the bit check"] = time.perf_counter() - t0
+
+        def same(a, b, path=""):
+            if isinstance(b, dict):
+                return sorted(a) == sorted(b) and all(
+                    same(a[k], b[k], f"{path}.{k}") for k in b)
+            if isinstance(b, (tuple, list)):
+                return len(a) == len(b) and all(
+                    same(x, y, f"{path}[{i}]")
+                    for i, (x, y) in enumerate(zip(a, b)))
+            ok = a.dtype == b.dtype and a.shape == b.shape and \
+                bool(torch.equal(a, b))
+            if not ok:
+                out.setdefault("differs", []).append(path)
+            return ok
+
+        out["lm_equal"] = same(loaded, ref)
+        out["lm_int8_equal"] = same(pipe.engine.params, quantize_rwkv_params(
+            ref, kind="int8"))
+        if not (out["lm_equal"] and out["lm_int8_equal"]):
+            fail(f"checkpoint: the loaded LM differs from the written "
+                 f"parameters at {out.get('differs')}")
+        del loaded, ref, lm
+
+        # 4. the transpiled wav2vec2 against the in-memory extractor
+        rng = np.random.default_rng(SEED + 13)
+        z = rng.standard_normal((1, 16000)).astype(np.float32)
+        w2v_mem = tree_to(w2v_cpu, device)
+        want = wav2vec2.extract_features(w2v_mem, z, w2v_cfg,
+                                         output_layers=layers, device=device)
+        got = pipe.w2v_params.extract(z)
+        out["w2v_rel_err"] = rel_err(torch, got, want)
+        out["w2v_shape"] = tuple(got.shape)
+        if got.shape != want.shape or out["w2v_rel_err"] > 1e-4:
+            fail(f"checkpoint: OnnxWav2Vec2.extract {tuple(got.shape)} "
+                 f"differs from the in-memory extractor "
+                 f"{tuple(want.shape)} by {out['w2v_rel_err']:.3g} "
+                 f"(tolerance 1e-4 of the largest value)")
+        del w2v_mem, want, got
+
+        # 5. over HTTP, through the continuous engine and the kernels
+        pipe.engine.engine_cfg = dataclasses.replace(
+            pipe.engine.engine_cfg, max_semantic_tokens=max_tokens)
+        batch_cfg = BatchConfig(max_batch_size=4, collect_timeout_ms=20,
+                                inference_timeout_ms=900000)
+        app = A.create_app(pipe, batch_cfg, stream_block=16)
+        srv = A.make_server(app, "127.0.0.1", 0)
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        servers.append((srv, app))
+        port = srv.server_address[1]
+        reset_launch_counts()
+
+        def wav_of(status, body, what):
+            if status != 200:
+                fail(f"checkpoint: {what}: status {status}: {body[:300]!r}")
+            j = json.loads(body)
+            wav, sr, ch = read_wav(base64.b64decode(j["audio_base64"]))
+            if sr != 16000 or ch != 1 or not len(wav) or len(wav) % 320 or \
+                    not np.all(np.isfinite(wav)):
+                fail(f"checkpoint: {what}: WAV of {len(wav)} samples at "
+                     f"{sr} Hz, {ch} channels")
+            return j, wav
+
+        status, _, body = http_call(port, "GET", "/healthz")
+        hz = json.loads(body)
+        if status != 200 or hz["model"]["n_layer"] != lm_cfg.n_layer or \
+                hz["model"]["n_embd"] != lm_cfg.n_embd:
+            fail(f"checkpoint: /healthz {status} {hz}")
+        out["healthz"] = hz["model"]
+        out["requests"] = []
+
+        def tts(payload, what):
+            t0 = time.perf_counter()
+            st, _, b = http_call(port, "POST", "/api/tts", payload)
+            j, wav = wav_of(st, b, what)
+            out["requests"].append({
+                "what": what, "samples": len(wav), "rtf": j["rtf"],
+                "wall_ms": (time.perf_counter() - t0) * 1e3})
+
+        for i in range(2):
+            tts(dict(text=TEXTS[i], seed=600 + i,
+                     gender=("female", "male")[i], emotion="HAPPY"),
+                f"property {i}")
+        st, lines, first_ms, total_ms = http_stream(
+            port, dict(text=CHECKPOINT_TEXT, seed=610, latency_mode="flash"))
+        if st != 200 or not lines or "error" in lines[-1] or \
+                not lines[-1]["final"]:
+            fail(f"checkpoint: flash stream: status {st}, last line "
+                 f"{lines[-1] if lines else None}")
+        out["stream"] = {"lines": len(lines), "first_line_ms": first_ms,
+                         "total_ms": total_ms,
+                         "samples": sum(len(base64.b64decode(
+                             ln["audio_base64"])) for ln in lines) // 2}
+        clip = encode_wav_16bit(reference_clip(SEED + 14, 16000, 4.0), 16000)
+        body, ctype = multipart_body({
+            "voice_name": "checkpoint voice", "prompt_text": "a seeded clip",
+            "audio_file": ("ref.wav", clip)})
+        t0 = time.perf_counter()
+        st, _, b = http_call(port, "POST", "/api/voice-clone/extract", body,
+                             {"Content-Type": ctype})
+        j = json.loads(b)
+        if st != 200 or not j.get("success"):
+            fail(f"checkpoint: extract: {st} {j}")
+        out["extract_ms"] = (time.perf_counter() - t0) * 1e3
+        tts({"text": TEXTS[2], "voice_id": j["voice_id"]}, "by voice_id")
+        sync()
+        out["launches"] = launch_counts()
+        if device == "cuda":
+            zero = [k for k in ("wkv7_decode", "wkv7_prefill")
+                    if not out["launches"][k]]
+            if zero:
+                fail(f"checkpoint: kernels not launched by the requests: "
+                     f"{zero} ({out['launches']})")
+
+        # 6. one vocoder window through the BiCodec graph on the device
+        # against the native decode of the same tokens
+        graphs = bicodec.OnnxBiCodec(
+            os.path.join(model_dir, "BiCodecTokenize.onnx"),
+            os.path.join(model_dir, "BiCodecDetokenize.onnx"), device=device)
+        rng = np.random.default_rng(SEED + 15)
+        g = torch.from_numpy(rng.integers(0, 4096, (1, 32))).to(device)
+        s = torch.from_numpy(rng.integers(
+            0, bc_cfg.semantic_codebook, (1, 64))).to(device)
+        native = pipe.bicodec_params
+        w_onnx = graphs.decode(g, s)
+        w_nat = bicodec.decode(native, g, s, pipe.bicodec_cfg)
+        out["window"] = {
+            "latents": 64, "samples": int(w_onnx.shape[-1]),
+            "max_abs": float((w_onnx - w_nat.reshape(w_onnx.shape)).abs()
+                             .max()),
+            "onnx_ms": cuda_ms(torch, lambda: graphs.decode(g, s), 3, 1)
+            if device == "cuda" else None,
+            "native_ms": cuda_ms(torch, lambda: bicodec.decode(
+                native, g, s, pipe.bicodec_cfg), 3, 1)
+            if device == "cuda" else None}
+        if out["window"]["max_abs"] >= 5e-3:
+            fail(f"checkpoint: the BiCodec graph's window differs from the "
+                 f"native decode by {out['window']['max_abs']:.3g} "
+                 f"(tolerance 5e-3, the load gate's)")
+        with torch.no_grad():
+            ref_wav = torch_bc.detokenize(s.cpu(), g.cpu())
+        out["window"]["torch_max_abs"] = float(
+            (w_onnx.cpu() - ref_wav.reshape(w_onnx.shape)).abs().max())
+    finally:
+        for srv, app in servers:
+            srv.shutdown()
+            srv.server_close()
+            app.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["times_s"] = times
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def checkpoint_lines(ck, lm_cfg, card: str):
+    """The ``checkpoint`` phase's report lines from its summary."""
+    def ms(x):
+        return "not measured" if x is None else f"{x:.2f} ms"
+
+    p, w, s = ck["parity"], ck["window"], ck["stream"]
+    return [
+        f"checkpoint: model files written ({lm_cfg.n_layer} layers x "
+        f"{lm_cfg.n_embd}, V = {lm_cfg.vocab_size}; BiCodec state dict and 2 "
+        f"exports; wav2vec2 export only), bytes {ck['file_bytes']}; the "
+        f"server started on them with --quant-type int8 "
+        f"(build_pipeline_from_args); phase wall {ck['wall_s']:.1f} s; times "
+        f"(s) " + ", ".join(f"{k} {v:.2f}" for k, v in ck["times_s"].items()
+                            if v is not None) + f"; {card}",
+        f"checkpoint: loaded LM equals the written parameters bit for bit: "
+        f"{ck['lm_equal']}, after quantize_rwkv_params int8: "
+        f"{ck['lm_int8_equal']}; BiCodec cross-validation admitted the native "
+        f"import: decode max abs err {p['decode_max_abs']:.3g} (gate 5e-3), "
+        f"token match semantic {100 * p['semantic_match']:.1f}% global "
+        f"{100 * p['global_match']:.1f}% (gate 90%); OnnxWav2Vec2 "
+        f"{ck['w2v_shape']} against the in-memory extractor: "
+        f"{ck['w2v_rel_err']:.3g} of the largest value (tolerance 1e-4)",
+        f"checkpoint: /healthz {ck['healthz']}; " + "; ".join(
+            f"/api/tts {r['what']}: {r['samples']} samples, wall "
+            f"{r['wall_ms']:.1f} ms, RTF {r['rtf']:.4f}"
+            for r in ck["requests"]) + f"; flash stream {s['lines']} lines, "
+        f"{s['samples']} samples, first chunk over HTTP "
+        f"{s['first_line_ms']:.1f} ms, whole {s['total_ms']:.1f} ms; voice "
+        f"extracted through OnnxWav2Vec2 in {ck['extract_ms']:.1f} ms; "
+        f"launches {ck['launches']}; {card}",
+        f"checkpoint: one {w['latents']}-latent window ({w['samples']} "
+        f"samples) through the BiCodecDetokenize graph: {ms(w['onnx_ms'])}, "
+        f"native decode {ms(w['native_ms'])}, max abs diff "
+        f"{w['max_abs']:.3g} (tolerance 5e-3); the graph against the torch "
+        f"reference module on the CPU {w['torch_max_abs']:.3g}; {card}"]
+
+
 # every function of the JAX package that reaches pl.pallas_call (the
 # table in PERF.md), by file:line of its definition
 TPU_FUNCTIONS = (
@@ -3356,7 +3943,7 @@ KERNEL_ENTRIES = {
 
 PHASES = ("kernels", "quant_kernels", "conv_kernels", "rest_kernels",
           "sweep", "tools", "goldens", "main_path", "cloning", "quantized",
-          "streaming", "server")
+          "streaming", "server", "checkpoint")
 
 
 def parse_phases(argv):
@@ -3666,6 +4253,13 @@ def main(argv=None) -> None:
               f"products depend on the batch); {sv['mp3']}; launches "
               f"{sv['launches']}", flush=True)
         paths["server"] = sv["launches"]
+
+    if "checkpoint" in selected:
+        torch.cuda.empty_cache()
+        ck = checkpoint(torch, lm_cfg, bc_cfg, Wav2Vec2Config(), "cuda")
+        for line in checkpoint_lines(ck, lm_cfg, card):
+            print(line, flush=True)
+        paths["checkpoint"] = ck["launches"]
 
     if phases is not None:
         # a partial run proves no whole: it never prints the ok line

@@ -10,11 +10,12 @@ exposes the same pipeline without HTTP for batch/offline jobs:
   python -m rwkv_tts_tpu_torch.cli delete <voice_id>
   python -m rwkv_tts_tpu_torch.cli import-voices <src_dir> [--overwrite]
 
-``synth`` and ``extract`` build the pipeline by the server's rule: random
-weights at the dev widths when no checkpoint is on disk, and an error
-naming ROADMAP A3 when one is (checkpoint loading is not ported yet); they
-run on the CUDA card unless ``RWKV_TTS_PLATFORM=cpu`` selects the CPU. The
-library commands need no model.
+``synth`` and ``extract`` load ``--model-path`` when it exists (a
+webrwkv.safetensors file, a prefab, or a model directory; the codecs from
+the same directory, ``TtsPipeline.from_checkpoints``), and otherwise build
+random weights at the dev widths. Nothing is downloaded. They run on the
+CUDA card unless ``RWKV_TTS_PLATFORM=cpu`` selects the CPU. The library
+commands need no model.
 """
 
 from __future__ import annotations
@@ -29,11 +30,14 @@ from .config import TtsArgs
 
 
 def _build_pipeline(args):
+    from .runtime.pipeline import TtsPipeline
     from .server.app import build_dev_pipeline, device_from_env
     if os.path.exists(args.model_path):
-        raise NotImplementedError(
-            f"--model-path {args.model_path}: checkpoint loading is not "
-            "ported yet (ROADMAP A3)")
+        return TtsPipeline.from_checkpoints(
+            args.model_path, raf_dir=args.raf_dir,
+            quant_type=args.quant_type,
+            allow_random_codec=args.allow_random_codec,
+            device=device_from_env())
     logging.warning("checkpoint %s not found — random weights (dev mode)",
                     args.model_path)
     return build_dev_pipeline(args.raf_dir, device=device_from_env())
@@ -118,8 +122,8 @@ def main(argv=None) -> int:
                    default=SUP)
     g.add_argument("--allow-random-codec", action="store_true", default=SUP,
                    help="proceed with random codec weights when the real "
-                        "BiCodec/wav2vec2 files are missing (applies to a "
-                        "loaded checkpoint; ROADMAP A3)")
+                        "BiCodec/wav2vec2 files are missing (dev only: "
+                        "output is noise, not speech)")
     p = argparse.ArgumentParser("rwkv-tts-torch", parents=[g])
     # real defaults applied POST-parse (below): parents share action
     # objects, so set_defaults here would rewrite the shared SUPPRESS

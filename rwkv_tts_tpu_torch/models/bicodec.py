@@ -39,6 +39,12 @@ into those calls (``_wavegen_conv`` and ``_residual_unit_fused``, :458 and
 (``pack_params``, which ``prepare_params`` runs; ``decode`` refuses a tree
 without them), so no window packs one.
 ``utils.device.resolve_device`` keeps cuDNN out of TF32.
+
+``OnnxBiCodec`` (:776 there) encodes and decodes through the reference's
+own exported graphs (``models/onnx_graph``) instead; ``detokenize`` and the
+streaming vocoder take it in place of a parameter tree. ``ecapa_embedding``
+(:356) is the ECAPA-TDNN's x-vector head, which a loaded tree carries
+(``models/convert.load_bicodec_weights``) and neither path reads.
 """
 
 from __future__ import annotations
@@ -321,6 +327,24 @@ def ecapa_features(p, mel):
     return torch.relu(_conv1d(cat, p["mfa_w"], p["mfa_b"], padding=k // 2))
 
 
+def ecapa_embedding(p, latent):
+    """Attentive-statistics-pooling x-vector head of the ECAPA-TDNN over
+    its time features [B, C, T] → [B, out]. Kept for state-dict parity
+    (tokenize and detokenize do not read it); it reads the head leaves
+    ``att1_*``, ``att2_*``, ``bn`` and ``fc_*`` that a loaded tree carries
+    and ``init_params`` leaves out."""
+    mean = latent.mean(-1, keepdim=True)
+    std = torch.sqrt(latent.var(-1, keepdim=True, correction=0) + 1e-7)
+    ctx = torch.cat([latent, mean.expand_as(latent), std.expand_as(latent)],
+                    dim=1)
+    a = torch.tanh(_conv1d(ctx, p["att1_w"], p["att1_b"]))
+    a = torch.softmax(_conv1d(a, p["att2_w"], p["att2_b"]), dim=-1)
+    mu = (a * latent).sum(-1)
+    var = (a * latent ** 2).sum(-1) - mu ** 2
+    stats = torch.cat([mu, torch.sqrt(torch.clamp(var, min=1e-7))], dim=1)
+    return _bn1d(p["bn"], stats) @ p["fc_w"] + p["fc_b"]
+
+
 # --------------------------------------------------------------------------
 # perceiver resampler (32 learned latents over the ECAPA features)
 # --------------------------------------------------------------------------
@@ -572,7 +596,9 @@ def _cast_tree(x, dtype):
         return {k: _cast_tree(v, dtype) for k, v in x.items()}
     if isinstance(x, (list, tuple)):
         return type(x)(_cast_tree(v, dtype) for v in x)
-    if isinstance(x, PackedWeight):     # bf16 already, whatever the policy
+    if x is None or isinstance(x, PackedWeight):
+        # a convnext gamma the checkpoint omits; a packed weight is bf16
+        # already, whatever the policy
         return x
     return x.to(dtype) if x.dtype == torch.float32 else x
 
@@ -614,6 +640,55 @@ def prepare_params(params: Params, cfg: BiCodecConfig) -> Params:
     return pack_params(params, cfg)
 
 
+class OnnxBiCodec:
+    """Encode and decode through the reference's own exported graphs
+    (``BiCodecTokenize.onnx``, ``BiCodecDetokenize.onnx``), run by
+    ``models/onnx_graph`` on ``device``: the reference's codec by
+    construction. ``decode`` and ``detokenize`` accept it in place of a
+    parameter tree; either graph may be absent (None)."""
+
+    def __init__(self, tokenize_graph=None, detokenize_graph=None,
+                 device=None):
+        from .onnx_graph import OnnxGraph
+
+        self.device = resolve_device(device)
+
+        def load(g):
+            return OnnxGraph.load(g, self.device) if isinstance(g, str) else g
+        self.tok = load(tokenize_graph)
+        self.detok = load(detokenize_graph)
+
+    def _tensor(self, x, dtype):
+        if isinstance(x, np.ndarray):
+            x = torch.from_numpy(np.ascontiguousarray(x))
+        return x.to(self.device, dtype)
+
+    def encode(self, feat, mel) -> Tuple[torch.Tensor, torch.Tensor]:
+        """feat [B, T, 1024] f32, mel [B, 128, 301] f32 → (semantic
+        [B, T], global [B, 32]) tensors on the device."""
+        out = self.tok(ref_wav_mel=self._tensor(mel, torch.float32),
+                       feat=self._tensor(feat, torch.float32))
+        # outputs resolved by name (ref_audio_utilities.rs:1114-1256)
+        outs = out if isinstance(out, tuple) else (out,)
+        by = dict(zip(self.tok.output_names, outs))
+        sem = torch.as_tensor(by.get("semantic_tokens", outs[0]),
+                              device=self.device)
+        glob = torch.as_tensor(by.get("global_tokens", outs[-1]),
+                               device=self.device)
+        return sem, glob.reshape(sem.shape[0], -1)
+
+    def decode(self, global_tokens, semantic_tokens) -> torch.Tensor:
+        """global [B, 32] + semantic [B, S] → wav [B, W] f32 on the
+        device. The export's ``wav_rec`` rank is unconstrained (the C++
+        sibling flattens it, sparktts.cpp:267): some exports carry a size-1
+        channel axis that the callers' [:, :S·hop] slices must not see."""
+        g = self._tensor(global_tokens, torch.int64)[:, None, :]
+        s = self._tensor(semantic_tokens, torch.int64)
+        wav = self.detok(global_tokens=g, semantic_tokens=s)
+        return torch.as_tensor(wav, device=self.device).reshape(
+            s.shape[0], -1)
+
+
 def receptive_latents(cfg: BiCodecConfig) -> int:
     """Conservative one-sided receptive field of ``decode`` in latent frames
     (drives the bucket padding margin)."""
@@ -643,8 +718,13 @@ def detokenize(params: Params, global_tokens, semantic_tokens,
     """Host wrapper: edge-pads the semantic sequence (last token repeated)
     by at least the receptive field up to a bucket, decodes on the
     parameters' device, trims to S·320 samples → f32 numpy [B, S·320].
-    ``bucket`` is an int (fixed multiple) or a sequence of bucket sizes."""
-    dev = params["quantizer"]["codebook"].device
+    ``bucket`` is an int (fixed multiple) or a sequence of bucket sizes.
+    ``params`` may be an ``OnnxBiCodec``; ``cfg`` may then be None, and the
+    padding uses the published model's dimensions (``BiCodecConfig()``)."""
+    onnx = isinstance(params, OnnxBiCodec)
+    if cfg is None:
+        cfg = BiCodecConfig()
+    dev = params.device if onnx else params["quantizer"]["codebook"].device
     g = np.asarray(global_tokens, np.int64)
     if g.ndim == 1:
         g = g[None]
@@ -655,15 +735,16 @@ def detokenize(params: Params, global_tokens, semantic_tokens,
     if S == 0:
         return np.zeros((s.shape[0], 0), np.float32)
     # on the host, before any token reaches the device's gather
-    check_semantic_tokens(s, params["quantizer"]["codebook"].shape[0])
+    check_semantic_tokens(s, cfg.semantic_codebook if onnx
+                          else params["quantizer"]["codebook"].shape[0])
     need = S + receptive_latents(cfg)
     if isinstance(bucket, int):
         padded = need + ((-need) % bucket)
     else:
         padded = _detok_bucket(need, tuple(bucket))
     s_pad = np.pad(s, ((0, 0), (0, padded - S)), mode="edge")
-    wav = decode(params, torch.from_numpy(g).to(dev),
-                 torch.from_numpy(s_pad).to(dev), cfg)
+    g, s_pad = torch.from_numpy(g).to(dev), torch.from_numpy(s_pad).to(dev)
+    wav = params.decode(g, s_pad) if onnx else decode(params, g, s_pad, cfg)
     return wav[:, :S * cfg.hop].cpu().numpy().astype(np.float32)
 
 

@@ -1,6 +1,6 @@
 """wav2vec2-large-xlsr-53 feature encoder in PyTorch.
 
-Port of ``rwkv_tts_tpu/models/wav2vec2.py:36-169``. Contract: z-normalized
+Port of ``rwkv_tts_tpu/models/wav2vec2.py``. Contract: z-normalized
 waveform [B, N] → features [B, T, 1024], T ≈ N/320. The architecture
 (wav2vec2-large with stable layer norm):
 
@@ -15,7 +15,8 @@ waveform [B, N] → features [B, T, 1024], T ≈ N/320. The architecture
 
 All f32. The attention is plain ``torch`` matmul and softmax, as the JAX
 package computes it outside any kernel; the convolutions are ``F.conv1d``
-with TF32 off (``utils.device.resolve_device``).
+with TF32 off (``utils.device.resolve_device``). ``OnnxWav2Vec2`` runs the
+reference's exported graph instead, with the layer mix baked in.
 """
 
 from __future__ import annotations
@@ -155,3 +156,25 @@ def extract_features(params: Params, wav, cfg: Wav2Vec2Config,
     if cfg.num_layers in want:
         acc = acc + _ln(x, params["enc_ln_w"], params["enc_ln_b"])
     return acc / float(len(want))
+
+
+class OnnxWav2Vec2:
+    """Feature extractor backed by the reference's own export
+    (``wav2vec2-large-xlsr-53.onnx``; src/ref_audio_utilities.rs:927-973):
+    [B, N] z-normalized waveform → [B, T, 1024], the hidden-state layer mix
+    baked into the graph, run by ``models/onnx_graph`` on ``device``."""
+
+    def __init__(self, graph, device=None):
+        from .onnx_graph import OnnxGraph
+
+        self.device = resolve_device(device)
+        self.graph = (OnnxGraph.load(graph, self.device)
+                      if isinstance(graph, str) else graph)
+
+    def extract(self, wav) -> torch.Tensor:
+        if isinstance(wav, np.ndarray):
+            wav = torch.from_numpy(np.array(wav, np.float32))
+        out = self.graph(wav.to(self.device, torch.float32))
+        if isinstance(out, tuple):
+            out = out[0]
+        return torch.as_tensor(out, device=self.device)

@@ -5,6 +5,10 @@ synthesis and zero-shot voice cloning. The voice chain resolves, in order,
 an enrolled ``voice_id`` of the voice store, direct reference tokens, and a
 reference audio file (wav2vec2 features + BiCodec encode, behind a
 file-checksum cache), else property tokens (``pipeline.py:186-252``).
+``from_checkpoints`` loads the LM checkpoint and resolves the codecs from
+a model directory (``pipeline.py:88-180``); the codecs may be the
+reference's exported graphs (``OnnxBiCodec``, ``OnnxWav2Vec2``), which
+enrollment, vocoding and warmup take in place of parameter trees.
 The chain's last opt-in rung is the cached speaker (``pipeline.py:234-273``):
 a property-controlled request reuses 32 speaker tokens cached by
 (properties, seed) and runs the zero-shot chain, skipping the global stage.
@@ -82,6 +86,13 @@ class TtsPipeline:
                                               conv_impl=codec_conv_impl)
         if codec_dtype is not None:
             bicodec_cfg = dataclasses.replace(bicodec_cfg, dtype=codec_dtype)
+        if isinstance(bicodec_params, bicodec.OnnxBiCodec):
+            # the exported graphs run as exported: float32, their own convs
+            if codec_dtype is not None or codec_conv_impl is not None:
+                log.warning("codec_dtype / codec_conv_impl apply to the "
+                            "native BiCodec only; the ONNX graphs run as "
+                            "exported")
+        elif codec_dtype is not None:
             bicodec_params = bicodec.prepare_params(bicodec_params,
                                                     bicodec_cfg)
         else:
@@ -103,6 +114,80 @@ class TtsPipeline:
         self.cached_speaker_default = cached_speaker_default
         self._speaker_cache: Dict[tuple, List[int]] = {}
         self._speaker_cache_lock = threading.Lock()
+
+    @classmethod
+    def from_checkpoints(cls, model_path: str, raf_dir: str = "assets/raf",
+                         dtype: str = "bfloat16", quant_type: str = "none",
+                         quant_layers: int = -1, vocab_path: str = None,
+                         codec_dir: Optional[str] = None,
+                         allow_random_codec: bool = False, device=None,
+                         fuse: bool = False, **kw) -> "TtsPipeline":
+        """Load the serving stack from disk onto ``device``
+        (``pipeline.py:88-180``).
+
+        LM: ``model_path``, a webrwkv.safetensors file or a prefab, or a
+        directory holding rwkvtts-Int8_22.safetensors (preferred) or
+        webrwkv.safetensors (shared_runtime.rs:85-97). ``fuse`` fuses the
+        projections (``rwkv7.fuse_params``); ``quant_type`` "int8", "int4"
+        or "nf4" ("sf4" serves as nf4) quantizes the first ``quant_layers``
+        blocks (-1: all). The codecs come from ``codec_dir`` (default: the
+        LM's directory) through ``load_codecs``: a missing codec raises
+        unless ``allow_random_codec``. ``codec_dtype`` and
+        ``codec_conv_impl`` in ``kw`` go to the constructor, which casts and
+        packs once. Each step's time is logged."""
+        from ..models.codec_loader import load_codecs
+        from ..models.convert import load_rwkv7
+        from ..ops.quant import quantize_rwkv_params
+        from ..tokenizer import load_tokenizer
+
+        dev = resolve_device(device)
+        if os.path.isdir(model_path):
+            for cand in ("rwkvtts-Int8_22.safetensors",
+                         "webrwkv.safetensors"):
+                p = os.path.join(model_path, cand)
+                if os.path.exists(p):
+                    model_path = p
+                    break
+            else:
+                raise FileNotFoundError(
+                    f"No supported model file found in directory: "
+                    f"{model_path} (looked for rwkvtts-Int8_22.safetensors, "
+                    f"webrwkv.safetensors)")
+        t0 = time.perf_counter()
+        lm_params, lm_cfg = load_rwkv7(model_path, dtype=dtype, device=dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        log.info("LM %s: %d layers x %d read, mapped and on %s in %.2f s",
+                 model_path, lm_cfg.n_layer, lm_cfg.n_embd, dev,
+                 time.perf_counter() - t0)
+        if fuse:
+            # opt-in projection fusion (7 projections → 2 matmuls): it
+            # doubles the r/k/v and LoRA-A bytes, so the raw layout stays
+            # the default, as in the JAX package
+            lm_params = rwkv7.fuse_params(lm_params, lm_cfg)
+        if vocab_path:
+            kw.setdefault("tokenizer", load_tokenizer(vocab_path))
+        if quant_type in ("int8", "int4", "nf4", "sf4"):
+            # web-rwkv's SF4 is an internal float4 format; NF4 covers the
+            # same 4-bit point (bin/server.rs:1203-1233)
+            kind = "nf4" if quant_type == "sf4" else quant_type
+            t0 = time.perf_counter()
+            lm_params = quantize_rwkv_params(lm_params,
+                                             quant_layers=quant_layers,
+                                             kind=kind)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            log.info("LM quantized to %s (quant_layers %d) in %.2f s", kind,
+                     quant_layers, time.perf_counter() - t0)
+        codec_dir = codec_dir or (os.path.dirname(model_path) or ".")
+        t0 = time.perf_counter()
+        bc_params, bc_cfg, w2v_params, w2v_cfg, w2v_layers = load_codecs(
+            codec_dir, allow_random=allow_random_codec, device=dev)
+        log.info("codecs from %s resolved in %.2f s", codec_dir,
+                 time.perf_counter() - t0)
+        kw.setdefault("w2v_output_layers", w2v_layers)
+        return cls(lm_params, lm_cfg, bc_params, bc_cfg, w2v_params, w2v_cfg,
+                   voice_store=VoiceStore(raf_dir), device=dev, **kw)
 
     def resolve_voice(self, args: TtsArgs) -> TtsArgs:
         """The voice chain (lightweight_tts_pipeline.rs:747-787): an
@@ -180,12 +265,18 @@ class TtsPipeline:
             raise RuntimeError("wav2vec2 weights not loaded")
         pa = load_and_process(audio_path)
         z = zero_mean_unit_variance(pa.wav)
-        feat = wav2vec2.extract_features(
-            self.w2v_params, z[None, :], self.w2v_cfg,
-            output_layers=self.w2v_output_layers, device=self.device)
-        sem, glob = bicodec.encode(self.bicodec_params, feat,
-                                   pa.ref_mel[None], self.bicodec_cfg,
-                                   device=self.device)
+        if isinstance(self.w2v_params, wav2vec2.OnnxWav2Vec2):
+            feat = self.w2v_params.extract(z[None, :])
+        else:
+            feat = wav2vec2.extract_features(
+                self.w2v_params, z[None, :], self.w2v_cfg,
+                output_layers=self.w2v_output_layers, device=self.device)
+        if isinstance(self.bicodec_params, bicodec.OnnxBiCodec):
+            sem, glob = self.bicodec_params.encode(feat, pa.ref_mel[None])
+        else:
+            sem, glob = bicodec.encode(self.bicodec_params, feat,
+                                       pa.ref_mel[None], self.bicodec_cfg,
+                                       device=self.device)
         return ([int(x) for x in glob[0].tolist()],
                 [int(x) for x in sem[0].tolist()], pa.duration)
 
@@ -392,18 +483,24 @@ class TtsPipeline:
                     self.bicodec_cfg))
         # streaming decodes two window lengths per latency mode (interior
         # and flush), outside the detokenize buckets
-        codebook_dev = self.bicodec_params["quantizer"]["codebook"].device
+        codec = self.bicodec_params
+        onnx = isinstance(codec, bicodec.OnnxBiCodec)
+        codec_dev = codec.device if onnx else \
+            codec["quantizer"]["codebook"].device
+
+        def window(W):
+            g = torch.zeros((1, 32), dtype=torch.int64, device=codec_dev)
+            s = torch.zeros((1, W), dtype=torch.int64, device=codec_dev)
+            if onnx:
+                return codec.decode(g, s)
+            return bicodec.decode(codec, g, s, self.bicodec_cfg)
+
         for mode in ("exact", "low", "ultra", "flash"):
-            sv = StreamingVocoder(self.bicodec_params, self.bicodec_cfg,
-                                  [0] * 32, latency_mode=mode)
+            sv = StreamingVocoder(codec, self.bicodec_cfg, [0] * 32,
+                                  latency_mode=mode)
             for W in sorted({sv.window_bucket, sv.flush_bucket}):
                 if not over(f"stream_{mode}_{W}"):
-                    timed(f"stream_{mode}_{W}", lambda: bicodec.decode(
-                        self.bicodec_params,
-                        torch.zeros((1, 32), dtype=torch.int64,
-                                    device=codebook_dev),
-                        torch.zeros((1, W), dtype=torch.int64,
-                                    device=codebook_dev), self.bicodec_cfg))
+                    timed(f"stream_{mode}_{W}", lambda: window(W))
         if skipped:
             out["skipped"] = skipped
             log.warning("warmup budget %.1fs exhausted: %d steps skipped "

@@ -18,7 +18,8 @@ and one vocoder window, whatever the utterance's length.
 The vocoder runs in the thread that consumes the stream, on that thread's
 current CUDA stream; the engine's decode thread decodes on a stream of its
 own (``runtime/continuous``). Only Python lists of tokens cross between
-them. The ONNX codec branch of the JAX module is not ported.
+them. The vocoder is the native BiCodec or the reference's exported
+graphs (``bicodec.OnnxBiCodec``).
 """
 
 from __future__ import annotations
@@ -121,11 +122,16 @@ class StreamingVocoder:
         # tail matches the full decode; an interior chunk's real lookahead
         # covers the emitted region and the filler beyond it is not heard
         padded = self.flush_bucket if flush else self.window_bucket
-        dev = self.params["quantizer"]["codebook"].device
+        onnx = isinstance(self.params, bicodec.OnnxBiCodec)
+        dev = self.params.device if onnx else \
+            self.params["quantizer"]["codebook"].device
         sem = torch.tensor([window + [window[-1]] * (padded - len(window))],
                            dtype=torch.int64, device=dev)
         g = torch.tensor([self.global_tokens], dtype=torch.int64, device=dev)
-        wav = bicodec.decode(self.params, g, sem, self.cfg)
+        if onnx:
+            wav = self.params.decode(g, sem)
+        else:
+            wav = bicodec.decode(self.params, g, sem, self.cfg)
         hop = C.LATENT_HOP_LENGTH
         audio = wav[0, ctx * hop:(ctx + n_emit) * hop].cpu().numpy().astype(
             np.float32)

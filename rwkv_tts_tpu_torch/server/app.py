@@ -40,10 +40,11 @@ crashed decode loop falls back to that path.
 
 Run: ``python -m rwkv_tts_tpu_torch.server.app --port 3000``. It serves on
 the CUDA card, and raises when there is none, unless
-``RWKV_TTS_PLATFORM=cpu`` selects the CPU. Checkpoint loading is not
-ported yet (ROADMAP A3): without a checkpoint on disk it serves random
-weights at the JAX package's dev widths, and an existing ``--model-path``
-raises.
+``RWKV_TTS_PLATFORM=cpu`` selects the CPU. ``--model-path`` names the LM
+checkpoint (webrwkv.safetensors, a prefab, or a directory holding
+rwkvtts-Int8_22.safetensors or webrwkv.safetensors) and the codecs come from
+its directory; without a checkpoint on disk it serves random weights at
+the JAX package's dev widths. Nothing is downloaded.
 """
 
 from __future__ import annotations
@@ -883,28 +884,35 @@ def build_dev_pipeline(raf_dir: str = "assets/raf",
 
 
 def build_pipeline_from_args(args) -> TtsPipeline:
-    """Startup model resolution from the server's flags. The port never
-    downloads (``--no-download`` is accepted and changes nothing); loading
-    a checkpoint waits for ROADMAP A3 and tensor parallelism for A6, so an
-    existing ``--model-path`` and ``--tp`` > 1 raise instead of serving
-    something else. Without a checkpoint on disk it serves random weights
-    (dev mode), on the device ``RWKV_TTS_PLATFORM`` selects."""
+    """Startup model resolution from the server's flags
+    (bin/server.rs:1306-1351), on the device ``RWKV_TTS_PLATFORM`` selects:
+    an existing ``--model-path`` loads through
+    ``TtsPipeline.from_checkpoints`` (``--quant-type``, ``--quant-layers``,
+    ``--vocab-path``, ``--allow-random-codec``; the codecs from the same
+    directory), and an unreadable one raises. Without a checkpoint on disk
+    it serves random weights (dev mode). The port never downloads
+    (``--no-download`` is accepted and changes nothing); tensor parallelism
+    waits for ROADMAP A6, so ``--tp`` > 1 raises."""
     if getattr(args, "tp", 1) > 1:
         raise NotImplementedError(
             f"--tp {args.tp}: tensor parallelism is not ported yet "
             "(ROADMAP A6)")
-    if os.path.exists(args.model_path):
-        raise NotImplementedError(
-            f"--model-path {args.model_path}: checkpoint loading is not "
-            "ported yet (ROADMAP A3); move the file away to serve random "
-            "dev weights")
     engine_cfg = EngineConfig().with_token_chunk(args.token_chunk_size)
+    cached_default = bool(getattr(args, "cached_speaker", False))
+    if os.path.exists(args.model_path):
+        pipeline = TtsPipeline.from_checkpoints(
+            args.model_path, raf_dir=args.raf_dir,
+            quant_type=args.quant_type, quant_layers=args.quant_layers,
+            vocab_path=args.vocab_path, engine_cfg=engine_cfg,
+            allow_random_codec=args.allow_random_codec,
+            cached_speaker_default=cached_default, device=device_from_env())
+        log.info("loaded checkpoint %s", args.model_path)
+        return pipeline
     log.warning("checkpoint %s not found — serving with random weights "
                 "(dev mode)", args.model_path)
     pipeline = build_dev_pipeline(args.raf_dir, engine_cfg=engine_cfg,
                                   device=device_from_env())
-    pipeline.cached_speaker_default = bool(getattr(args, "cached_speaker",
-                                                   False))
+    pipeline.cached_speaker_default = cached_default
     return pipeline
 
 
@@ -921,8 +929,9 @@ def parse_args(argv=None):
     p.add_argument("--inference-timeout", type=float, default=120000.0)
     p.add_argument("--quant-type", choices=["none", "int8", "int4", "nf4", "sf4"], default="none")
     p.add_argument("--quant-layers", type=int, default=-1,
-                   help="quantize the first N blocks only (applies to a "
-                        "loaded checkpoint; ROADMAP A3)")
+                   help="quantize the first N blocks only, matching the "
+                        "reference (shared_runtime.rs:156-176); 0 disables "
+                        "quantization, -1 (default) quantizes every block")
     p.add_argument("--token-chunk-size", type=int, default=256)
     p.add_argument("--stream-block", type=int, default=16,
                    help="continuous-engine decode-block size; streaming "
@@ -933,8 +942,8 @@ def parse_args(argv=None):
                         "port never downloads")
     p.add_argument("--allow-random-codec", action="store_true",
                    help="serve with random codec weights when the real "
-                        "BiCodec/wav2vec2 files are missing (applies to a "
-                        "loaded checkpoint; ROADMAP A3)")
+                        "BiCodec/wav2vec2 files are missing (dev only: "
+                        "output is noise, not speech)")
     p.add_argument("--tp", type=int, default=1,
                    help="tensor-parallel degree (not ported: > 1 raises; "
                         "ROADMAP A6)")

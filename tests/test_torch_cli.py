@@ -1,9 +1,10 @@
 """The port's CLI (``rwkv_tts_tpu_torch.cli``) against tests/test_cli.py's
 contract and the JAX CLI's output: the library commands run without a
 model and print what the JAX CLI prints; ``synth`` and ``extract`` build
-the server's dev pipeline on the CPU under ``RWKV_TTS_PLATFORM=cpu``,
-refuse a checkpoint on disk (ROADMAP A3) and, with no card and no CPU
-knob, refuse to run, as ``python -m rwkv_tts_tpu_torch.server.app`` does."""
+the server's dev pipeline on the CPU under ``RWKV_TTS_PLATFORM=cpu``, load
+a checkpoint on disk (and refuse an unreadable one) and, with no card and
+no CPU knob, refuse to run, as ``python -m rwkv_tts_tpu_torch.server.app``
+does."""
 
 import json
 import os
@@ -103,15 +104,34 @@ def test_synth_and_extract_on_the_cpu(tmp_path, capsys, monkeypatch):
     assert VoiceStore(raf).load(rep["voice_id"]).prompt_text == "words"
 
 
-def test_model_path_and_device_rules(tmp_path, monkeypatch):
-    """A checkpoint on disk raises, naming A3 (no silent random weights);
-    with no card and no CPU knob the pipeline is refused."""
+def test_model_path_and_device_rules(tmp_path, monkeypatch, capsys):
+    """A checkpoint on disk that is neither safetensors nor a prefab raises
+    (no silent random weights); a real one is loaded and synthesizes; with
+    no card and no CPU knob the pipeline is refused."""
     ckpt = tmp_path / "model.safetensors"
     ckpt.write_bytes(b"\0" * 8)
     monkeypatch.setenv("RWKV_TTS_PLATFORM", "cpu")
-    with pytest.raises(NotImplementedError, match="A3"):
+    with pytest.raises(ValueError, match="neither a safetensors file nor a "
+                                         "readable web-rwkv prefab"):
         main(["--model-path", str(ckpt), "--raf-dir", str(tmp_path),
               "synth", "x"])
+    from rwkv_tts_tpu_torch.config import BiCodecConfig, Wav2Vec2Config
+    from rwkv_tts_tpu_torch.models import codec_loader
+    from test_convert import make_rwkv7_checkpoint, write_safetensors
+
+    # a 2 × 128 checkpoint with the real vocabulary; random codecs at small
+    # shapes (the directory holds none)
+    write_safetensors(str(ckpt), make_rwkv7_checkpoint(V=77923))
+    monkeypatch.setattr(codec_loader, "BiCodecConfig", BiCodecConfig.tiny)
+    monkeypatch.setattr(codec_loader, "Wav2Vec2Config", lambda: (
+        Wav2Vec2Config(num_layers=1, hidden_size=32, num_heads=2,
+                       ffn_size=32, conv_dims=(16,) * 7)))
+    out = tmp_path / "x.wav"
+    assert main(["--model-path", str(ckpt), "--raf-dir", str(tmp_path),
+                 "--allow-random-codec", "synth", "hello", "-o", str(out),
+                 "--seed", "1", "--max-tokens", "4"]) == 0
+    assert json.loads(capsys.readouterr().out)["output"] == str(out)
+    assert out.stat().st_size > 44
     monkeypatch.delenv("RWKV_TTS_PLATFORM")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="RWKV_TTS_PLATFORM=cpu"):

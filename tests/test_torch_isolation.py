@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: nothing under ``rwkv_tts_tpu_torch/`` and
-not ``chip_smoke.py`` imports JAX, aiohttp or the JAX package; the package
-imports with no JAX, no aiohttp, no nvcc and no card; entry points refuse
+not ``chip_smoke.py`` imports JAX, aiohttp, ml_dtypes, onnx, onnxruntime
+or the JAX package; the package imports with no JAX, no aiohttp, no nvcc
+and no card; entry points refuse
 to run on the CPU unless asked, and a kernel wrapper never gives way to its
 plain version on another device; its own copies of host-only modules (the
 server's UI page among them) equal the originals."""
@@ -30,7 +31,8 @@ def one_torch_thread():
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "rwkv_tts_tpu_torch").rglob("*.py")) + \
     [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "rwkv_tts_tpu", "aiohttp")
+FORBIDDEN = ("jax", "jaxlib", "rwkv_tts_tpu", "aiohttp", "ml_dtypes",
+             "onnx", "onnxruntime")
 
 
 def imported_modules(path: Path):
@@ -106,7 +108,9 @@ def test_entry_points_refuse_the_cpu_without_asking(no_card):
     from rwkv_tts_tpu_torch.config import (BiCodecConfig, EngineConfig,
                                            RwkvConfig, TtsArgs,
                                            Wav2Vec2Config)
-    from rwkv_tts_tpu_torch.models import bicodec, rwkv7, wav2vec2
+    from rwkv_tts_tpu_torch.models import (bicodec, codec_loader, convert,
+                                           rwkv7, wav2vec2)
+    from rwkv_tts_tpu_torch.models.onnx_graph import OnnxGraph
     from rwkv_tts_tpu_torch.ops.conv1d import conv1d
     from rwkv_tts_tpu_torch.runtime.continuous import ContinuousEngine
     from rwkv_tts_tpu_torch.runtime.engine import TtsEngine
@@ -157,7 +161,18 @@ def test_entry_points_refuse_the_cpu_without_asking(no_card):
                  lambda: profile_step_pieces.main([]),
                  lambda: profile_prefill_pieces.main([]),
                  lambda: server_app.build_dev_pipeline(),
-                 lambda: server_app.device_from_env()):
+                 lambda: server_app.device_from_env(),
+                 lambda: convert.load_rwkv7("absent.safetensors"),
+                 lambda: convert.load_checkpoint("absent.npz"),
+                 lambda: convert.load_wav2vec2_weights({}, wcfg),
+                 lambda: convert.load_bicodec_weights({}, bcfg),
+                 lambda: OnnxGraph(b""),
+                 lambda: bicodec.OnnxBiCodec(),
+                 lambda: wav2vec2.OnnxWav2Vec2(None),
+                 lambda: codec_loader.load_bicodec("absent"),
+                 lambda: codec_loader.load_w2v("absent"),
+                 lambda: codec_loader.load_codecs("absent"),
+                 lambda: TtsPipeline.from_checkpoints("absent")):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
 

@@ -508,12 +508,30 @@ def test_build_pipeline_honors_flags(tmp_path, monkeypatch):
                                                "--cached-speaker"]))
     assert pipe.engine.engine_cfg.prefill_buckets == (40,)
     assert pipe.cached_speaker_default is True
-    # a checkpoint on disk is not loaded yet: it raises, naming A3, and
-    # does not fall back to random weights
+    # a checkpoint on disk that is neither safetensors nor a prefab raises
+    # and does not fall back to random weights
     ckpt = tmp_path / "webrwkv.safetensors"
     ckpt.write_bytes(b"\0" * 16)
-    with pytest.raises(NotImplementedError, match="A3"):
+    with pytest.raises(ValueError, match="neither a safetensors file nor a "
+                                         "readable web-rwkv prefab"):
         P.build_pipeline_from_args(P.parse_args(["--model-path", str(ckpt)]))
+    # a real one loads, with the flags (the codecs random here, at small
+    # shapes: the directory holds none)
+    from rwkv_tts_tpu_torch.models import codec_loader
+    from test_convert import make_rwkv7_checkpoint, write_safetensors
+
+    write_safetensors(str(ckpt), make_rwkv7_checkpoint())
+    monkeypatch.setattr(codec_loader, "BiCodecConfig", BiCodecConfig.tiny)
+    monkeypatch.setattr(codec_loader, "Wav2Vec2Config",
+                        lambda: Wav2Vec2Config(**W2V))
+    pipe = P.build_pipeline_from_args(P.parse_args([
+        "--model-path", str(ckpt), "--raf-dir", str(tmp_path / "raf"),
+        "--token-chunk-size", "40", "--cached-speaker",
+        "--allow-random-codec", "--quant-type", "int8"]))
+    assert (pipe.engine.cfg.n_layer, pipe.engine.cfg.n_embd) == (2, 128)
+    assert pipe.engine.engine_cfg.prefill_buckets == (40,)
+    assert pipe.cached_speaker_default is True
+    assert "q" in pipe.engine.params["head"]
     with pytest.raises(NotImplementedError, match="A6"):
         P.build_pipeline_from_args(ns(argv=["--tp", "2"]))
 
