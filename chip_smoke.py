@@ -8,7 +8,7 @@ Run from the root of a checkout on a machine with one CUDA card:
 
 Without ``--phases`` every phase runs and the last line is the ok line.
 With it, the build runs and then only the named phases (``PHASES``: kernels,
-quant_kernels, conv_kernels, rest_kernels, sweep, tools, goldens,
+quant_kernels, conv_kernels, rest_kernels, sweep, tools, goldens, parity,
 main_path, cloning, quantized, streaming, server, checkpoint), and the last
 line is ``{"partial": [...]}``: a partial run never prints the ok line, and
 the all-kernels check of the kernels line runs only in a whole run. An
@@ -113,6 +113,24 @@ Phases, each fatal on failure:
   goldens   the goldens model (2 layers × 128, weights rebuilt from the
              JAX package's seeded numpy stream) on the card must emit
              exactly the tokens of ``tests/goldens.json``;
+  parity    the reference-RNG parity engine
+             (``runtime/parity.ReferenceRngEngine``: Rust StdRng, the
+             Rust-order host sampler) on the card: the goldens model emits
+             exactly ``tests/goldens_parity.json``; the main path's LM
+             (32 × 2048, bf16 weights, f32 state) at batch 1, one property
+             request of 16 tokens and one zero-shot request whose prompt
+             fills the 128 bucket (its loop capped at 32), each twice: the
+             same tokens, ids in range, ``prefill_tokens`` and
+             ``decode_steps`` those of the loop, ``wkv7_decode`` launched
+             32 times a step and ``wkv7_prefill`` 32 times a prefill chunk
+             (the ``parity`` path), wall per token printed; the decode
+             kernel at B = 1 in place on a [32, 1, 32, 64, 64] stack and
+             the sequential prefill at (1, 64) and (1, 128) with masked
+             tails and at T = 61, against their plain versions and timed
+             at B = 1; ``sample_logits`` and ``sample_with_strategy`` (five
+             kinds) on the card equal to the CPU for the same keys; the
+             native trie built with g++ and loaded (the Python fallback
+             fails the phase), equal to the Python trie;
   main_path  8 property-controlled requests through
              ``TtsPipeline.synthesize_batch`` at full width (32 × 2048 LM,
              bf16 weights, f32 state; full-size BiCodec; random weights
@@ -1467,6 +1485,260 @@ def phase_goldens(root: str) -> None:
                  f"{got[name]} vs {want[name]}")
     print(f"goldens: all {len(want)} requests emit the tokens of "
           "tests/goldens.json", flush=True)
+
+
+# --------------------------------------------------------------------------
+# parity: the reference-RNG engine at batch 1
+# --------------------------------------------------------------------------
+
+def parity_requests(TtsArgs):
+    """The requests of tests/test_goldens.py's ``PARITY_REQUESTS``."""
+    return {
+        "normal_seed42": TtsArgs(text="golden fixture text", seed=42,
+                                 max_tokens=10),
+        "cloning_seed0": TtsArgs(text="clone fixture", seed=0, zero_shot=True,
+                                 max_tokens=10,
+                                 ref_global_tokens=list(range(32)),
+                                 ref_semantic_tokens=[1, 2, 3]),
+    }
+
+
+# the parity phase's full-width zero-shot text: its prompt (text, 3 tags and
+# 32 reference globals) fills the 128 bucket
+PARITY_ZS_TEXT = (
+    "The parity engine reproduces the reference server's draw sequence "
+    "token for token: the same ChaCha12 stream, the same sampler order, the "
+    "same seed offsets and the same loop quirks, one request at a time.")
+
+
+def parity_steps(res, limit: int, zero_shot: bool) -> int:
+    """The ``rwkv7.step`` calls the parity loop makes for a result: normal
+    mode 31 global feeds and the last global + TAG_1 flush (33), then one
+    step before every semantic draw but the first; a loop that ran to its
+    cap stops after the draw, one that drew EOS one draw later."""
+    n = len(res.semantic_tokens)
+    sem = n - 1 if n == limit else n
+    return sem if zero_shot else 33 + sem
+
+
+def parity_host_pieces(torch, device: str):
+    """``sample_logits`` and ``sample_with_strategy`` (all five kinds) on
+    ``device`` against the CPU for the same keys (B = 4 rows of 8320
+    logits), and the native trie: loaded (not the Python fallback) and
+    equal to the Python trie on the goldens texts, ``TEXTS`` and a seeded
+    random byte string. Returns a summary."""
+    import numpy as np
+
+    from rwkv_tts_tpu_torch.ops import sampling as S
+    from rwkv_tts_tpu_torch.tokenizer import load_tokenizer
+    from rwkv_tts_tpu_torch.utils import threefry
+
+    gen = torch.Generator()
+    gen.manual_seed(SEED)
+    logits = 3.0 * torch.randn((4, 8320), generator=gen)
+    kinds = [S.SamplingStrategy(kind=k, temperature=0.8)
+             for k in ("greedy", "top_k", "top_p", "temperature", "mixed")]
+    draws = 0
+    for seed in range(4):
+        key = threefry.raw_key(SEED + seed)
+        pairs = [(S.sample_logits(x, key, 0.9, 0.95, 80), x)
+                 for x in (logits, logits.to(device))]
+        pairs += [(S.sample_with_strategy(x, key, st), x)
+                  for st in kinds for x in (logits, logits.to(device))]
+        for (want, _), (got, _) in zip(pairs[::2], pairs[1::2]):
+            if not torch.equal(got.cpu(), want):
+                fail(f"parity: sampler on {device} drew {got.tolist()}, on "
+                     f"the CPU {want.tolist()} (key seed {SEED + seed})")
+            draws += 1
+    tok = load_tokenizer()
+    if tok._native is None:
+        fail("parity: the native trie did not load (the tokenizer fell back "
+             "to its Python trie)")
+    rng = np.random.default_rng(SEED)
+    datas = [t.encode("utf-8") for t in TEXTS + (PARITY_ZS_TEXT,
+                                                 "golden fixture text",
+                                                 "clone fixture", "你好世界")]
+    datas.append(bytes(rng.integers(0, 256, 4000, dtype=np.uint8)))
+    for data in datas:
+        if tok._native.encode_bytes(data) != tok._encode_bytes_py(data):
+            fail(f"parity: the native trie encodes {data[:40]!r} otherwise "
+                 "than the Python trie")
+    return {"sampler_draws": draws, "trie_inputs": len(datas),
+            "trie_bytes": sum(len(d) for d in datas)}
+
+
+def parity(torch, lm_cfg, device: str, root: str, max_tokens: int = 16,
+           zs_cap: int = 32):
+    """The reference-RNG parity engine on ``device``: the requests of
+    ``tests/goldens_parity.json`` on the goldens model, exactly; then the
+    seeded LM of ``lm_cfg`` at batch 1, one property request of
+    ``max_tokens`` and one zero-shot request whose prompt fills the 128
+    bucket, with the zero-shot loop capped at
+    ``zs_cap`` by ``EngineConfig``, each run twice: the same tokens, ids in
+    range, ``prefill_tokens`` the prompt's length and ``decode_steps`` the
+    loop's steps (``parity_steps``), equal to the engine's counters; on a
+    card ``wkv7_decode`` launched L times a step and ``wkv7_prefill`` L
+    times a prefill chunk, nothing else; then the host pieces
+    (``parity_host_pieces``). Returns a summary."""
+    from rwkv_tts_tpu_torch import constants as CN
+    from rwkv_tts_tpu_torch.config import EngineConfig, RwkvConfig, TtsArgs
+    from rwkv_tts_tpu_torch.models import rwkv7
+    from rwkv_tts_tpu_torch.runtime.engine import TtsEngine
+    from rwkv_tts_tpu_torch.runtime.parity import ReferenceRngEngine
+    from rwkv_tts_tpu_torch.utils import bridge
+
+    t_phase = time.perf_counter()
+    gcfg = RwkvConfig(**GOLDENS_CFG)
+    geng = ReferenceRngEngine(TtsEngine(
+        bridge.rwkv7_params(goldens_params(gcfg, 1234), device), gcfg,
+        EngineConfig(prefill_buckets=(64, 128), max_semantic_tokens=16),
+        device=device))
+    with open(os.path.join(root, "tests", "goldens_parity.json")) as f:
+        want = json.load(f)
+    for name, req in parity_requests(TtsArgs).items():
+        res = geng.generate(req)
+        got = {"global": res.global_tokens, "semantic": res.semantic_tokens}
+        if got != want[name]:
+            fail(f"parity: goldens {name} on {device}: {got} vs "
+                 f"tests/goldens_parity.json {want[name]}")
+    del geng
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    eng = TtsEngine(rwkv7.init_params(lm_cfg, gen, device), lm_cfg,
+                    EngineConfig(max_semantic_tokens=zs_cap), device=device)
+    pe = ReferenceRngEngine(eng)
+    init_s = time.perf_counter() - t0
+    requests = {
+        "property": TtsArgs(text=TEXTS[0], seed=SEED, max_tokens=max_tokens,
+                            gender="male", emotion="HAPPY"),
+        "zero_shot": TtsArgs(text=PARITY_ZS_TEXT, seed=SEED + 1,
+                             zero_shot=True,
+                             ref_global_tokens=[(97 * i) % CN.GLOBAL_VOCAB
+                                                for i in range(32)]),
+    }
+    prompt_len = len(eng.build_prompt(requests["zero_shot"])[0])
+    if not 64 < prompt_len <= 128:
+        fail(f"parity: the zero-shot prompt has {prompt_len} tokens, not "
+             "in the 128 bucket")
+    pe.generate(TtsArgs(text="warm", seed=1, max_tokens=2))
+    if device == "cuda":
+        torch.cuda.synchronize()
+    eng.counters = {k: 0 for k in eng.counters}
+    reset_launch_counts()
+    runs = []
+    for name, req in requests.items():
+        for _ in range(2):
+            c0 = dict(eng.counters)
+            t0 = time.perf_counter()
+            res = pe.generate(req)
+            wall_s = time.perf_counter() - t0
+            runs.append({"name": name, "res": res, "wall_s": wall_s,
+                         "steps": eng.counters["decode_steps"]
+                         - c0["decode_steps"],
+                         "chunks": eng.counters["prefill_chunks"]
+                         - c0["prefill_chunks"]})
+    if device == "cuda":
+        torch.cuda.synchronize()
+    launches = launch_counts()
+    counters = dict(eng.counters)
+    for a, b in zip(runs[::2], runs[1::2]):
+        if (a["res"].global_tokens, a["res"].semantic_tokens) != \
+                (b["res"].global_tokens, b["res"].semantic_tokens):
+            fail(f"parity: {a['name']}: two runs drew other tokens")
+    for run in runs:
+        res, zs = run["res"], run["name"] == "zero_shot"
+        req = requests[run["name"]]
+        limit = zs_cap if zs else min(max_tokens, zs_cap)
+        g, s = res.global_tokens, res.semantic_tokens
+        if len(g) != 32 or not all(0 <= t < CN.GLOBAL_VOCAB for t in g):
+            fail(f"parity: {run['name']}: bad global tokens {g}")
+        if zs and g != req.ref_global_tokens:
+            fail(f"parity: zero_shot: globals {g} are not the reference's")
+        if len(s) > limit or (zs and not s) or \
+                not all(0 <= t < CN.TTS_EOS_TOKEN for t in s):
+            fail(f"parity: {run['name']}: semantic tokens {s}")
+        if res.prefill_tokens != len(eng.build_prompt(req)[0]):
+            fail(f"parity: {run['name']}: prefill_tokens "
+                 f"{res.prefill_tokens}")
+        if not res.decode_steps == run["steps"] == parity_steps(res, limit,
+                                                                zs):
+            fail(f"parity: {run['name']}: decode_steps {res.decode_steps}, "
+                 f"steps run {run['steps']}, the loop's "
+                 f"{parity_steps(res, limit, zs)}")
+        if run["chunks"] != 1:
+            fail(f"parity: {run['name']}: {run['chunks']} prefill chunks")
+    L = lm_cfg.n_layer
+    want_l = {k: 0 for k in launches}
+    want_l.update(wkv7_decode=L * counters["decode_steps"],
+                  wkv7_prefill=L * counters["prefill_chunks"])
+    if device == "cuda" and launches != want_l:
+        fail(f"parity: kernel launches {launches}, expected {want_l} "
+             f"(counters {counters})")
+    host = parity_host_pieces(torch, device)
+    for r in runs:
+        r["tokens"] = len(r["res"].global_tokens) + len(
+            r["res"].semantic_tokens)
+    return {"runs": runs, "launches": launches, "counters": counters,
+            "init_s": init_s, "prompt_len": prompt_len, "host": host,
+            "wall_s": time.perf_counter() - t_phase,
+            "goldens": len(want)}
+
+
+def parity_kernels(torch, W, lm_cfg):
+    """Rows 1 and 2 at the parity engine's batch of 1 with H = 32: the
+    decode kernel in place on layer 2 of a [32, 1, 32, 64, 64] f32 stack
+    (the other layers bit-identical, 1e-4), the sequential prefill through
+    ``wkv7_prefill`` at (1, 64) and (1, 128) with masked tails and at
+    T = 61 (4 ∤ T) (1e-4, with ``check_seq_kernel``'s bits checks), then
+    each timed at B = 1 beside its plain version: decode cycling the 32
+    layers, prefill at T = 128 over four input sets. Returns
+    {name: stats}."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 1)
+    H, N, L = lm_cfg.n_head, lm_cfg.head_size, lm_cfg.n_layer
+    e_dec = check_decode(torch, W, 1, H, N, L, torch.float32, gen, 1e-4)
+    e_pre = max(check_seq_kernel(torch, W, "wkv7_prefill", 1, T, H, N, gen,
+                                 tail)
+                for T, tail in ((64, 5), (128, 41), (61, 3)))
+    B, T = 1, 128
+    ins = wkv_inputs(torch, (B, H, N), gen)
+    stack = torch.zeros((L, B, H, N, N), device="cuda")
+    it = {"i": 0}
+
+    def dec_kernel():
+        W.wkv7_decode_(*ins, stack, it["i"] % L)
+        it["i"] += 1
+
+    def dec_plain():
+        l = it["i"] % L
+        _, s = W.wkv7_single(*ins, stack[l])
+        stack[l].copy_(s)
+        it["i"] += 1
+
+    sets = [(wkv_inputs(torch, (B, T, H, N), gen),
+             torch.zeros((B, H, N, N), device="cuda")) for _ in range(4)]
+
+    def pre(fn):
+        def run():
+            x, s0 = sets[it["i"] % 4]
+            fn(*x, s0)
+            it["i"] += 1
+        return run
+
+    slab, seq = B * H * N * N * 4, B * T * H * N * 4
+    out = {}
+    for name, kern, plain, n_k, n_p, (b_ms, b_by), err, shape in (
+            ("wkv7_decode", dec_kernel, dec_plain, 10 * L, 2 * L,
+             bound(2 * slab + 7 * B * H * N * 4, 9 * B * H * N * N), e_dec,
+             f"the parity engine's shape (B=1, H={H}, {L} layers cycled)"),
+            ("wkv7_prefill", pre(W.wkv7_prefill), pre(W.wkv7_scan), 40, 4,
+             bound(7 * seq + 2 * B * H * N * N * 4, 9 * B * T * H * N * N),
+             e_pre, f"the parity engine's shape (B=1, T={T}, H={H})")):
+        out[name] = timed(torch, name, kern, plain, None, n_k, n_p, b_ms,
+                          b_by, err, shape)
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -3942,8 +4214,8 @@ KERNEL_ENTRIES = {
 
 
 PHASES = ("kernels", "quant_kernels", "conv_kernels", "rest_kernels",
-          "sweep", "tools", "goldens", "main_path", "cloning", "quantized",
-          "streaming", "server", "checkpoint")
+          "sweep", "tools", "goldens", "parity", "main_path", "cloning",
+          "quantized", "streaming", "server", "checkpoint")
 
 
 def parse_phases(argv):
@@ -4039,6 +4311,39 @@ def main(argv=None) -> None:
         print(f"tools: {card}", flush=True)
     if "goldens" in selected:
         phase_goldens(root)
+
+    if "parity" in selected:
+        pr = parity(torch, lm_cfg, "cuda", root)
+        b1 = parity_kernels(torch, W, lm_cfg)
+        print(f"parity: the {pr['goldens']} requests of "
+              f"tests/goldens_parity.json emit its tokens through "
+              f"ReferenceRngEngine on the card; {card}", flush=True)
+        for r in pr["runs"]:
+            res = r["res"]
+            print(f"parity: {r['name']} at batch 1, {lm_cfg.n_layer} layers x "
+                  f"{lm_cfg.n_embd}: {len(res.semantic_tokens)} semantic "
+                  f"tokens, prefill_tokens {res.prefill_tokens}, decode_steps "
+                  f"{res.decode_steps}, {r['chunks']} prefill chunk; wall "
+                  f"{r['wall_s']:.3f} s, {1e3 * r['wall_s'] / r['tokens']:.2f} "
+                  f"ms per token drawn ({r['tokens']} tokens), "
+                  f"{1e3 * r['wall_s'] / max(r['steps'], 1):.2f} ms per "
+                  f"decode step; {card}", flush=True)
+        print(f"parity: phase wall {pr['wall_s']:.1f} s (init "
+              f"{pr['init_s']:.2f} s), zero-shot prompt {pr['prompt_len']} "
+              f"tokens (bucket 128), counters {pr['counters']}, launches "
+              f"{pr['launches']}; sampler on the card equal to the CPU over "
+              f"{pr['host']['sampler_draws']} batched draws; native trie "
+              f"loaded, equal to the Python trie on "
+              f"{pr['host']['trie_inputs']} inputs "
+              f"({pr['host']['trie_bytes']} bytes); rows 1 and 2 at B = 1: "
+              + "; ".join(f"{k} device {v['ms']:.5f} ms, plain "
+                          f"{v['plain_ms']:.5f} ms, bound {v['bound_ms']:.5f} "
+                          f"ms by {v['bound_by']}, max abs err "
+                          f"{v['max_abs_err']:.3g}" for k, v in b1.items())
+              + f"; {card}", flush=True)
+        paths["parity"] = pr["launches"]
+        del pr
+        torch.cuda.empty_cache()
 
     if "main_path" in selected:
         out = main_path(torch, lm_cfg, bc_cfg, "cuda", max_tokens=48)

@@ -283,6 +283,7 @@ class _Live:
     global_tokens: List[int]
     semantic_tokens: List[int]
     zero_shot: bool
+    prefill_tokens: int
     t_start: float
     t_submit: float = 0.0      # submit() wall clock (queue-wait accounting)
     t_first_emit: float = 0.0  # first semantic token routed to the host
@@ -635,7 +636,8 @@ class ContinuousEngine:
                 self._live[slot] = _Live(
                     request=args, result_cb=result_cb, chunk_cb=chunk_cb,
                     global_tokens=ref_g, semantic_tokens=[],
-                    zero_shot=zss[j], t_start=time.perf_counter(),
+                    zero_shot=zss[j], prefill_tokens=len(prompts[j]),
+                    t_start=time.perf_counter(),
                     t_submit=t_sub, admit_seq=self._block_seq)
 
     def _bucket_for(self, n: int) -> int:
@@ -685,12 +687,25 @@ class ContinuousEngine:
         return pending
 
     def _retire(self, slot: int):
+        """Hand a finished slot's result to its callback. A slot that
+        ``cancel`` marked before this pop ends in ``RequestCancelled``, even
+        when its last token came in the block already in flight: a cancel
+        that returned True never ends in a normal result. (The JAX engine
+        retires such a slot normally; the port departs from it here.)"""
         with self._lock:
             live = self._live.pop(slot, None)
-        if live is not None:
-            self._call(live.result_cb, GenerationResult(
-                global_tokens=live.global_tokens,
-                semantic_tokens=live.semantic_tokens))
+            cancelled = live is not None and live.cancelled
+        if live is None:
+            return
+        if cancelled:
+            self._call(live.result_cb, RequestCancelled("request cancelled"))
+            return
+        self._call(live.result_cb, GenerationResult(
+            global_tokens=live.global_tokens,
+            semantic_tokens=live.semantic_tokens,
+            prefill_tokens=live.prefill_tokens,
+            decode_steps=len(live.semantic_tokens)
+            + (0 if live.zero_shot else C.GLOBAL_TOKENS_SIZE)))
 
     def _readback(self, emits, stage):
         """Start one block's transfer to the host: emits [K, B] and the

@@ -171,8 +171,15 @@ def semantic_stage(params, state, first_logits, base_keys, limits, hard_min,
 
 @dataclasses.dataclass
 class GenerationResult:
+    """A request's tokens, with the JAX engines' accounting:
+    ``prefill_tokens`` is the prompt's length (padding excluded) and
+    ``decode_steps`` the tokens the request itself decoded (32 globals in
+    normal mode plus its semantic tokens)."""
+
     global_tokens: List[int]
     semantic_tokens: List[int]
+    prefill_tokens: int
+    decode_steps: int
 
 
 class TtsEngine:
@@ -192,7 +199,7 @@ class TtsEngine:
         self.tokenizer = tokenizer or load_tokenizer()
         # the live prompt is the raw text, not normalized
         # (lightweight_tts_pipeline.rs:149-151)
-        self.encoder = CachedEncoder(self.tokenizer)
+        self.encoder = CachedEncoder(self.tokenizer, normalize=False)
         self.counters = {"prefill_chunks": 0, "decode_steps": 0}
 
     def build_prompt(self, args: TtsArgs) -> Tuple[List[int], List[int]]:
@@ -313,7 +320,8 @@ class TtsEngine:
                      for t in (r.ref_global_tokens or [])]
             else:
                 g = [int(t) for t in glob_np[i]]
-            out.append(GenerationResult(g, toks))
+            steps = len(toks) + (0 if zero_shot else C.GLOBAL_TOKENS_SIZE)
+            out.append(GenerationResult(g, toks, len(prompts[i]), steps))
         return out
 
     def generate(self, args: TtsArgs) -> GenerationResult:

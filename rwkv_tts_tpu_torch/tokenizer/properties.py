@@ -1,11 +1,9 @@
 """Property (age / gender / emotion / pitch / speed) → control-token mapping.
 
-The PyTorch port's own copy of the tables and the class-name conversion
-of ``rwkv_tts_tpu/tokenizer/properties.py``.
+The PyTorch port's own copy of ``rwkv_tts_tpu/tokenizer/properties.py``.
 
 Behavioral port of the reference's ``src/properties_util.rs`` (tables at
-``:8-63``, conversion at ``:76-98``; the numeric classifiers of the JAX
-package's copy serve the server and are not ported yet).
+``:8-63``, conversion at ``:76-98``, numeric classifiers at ``:109-314``).
 Property tokens are emitted in the fixed order
 ``[offset, offset+age, offset+gender, offset+emotion, offset+pitch,
 offset+speed]`` where ``offset`` = ``<|spct_0|>`` = 77823.
@@ -105,3 +103,94 @@ def convert_standard_properties_to_tokens(
         off + pitch_token,
         off + speed_token,
     ]
+
+
+def classify_age(age: int) -> str:
+    """Numeric age → class (properties_util.rs:302-314)."""
+    if age < 13:
+        return "child"
+    if age < 20:
+        return "teenager"
+    if age < 40:
+        return "youth-adult"
+    if age < 65:
+        return "middle-aged"
+    return "elderly"
+
+
+def age_string_to_number(age_str: str) -> int:
+    """Age class → representative numeric age (properties_util.rs:284-293)."""
+    return {
+        "child": 10,
+        "teenager": 16,
+        "youth-adult": 25,
+        "middle-aged": 45,
+        "elderly": 70,
+    }.get(age_str, 25)
+
+
+# (low, medium, high) upper bounds per (gender, age-class); a pitch >= the
+# last bound is "very_high_pitch" (females "child" has no very_high tier).
+_FEMALE_PITCH_BOUNDS = {
+    "child": (250.0, 290.0, float("inf")),
+    "teenager": (208.0, 238.0, 270.0),
+    "youth-adult": (191.0, 211.0, 232.0),
+    "middle-aged": (176.0, 195.0, 215.0),
+    "elderly": (170.0, 190.0, 213.0),
+    None: (187.0, 209.0, 232.0),
+}
+
+_MALE_PITCH_BOUNDS = {
+    "teenager": (121.0, 143.0, 166.0),
+    "youth-adult": (115.0, 131.0, 153.0),
+    "middle-aged": (110.0, 125.0, 147.0),
+    "elderly": (115.0, 128.0, 142.0),
+    None: (114.0, 130.0, 151.0),
+}
+
+
+def classify_pitch(pitch: float, gender: str, age: int) -> str:
+    """Numeric pitch (Hz) → class, per gender×age tables
+    (properties_util.rs:109-254)."""
+    gender = (gender or "").lower()
+    age_class = classify_age(age)
+    if gender == "female":
+        bounds = _FEMALE_PITCH_BOUNDS.get(age_class, _FEMALE_PITCH_BOUNDS[None])
+    elif gender == "male":
+        bounds = _MALE_PITCH_BOUNDS.get(age_class, _MALE_PITCH_BOUNDS[None])
+    else:
+        bounds = (130.0, 180.0, 220.0)
+    lo, mid, hi = bounds
+    if pitch < lo:
+        return "low_pitch"
+    if pitch < mid:
+        return "medium_pitch"
+    if pitch < hi:
+        return "high_pitch"
+    return "very_high_pitch"
+
+
+def classify_speed(speed: float) -> str:
+    """Numeric speed (syllables/s) → class (properties_util.rs:263-275)."""
+    if speed <= 3.5:
+        return "very_slow"
+    if speed < 4.0:
+        return "slow"
+    if speed <= 4.5:
+        return "medium"
+    if speed <= 5.0:
+        return "fast"
+    return "very_fast"
+
+
+def convert_properties_to_tokens(
+    speed: float, pitch: float, age: int, gender: str, emotion: str
+) -> List[int]:
+    """Numeric properties → token ids (properties_util.rs:327-339)."""
+    return convert_standard_properties_to_tokens(
+        classify_age(age),
+        gender,
+        emotion,
+        classify_pitch(pitch, gender, age),
+        classify_speed(speed),
+    )

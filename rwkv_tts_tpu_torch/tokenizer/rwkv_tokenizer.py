@@ -1,10 +1,12 @@
 """RWKV "world" byte-trie tokenizer over the unified TTS vocabulary.
 
-The PyTorch port's own copy of the pure-Python trie path of
-``rwkv_tts_tpu/tokenizer/rwkv_tokenizer.py``: greedy longest-match encoding
-over UTF-8 bytes, loading ``assets/model/vocab_canonical.txt`` (byte-exact,
-preferred) or ``assets/model/tokenizer.json``. On duplicate byte sequences
-the highest id wins, as in the reference runtime.
+The PyTorch port's own copy of ``rwkv_tts_tpu/tokenizer/rwkv_tokenizer.py``:
+greedy longest-match encoding over UTF-8 bytes, loading
+``assets/model/vocab_canonical.txt`` (byte-exact, preferred) or
+``assets/model/tokenizer.json``. On duplicate byte sequences the highest id
+wins, as in the reference runtime. The encode loop runs in the port's native
+C++ trie (``utils/native.py``) where it builds; the Python trie stays as the
+fallback (logged) and the decode table.
 """
 
 from __future__ import annotations
@@ -12,11 +14,14 @@ from __future__ import annotations
 import ast
 import functools
 import json
+import logging
 import os
 import re
 from typing import Dict, Iterable, List
 
 from .. import constants as C
+
+log = logging.getLogger(__name__)
 
 
 class _TrieNode:
@@ -28,9 +33,12 @@ class _TrieNode:
 
 
 class RwkvTokenizer:
-    """Greedy longest-match byte trie tokenizer over ``id -> bytes``."""
+    """Greedy longest-match byte trie tokenizer over ``id -> bytes``.
 
-    def __init__(self, id_to_bytes: Dict[int, bytes]):
+    ``native``: encode through the native C++ trie; where it cannot be
+    built the Python trie encodes (logged)."""
+
+    def __init__(self, id_to_bytes: Dict[int, bytes], native: bool = True):
         self._id_to_bytes = dict(id_to_bytes)
         self._root = _TrieNode()
         # ascending id order: later (higher) ids overwrite on duplicates
@@ -46,6 +54,14 @@ class RwkvTokenizer:
                     node.children[b] = nxt
                 node = nxt
             node.token_id = tid
+        self._native = None
+        if native:
+            from ..utils.native import NativeTrie
+            try:
+                self._native = NativeTrie(self._id_to_bytes)
+            except Exception as e:  # noqa: BLE001: toolchain absent etc.
+                log.warning("native trie not loaded (%s): encoding with "
+                            "the Python trie", e)
 
     @classmethod
     def from_json(cls, path: str | os.PathLike) -> "RwkvTokenizer":
@@ -84,10 +100,20 @@ class RwkvTokenizer:
             return cls.from_json(p)
         return cls.from_vocab_txt(p)
 
+    @property
+    def vocab_size(self) -> int:
+        """Number of ids including the reserved id 0."""
+        return max(self._id_to_bytes) + 1
+
     def encode(self, text: str) -> List[int]:
         return self.encode_bytes(text.encode("utf-8"))
 
     def encode_bytes(self, data: bytes) -> List[int]:
+        if self._native is not None:
+            return self._native.encode_bytes(data)
+        return self._encode_bytes_py(data)
+
+    def _encode_bytes_py(self, data: bytes) -> List[int]:
         out: List[int] = []
         i, n = 0, len(data)
         root = self._root
@@ -115,6 +141,9 @@ class RwkvTokenizer:
 
     def decode_bytes(self, ids: Iterable[int]) -> bytes:
         return b"".join(self._id_to_bytes.get(int(t), b"") for t in ids)
+
+    def token_bytes(self, tid: int) -> bytes:
+        return self._id_to_bytes.get(int(tid), b"")
 
 
 _ASSET_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "assets",
@@ -170,14 +199,33 @@ def encode_with_spct(tokenizer: RwkvTokenizer, text: str) -> List[int]:
     return out
 
 
-class CachedEncoder:
-    """Text → token ids (SPCT pronunciation markup expanded) behind an LRU
-    cache keyed by the raw text, which is encoded as given."""
+def normalize_text(text: str) -> str:
+    """Whitespace cleanup ahead of encoding (the reference's
+    FeatureExtractor::preprocess_text, src/feature_extractor.rs:59-75):
+    trim, newlines/tabs → spaces, collapse runs of spaces."""
+    out = text.strip().replace("\n", " ").replace("\t", " ")
+    while "  " in out:
+        out = out.replace("  ", " ")
+    return out
 
-    def __init__(self, tokenizer: RwkvTokenizer, maxsize: int = 1024):
+
+class CachedEncoder:
+    """Text → token ids behind an LRU cache keyed by the raw text (the
+    reference's FeatureExtractor cache, src/feature_extractor.rs:35-56).
+
+    ``normalize``: pass the text through :func:`normalize_text` first (the
+    default, as in the JAX package; the engines pass False, since the live
+    prompt is the raw text, lightweight_tts_pipeline.rs:149-151). ``spct``:
+    expand SPCT pronunciation markup (:func:`encode_with_spct`); text
+    without markers encodes the same either way."""
+
+    def __init__(self, tokenizer: RwkvTokenizer, maxsize: int = 1024,
+                 normalize: bool = True, spct: bool = True):
         @functools.lru_cache(maxsize=maxsize)
         def _encode(text: str):
-            if "SPCT_" in text:
+            if normalize:
+                text = normalize_text(text)
+            if spct and "SPCT_" in text:
                 return tuple(encode_with_spct(tokenizer, text))
             return tuple(tokenizer.encode(text))
 
@@ -185,3 +233,6 @@ class CachedEncoder:
 
     def encode(self, text: str) -> List[int]:
         return list(self._encode(text))
+
+    def cache_info(self):
+        return self._encode.cache_info()

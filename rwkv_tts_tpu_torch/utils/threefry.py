@@ -12,6 +12,10 @@ Reproduces, bit for bit, what the JAX engine draws for its sampler:
   (the partitionable layout hashes the 64-bit iota (hi, lo) = (0, 0));
 * ``uniform`` = bitcast((bits >> 9) | 0x3F800000) − 1.0.
 
+``uniform_shape`` is the general draw, ``jax.random.uniform(key, shape)``
+for any shape from one key: element n of the row-major flattening hashes
+the 64-bit counter n as the pair (n >> 32, n & 0xFFFFFFFF).
+
 Words live in int64 tensors masked to 32 bits, so the same code runs on
 the CPU and on the card, vectorised over any batch of keys and counters.
 """
@@ -80,3 +84,15 @@ def step_uniforms(keys: torch.Tensor, steps: int, offset: int = 0
     only on the seeds, so a whole stage's table is one vectorised call."""
     i = torch.arange(steps, dtype=torch.int64, device=keys.device) + offset
     return uniform(fold_in(keys[:, None, :], i[None, :]))
+
+
+def uniform_shape(key: torch.Tensor, shape) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32)`` for one key [2] (int64
+    words) → float32 ``shape`` on the key's device: every element is drawn
+    from the one key, by its row-major index."""
+    shape = tuple(int(d) for d in shape)
+    n = torch.arange(int(np.prod(shape, dtype=np.int64)), dtype=torch.int64,
+                     device=key.device)
+    b0, b1 = threefry2x32(key[0], key[1], n >> 32, n & _MASK)
+    bits = ((b0 ^ b1) >> 9) | 0x3F800000
+    return (bits.to(torch.int32).view(torch.float32) - 1.0).reshape(shape)

@@ -190,11 +190,11 @@ def test_assemble_result_accounts_rtf_like_a_batch(pipe):
     from rwkv_tts_tpu_torch.runtime.engine import GenerationResult
 
     wav = np.zeros(16000, np.float32)
-    res = pipe.assemble_result(GenerationResult([1] * 32, [5, 6]), wav,
-                               {"generate": 300.0, "detokenize": 200.0})
+    res = pipe.assemble_result(GenerationResult([1] * 32, [5, 6], 4, 34),
+                               wav, {"generate": 300.0, "detokenize": 200.0})
     assert res.rtf == pytest.approx(0.5) and res.sample_rate == 16000
     assert res.semantic_tokens == [5, 6] and res.audio is wav
-    assert pipe.assemble_result(GenerationResult([], []), wav[:0],
+    assert pipe.assemble_result(GenerationResult([], [], 0, 0), wav[:0],
                                 {"generate": 1.0}).rtf == 0.0
 
 

@@ -252,6 +252,39 @@ def test_cancel_retires_slot(cont):
         assert not cont._live
 
 
+def test_cancel_in_flight_of_the_final_block_ends_cancelled(params):
+    """A cancel that returned True always ends in ``RequestCancelled``:
+    the request is cancelled after the block that finishes it was
+    dispatched and before the host processes that block (the order that
+    once let the stream end normally). Forced deterministically by
+    cancelling from inside ``_process_block`` when the block's stage
+    snapshot shows the request's slot idle."""
+    eng = engine(params)
+    req = TtsArgs(text="race the final block", seed=6, max_tokens=4)
+    box, done, fired = {}, threading.Event(), []
+    process = eng._process_block
+
+    def cancel_then_process(host, ev, seq):
+        with eng._lock:
+            slot = next((s for s, l in eng._live.items()
+                         if l.request is req and l.admit_seq < seq), None)
+        if slot is not None and not fired and \
+                host.numpy()[-1][slot] == CT.IDLE:
+            fired.append(eng.cancel(req))
+        process(host, ev, seq)
+
+    eng._process_block = cancel_then_process
+    try:
+        eng.submit(req, lambda r: (box.__setitem__("res", r), done.set()))
+        assert done.wait(WAIT)
+    finally:
+        eng.stop()
+    assert fired == [True]
+    assert isinstance(box["res"], RequestCancelled), box["res"]
+    with eng._lock:
+        assert not eng._live
+
+
 def test_concurrent_first_submits_single_decode_thread(params):
     """start() is atomic: eight threads submitting at once into a cold
     engine spawn one decode thread, and every request completes."""
@@ -436,9 +469,9 @@ def jax_side():
 def test_goldens_requests_match_jax_continuous_engine(jax_side):
     """The four goldens requests, submitted together, through the JAX
     continuous engine and through the port's on the bridged weights: the
-    same tokens, and those of ``tests/goldens.json`` (whose
-    ``zero_shot_window`` request is pinned at the static engine's cap of
-    16)."""
+    same tokens and the same ``prefill_tokens`` and ``decode_steps``, and
+    the tokens of ``tests/goldens.json`` (whose ``zero_shot_window``
+    request is pinned at the static engine's cap of 16)."""
     JCT, jcfg, jecfg, jparams, JArgs = jax_side
     reqs = chip_smoke.goldens_requests(TtsArgs)
     jeng = JCT.ContinuousEngine(jparams, jcfg, jecfg, use_pallas=False,
@@ -459,6 +492,8 @@ def test_goldens_requests_match_jax_continuous_engine(jax_side):
         goldens = json.load(f)
     for i, name in enumerate(reqs):
         same(got[i], want[i], name)
+        assert (got[i].prefill_tokens, got[i].decode_steps) == \
+            (want[i].prefill_tokens, want[i].decode_steps), name
         assert got[i].global_tokens == goldens[name]["global"], name
         n = len(goldens[name]["semantic"])
         assert got[i].semantic_tokens[:n] == goldens[name]["semantic"], name

@@ -139,7 +139,7 @@ def test_voice_chain_rungs(pipe, caplog):
 def test_empty_generation_vocodes_one_second_of_silence(pipe):
     from rwkv_tts_tpu_torch.runtime.engine import GenerationResult
 
-    wav = pipe.vocode(GenerationResult([0] * 32, []))
+    wav = pipe.vocode(GenerationResult([0] * 32, [], 0, 32))
     assert wav.shape == (16000,) and not wav.any()
 
 

@@ -198,7 +198,7 @@ def test_stream_of_a_cancelled_request_raises(cont, e2e_params):
 def test_resolve_globals_trust_order():
     eng = types.SimpleNamespace(_lock=threading.Lock(), _live={})
     args = TtsArgs(text="short")
-    res = GenerationResult(list(range(32)), [1, 2, 3])
+    res = GenerationResult(list(range(32)), [1, 2, 3], 4, 35)
     fired = threading.Event()
     fired.set()
 
