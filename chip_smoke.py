@@ -9,10 +9,10 @@ Run from the root of a checkout on a machine with one CUDA card:
 Without ``--phases`` every phase runs and the last line is the ok line.
 With it, the build runs and then only the named phases (``PHASES``: kernels,
 quant_kernels, conv_kernels, rest_kernels, sweep, tools, goldens, parity,
-main_path, cloning, quantized, streaming, server, checkpoint), and the last
-line is ``{"partial": [...]}``: a partial run never prints the ok line, and
-the all-kernels check of the kernels line runs only in a whole run. An
-unknown name fails.
+tp, main_path, cloning, quantized, streaming, server, checkpoint), and the
+last line is ``{"partial": [...]}``: a partial run never prints the ok
+line, and the all-kernels check of the kernels line runs only in a whole
+run. An unknown name fails.
 
 Phases, each fatal on failure:
 
@@ -131,6 +131,31 @@ Phases, each fatal on failure:
              kinds) on the card equal to the CPU for the same keys; the
              native trie built with g++ and loaded (the Python fallback
              fails the phase), equal to the Python trie;
+  tp         tensor and data parallelism (``rwkv_tts_tpu_torch/parallel``)
+             on virtual meshes of the one card (the device repeated; the
+             card has no peer): rows 1 and 2 at the head counts a tp 2 and
+             tp 4 shard hands them (H_loc 16 and 8 of 32; decode in place on
+             a [32, 8, H_loc, 64, 64] stack, the sequential prefill at
+             (8, 64) with a masked tail) against their plain versions
+             (1e-4) and timed; tests/goldens.json through
+             ``TtsEngine(tp_mesh=)`` at tp 2 on the goldens model (f32),
+             exactly (a request that parts passes only at a rounding tie of
+             its two top logits, 1e-5, and is reported); ``step_tp`` against
+             the plain step at tp 1, 2 and 4, B = 8, 3 steps at full width:
+             seeded weights cast to f32 at full depth, and seeded bf16
+             weights and their int8 tree at 2 layers (logits and state;
+             1e-6 at tp 1; else f32 within ten times the plain f32 step's
+             movement under a 2^-23 nudge of its embedding rows, bf16 0.03
+             and int8 0.1, each limit shown in the run to lie below the
+             readings of planted faults, a group norm over the global head
+             count and, for int8, misplaced scales; argmax agreement and
+             the lower-precision control reported) and a shard's
+             bytes of the big matrices (1/tp); 4 property requests at full
+             width through ``TtsEngine(tp_mesh=)`` at tp 2 and as one burst
+             through ``ContinuousEngine(mesh=)``, every slot freed, their
+             ``wkv7_decode`` and ``wkv7_prefill`` launches as the ``tp``
+             path; ``tools/tp_smoke.py`` (4 steps) at (1, 1) and tp 2: wall,
+             device busy and kernels a step, and the (1, 1) tax;
   main_path  8 property-controlled requests through
              ``TtsPipeline.synthesize_batch`` at full width (32 × 2048 LM,
              bf16 weights, f32 state; full-size BiCodec; random weights
@@ -226,8 +251,12 @@ Phases, each fatal on failure:
              ``wkv7_decode`` and ``wkv7_prefill`` launched, as the
              ``checkpoint`` path.
 
-Prints the card's name and power limit early, a ``{"kernels": [...]}``
-line second to last (one entry per C entry point, ``replaces`` the list
+Prints the card's name and power limit early; before the last lines a
+``{"kernel_shapes": ...}`` line (each kernel timed at every shape it was
+timed at) and a ``{"summary": ...}`` line of at most ``SUMMARY_BYTES``
+(each phase's seconds, launches and key readings, so that they stand in
+the last 24 KB of the output, all a run's record may keep); a
+``{"kernels": [...]}`` line second to last (one entry per C entry point, ``replaces`` the list
 of TPU functions it stands for; every one of the 13 must appear, and
 every entry must have launched on some path) and ``{"ok": true,
 "device": {...}}`` last. Exits
@@ -241,6 +270,7 @@ import contextlib
 import dataclasses
 import json
 import logging
+import math
 import os
 import subprocess
 import sys
@@ -1742,6 +1772,468 @@ def parity_kernels(torch, W, lm_cfg):
 
 
 # --------------------------------------------------------------------------
+# tp: tensor and data parallelism (parallel/) on virtual meshes of one card
+# --------------------------------------------------------------------------
+
+# step_tp against the plain step at tp > 1 for bf16 and int8: full width at
+# TP_LOW_LAYERS layers, where rounding does not yet saturate; rel err of
+# the largest value (logits, state). Each limit lies between the sound
+# runs' largest reading and the readings of the planted faults, which the
+# phase takes in every run and requires above it (PERF.md, the tp cell)
+TP_LOW_LAYERS = 2
+TP_LOW_TOL = {"bf16": (0.03, 0.03), "int8": (0.1, 0.1)}
+TP_PART_TIE = 1e-5      # a parting request's top two logits, a rounding tie
+
+
+def virtual_mesh(device: str, tp: int):
+    """A (1, tp) mesh of one device repeated: the sharded program runs on
+    one card or the CPU."""
+    from rwkv_tts_tpu_torch.parallel import mesh as meshlib
+    return meshlib.make_mesh(tp, model_parallel=tp, devices=[device] * tp)
+
+
+def logits_before(torch, eng, args, tokens, index: int):
+    """The engine's logits over the draw's domain before draw ``index`` of
+    ``args`` (the global tokens, then the semantic ones), replaying the
+    ``tokens`` ({"global", "semantic"}) drawn before it through the
+    engine's own prefill and step."""
+    from rwkv_tts_tpu_torch import constants as CN
+    from rwkv_tts_tpu_torch.models import rwkv7
+    from rwkv_tts_tpu_torch.runtime.engine import (SEMANTIC_SLICE,
+                                                   _mask_semantic)
+
+    prompt, _ = eng.build_prompt(args)
+    B = 1 if eng.tp_mesh is None else eng.tp_mesh.dp
+    logits, st = eng.prefill([prompt] * B, eng.init_state(B))
+    n_glob = 0 if args.zero_shot else CN.GLOBAL_TOKENS_SIZE
+    if index < n_glob:
+        feeds = [g + CN.GLOBAL_TOKEN_OFFSET for g in tokens["global"][:index]]
+    else:
+        feeds = ([] if args.zero_shot else
+                 [g + CN.GLOBAL_TOKEN_OFFSET for g in tokens["global"]]
+                 + [CN.TTS_TAG_1]) + tokens["semantic"][:index - n_glob]
+    for t in feeds:
+        tok = torch.full((B,), t, dtype=torch.int64, device=eng.device)
+        if eng._step_fn is None:
+            logits, st = rwkv7.step(eng.params, tok, st, eng.cfg,
+                                    head_slice=SEMANTIC_SLICE)
+        else:
+            logits, st = eng._step_fn(eng.params, tok, st, SEMANTIC_SLICE)
+    row = logits[0, :SEMANTIC_SLICE]
+    return row[:CN.GLOBAL_VOCAB] if index < n_glob else _mask_semantic(row)
+
+
+def tp_goldens(torch, device: str, root: str, tp: int = 2):
+    """tests/goldens.json through ``TtsEngine(tp_mesh=)`` on a virtual
+    (1, ``tp``) mesh, the goldens model at f32: the tokens exactly. A
+    request that parts passes only where the TP engine's two top logits
+    at the parting draw lie within ``TP_PART_TIE`` (a rounding tie), and is
+    reported. Returns {"exact": n, "parted": [...]}."""
+    from rwkv_tts_tpu_torch.config import EngineConfig, RwkvConfig, TtsArgs
+    from rwkv_tts_tpu_torch.runtime.engine import TtsEngine
+    from rwkv_tts_tpu_torch.utils import bridge
+
+    with open(os.path.join(root, "tests", "goldens.json")) as f:
+        want = json.load(f)
+    cfg = RwkvConfig(**GOLDENS_CFG)
+    eng = TtsEngine(bridge.rwkv7_params(goldens_params(cfg, 1234), device),
+                    cfg, EngineConfig(prefill_buckets=(64, 128),
+                                      max_semantic_tokens=16),
+                    tp_mesh=virtual_mesh(device, tp))
+    out = {"exact": 0, "parted": []}
+    for name, req in goldens_requests(TtsArgs).items():
+        res = eng.generate(req)
+        got = {"global": res.global_tokens, "semantic": res.semantic_tokens}
+        if got == want[name]:
+            out["exact"] += 1
+            continue
+        w = want[name]
+        i = next((j for j, (p, q) in enumerate(zip(
+            w["global"] + w["semantic"], got["global"] + got["semantic"]))
+            if p != q), None)
+        if i is None:
+            fail(f"tp: goldens {name}: lengths differ, no parting draw")
+        top = logits_before(torch, eng, req, w, i).topk(2).values
+        gap = float(top[0] - top[1])
+        out["parted"].append({"name": name, "draw": i, "top2_gap": gap})
+        if gap > TP_PART_TIE:
+            fail(f"tp: goldens {name} parts from tests/goldens.json at draw "
+                 f"{i} with the two top logits {gap:.3g} apart (more than "
+                 f"{TP_PART_TIE})")
+    return out
+
+
+def rotate_scales(sp, tp: int):
+    """A planted fault for the int8 check: ``shard_params_tp`` output with
+    each column-parallel int8 scale ``s`` of the layer stack taken from the
+    next shard, (m + 1) mod tp: a misplaced scale."""
+    from rwkv_tts_tpu_torch.parallel import tp as tplib
+
+    blocks = dict(sp["blocks"])
+    for name, w in sp["blocks"].items():
+        if isinstance(w, dict) and name in tplib._BLOCK_SPECS and \
+                name not in tplib._ROW_PARALLEL:
+            s = w["s"]
+            blocks[name] = dict(w, s=dataclasses.replace(s, grid=tuple(
+                tuple(row[(m + 1) % tp] for m in range(tp))
+                for row in s.grid)))
+    return dict(sp, blocks=blocks)
+
+
+@contextlib.contextmanager
+def global_group_norm(tp: int):
+    """A planted fault for the bf16 and int8 checks: the TP step's group
+    norm over the model's head count (H_loc · tp groups on a shard's
+    C / tp channels) instead of the shard's own."""
+    from rwkv_tts_tpu_torch.models import rwkv7
+
+    real = rwkv7._group_norm
+    rwkv7._group_norm = lambda x, w, b, n, eps: real(x, w, b, n * tp, eps)
+    try:
+        yield
+    finally:
+        rwkv7._group_norm = real
+
+
+def tp_steps(torch, lm_cfg, device: str, tps=(1, 2, 4), steps: int = 3,
+             batch: int = 8, low_layers: int = TP_LOW_LAYERS):
+    """``step_tp`` against the plain step at each tp of ``tps`` (a virtual
+    (1, tp) mesh), B = ``batch``, ``steps`` steps of seeded tokens from a
+    zero state, on the raw layout at ``lm_cfg``'s width in three forms:
+    seeded weights cast to f32 (f32 compute) at ``lm_cfg``'s depth, and
+    at ``low_layers`` layers seeded bf16 weights and their int8 tree. It compares the logits (the 8320 the stages read) and the state
+    after the last step, rel err of the largest value, and reports argmax
+    agreement. Tolerances: at tp 1 the program is the plain step's
+    arithmetic (1e-6). At tp > 1 the shards' partial sums reorder the
+    contractions. The random-init stack amplifies a rounding with depth,
+    so f32 is held within ten times the plain f32 step's own movement when
+    its embedding rows are nudged by 2^-23 of themselves (at least 1e-4).
+    bf16 and int8 are held at ``low_layers`` layers within
+    ``TP_LOW_TOL``, and each limit is shown to separate: the planted
+    faults at the largest tp (``global_group_norm``; for int8 also
+    ``rotate_scales``) must read above it. The lower-precision control
+    (bf16 against the f32 step, int8 against the bf16 one) is reported
+    beside them. The int8 row-parallel products
+    quantize by each shard's local absmax, as the JAX package's do; the
+    comparison with the plain step cannot see that detail (a global
+    absmax would read closer), so tests/test_torch_tp.py holds it against
+    the JAX package. Also each shard's bytes of the six big layer matrices
+    and the head against the unsharded tree's at the largest tp. Returns
+    ({layout: {tp: row}}, bytes, {layout: {"control": (logits, state),
+    "faults": {name: (logits, state)}}})."""
+    from rwkv_tts_tpu_torch.models import rwkv7
+    from rwkv_tts_tpu_torch.ops.quant import quantize_rwkv_params
+    from rwkv_tts_tpu_torch.parallel import mesh as meshlib
+    from rwkv_tts_tpu_torch.parallel import tp as tplib
+    from rwkv_tts_tpu_torch.runtime.engine import SEMANTIC_SLICE
+
+    def f32_of(cfg):
+        return dataclasses.replace(cfg, dtype="float32",
+                                   param_dtype="float32")
+
+    def to_f32(tree):
+        return meshlib.tree_map(lambda t: t.float(), tree)
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 16)
+    drawn = rwkv7.init_params(lm_cfg, gen, device)
+    low_cfg = dataclasses.replace(
+        lm_cfg, n_layer=min(low_layers, lm_cfg.n_layer), dtype="bfloat16",
+        param_dtype="bfloat16")
+    low = rwkv7.init_params(low_cfg, gen, device)
+    toks = torch.randint(0, 8192, (steps, batch), generator=gen,
+                         device=device)
+    forms = {"f32": (lambda: to_f32(drawn), f32_of(lm_cfg)),
+             "bf16": (lambda: low, low_cfg),
+             "int8": (lambda: quantize_rwkv_params(low), low_cfg)}
+
+    def plain_steps(params, cfg):
+        ref = rwkv7.init_state(cfg, batch, device=device)
+        for t in toks:
+            want, ref = rwkv7.step(params, t, ref, cfg,
+                                   head_slice=SEMANTIC_SLICE)
+        return want, ref
+
+    def tp_run(sp, cfg, mesh):
+        st = tplib.shard_state_tp(mesh, rwkv7.init_state(
+            cfg, batch, device=device))
+        for t in toks:
+            got, st = tplib.step_tp(sp, t, st, cfg, mesh,
+                                    head_slice=SEMANTIC_SLICE)
+        return got, {k: v.gather() for k, v in st.items()}
+
+    def distance(a, b):
+        return (rel_err(torch, a[0], b[0]),
+                max(rel_err(torch, a[1][k], b[1][k]) for k in a[1]))
+
+    out, nbytes, plain, seps = {}, {}, {}, {}
+    for layout, (make, cfg) in forms.items():
+        params = make()
+        want, ref = plain[layout] = plain_steps(params, cfg)
+        out[layout] = {}
+        if layout == "f32":
+            nudged = dict(params, emb=params["emb"] * (1 + 2.0 ** -23 * (
+                torch.randn(params["emb"].shape, generator=gen,
+                            device=device))))
+            moved = distance(plain_steps(nudged, cfg), plain["f32"])
+            del nudged
+            envelope = tuple(max(1e-4, 10 * e) for e in moved)
+        else:
+            envelope = TP_LOW_TOL[layout]
+            seps[layout] = {"faults": {}}
+            seps[layout]["control"] = distance(
+                plain["int8"], plain["bf16"]) if layout == "int8" else \
+                distance(plain["bf16"], plain_steps(to_f32(params),
+                                                    f32_of(cfg)))
+        for tp in tps:
+            mesh = virtual_mesh(device, tp)
+            sp = tplib.shard_params_tp(mesh, params)
+            got, st = tp_run(sp, cfg, mesh)
+            e_l, e_s = distance((got, st), (want, ref))
+            tol = (1e-6, 1e-6) if tp == 1 else envelope
+            row = {"logits_rel_err": e_l, "state_rel_err": e_s,
+                   "argmax_agree": float((got.argmax(-1) == want.argmax(-1))
+                                         .float().mean()),
+                   "bitwise": bool(torch.equal(got, want)),
+                   "tolerance": tol}
+            if e_l > tol[0] or e_s > tol[1]:
+                fail(f"tp: step_tp at tp {tp} ({layout}, {cfg.n_layer} "
+                     f"layers) against the plain step: rel err logits "
+                     f"{e_l:.3g}, state {e_s:.3g} (tolerance {tol[0]:.3g}, "
+                     f"{tol[1]:.3g})")
+            out[layout][tp] = row
+            if tp == max(tps) > 1 and layout != "f32":
+                faults = seps[layout]["faults"]
+                with global_group_norm(tp):
+                    faults["global_group_norm"] = distance(
+                        tp_run(sp, cfg, mesh), (want, ref))
+                if layout == "int8":
+                    faults["rotate_scales"] = distance(tp_run(
+                        rotate_scales(sp, tp), cfg, mesh), (want, ref))
+                for name, (f_l, f_s) in faults.items():
+                    if not (f_l > envelope[0] or f_s > envelope[1]):
+                        fail(f"tp: the planted fault {name} at tp {tp} "
+                             f"({layout}) reads {f_l:.3g}, {f_s:.3g}, "
+                             f"inside the tolerance {envelope[0]:.3g}, "
+                             f"{envelope[1]:.3g}: the check would not tell "
+                             f"it from a sound run")
+            if tp == max(tps) and layout != "f32":
+                big = [sp["blocks"][n] for n in ("w_r", "w_k", "w_v", "w_o",
+                                                 "ffn_k", "ffn_v")] + \
+                    [sp["head"]]
+                big = [x["q"] if isinstance(x, dict) else x for x in big]
+                shard = sum(math.prod(x.shard_shape) * x.grid[0][0]
+                            .element_size() for x in big)
+                whole = sum(x.nbytes for x in big)
+                if shard * tp != whole:
+                    fail(f"tp: a shard holds {shard} of {whole} bytes of the "
+                         f"big matrices at tp {tp} ({layout})")
+                nbytes[layout] = {"tp": tp, "shard": shard, "whole": whole}
+            del sp, got, st
+        del params
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    return out, nbytes, seps
+
+
+def tp_serving(torch, lm_cfg, device: str, max_tokens: int = 8,
+               tp: int = 2):
+    """4 seeded property requests through ``TtsEngine(tp_mesh=)`` on a
+    virtual (1, ``tp``) mesh at ``lm_cfg`` (bf16 weights), then the same 4
+    as one burst through ``ContinuousEngine(mesh=)`` over that engine's
+    sharded parameters (4 slots): valid ids, every slot freed afterwards;
+    how many requests emit the same tokens through both is reported.
+    Returns walls, tokens and that count."""
+    from rwkv_tts_tpu_torch.config import EngineConfig, TtsArgs
+    from rwkv_tts_tpu_torch.models import rwkv7
+    from rwkv_tts_tpu_torch.runtime.continuous import ContinuousEngine
+    from rwkv_tts_tpu_torch.runtime.engine import TtsEngine
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    ecfg = EngineConfig(max_semantic_tokens=max_tokens, batch_size=4)
+    mesh = virtual_mesh(device, tp)
+    eng = TtsEngine(rwkv7.init_params(lm_cfg, gen, device), lm_cfg, ecfg,
+                    tp_mesh=mesh)
+    reqs = [TtsArgs(text=TEXTS[i], seed=100 + i, max_tokens=max_tokens)
+            for i in range(4)]
+    t0 = time.perf_counter()
+    static = eng.generate_batch(reqs)
+    static_s = time.perf_counter() - t0
+    cont = ContinuousEngine(eng.params, lm_cfg, ecfg, tokenizer=eng.tokenizer,
+                            block=8, slots=4, mesh=mesh)
+    t0 = time.perf_counter()
+    try:
+        streamed = through_engine(cont, reqs)
+    finally:
+        cont.stop()
+    cont_s = time.perf_counter() - t0
+    if cont._live:
+        fail(f"tp: the continuous engine kept {len(cont._live)} slots")
+    for res in static + streamed:
+        if len(res.global_tokens) != 32 or not all(
+                0 <= t < 4096 for t in res.global_tokens) or not all(
+                0 <= t < 8192 for t in res.semantic_tokens):
+            fail(f"tp: ids out of range: {res}")
+    return {"static_s": static_s, "continuous_s": cont_s,
+            "same": sum(same_tokens(a, b) for a, b in zip(static, streamed)),
+            "lengths": [len(r.semantic_tokens) for r in static],
+            "decode_steps": eng.counters["decode_steps"]}
+
+
+def tp_kernels(torch, W, lm_cfg, heads=(16, 8), batch: int = 8,
+               T: int = 64):
+    """Rows 1 and 2 at the head counts a tp 2 and 4 shard hands them (H_loc
+    16 and 8 of 32): the decode kernel in place on layer 2 of a
+    [32, ``batch``, H_loc, 64, 64] f32 stack (``check_decode``) and the
+    sequential prefill at (``batch``, ``T``) with a masked tail
+    (``check_seq_kernel``), each against its plain version (1e-4), the
+    kernel's own prefill plans at H_loc equal to ``prefill_plan``'s, then
+    each timed beside its plain version. Returns {"wkv7_decode H=16":
+    stats, ...}."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 17)
+    N, L = lm_cfg.head_size, lm_cfg.n_layer
+    out = {}
+    for H in heads:
+        check_seq_plans(W, H)
+        e_dec = check_decode(torch, W, batch, H, N, L, torch.float32, gen,
+                             1e-4)
+        e_pre = check_seq_kernel(torch, W, "wkv7_prefill", batch, T, H, N,
+                                 gen, 5)
+        ins = wkv_inputs(torch, (batch, H, N), gen)
+        stack = torch.zeros((L, batch, H, N, N), device="cuda")
+        it = {"i": 0}
+
+        def dec_kernel():
+            W.wkv7_decode_(*ins, stack, it["i"] % L)
+            it["i"] += 1
+
+        def dec_plain():
+            l = it["i"] % L
+            _, s = W.wkv7_single(*ins, stack[l])
+            stack[l].copy_(s)
+            it["i"] += 1
+
+        x = wkv_inputs(torch, (batch, T, H, N), gen)
+        s0 = torch.zeros((batch, H, N, N), device="cuda")
+        slab = batch * H * N * N * 4
+        seq = batch * T * H * N * 4
+        for name, kern, plain, n_k, n_p, (b_ms, b_by), err in (
+                ("wkv7_decode", dec_kernel, dec_plain, 2 * L, L // 4,
+                 bound(2 * slab + 7 * batch * H * N * 4,
+                       9 * batch * H * N * N), e_dec),
+                ("wkv7_prefill", lambda: W.wkv7_prefill(*x, s0),
+                 lambda: W.wkv7_scan(*x, s0), 16, 2,
+                 bound(7 * seq + 2 * slab, 9 * batch * T * H * N * N),
+                 e_pre)):
+            out[f"{name} H={H}"] = timed(
+                torch, name, kern, plain, None, n_k, n_p, b_ms, b_by, err,
+                f"a tp shard's shape (B={batch}"
+                f"{', T=' + str(T) if name == 'wkv7_prefill' else ''}, "
+                f"H_loc={H})")
+    return out
+
+
+def tp(torch, lm_cfg, device: str, root: str, max_tokens: int = 8,
+       tps=(1, 2, 4), smoke_argv=None):
+    """The ``tp`` phase on ``device``: ``tp_goldens``, ``tp_steps``, the
+    serving runs (``tp_serving``, their launches read as the ``tp`` path)
+    and ``tools/tp_smoke.py`` at (1, 1) and tp 2. Returns a summary."""
+    from rwkv_tts_tpu_torch.tools import tp_smoke
+
+    t_phase = time.perf_counter()
+    times = {}
+
+    def part(name, fn):
+        t0 = time.perf_counter()
+        res = fn()
+        if device == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        times[name] = time.perf_counter() - t0
+        return res
+
+    out = {"goldens": part("goldens", lambda: tp_goldens(torch, device,
+                                                         root))}
+    out["steps"], out["bytes"], out["separation"] = part(
+        "steps", lambda: tp_steps(torch, lm_cfg, device, tps))
+    reset_launch_counts()
+    out["serving"] = part("serving", lambda: tp_serving(torch, lm_cfg,
+                                                        device, max_tokens))
+    out["launches"] = launch_counts()
+    out["smoke"] = part("smoke", lambda: tp_smoke.main(
+        smoke_argv or ["--steps", "4", "--iters", "2", "--tp", "2"],
+        device=device))
+    out["times_s"] = times
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def tp_lines(tq, tpk, lm_cfg, card: str):
+    """The ``tp`` phase's report lines."""
+    g, sv, sm, nb = tq["goldens"], tq["serving"], tq["smoke"], tq["bytes"]
+
+    def ms(x):
+        return "not measured" if x is None else f"{x:.3f}"
+
+    lines = [
+        f"tp: tests/goldens.json through TtsEngine(tp_mesh=) on a virtual "
+        f"(1, 2) mesh of one device, the goldens model at f32: "
+        f"{g['exact']} of 4 exact; parted at a rounding tie: "
+        f"{g['parted'] or 'none'}; phase wall {tq['wall_s']:.1f} s ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in tq["times_s"].items())
+        + f" s); {card}",
+        "tp: step_tp against the plain step, B = 8, 3 steps, f32 at "
+        f"{lm_cfg.n_layer} layers, bf16 and int8 at "
+        f"{min(TP_LOW_LAYERS, lm_cfg.n_layer)}, x {lm_cfg.n_embd} (rel err "
+        f"of the largest value, logits and state; tolerance 1e-6 at tp 1; "
+        f"else f32 ten times a 2^-23 nudge's effect, bf16 and int8 "
+        f"{TP_LOW_TOL}): " + "; ".join(
+            f"{lay} tp {k}: {r['logits_rel_err']:.3g}, "
+            f"{r['state_rel_err']:.3g} (tolerance "
+            f"{r['tolerance'][0]:.3g}, {r['tolerance'][1]:.3g}), argmax agree "
+            f"{100 * r['argmax_agree']:.0f}%, bitwise {r['bitwise']}"
+            for lay, rows in tq["steps"].items() for k, r in rows.items())
+        + "; lower-precision control and planted faults at the largest tp: "
+        + "; ".join(
+            f"{lay} control {v['control'][0]:.3g}, {v['control'][1]:.3g}"
+            + "".join(f", {n} {f[0]:.3g}, {f[1]:.3g}"
+                      for n, f in v["faults"].items())
+            for lay, v in tq["separation"].items())
+        + "; a shard's bytes of the six big layer matrices and the head: "
+        + "; ".join(f"{lay} {v['shard']} of {v['whole']} at tp {v['tp']}"
+                    for lay, v in nb.items()),
+        "tp: rows 1 and 2 at a tp shard's head count: " + "; ".join(
+            f"{k} device {v['ms']:.5f} ms, plain {v['plain_ms']:.5f} ms, "
+            f"bound {v['bound_ms']:.5f} ms by {v['bound_by']} "
+            f"({100 * v['bound_ms'] / v['ms']:.1f}%), max abs err "
+            f"{v['max_abs_err']:.3g}" for k, v in tpk.items()) + f"; {card}",
+        f"tp: 4 property requests at {lm_cfg.n_layer} x {lm_cfg.n_embd} "
+        f"(bf16) through TtsEngine(tp_mesh=) at tp 2 in "
+        f"{sv['static_s']:.2f} s ({sv['decode_steps']} decode steps, "
+        f"semantic lengths {sv['lengths']}) and as one burst through "
+        f"ContinuousEngine(mesh=) in {sv['continuous_s']:.2f} s, every slot "
+        f"freed; the same tokens through both: {sv['same']} of 4; launches "
+        f"(the tp path) {tq['launches']}",
+        f"tp: tools/tp_smoke ({sm['steps']} steps + TAG_1, B = "
+        f"{sm['batch']}, raw int8, bf16 state), ms per step wall / device "
+        f"busy / kernels: plain {ms(sm['plain']['wall_ms'])} / "
+        f"{ms(sm['plain']['device_ms'])} / {ms(sm['plain']['kernels'])}; "
+        f"tp (1, 1) {ms(sm['tp1']['wall_ms'])} / "
+        f"{ms(sm['tp1']['device_ms'])} / {ms(sm['tp1']['kernels'])}; "
+        f"virtual tp 2 {ms(sm['tp2']['wall_ms'])} / "
+        f"{ms(sm['tp2']['device_ms'])} / {ms(sm['tp2']['kernels'])}; the "
+        f"(1, 1) tax {ms(sm['tp11_minus_plain']['wall_ms'])} / "
+        f"{ms(sm['tp11_minus_plain']['device_ms'])} / "
+        f"{ms(sm['tp11_minus_plain']['kernels'])}; wkv7_decode per step "
+        f"plain {sm['plain']['wkv7_decode_per_step']:.0f}, tp (1, 1) "
+        f"{sm['tp1']['wkv7_decode_per_step']:.0f}, tp 2 "
+        f"{sm['tp2']['wkv7_decode_per_step']:.0f}; {card}"]
+    return lines
+
+
+# --------------------------------------------------------------------------
 # main path
 # --------------------------------------------------------------------------
 
@@ -2823,9 +3315,9 @@ def token_witnesses(torch, pipe, lm_cfg, ecfg, device, block, requests,
         block=8, slots=STREAM_SLOTS, buckets=STREAM_BUCKETS, device=device)
     block_slots, real_block = [], CT.decode_block
 
-    def logged_block(params, state, logits, *a):
+    def logged_block(params, state, logits, *a, **kw):
         block_slots.append(logits.shape[0])
-        return real_block(params, state, logits, *a)
+        return real_block(params, state, logits, *a, **kw)
 
     CT.decode_block = logged_block
     try:
@@ -2934,9 +3426,9 @@ def streaming(torch, lm_cfg, bc_cfg, device: str, engine_cfg=None,
     block_slots = []            # slots each decode block ran on
     real_block = CT.decode_block
 
-    def logged_block(params, state, logits, *a):
+    def logged_block(params, state, logits, *a, **kw):
         block_slots.append(logits.shape[0])
-        return real_block(params, state, logits, *a)
+        return real_block(params, state, logits, *a, **kw)
 
     CT.decode_block = logged_block
     try:
@@ -4214,8 +4706,81 @@ KERNEL_ENTRIES = {
 
 
 PHASES = ("kernels", "quant_kernels", "conv_kernels", "rest_kernels",
-          "sweep", "tools", "goldens", "parity", "main_path", "cloning",
-          "quantized", "streaming", "server", "checkpoint")
+          "sweep", "tools", "goldens", "parity", "tp", "main_path",
+          "cloning", "quantized", "streaming", "server", "checkpoint")
+
+# the summary line's bytes: with the kernels line and the ok line it stays
+# well inside the last 24 KB of output a run's record keeps (about 12 KB)
+SUMMARY_BYTES = 4500
+
+
+def _compact(x):
+    """A reading for the summary line: floats to 4 significant digits."""
+    if isinstance(x, float):
+        return float(f"{x:.4g}")
+    if isinstance(x, dict):
+        return {k: _compact(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_compact(v) for v in x]
+    return x
+
+
+def summary_line(phases, budget: int = SUMMARY_BYTES) -> str:
+    """One JSON line, ``{"summary": {phase: {"s": seconds, "launches":
+    {kernel: n}, reading: value, ...}}}``, of at most ``budget`` bytes:
+    floats cut to 4 significant digits, zero launch counts left out, and,
+    while the line is over budget, the last reading of the phase with the
+    longest entry dropped (its count under "cut"). Seconds and launches
+    are never dropped: every full reading was printed on its phase's own
+    lines."""
+    entries = {}
+    for name, e in phases.items():
+        e = _compact(dict(e))
+        if "launches" in e:
+            e["launches"] = {k: v for k, v in e["launches"].items() if v}
+        entries[name] = e
+
+    def line():
+        return json.dumps({"summary": entries}, separators=(",", ":"),
+                          ensure_ascii=False)
+
+    out = line()
+    while len(out.encode()) > budget:
+        name = max(entries, key=lambda n: len(json.dumps(entries[n])))
+        e = entries[name]
+        keys = [k for k in e if k not in ("s", "launches", "cut")]
+        if not keys:
+            fail(f"summary: {len(out.encode())} bytes over the budget of "
+                 f"{budget} with every phase at its seconds and launches")
+        del e[keys[-1]]
+        e["cut"] = e.get("cut", 0) + 1
+        out = line()
+    return out
+
+
+def kernel_entries(stats, paths):
+    """The kernels line's entries: one per C entry point, with its launches
+    on every path of the run; fails where an entry launched on no path or
+    a TPU function has no entry."""
+    kernels = []
+    for name, (src, wrapper, replaces) in KERNEL_ENTRIES.items():
+        s = stats[name]
+        by_path = {p: n[name] for p, n in paths.items()}
+        if not any(by_path.values()):
+            fail(f"{name} was launched on no path: {by_path}")
+        kernels.append({"name": name, "route": "cuda", "source": src,
+                        "wrapper": wrapper, "replaces": list(replaces),
+                        "launches": sum(by_path.values()),
+                        "launches_by_path": by_path,
+                        "max_abs_err": s["max_abs_err"], "ms": s["ms"],
+                        "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
+                        "bound_by": s["bound_by"],
+                        "library_ms": s.get("library_ms"),
+                        **({"note": s["note"]} if "note" in s else {})})
+    missing = set(TPU_FUNCTIONS) - {r for e in kernels for r in e["replaces"]}
+    if missing:
+        fail(f"TPU functions with no kernel in the kernels line: {missing}")
+    return kernels
 
 
 def parse_phases(argv):
@@ -4278,6 +4843,22 @@ def main(argv=None) -> None:
     except RuntimeError as e:
         fail(str(e))
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
+    stats, paths, summary = {}, {}, {}
+    clock = {"t": t0}
+
+    def note(name, **readings):
+        """``name``'s entry of the summary line: its seconds since the
+        previous entry, its path's launches, its key readings."""
+        now = time.perf_counter()
+        summary[name] = {"s": now - clock["t"], **readings}
+        if name in paths:
+            summary[name]["launches"] = paths[name]
+        clock["t"] = now
+
+    def kernel_ms_of(before):
+        return {k: stats[k].get("ms") for k in stats if k not in before}
+
+    note("build", sources=len(_build.build_log))
     for name, log in _build.build_log.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -4287,30 +4868,30 @@ def main(argv=None) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     lm_cfg, bc_cfg = RwkvConfig(), BiCodecConfig()
-    stats, paths = {}, {}
-    if "kernels" in selected:
-        stats.update(phase_kernels(torch, W, lm_cfg))
-    if "quant_kernels" in selected:
-        stats.update(phase_quant_kernels(torch, W, Q, lm_cfg))
-    if "conv_kernels" in selected:
-        stats.update(phase_conv_kernels(torch, C1, bc_cfg))
-        torch.cuda.empty_cache()
-    if "rest_kernels" in selected:
-        t0 = time.perf_counter()
-        stats.update(phase_rest_kernels(torch, W, lm_cfg))
-        torch.cuda.empty_cache()
-        print(f"kernels: the kernels off the serving paths in "
-              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for name, run in (
+            ("kernels", lambda: phase_kernels(torch, W, lm_cfg)),
+            ("quant_kernels", lambda: phase_quant_kernels(torch, W, Q,
+                                                          lm_cfg)),
+            ("conv_kernels", lambda: phase_conv_kernels(torch, C1, bc_cfg)),
+            ("rest_kernels", lambda: phase_rest_kernels(torch, W, lm_cfg))):
+        if name in selected:
+            before = set(stats)
+            stats.update(run())
+            torch.cuda.empty_cache()
+            note(name, ms=kernel_ms_of(before))
+            print(f"{name}: {summary[name]['s']:.1f} s", flush=True)
     if "sweep" in selected:
-        t0 = time.perf_counter()
         prefill_sweep(torch, W, lm_cfg.n_head, lm_cfg.head_size)
         torch.cuda.empty_cache()
-        print(f"sweep: {time.perf_counter() - t0:.1f} s; {card}", flush=True)
+        note("sweep")
+        print(f"sweep: {summary['sweep']['s']:.1f} s; {card}", flush=True)
     if "tools" in selected:
         _, paths["tools"] = phase_tools(torch)
         print(f"tools: {card}", flush=True)
+        note("tools")
     if "goldens" in selected:
         phase_goldens(root)
+        note("goldens", exact=True)
 
     if "parity" in selected:
         pr = parity(torch, lm_cfg, "cuda", root)
@@ -4342,7 +4923,39 @@ def main(argv=None) -> None:
                           f"{v['max_abs_err']:.3g}" for k, v in b1.items())
               + f"; {card}", flush=True)
         paths["parity"] = pr["launches"]
+        note("parity", goldens=pr["goldens"],
+             ms_per_step=[1e3 * r["wall_s"] / max(r["steps"], 1)
+                          for r in pr["runs"]],
+             b1_ms={k: v["ms"] for k, v in b1.items()})
         del pr
+        torch.cuda.empty_cache()
+
+    if "tp" in selected:
+        t0 = time.perf_counter()
+        tpk = tp_kernels(torch, W, lm_cfg)
+        tk = time.perf_counter() - t0
+        tq = tp(torch, lm_cfg, "cuda", root)
+        tq["times_s"] = {"kernels": tk, **tq["times_s"]}
+        for line in tp_lines(tq, tpk, lm_cfg, card):
+            print(line, flush=True)
+        paths["tp"] = tq["launches"]
+        sm = tq["smoke"]
+        note("tp", goldens_exact=tq["goldens"]["exact"],
+             parted=len(tq["goldens"]["parted"]),
+             step_err={f"{lay} tp{k}": max(r["logits_rel_err"],
+                                           r["state_rel_err"])
+                       for lay, rows in tq["steps"].items()
+                       for k, r in rows.items()},
+             fault_err={f"{lay} {n}": max(f) for lay, v in
+                        tq["separation"].items()
+                        for n, f in v["faults"].items()},
+             tax_ms={k: sm["tp11_minus_plain"][k]
+                     for k in ("wall_ms", "device_ms", "kernels")},
+             tp2_ms=[sm["tp2"]["wall_ms"], sm["tp2"]["device_ms"]],
+             kernels_ms={k: v["ms"] for k, v in tpk.items()},
+             serving_s=[tq["serving"]["static_s"],
+                        tq["serving"]["continuous_s"]])
+        del tq
         torch.cuda.empty_cache()
 
     if "main_path" in selected:
@@ -4365,6 +4978,8 @@ def main(argv=None) -> None:
         del out["pipe"]     # the cloning phase builds its own full-size models
 
         paths["main_path"] = out["launches"]
+        note("main_path", rtf=res[0].rtf, step_ms=[wall_ms, busy_ms],
+             kernels=kernels)
 
     if "cloning" in selected:
         clone = cloning(torch, lm_cfg, bc_cfg, Wav2Vec2Config(), "cuda",
@@ -4384,6 +4999,7 @@ def main(argv=None) -> None:
               f"{card}", flush=True)
 
         paths["cloning"] = clone["launches"]
+        note("cloning", rtf=res[0].rtf, extract_ms=clone["extract_ms"])
         del clone
         torch.cuda.empty_cache()
 
@@ -4426,6 +5042,10 @@ def main(argv=None) -> None:
               f"per step; {card}", flush=True)
 
         paths["quantized"] = quant["launches"]
+        note("quantized", **{f"{k}_busy_ms": quant[k]["step"][1]
+                             for k in ("int8", "int4", "fused_int8")},
+             **{f"{k}_rtf": quant[k]["results"][0].rtf
+                for k in ("int8", "int4")})
 
     if "streaming" in selected:
         torch.cuda.empty_cache()
@@ -4521,6 +5141,11 @@ def main(argv=None) -> None:
               f"weights: {st['bf16_blocks']} (reported); {card}", flush=True)
 
         paths["streaming"] = st["launches"]
+        note("streaming", solo_first_ms=[r["first_chunk_ms"]
+                                         for r in st["solo"]],
+             burst_same=wit["burst"]["same"],
+             staggered_same=wit["staggered"]["same"],
+             goldens=st["goldens"], block_busy_ms=st["block"][1])
         del st
         torch.cuda.empty_cache()
 
@@ -4558,6 +5183,8 @@ def main(argv=None) -> None:
               f"products depend on the batch); {sv['mp3']}; launches "
               f"{sv['launches']}", flush=True)
         paths["server"] = sv["launches"]
+        note("server", rtf=[r["rtf"] for r in sv["requests"]],
+             first_line_ms=[r["first_line_ms"] for r in sv["streams"]])
 
     if "checkpoint" in selected:
         torch.cuda.empty_cache()
@@ -4565,31 +5192,22 @@ def main(argv=None) -> None:
         for line in checkpoint_lines(ck, lm_cfg, card):
             print(line, flush=True)
         paths["checkpoint"] = ck["launches"]
+        note("checkpoint", times_s=ck["times_s"],
+             lm_equal=ck["lm_equal"], rtf=[r["rtf"] for r in ck["requests"]])
 
+    # each kernel's timings at every shape it was timed at, on a line of
+    # their own: the kernels line keeps each entry's figure at its path's
+    # shape
+    print(json.dumps({"kernel_shapes": {
+        k: v["shapes"] for k, v in stats.items() if "shapes" in v}},
+        default=str), flush=True)
+    print(summary_line(summary), flush=True)
     if phases is not None:
         # a partial run proves no whole: it never prints the ok line
         print(json.dumps({"kernel_stats": stats}, default=str), flush=True)
         print(json.dumps({"partial": phases}), flush=True)
         return
-    kernels = []
-    for name, (src, wrapper, replaces) in KERNEL_ENTRIES.items():
-        s = stats[name]
-        by_path = {p: n[name] for p, n in paths.items()}
-        if not any(by_path.values()):
-            fail(f"{name} was launched on no path: {by_path}")
-        kernels.append({"name": name, "route": "cuda", "source": src,
-                        "wrapper": wrapper, "replaces": list(replaces),
-                        "launches": sum(by_path.values()),
-                        "launches_by_path": by_path,
-                        "max_abs_err": s["max_abs_err"], "ms": s["ms"],
-                        "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
-                        "bound_by": s["bound_by"],
-                        "library_ms": s.get("library_ms"),
-                        **{k: s[k] for k in ("note", "shapes") if k in s}})
-    missing = set(TPU_FUNCTIONS) - {r for e in kernels for r in e["replaces"]}
-    if missing:
-        fail(f"TPU functions with no kernel in the kernels line: {missing}")
-    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"kernels": kernel_entries(stats, paths)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,12 +1,11 @@
 """Configuration dataclasses of the PyTorch port.
 
 Own copies of ``RwkvConfig``, ``SamplingConfig``, ``EngineConfig``,
-``BatchConfig``, ``ServerConfig``, ``Wav2Vec2Config``, ``BiCodecConfig``
-and ``TtsArgs`` from ``rwkv_tts_tpu/config.py``, with the same defaults.
-Fields that only choose between the JAX package's TPU code paths
-(``EngineConfig.chunk_size``/``use_pallas``), or that nothing in the port
-reads (``EngineConfig.global_tokens``, ``MeshConfig``), have no
-counterpart here.
+``BatchConfig``, ``MeshConfig``, ``ServerConfig``, ``Wav2Vec2Config``,
+``BiCodecConfig`` and ``TtsArgs`` from ``rwkv_tts_tpu/config.py``, with the
+same defaults. Fields that only choose between the JAX package's TPU code
+paths (``EngineConfig.chunk_size``/``use_pallas``), or that nothing in the
+port reads (``EngineConfig.global_tokens``), have no counterpart here.
 """
 
 from __future__ import annotations
@@ -83,6 +82,19 @@ class BatchConfig:
     collect_timeout_ms: float = 10.0
     inference_timeout_ms: float = 60000.0
     max_queue: int = 256
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Device-mesh topology for scale-out serving (``parallel/mesh.py``):
+    the batch is the ``data`` axis; the ``model`` axis shards the layer
+    weights over heads (``parallel/tp.py``) or the vocab head and
+    embedding (``parallel/mesh.shard_params``)."""
+
+    data_axis: str = "data"
+    model_axis: str = "model"
+    data_parallel: int = 1
+    model_parallel: int = 1
 
 
 @dataclasses.dataclass(frozen=True)

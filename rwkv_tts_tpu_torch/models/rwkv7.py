@@ -261,12 +261,16 @@ def _v_blend_keys(lp, k, v, a, v_res_gate, v_first, is_first, H, N):
     return vf, kk, k_in, v_first
 
 
-def _step_unfused_front(lp, h, xx, v_first, is_first, cfg, cdt):
+def _step_unfused_front(lp, h, xx, v_first, is_first, cfg, cdt,
+                        n_head: Optional[int] = None):
     """Time-mix front half (``rwkv7._step_unfused_front``, :251): token-shift
     lerps, the seven projections and LoRAs, v-residual blend, key shaping.
-    Last-dim generic, shared by ``step`` and ``forward``. Returns
-    (r, w, k_in, v f32, kk, a, g, v_first)."""
+    Last-dim generic, shared by ``step``, ``forward`` and the
+    tensor-parallel programs (``parallel/tp.py``), whose block leaves hold
+    ``n_head`` heads (default ``cfg.n_head``). Returns (r, w, k_in, v f32,
+    kk, a, g, v_first)."""
     f32 = torch.float32
+    H = cfg.n_head if n_head is None else n_head
     xr = h + xx * lp["x_r"].to(cdt)
     xw = h + xx * lp["x_w"].to(cdt)
     xk = h + xx * lp["x_k"].to(cdt)
@@ -286,7 +290,7 @@ def _step_unfused_front(lp, h, xx, v_first, is_first, cfg, cdt):
     g = torch.sigmoid(xg @ lp["g1"].to(cdt)) @ lp["g2"].to(cdt)
 
     v, kk, k_in, v_first = _v_blend_keys(lp, k, v, a, v_res_gate, v_first,
-                                         is_first, cfg.n_head, cfg.head_size)
+                                         is_first, H, cfg.head_size)
     return r, w, k_in, v, kk, a, g, v_first
 
 
@@ -314,15 +318,35 @@ def _fused_projections(lp, h, xx, cfg, cdt, raw: bool = False):
     return r, k, v, w, a, v_res_gate, g
 
 
-def _front(lp, h, xx, v_first, is_first, cfg, cdt):
-    """The time-mix front half in either projection layout. Returns (r, w,
-    k_in, v f32, kk, a, g, v_first)."""
+def _front(lp, h, xx, v_first, is_first, cfg, cdt,
+           n_head: Optional[int] = None):
+    """The time-mix front half in either projection layout, over ``n_head``
+    heads (default ``cfg.n_head``; the fused layout is never head-sharded).
+    Returns (r, w, k_in, v f32, kk, a, g, v_first)."""
     if "zrkv" not in lp:
-        return _step_unfused_front(lp, h, xx, v_first, is_first, cfg, cdt)
+        return _step_unfused_front(lp, h, xx, v_first, is_first, cfg, cdt,
+                                   n_head=n_head)
     r, k, v, w, a, v_res_gate, g = _fused_projections(lp, h, xx, cfg, cdt)
     v, kk, k_in, v_first = _v_blend_keys(lp, k, v, a, v_res_gate, v_first,
                                          is_first, cfg.n_head, cfg.head_size)
     return r, w, k_in, v, kk, a, g, v_first
+
+
+def _step_post_wkv(lp, y, r, k_in, v, g, H, N, cfg, cdt):
+    """The decode step's post-WKV chain (``rwkv7._step_post_wkv``, :309):
+    per-head group norm, rk bonus, gated output projection. y: [B, H·N].
+    Under tensor parallelism (``parallel/tp.py``) H is the local head
+    count and the result a partial sum the caller adds over the shards."""
+    B = y.shape[0]
+
+    def hv(t):
+        return t.reshape(B, H, N)
+
+    y = _group_norm(y, lp["ln_x_w"], lp["ln_x_b"], H, cfg.group_norm_eps)
+    rk = (hv(r.float()) * hv(k_in) * lp["r_k"][None]).sum(dim=-1,
+                                                          keepdim=True)
+    y = y.float() + (rk * hv(v)).reshape(B, H * N)
+    return qmatmul(y.to(cdt) * g, lp["w_o"])
 
 
 def _shift_out(x, shift_x, mask, last_idx):
@@ -336,17 +360,22 @@ def _shift_out(x, shift_x, mask, last_idx):
 
 
 def _time_mix(lp, x, shift_x, wkv_state, v_first, is_first, cfg,
-              mask=None, last_idx=None):
-    """x: [B, T, C]; shift_x: [B, C]; wkv_state: [B, H, N, N] f32.
+              mask=None, last_idx=None, n_head: Optional[int] = None):
+    """x: [B, T, C]; shift_x: [B, C]; wkv_state: [B, H, N, N] f32, H =
+    ``n_head`` (default ``cfg.n_head``; the tensor-parallel prefill passes
+    its shard's heads, and the output is then a partial sum).
     Positions where ``mask`` is 0 are padding: their WKV contribution is
     neutralized (decay → 1, k → 0, b → 0; ``rwkv7.py:524-529``)."""
-    B, T, C = x.shape
-    H, N = cfg.n_head, cfg.head_size
+    B, T, _ = x.shape
+    H = cfg.n_head if n_head is None else n_head
+    N = cfg.head_size
+    C = H * N
     cdt = x.dtype
 
     xprev = torch.cat([shift_x[:, None, :].to(cdt), x[:, :-1]], dim=1)
     r, w, k_in, v, kk, a, g, v_first = _front(lp, x, xprev - x, v_first,
-                                              is_first, cfg, cdt)
+                                              is_first, cfg, cdt,
+                                              n_head=H)
     v = v.to(cdt)
 
     b_in = kk * a
@@ -396,16 +425,45 @@ def forward(params: Params, tokens: torch.Tensor, state: State,
     lengths[b] leave slot b's state untouched and the ``last_only`` logits
     come from position lengths[b] − 1; a slot of length 0 passes through
     unchanged."""
-    cdt = dtype_of(cfg.dtype)
-    B, T = tokens.shape
-    if lengths is not None:
-        mask = torch.arange(T, device=tokens.device)[None, :] < lengths[:, None]
-        last_idx = (lengths - 1).clamp(0, T - 1)
-    else:
-        mask = last_idx = None
-    x = params["emb"][tokens].to(cdt)
-    x = _layer_norm(x, params["ln0_w"], params["ln0_b"], cfg.ln_eps)
+    mask, last_idx = prompt_mask(tokens, lengths)
+    x = _embed(params, params["emb"][tokens], cfg)
+    x, new_state = _forward_layers(params, x, state, cfg, mask, last_idx)
+    x = _last_position(x, last_only, last_idx)
+    return qmatmul(x, params["head"]).float(), new_state
 
+
+def prompt_mask(tokens: torch.Tensor, lengths: Optional[torch.Tensor]):
+    """(mask [B, T] of real positions, index [B] of each slot's last real
+    position) for right-padded prompts of ``lengths``; (None, None)
+    without lengths."""
+    if lengths is None:
+        return None, None
+    T = tokens.shape[1]
+    mask = torch.arange(T, device=tokens.device)[None, :] < lengths[:, None]
+    return mask, (lengths - 1).clamp(0, T - 1)
+
+
+def _embed(params: Params, rows: torch.Tensor, cfg: RwkvConfig):
+    """Embedding rows → the first layer's input (ln0 in the compute
+    dtype)."""
+    x = rows.to(dtype_of(cfg.dtype))
+    return _layer_norm(x, params["ln0_w"], params["ln0_b"], cfg.ln_eps)
+
+
+def _last_position(x, last_only: bool, last_idx):
+    """[B, T, C] → each slot's last real position [B, C] under
+    ``last_only``, else x."""
+    if not last_only:
+        return x
+    if last_idx is not None:
+        return x[torch.arange(x.shape[0], device=x.device), last_idx]
+    return x[:, -1, :]
+
+
+def _forward_layers(params: Params, x, state: State, cfg: RwkvConfig,
+                    mask, last_idx):
+    """The layer stack of ``forward`` and ln_out over a [B, T, C] input;
+    returns (x, new state)."""
     v_first = None
     att_xs, ffn_xs, wkvs = [], [], []
     for l, lp in enumerate(_layers(params["blocks"])):
@@ -423,15 +481,19 @@ def forward(params: Params, tokens: torch.Tensor, state: State,
         wkvs.append(wkv)
 
     x = _layer_norm(x, params["ln_out_w"], params["ln_out_b"], cfg.ln_eps)
-    if last_only:
-        if last_idx is not None:
-            x = x[torch.arange(B, device=x.device), last_idx]
-        else:
-            x = x[:, -1, :]
-    logits = qmatmul(x, params["head"]).float()
     new_state = {"att_x": torch.stack(att_xs), "ffn_x": torch.stack(ffn_xs),
                  "wkv": torch.stack(wkvs).to(dtype_of(cfg.state_dtype))}
-    return logits, new_state
+    return x, new_state
+
+
+def head_columns(head, n: Optional[int]):
+    """The head's first ``n`` vocab columns (all with None); a quantized
+    head's members all end in the vocab dim."""
+    if n is None:
+        return head
+    if isinstance(head, dict):
+        return {m: t[..., :n] for m, t in head.items()}
+    return head[:, :n]
 
 
 def step(params: Params, token: torch.Tensor, state: State, cfg: RwkvConfig,
@@ -441,11 +503,17 @@ def step(params: Params, token: torch.Tensor, state: State, cfg: RwkvConfig,
     Updates ``state`` in place and returns it. ``head_slice`` computes only
     the first ``head_slice`` logits (every id the TTS stages sample lies in
     that prefix)."""
+    x = _embed(params, params["emb"][token], cfg)
+    x = _step_layers(params, x, state, cfg)
+    return qmatmul(x, head_columns(params["head"], head_slice)).float(), state
+
+
+def _step_layers(params: Params, x, state: State, cfg: RwkvConfig):
+    """The layer stack of ``step`` and ln_out over a [B, C] input, updating
+    ``state`` in place; returns x."""
     cdt = dtype_of(cfg.dtype)
-    B = token.shape[0]
+    B = x.shape[0]
     C, H, N = cfg.n_embd, cfg.n_head, cfg.head_size
-    x = params["emb"][token].to(cdt)
-    x = _layer_norm(x, params["ln0_w"], params["ln0_b"], cfg.ln_eps)
 
     def hv(t):      # contiguous, as for forward's WKV operands
         return t.reshape(B, H, N).contiguous()
@@ -463,29 +531,26 @@ def step(params: Params, token: torch.Tensor, state: State, cfg: RwkvConfig,
                                                       l == 0, cfg, cdt)
             y = wkv7_decode_(hv(r.float()), hv(w), hv(k_in), hv(v), hv(-kk),
                              hv(kk * a), state["wkv"], l)
-            # post-WKV chain (rwkv7._step_post_wkv, :309)
-            y = _group_norm(y.reshape(B, C), lp["ln_x_w"], lp["ln_x_b"], H,
-                            cfg.group_norm_eps)
-            rk = (hv(r.float()) * hv(k_in) * lp["r_k"][None]).sum(
-                dim=-1, keepdim=True)
-            y = y.float() + (rk * hv(v)).reshape(B, C)
-            att = qmatmul(y.to(cdt) * g, lp["w_o"])
+            att = _step_post_wkv(lp, y.reshape(B, C), r, k_in, v, g, H, N,
+                                 cfg, cdt)
         x = x + att
         state["att_x"][l] = h.float()
 
         h2 = _layer_norm(x, lp["ln2_w"], lp["ln2_b"], cfg.ln_eps)
-        xk2 = h2 + (state["ffn_x"][l].to(cdt) - h2) * lp["ffn_x_k"].to(cdt)
-        x = x + qmatmul(torch.relu(qmatmul(xk2, lp["ffn_k"])).square(),
-                        lp["ffn_v"])
+        x = x + _step_channel_mix(lp, h2, state["ffn_x"][l], cdt)
         state["ffn_x"][l] = h2.float()
 
-    x = _layer_norm(x, params["ln_out_w"], params["ln_out_b"], cfg.ln_eps)
-    head = params["head"]
-    if head_slice is not None:
-        # a quantized head's members all end in the vocab dim
-        head = ({m: t[..., :head_slice] for m, t in head.items()}
-                if isinstance(head, dict) else head[:, :head_slice])
-    return qmatmul(x, head).float(), state
+    return _layer_norm(x, params["ln_out_w"], params["ln_out_b"], cfg.ln_eps)
+
+
+def _step_channel_mix(lp, h2, ffn_x, cdt):
+    """The decode step's squared-ReLU MLP on the ln2 output ``h2`` [B, C]
+    with the token shift from ``ffn_x``. Under tensor parallelism
+    (``parallel/tp.py``) ``ffn_k`` holds the local columns and the result
+    is a partial sum the caller adds over the shards."""
+    xk2 = h2 + (ffn_x.to(cdt) - h2) * lp["ffn_x_k"].to(cdt)
+    return qmatmul(torch.relu(qmatmul(xk2, lp["ffn_k"])).square(),
+                   lp["ffn_v"])
 
 
 def _fused_params8(blocks, H: int, N: int) -> List[Optional[torch.Tensor]]:

@@ -28,8 +28,17 @@ retired from slots between decode blocks:
 
 The JAX engine pads every index vector and admission burst to a power of
 two so that XLA compiles one program per bucket. Eager PyTorch compiles
-nothing, so bursts, relocations and cancels run at their own size. The
-``mesh`` argument (tensor parallelism) is not ported.
+nothing, so bursts, relocations and cancels run at their own size.
+
+Under a ``mesh`` (``parallel/mesh.Mesh``) the slots split over its
+``data`` axis: each data row holds its slots' state, logits and slot
+tensors on its own devices and runs its own ``decode_block`` through the
+step hook (``step_fn``) of its ``(1, model)`` row: ``parallel/tp.step_tp``
+on head-sharded weights for a model axis > 1, ``parallel/mesh.step_sharded``
+on ``shard_params`` for a model axis of 1. Admission prefills the burst
+(through ``forward_tp`` for a model axis > 1, the burst rounded up to the
+data axis) and scatters each data row's share of it into that row; the
+engine without a mesh is a single row.
 
 On a card the decode thread runs everything on a stream of its own;
 callers' threads (the streaming vocoder) stay on theirs. The host reads one
@@ -46,7 +55,7 @@ import os
 import queue
 import threading
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -58,7 +67,8 @@ from ..utils import threefry
 from ..utils.device import resolve_device
 from ..utils.metrics import STAGE_BUCKETS, Histogram
 from .engine import (SEMANTIC_SLICE, GenerationResult, TtsEngine,
-                     _mask_global, _mask_semantic, _sample, zs_hard_min)
+                     _mask_global, _mask_semantic, _sample, _stepper,
+                     zs_hard_min)
 
 log = logging.getLogger(__name__)
 
@@ -91,7 +101,8 @@ def init_slots(B: int, device) -> Dict[str, torch.Tensor]:
     }
 
 
-def decode_block(params, state, logits, slots, cfg: RwkvConfig, block: int):
+def decode_block(params, state, logits, slots, cfg: RwkvConfig, block: int,
+                 step_fn=None):
     """Advance every active slot up to ``block`` unified steps.
 
     slots: dict of per-slot tensors (``init_slots``). Returns (state,
@@ -99,7 +110,8 @@ def decode_block(params, state, logits, slots, cfg: RwkvConfig, block: int):
     semantic token, NO_EMIT for idle and override steps and FINISHED on the
     step a slot retires on EOS. ``state`` is updated in place; ``logits``
     and every tensor of ``slots`` come back new. Nothing in here reads a
-    value back to the host."""
+    value back to the host. ``step_fn`` replaces ``rwkv7.step`` (the
+    sharded programs' hook, ``engine.global_stage``'s contract)."""
     gk, sk = C.GLOBAL_SAMPLING, C.SEMANTIC_SAMPLING
     hs = min(SEMANTIC_SLICE, cfg.padded_vocab_size)
     dev = logits.device
@@ -121,6 +133,7 @@ def decode_block(params, state, logits, slots, cfg: RwkvConfig, block: int):
     tab_g = draws(s["gkey"], base_g[:, None] + ahead)
     tab_s = draws(s["skey"], base_s[:, None] + ahead)
     tab_rs = draws(s["skey"], base_s[:, None] + ahead + (1 << 20))
+    step = _stepper(cfg, step_fn)
     emits = []
     for _ in range(block):
         stage, override = s["stage"], s["override"]
@@ -198,7 +211,7 @@ def decode_block(params, state, logits, slots, cfg: RwkvConfig, block: int):
         # idle slots are stepped too (feed 0): admission overwrites state,
         # logits and every slot field, and nothing relies on a retired
         # slot's state
-        logits, state = rwkv7.step(params, feed, state, cfg, head_slice=hs)
+        logits, state = step(params, feed, state, hs)
         s = dict(s, stage=stage, override=override, n_glob=n_glob,
                  n_step=n_step, win=win, nwin=nwin)
         emits.append(emit)
@@ -252,6 +265,15 @@ def _relocate(state, logits, slots, src, dst):
     return state, logits, _idle_slots(out, src)
 
 
+def _take(x: torch.Tensor, rows: List[int], dim: int) -> torch.Tensor:
+    """``x``'s entries ``rows`` along ``dim``; all of them in order is
+    ``x`` itself (no copy)."""
+    if rows == list(range(x.shape[dim])):
+        return x
+    return x.index_select(dim, torch.tensor(rows, dtype=torch.int64,
+                                            device=x.device))
+
+
 def _insert_burst(state, logits, new_state, new_logits, idx):
     """Scatter an admission burst: the leaves [L, M, …] of ``new_state``
     land at the slots ``idx`` [M] of the live state, in place; returns
@@ -302,10 +324,22 @@ class ContinuousEngine:
     def __init__(self, params, cfg: RwkvConfig,
                  engine_cfg: EngineConfig = EngineConfig(), tokenizer=None,
                  block: int = 32, slots: Optional[int] = None,
-                 buckets: Optional[tuple] = None, device=None):
-        self.device = resolve_device(device)
-        self.inner = TtsEngine(params, cfg, engine_cfg, tokenizer=tokenizer,
-                               device=self.device)
+                 buckets: Optional[tuple] = None, device=None, mesh=None):
+        """``mesh``: a ``parallel/mesh.Mesh``; the slots split over its data
+        axis (the module docstring). With a model axis > 1 an inner
+        ``TtsEngine(tp_mesh=mesh)`` head-shards the parameters (its
+        refusals apply); with a model axis of 1 ``shard_params`` places
+        them. The engine then runs on the mesh's devices, and the slot
+        count must be a multiple of the data axis."""
+        self.mesh = mesh
+        self._rows = None
+        if mesh is None:
+            self.device = resolve_device(device)
+            self.inner = TtsEngine(params, cfg, engine_cfg,
+                                   tokenizer=tokenizer, device=self.device)
+        else:
+            params = self._place(params, cfg, engine_cfg, tokenizer, mesh,
+                                 device)
         self.params = params
         self.cfg = cfg
         self.engine_cfg = engine_cfg
@@ -313,10 +347,15 @@ class ContinuousEngine:
         self.B = slots or engine_cfg.batch_size
         # occupancy buckets: while only the first b slots are live the
         # decode block runs on that prefix (decode_block_bucketed);
-        # ``buckets=()`` turns them off
-        if buckets is None:
+        # ``buckets=()`` turns them off. A mesh takes none: the prefix
+        # would cut across the data rows
+        if buckets is None and mesh is None:
             buckets = tuple(b for b in (8, 16, 32, 64, 128, 256, 512)
                             if b < self.B)
+        if mesh is not None and buckets:
+            raise ValueError("occupancy buckets cannot combine with a mesh: "
+                             "slicing the slot prefix breaks the sharding "
+                             "(and the bucketed block bypasses the TP step)")
         self.buckets = tuple(sorted(buckets or ()))
         self._queue: "queue.Queue" = queue.Queue()
         # submitted, not yet admitted: id(args) → entry (which holds args,
@@ -354,12 +393,111 @@ class ContinuousEngine:
         }
         self._reset_device_state()
 
+    def _place(self, params, cfg, engine_cfg, tokenizer, mesh, device):
+        """The engine's parameters over ``mesh``, the inner engine that
+        admission prefills through, and each data row's (parameters, step
+        hook)."""
+        from ..parallel import mesh as meshlib
+        from ..parallel import tp as tplib
+        if device is not None and \
+                torch.device(device).type != mesh.home.type:
+            raise ValueError(f"device {device} is not the mesh's "
+                             f"({mesh.home.type})")
+        self.device = resolve_device(mesh.home)
+        if mesh.mp > 1:
+            self.inner = TtsEngine(params, cfg, engine_cfg,
+                                   tokenizer=tokenizer, tp_mesh=mesh)
+            params = self.inner.params
+            make = tplib.make_step_fn
+        else:
+            self.inner = TtsEngine(params, cfg, engine_cfg,
+                                   tokenizer=tokenizer, device=self.device)
+            params = meshlib.shard_params(mesh, params)
+            make = meshlib.make_step_fn
+        self._rows = [(meshlib.row_tree(params, d), make(cfg, mesh.row(d)))
+                      for d in range(mesh.dp)]
+        return params
+
     def _reset_device_state(self):
-        self.state = rwkv7.init_state(self.cfg, self.B, device=self.device)
-        self.logits = torch.zeros(
-            (self.B, min(SEMANTIC_SLICE, self.cfg.padded_vocab_size)),
-            dtype=torch.float32, device=self.device)
-        self.slots = init_slots(self.B, self.device)
+        width = min(SEMANTIC_SLICE, self.cfg.padded_vocab_size)
+        state = rwkv7.init_state(self.cfg, self.B, device=self.device)
+        if self.mesh is None:
+            self._Bl = self.B
+            self.state = state
+            self.logits = torch.zeros((self.B, width), dtype=torch.float32,
+                                      device=self.device)
+            self.slots = init_slots(self.B, self.device)
+            return
+        from ..parallel import mesh as meshlib
+        from ..parallel import tp as tplib
+        dp = self.mesh.dp
+        if self.B % dp:
+            raise ValueError(f"slots={self.B} not divisible by the data axis "
+                             f"({dp})")
+        self.state = (tplib.shard_state_tp if self.mesh.mp > 1
+                      else meshlib.shard_state)(self.mesh, state)
+        # each data row's logits and slot tensors on the row's first device
+        self._Bl = self.B // dp
+        devs = [row[0] for row in self.mesh.devices]
+        self.logits = [torch.zeros((self._Bl, width), dtype=torch.float32,
+                                   device=dev) for dev in devs]
+        self.slots = [init_slots(self._Bl, dev) for dev in devs]
+
+    def _row(self, d: int):
+        """Data row ``d``'s (parameters, state, logits, slot tensors, step
+        hook); its state is updated in place. The engine without a mesh is
+        one row holding every slot."""
+        if self.mesh is None:
+            return self.params, self.state, self.logits, self.slots, None
+        from ..parallel import mesh as meshlib
+        params, step_fn = self._rows[d]
+        return (params, meshlib.row_tree(self.state, d), self.logits[d],
+                self.slots[d], step_fn)
+
+    def _set_row(self, d: int, logits, slots):
+        if self.mesh is None:
+            self.logits, self.slots = logits, slots
+        else:
+            self.logits[d], self.slots[d] = logits, slots
+
+    def _row_state(self, d: int):
+        """Data row ``d``'s state as one dict of plain tensors (each model
+        shard's piece under its own key), for the in-place scatters."""
+        if self.mesh is None:
+            return self.state
+        return {(k, m): v.local(d, m) for k, v in self.state.items()
+                for m in range(self.mesh.mp)}
+
+    def _burst_state(self, stb):
+        """An admission prefill's state, keyed as ``_row_state``: a plain
+        [L, M, …] tensor per key. The TP prefill's state is split over the
+        mesh; each shard's data pieces are joined on its first row's
+        device."""
+        if self.mesh is None:
+            return stb
+        if self.mesh.mp == 1:       # the inner engine's unsharded prefill
+            return {(k, 0): v for k, v in stb.items()}
+        return {(k, m): torch.cat([v.local(d, m).to(v.local(0, m).device)
+                                   for d in range(self.mesh.dp)], dim=1)
+                for k, v in stb.items() for m in range(self.mesh.mp)}
+
+    def _by_row(self, slot_ids) -> Dict[int, Tuple[List[int], List[int]]]:
+        """Slot ids → {data row: (positions in ``slot_ids``, the row's
+        local slot indices)}."""
+        out: Dict[int, Tuple[List[int], List[int]]] = {}
+        for j, s in enumerate(slot_ids):
+            d, i = divmod(s, self._Bl)
+            js, local = out.setdefault(d, ([], []))
+            js.append(j)
+            local.append(i)
+        return out
+
+    def _idle(self, slot_ids):
+        """Idle the slots ``slot_ids`` (the cancel path)."""
+        for d, (_, local) in self._by_row(slot_ids).items():
+            _, _, logits, slots, _ = self._row(d)
+            self._set_row(d, logits, _idle_slots(slots, torch.tensor(
+                local, dtype=torch.int64, device=logits.device)))
 
     # -- public API -----------------------------------------------------
 
@@ -455,9 +593,7 @@ class ContinuousEngine:
             cancelled = [(s, l) for s, l in self._live.items() if l.cancelled]
         if not cancelled:
             return
-        idx = torch.tensor([s for s, _ in cancelled], dtype=torch.int64,
-                           device=self.device)
-        self.slots = _idle_slots(self.slots, idx)
+        self._idle([s for s, _ in cancelled])
         # free the slots only after the device-side idle write is ordered,
         # and only in this thread (admission runs here too, so a freed slot
         # cannot be admitted into before it is idle)
@@ -532,8 +668,7 @@ class ContinuousEngine:
             one = torch.ones((1,), dtype=torch.int64, device=self.device)
             self.state, self.logits, self.slots = _relocate(
                 self.state, self.logits, self.slots, one, one - 1)
-        self.slots = _idle_slots(self.slots, torch.zeros(
-            (1,), dtype=torch.int64, device=self.device))
+        self._idle([0])
 
     def generate(self, args: TtsArgs, timeout: float = 600.0
                  ) -> GenerationResult:
@@ -592,10 +727,15 @@ class ContinuousEngine:
         prompts, texts = zip(*(self.inner.build_prompt(e[0])
                                for _, e in incoming))
         m = len(incoming)
+        # the TP prefill splits the burst over the data axis: round it up
+        # by repeating the last prompt (the copies are never scattered)
+        mb = m if self.mesh is None or self.mesh.mp == 1 else \
+            -(-m // self.mesh.dp) * self.mesh.dp
         t0 = time.perf_counter()
         lgb, stb = self.inner.prefill(
-            prompts, rwkv7.init_state(self.cfg, m, device=self.device))
-        lgb = lgb[..., :self.logits.shape[-1]]
+            list(prompts) + [prompts[-1]] * (mb - m),
+            self.inner.init_state(mb))
+        lgb = lgb[..., :min(SEMANTIC_SLICE, self.cfg.padded_vocab_size)]
         self.stats["prefill_s"] += time.perf_counter() - t0
 
         slot_ids, stages, limits, hmins, zss, gkeys, skeys = \
@@ -615,18 +755,31 @@ class ContinuousEngine:
             gkeys.append(threefry.raw_key(seed + C.GLOBAL_SEED_OFFSET))
             skeys.append(threefry.raw_key(seed + C.SEMANTIC_SEED_OFFSET))
 
-        def dev(values, dtype=torch.int64):
-            return torch.tensor(values, dtype=dtype, device=self.device)
-
         self.stats["admitted"] += m
-        idx = dev(slot_ids)
-        self.state, self.logits = _insert_burst(self.state, self.logits, stb,
-                                                lgb, idx)
-        self.slots = _admit_update(
-            self.slots, idx, dev(stages), dev(limits), dev(hmins),
-            dev(zss, torch.bool),
-            threefry.as_words(np.stack(gkeys)).to(self.device),
-            threefry.as_words(np.stack(skeys)).to(self.device))
+        gwords = threefry.as_words(np.stack(gkeys))
+        swords = threefry.as_words(np.stack(skeys))
+        burst = self._burst_state(stb)
+        # one scatter per tensor and data row: burst entries js land at the
+        # row's local slots
+        for d, (js, local) in self._by_row(slot_ids).items():
+            _, _, logits, slots, _ = self._row(d)
+            dev = logits.device
+
+            def on(values, dtype=torch.int64, js=js, dev=dev):
+                return torch.tensor([values[j] for j in js], dtype=dtype,
+                                    device=dev)
+
+            idx = torch.tensor(local, dtype=torch.int64, device=dev)
+            row_state = self._row_state(d)
+            new = {k: _take(v, js, 1).to(row_state[k].device)
+                   for k, v in burst.items()}
+            row_state, logits = _insert_burst(
+                row_state, logits, new, _take(lgb, js, 0).to(dev), idx)
+            slots = _admit_update(
+                slots, idx, on(stages), on(limits), on(hmins),
+                on(zss, torch.bool), _take(gwords, js, 0).to(dev),
+                _take(swords, js, 0).to(dev))
+            self._set_row(d, logits, slots)
 
         for j, (slot, (args, result_cb, chunk_cb, t_sub, _)) in enumerate(
                 incoming):
@@ -639,6 +792,30 @@ class ContinuousEngine:
                     zero_shot=zss[j], prefill_tokens=len(prompts[j]),
                     t_start=time.perf_counter(),
                     t_submit=t_sub, admit_seq=self._block_seq)
+
+    def _decode(self, bucket: int):
+        """One decode block on every data row (on the first ``bucket``
+        slots where that is fewer than all: occupancy buckets, which a
+        mesh does not take); returns the block's emits [K, B] and stage
+        snapshot [B] on the engine's device."""
+        emits, stages = [], []
+        for d in range(1 if self.mesh is None else self.mesh.dp):
+            params, state, logits, slots, step_fn = self._row(d)
+            if bucket < self.B:
+                _, logits, slots, e = decode_block_bucketed(
+                    params, state, logits, slots, self.cfg, self.block,
+                    bucket)
+            else:
+                _, logits, slots, e = decode_block(
+                    params, state, logits, slots, self.cfg, self.block,
+                    step_fn=step_fn)
+            self._set_row(d, logits, slots)
+            emits.append(e)
+            stages.append(slots["stage"])
+        if len(emits) == 1:
+            return emits[0], stages[0]
+        return (torch.cat([e.to(self.device) for e in emits], dim=1),
+                torch.cat([s.to(self.device) for s in stages]))
 
     def _bucket_for(self, n: int) -> int:
         return next((b for b in self.buckets if b >= n), self.B)
@@ -742,20 +919,10 @@ class ContinuousEngine:
 
             nxt = None
             if hi:
-                bucket = self._bucket_for(hi)
                 t0 = time.perf_counter()
-                if bucket < self.B:
-                    (self.state, self.logits, self.slots,
-                     emits) = decode_block_bucketed(
-                        self.params, self.state, self.logits, self.slots,
-                        self.cfg, self.block, bucket)
-                else:
-                    self.state, self.logits, self.slots, emits = decode_block(
-                        self.params, self.state, self.logits, self.slots,
-                        self.cfg, self.block)
+                emits, stage = self._decode(self._bucket_for(hi))
                 self._block_seq += 1
-                nxt = (*self._readback(emits, self.slots["stage"]),
-                       self._block_seq)
+                nxt = (*self._readback(emits, stage), self._block_seq)
                 self.stats["dispatch_s"] += time.perf_counter() - t0
                 self.stats["blocks"] += 1
 

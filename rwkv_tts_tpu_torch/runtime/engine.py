@@ -78,44 +78,58 @@ def zs_hard_min(text_len: int) -> int:
     return min(upper, max(min_len, est))
 
 
-def global_stage(params, state, first_logits, base_keys, cfg: RwkvConfig
-                 ) -> Tuple[torch.Tensor, dict, torch.Tensor]:
+def _stepper(cfg: RwkvConfig, step_fn):
+    """The decode step the stages call: ``rwkv7.step``, or the hook
+    ``step_fn(params, token, state, head_slice)`` (the sharded programs'
+    ``make_step_fn``)."""
+    if step_fn is not None:
+        return step_fn
+    return lambda params, tok, state, hs: rwkv7.step(params, tok, state, cfg,
+                                                     head_slice=hs)
+
+
+def global_stage(params, state, first_logits, base_keys, cfg: RwkvConfig,
+                 step_fn=None) -> Tuple[torch.Tensor, dict, torch.Tensor]:
     """Exactly 32 global (speaker) tokens; each is fed back +8196.
 
     base_keys: [B, 2] threefry keys (int64 words). Returns (tokens [B, 32],
-    state, logits after the last token). ``state`` is updated in place."""
+    state, logits after the last token). ``state`` is updated in place.
+    ``step_fn`` replaces the decode step (``_stepper``): the hook the
+    tensor-parallel engine drives (``parallel/tp.make_step_fn``)."""
     gk = C.GLOBAL_SAMPLING
     hs = min(SEMANTIC_SLICE, cfg.padded_vocab_size)
+    step = _stepper(cfg, step_fn)
     u = threefry.step_uniforms(base_keys, C.GLOBAL_TOKENS_SIZE)
     logits = first_logits[..., :hs]
     toks = []
     for i in range(C.GLOBAL_TOKENS_SIZE):
         tok = _sample(_mask_global(logits), u[:, i], gk)
-        logits, state = rwkv7.step(params, tok + C.GLOBAL_TOKEN_OFFSET, state,
-                                   cfg, head_slice=hs)
+        logits, state = step(params, tok + C.GLOBAL_TOKEN_OFFSET, state, hs)
         toks.append(tok)
     return torch.stack(toks, dim=1), state, logits
 
 
 def semantic_stage(params, state, first_logits, base_keys, limits, hard_min,
                    cfg: RwkvConfig, max_steps: int, zero_shot: bool,
-                   feed_tag1: bool = False, decode_block: int = 16):
+                   feed_tag1: bool = False, decode_block: int = 16,
+                   step_fn=None):
     """Semantic tokens until per-slot EOS or per-slot limit.
 
     limits / hard_min: [B] int64 — per-request cap and the step before
     which EOS is forbidden (0 in normal mode). ``feed_tag1`` consumes the
     TAG_1 separator first (normal mode; ``first_logits`` is then unused).
-    Returns (tokens [B, max_steps], lengths [B], state, decode steps run);
-    ``state`` is updated in place."""
+    ``step_fn``: as in ``global_stage``. Returns (tokens [B, max_steps],
+    lengths [B], state, decode steps run); ``state`` is updated in
+    place."""
     B = first_logits.shape[0]
     dev = first_logits.device
     sk = C.SEMANTIC_SAMPLING
     hs = min(SEMANTIC_SLICE, cfg.padded_vocab_size)
+    step = _stepper(cfg, step_fn)
     n_steps = 0
     if feed_tag1:
         tag1 = torch.full((B,), C.TTS_TAG_1, dtype=torch.int64, device=dev)
-        first_logits, state = rwkv7.step(params, tag1, state, cfg,
-                                         head_slice=hs)
+        first_logits, state = step(params, tag1, state, hs)
         n_steps += 1
     logits = first_logits[..., :hs]
     u = threefry.step_uniforms(base_keys, max_steps)
@@ -162,7 +176,7 @@ def semantic_stage(params, state, first_logits, base_keys, limits, hard_min,
         done = done | (active & is_eos) | (i + 1 >= limits)
         # the raw token goes back (semantic ids are raw,
         # normal_mode_inference.rs:389-390); done slots feed a harmless 0
-        logits, state = rwkv7.step(params, feed, state, cfg, head_slice=hs)
+        logits, state = step(params, feed, state, hs)
         n_steps += 1
         if (i + 1) % decode_block == 0 and bool(done.all()):
             break
@@ -188,11 +202,26 @@ class TtsEngine:
 
     def __init__(self, params, cfg: RwkvConfig,
                  engine_cfg: EngineConfig = EngineConfig(), tokenizer=None,
-                 device=None):
-        self.device = resolve_device(device)
-        if params["emb"].device.type != self.device.type:
-            raise ValueError(f"parameters are on {params['emb'].device}, "
-                             f"the engine on {self.device}")
+                 device=None, tp_mesh=None):
+        """``tp_mesh``: a ``parallel/mesh.Mesh`` with a model axis > 1
+        turns on tensor parallelism over the layer weights
+        (``parallel/tp.py``): the parameters are head-sharded here, the
+        prefill runs ``forward_tp`` and the stages drive ``step_tp``
+        through their ``step_fn`` hook, on the mesh's devices (the engine's
+        device is the mesh's first). It takes the raw layout, plain or
+        int8; partial quantization, the fused ``zrkv`` layout and the 4-bit
+        layouts are refused, as in the JAX engine (``engine.py:312-347``).
+        On a card the shards' WKV runs the hand-written kernels."""
+        self._step_fn = None
+        self.tp_mesh = tp_mesh
+        if tp_mesh is not None:
+            params = self._shard_tp(params, cfg, tp_mesh, device)
+            self.device = resolve_device(tp_mesh.home)
+        else:
+            self.device = resolve_device(device)
+            if params["emb"].device.type != self.device.type:
+                raise ValueError(f"parameters are on {params['emb'].device}, "
+                                 f"the engine on {self.device}")
         self.params = params
         self.cfg = cfg
         self.engine_cfg = engine_cfg
@@ -201,6 +230,43 @@ class TtsEngine:
         # (lightweight_tts_pipeline.rs:149-151)
         self.encoder = CachedEncoder(self.tokenizer, normalize=False)
         self.counters = {"prefill_chunks": 0, "decode_steps": 0}
+
+    def _shard_tp(self, params, cfg: RwkvConfig, mesh, device):
+        """The JAX engine's refusals in its order, then the head-sharded
+        parameters and the step hook."""
+        from ..parallel import mesh as meshlib
+        from ..parallel import tp as tplib
+        if device is not None and \
+                torch.device(device).type != mesh.home.type:
+            raise ValueError(f"device {device} is not the mesh's "
+                             f"({mesh.home.type})")
+        mp = mesh.shape[meshlib.MODEL_AXIS]
+        if mp <= 1:
+            raise ValueError("tp_mesh needs a model axis > 1; use "
+                             "ContinuousEngine(mesh=...) for pure dp")
+        if cfg.n_head % mp:
+            raise ValueError(
+                f"tensor parallelism {mp} must divide the model's head "
+                f"count {cfg.n_head} (n_embd {cfg.n_embd} / head_size "
+                f"{cfg.head_size}) — lower --tp or use data parallelism")
+        if isinstance(params.get("blocks"), (tuple, list)):
+            raise ValueError(
+                "tp_mesh does not compose with partial --quant-layers "
+                "(segmented blocks); quantize all layers or none")
+        if "zrkv" in params.get("blocks", {}):
+            raise ValueError("tp_mesh takes the RAW layout; fused "
+                             "(zrkv) params cannot be head-sharded")
+        params = tplib.shard_params_tp(mesh, params)
+        self._step_fn = tplib.make_step_fn(cfg, mesh)
+        return params
+
+    def init_state(self, B: int):
+        """A fresh state for B slots, split over the mesh under TP."""
+        state = rwkv7.init_state(self.cfg, B, device=self.device)
+        if self.tp_mesh is None:
+            return state
+        from ..parallel import tp as tplib
+        return tplib.shard_state_tp(self.tp_mesh, state)
 
     def build_prompt(self, args: TtsArgs) -> Tuple[List[int], List[int]]:
         """Returns (prompt_ids, text_ids). Zero-shot prompts embed the
@@ -240,9 +306,15 @@ class TtsEngine:
             for i, c in enumerate(chunk):
                 tok_mat[i, :len(c)] = c
             lengths_t = torch.from_numpy(lengths).to(self.device)
-            new_logits, state = rwkv7.forward(
-                self.params, torch.from_numpy(tok_mat).to(self.device), state,
-                self.cfg, lengths=lengths_t)
+            tok_t = torch.from_numpy(tok_mat).to(self.device)
+            if self.tp_mesh is not None:
+                from ..parallel import tp as tplib
+                new_logits, state = tplib.forward_tp(
+                    self.params, tok_t, state, self.cfg, self.tp_mesh,
+                    lengths=lengths_t)
+            else:
+                new_logits, state = rwkv7.forward(
+                    self.params, tok_t, state, self.cfg, lengths=lengths_t)
             self.counters["prefill_chunks"] += 1
             # keep each slot's logits from the chunk with its last real
             # token (a zero-length chunk leaves state and logits alone)
@@ -274,6 +346,13 @@ class TtsEngine:
         if Bp != B0:
             reqs = list(requests)
             return self.generate_batch(reqs + [reqs[-1]] * (Bp - B0))[:B0]
+        if self.tp_mesh is not None:
+            # the data axis splits the batch: pad to a multiple of it by
+            # repeating the last request, and trim the duplicates' results
+            pad = (-B0) % self.tp_mesh.dp
+            if pad:
+                reqs = list(requests)
+                return self.generate_batch(reqs + [reqs[-1]] * pad)[:B0]
         zero_shot = requests[0].zero_shot
         if any(r.zero_shot != zero_shot for r in requests):
             raise ValueError("a batch must be all zero-shot or all normal")
@@ -291,23 +370,23 @@ class TtsEngine:
             dtype=torch.int64, device=dev)
         sem_keys = self._keys(seeds, C.SEMANTIC_SEED_OFFSET)
 
-        state = rwkv7.init_state(cfg, B, device=dev)
-        logits, state = self.prefill(prompts, state)
+        logits, state = self.prefill(prompts, self.init_state(B))
         if zero_shot:
             glob = None
             sem, lens, _, n = semantic_stage(
                 self.params, state, logits, sem_keys, limits, hard_min, cfg,
                 ecfg.max_semantic_tokens, True,
-                decode_block=ecfg.decode_block)
+                decode_block=ecfg.decode_block, step_fn=self._step_fn)
         else:
             glob, state, logits = global_stage(
                 self.params, state, logits,
-                self._keys(seeds, C.GLOBAL_SEED_OFFSET), cfg)
+                self._keys(seeds, C.GLOBAL_SEED_OFFSET), cfg,
+                step_fn=self._step_fn)
             self.counters["decode_steps"] += C.GLOBAL_TOKENS_SIZE
             sem, lens, _, n = semantic_stage(
                 self.params, state, logits, sem_keys, limits, hard_min, cfg,
                 ecfg.max_semantic_tokens, False, feed_tag1=True,
-                decode_block=ecfg.decode_block)
+                decode_block=ecfg.decode_block, step_fn=self._step_fn)
         self.counters["decode_steps"] += n
 
         sem_np, len_np = sem.cpu().numpy(), lens.cpu().numpy()
@@ -336,14 +415,17 @@ class TtsEngine:
         text span empty), then the 32-token global stage at the stage seed
         ``seed + 1000``. The tokens condition on the properties only, not
         on a request's text, so one speaker identity serves many texts
-        through the zero-shot chain."""
+        through the zero-shot chain. Under TP the prompt is repeated to
+        the data axis's width (a batch of one does not split over it) and
+        row 0 is kept."""
         props = convert_standard_properties_to_tokens(
             args.age, args.gender, args.emotion, args.pitch, args.speed)
         prompt = list(props) + [C.TTS_TAG_2, C.TTS_TAG_0]
-        state = rwkv7.init_state(self.cfg, 1, device=self.device)
-        logits, state = self.prefill([prompt], state)
+        B = 1 if self.tp_mesh is None else self.tp_mesh.dp
+        logits, state = self.prefill([prompt] * B, self.init_state(B))
         glob, _, _ = global_stage(
             self.params, state, logits,
-            self._keys([seed], C.GLOBAL_SEED_OFFSET), self.cfg)
+            self._keys([seed] * B, C.GLOBAL_SEED_OFFSET), self.cfg,
+            step_fn=self._step_fn)
         self.counters["decode_steps"] += C.GLOBAL_TOKENS_SIZE
         return [int(t) for t in glob[0].tolist()]

@@ -61,6 +61,8 @@ class ReferenceRngEngine:
     ``counters["decode_steps"]``."""
 
     def __init__(self, engine: TtsEngine):
+        if engine.tp_mesh is not None:
+            raise ValueError("parity mode is a single-chip batch-1 path")
         self.engine = engine
 
     # -- helpers ----------------------------------------------------------

@@ -72,8 +72,10 @@ class TtsPipeline:
                  w2v_output_layers=wav2vec2.OUTPUT_LAYERS, device=None,
                  cached_speaker_default: bool = False,
                  codec_dtype: Optional[str] = None,
-                 codec_conv_impl: Optional[str] = None):
-        """``codec_dtype`` sets the BiCodec compute policy
+                 codec_conv_impl: Optional[str] = None, tp_mesh=None):
+        """``tp_mesh``: tensor parallelism of the LM over a
+        ``parallel/mesh.Mesh`` (``TtsEngine``'s argument); the codecs stay
+        on ``device``. ``codec_dtype`` sets the BiCodec compute policy
         (``BiCodecConfig.dtype``) and casts the decode subtrees once, here;
         ``codec_conv_impl`` sets the wave generator's conv backend
         (``BiCodecConfig.conv_impl``), as the JAX pipeline's loader does
@@ -98,7 +100,9 @@ class TtsPipeline:
         else:
             bicodec_params = bicodec.pack_params(bicodec_params, bicodec_cfg)
         self.engine = TtsEngine(lm_params, lm_cfg, engine_cfg,
-                                tokenizer=tokenizer, device=self.device)
+                                tokenizer=tokenizer,
+                                device=None if tp_mesh else self.device,
+                                tp_mesh=tp_mesh)
         self.bicodec_params = bicodec_params
         self.bicodec_cfg = bicodec_cfg
         self.w2v_params = w2v_params
@@ -132,9 +136,11 @@ class TtsPipeline:
         or "nf4" ("sf4" serves as nf4) quantizes the first ``quant_layers``
         blocks (-1: all). The codecs come from ``codec_dir`` (default: the
         LM's directory) through ``load_codecs``: a missing codec raises
-        unless ``allow_random_codec``. ``codec_dtype`` and
-        ``codec_conv_impl`` in ``kw`` go to the constructor, which casts and
-        packs once. Each step's time is logged."""
+        unless ``allow_random_codec``. ``codec_dtype``, ``codec_conv_impl``
+        and ``tp_mesh`` in ``kw`` go to the constructor, which casts and
+        packs once. Under a ``tp_mesh`` the raw layout is served: ``fuse``
+        is off and a 4-bit ``quant_type`` serves int8, as in the JAX
+        pipeline (``pipeline.py:121-134``). Each step's time is logged."""
         from ..models.codec_loader import load_codecs
         from ..models.convert import load_rwkv7
         from ..ops.quant import quantize_rwkv_params
@@ -160,7 +166,17 @@ class TtsPipeline:
         log.info("LM %s: %d layers x %d read, mapped and on %s in %.2f s",
                  model_path, lm_cfg.n_layer, lm_cfg.n_embd, dev,
                  time.perf_counter() - t0)
-        if fuse:
+        tp_mesh = kw.get("tp_mesh")
+        if tp_mesh is not None:
+            # tensor parallelism shards the raw layout; int8 shards too,
+            # the 4-bit layouts do not
+            if quant_type in ("int4", "nf4", "sf4"):
+                log.warning("tp_mesh: %s layout is not TP-shardable — "
+                            "serving int8 instead", quant_type)
+                quant_type = "int8"
+            log.info("tp_mesh set: raw %s layout, weights shard 1/%d "
+                     "per device", quant_type, tp_mesh.mp)
+        elif fuse:
             # opt-in projection fusion (7 projections → 2 matmuls): it
             # doubles the r/k/v and LoRA-A bytes, so the raw layout stays
             # the default, as in the JAX package
@@ -393,7 +409,9 @@ class TtsPipeline:
         prefill buckets and both modes, a prompt longer than the largest
         bucket through prefill, the global and the semantic stage, the
         speaker cache (when it is the default), the detokenize buckets,
-        then both vocoder windows of every streaming latency mode."""
+        then both vocoder windows of every streaming latency mode. Under a
+        ``tp_mesh`` every batch pads to the data axis, so the LM steps run
+        the staged TP path at that batch (``batch_ladder`` is ignored)."""
         from .streaming import StreamingVocoder
 
         eng = self.engine
@@ -423,20 +441,26 @@ class TtsPipeline:
             semantic_stage(eng.params, state, logits, eng._keys([0] * B, 0),
                            ones(B), ones(B) - 1, cfg,
                            ecfg.max_semantic_tokens, zs, feed_tag1=not zs,
-                           decode_block=ecfg.decode_block)
+                           decode_block=ecfg.decode_block,
+                           step_fn=eng._step_fn)
 
         def lm(B, T, zs):
             # the static engine's serving chain at (B, T) on zero tokens
-            logits, st = eng.prefill([[0] * T] * B,
-                                     rwkv7.init_state(cfg, B, device=dev))
+            logits, st = eng.prefill([[0] * T] * B, eng.init_state(B))
             if not zs:
                 _, st, logits = global_stage(eng.params, st, logits,
-                                             eng._keys([0] * B, 0), cfg)
+                                             eng._keys([0] * B, 0), cfg,
+                                             step_fn=eng._step_fn)
             semantic(st, logits, B, zs)
 
         modes = (False, True) if zero_shot_too else (False,)
         buckets = prefill_buckets or ecfg.prefill_buckets[:2]
-        if batch_ladder is None:
+        # the smallest batch the engine runs: a tensor-parallel engine
+        # pads every batch to its data axis
+        B1 = 1 if eng.tp_mesh is None else eng.tp_mesh.dp
+        if eng.tp_mesh is not None:
+            batch_ladder = [B1]
+        elif batch_ladder is None:
             batch_ladder, b = [], 1
             while b < ecfg.batch_size:
                 batch_ladder.append(b)
@@ -455,12 +479,13 @@ class TtsPipeline:
             box = {}
 
             def prefill():
-                box["lg"], box["st"] = eng.prefill(
-                    [[0] * Tmax], rwkv7.init_state(cfg, 1, device=dev))
+                box["lg"], box["st"] = eng.prefill([[0] * Tmax] * B1,
+                                                   eng.init_state(B1))
 
             def glob():
                 _, box["st"], box["lg"] = global_stage(
-                    eng.params, box["st"], box["lg"], eng._keys([0], 0), cfg)
+                    eng.params, box["st"], box["lg"], eng._keys([0] * B1, 0),
+                    cfg, step_fn=eng._step_fn)
 
             timed(f"prefill_{Tmax}", prefill)
             timed("global_stage", glob)
@@ -469,7 +494,7 @@ class TtsPipeline:
                 # starts from its own copy
                 timed(f"semantic_{'zs' if zs else 'normal'}", lambda: semantic(
                     {k: v.clone() for k, v in box["st"].items()}, box["lg"],
-                    1, zs))
+                    B1, zs))
         if self.cached_speaker_default and not over("speaker_cache"):
             # requests without a seed resolve under the seed=None key, a
             # speaker of its own: warm both keys

@@ -335,6 +335,11 @@ def _get_continuous(app):
                 # least the concurrency the batcher was configured for
                 slots = max(eng.engine_cfg.batch_size,
                             app["batch_cfg"].max_batch_size)
+                if eng.tp_mesh is not None:
+                    # --tp: the continuous engine runs the sharded program
+                    # over the same mesh; its slots tile the data axis
+                    dp = eng.tp_mesh.dp
+                    slots = max(slots, dp) - (max(slots, dp) % dp) or dp
                 rt["continuous"] = ContinuousEngine(
                     eng.params, eng.cfg, eng.engine_cfg,
                     tokenizer=eng.tokenizer,
@@ -342,7 +347,7 @@ def _get_continuous(app):
                     # block, so a block of 8 lets flash mode (12 tokens to
                     # its first sound) emit a block earlier
                     block=app["stream_block"], slots=slots,
-                    device=eng.device)
+                    device=eng.device, mesh=eng.tp_mesh)
     return rt["continuous"]
 
 
@@ -857,9 +862,10 @@ def device_from_env() -> str:
 
 def build_dev_pipeline(raf_dir: str = "assets/raf",
                        engine_cfg: EngineConfig = EngineConfig(),
-                       device=None) -> TtsPipeline:
+                       device=None, tp_mesh=None) -> TtsPipeline:
     """Random-weight pipeline at the JAX package's dev widths, drawn from
-    one ``torch.Generator`` seeded with 0 on ``device``."""
+    one ``torch.Generator`` seeded with 0 on ``device``; ``tp_mesh`` shards
+    its LM (``TtsPipeline``)."""
     import torch
 
     from ..models import bicodec, rwkv7, wav2vec2
@@ -880,7 +886,7 @@ def build_dev_pipeline(raf_dir: str = "assets/raf",
         bicodec.init_params(bc_cfg, gen, dev), bc_cfg,
         wav2vec2.init_params(w2v_cfg, gen, dev), w2v_cfg,
         voice_store=VoiceStore(raf_dir), engine_cfg=engine_cfg,
-        w2v_output_layers=(1, 2), device=dev)
+        w2v_output_layers=(1, 2), device=dev, tp_mesh=tp_mesh)
 
 
 def build_pipeline_from_args(args) -> TtsPipeline:
@@ -891,13 +897,24 @@ def build_pipeline_from_args(args) -> TtsPipeline:
     ``--vocab-path``, ``--allow-random-codec``; the codecs from the same
     directory), and an unreadable one raises. Without a checkpoint on disk
     it serves random weights (dev mode). The port never downloads
-    (``--no-download`` is accepted and changes nothing); tensor parallelism
-    waits for ROADMAP A6, so ``--tp`` > 1 raises."""
-    if getattr(args, "tp", 1) > 1:
-        raise NotImplementedError(
-            f"--tp {args.tp}: tensor parallelism is not ported yet "
-            "(ROADMAP A6)")
+    (``--no-download`` is accepted and changes nothing). ``--tp`` k > 1
+    builds a (data, model = k) mesh over the visible devices
+    (``parallel/mesh.visible_devices``: every card) and exits when k does
+    not divide them, as the JAX server does: one card alone cannot serve
+    ``--tp 2``."""
     engine_cfg = EngineConfig().with_token_chunk(args.token_chunk_size)
+    device = device_from_env()
+    tp_mesh = None
+    if getattr(args, "tp", 1) > 1:
+        from ..parallel import mesh as meshlib
+        devs = meshlib.visible_devices(device)
+        n = len(devs)
+        if n % args.tp:
+            raise SystemExit(
+                f"--tp {args.tp} does not divide the {n} visible devices")
+        tp_mesh = meshlib.make_mesh(n, model_parallel=args.tp, devices=devs)
+        log.info("tensor parallelism: mesh (data=%d, model=%d)",
+                 n // args.tp, args.tp)
     cached_default = bool(getattr(args, "cached_speaker", False))
     if os.path.exists(args.model_path):
         pipeline = TtsPipeline.from_checkpoints(
@@ -905,13 +922,14 @@ def build_pipeline_from_args(args) -> TtsPipeline:
             quant_type=args.quant_type, quant_layers=args.quant_layers,
             vocab_path=args.vocab_path, engine_cfg=engine_cfg,
             allow_random_codec=args.allow_random_codec,
-            cached_speaker_default=cached_default, device=device_from_env())
+            cached_speaker_default=cached_default, device=device,
+            tp_mesh=tp_mesh)
         log.info("loaded checkpoint %s", args.model_path)
         return pipeline
     log.warning("checkpoint %s not found — serving with random weights "
                 "(dev mode)", args.model_path)
     pipeline = build_dev_pipeline(args.raf_dir, engine_cfg=engine_cfg,
-                                  device=device_from_env())
+                                  device=device, tp_mesh=tp_mesh)
     pipeline.cached_speaker_default = cached_default
     return pipeline
 
@@ -945,8 +963,9 @@ def parse_args(argv=None):
                         "BiCodec/wav2vec2 files are missing (dev only: "
                         "output is noise, not speech)")
     p.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel degree (not ported: > 1 raises; "
-                        "ROADMAP A6)")
+                   help="tensor-parallel degree over the visible devices "
+                        "(layer weights shard 1/tp per device); must "
+                        "divide their count")
     p.add_argument("--warmup", action="store_true",
                    help="run every serving shape once before accepting "
                         "traffic")

@@ -1,5 +1,6 @@
-"""Per-stage stopwatch; the port's own copy of ``StageTimer`` from
-``rwkv_tts_tpu/utils/rtf.py`` (reference: bin/server.rs:451-693)."""
+"""Per-stage stopwatch and RTF; the port's own copy of ``StageTimer`` and
+``calculate_rtf`` from ``rwkv_tts_tpu/utils/rtf.py`` (reference:
+bin/server.rs:151-159, 451-693)."""
 
 from __future__ import annotations
 
@@ -30,3 +31,10 @@ class StageTimer:
         out = {k: round(v * 1000.0, 2) for k, v in self._stages.items()}
         out["total"] = round(self.total_seconds() * 1000.0, 2)
         return out
+
+
+def calculate_rtf(audio_samples: int, processing_seconds: float,
+                  sample_rate: int = 16000) -> float:
+    """processing time / audio duration (bin/server.rs:151-159)."""
+    dur = audio_samples / sample_rate
+    return processing_seconds / dur if dur > 0 else 0.0
