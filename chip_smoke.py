@@ -8,8 +8,8 @@ Run from the root of a checkout on a machine with one CUDA card:
 
 Without ``--phases`` every phase runs and the last line is the ok line.
 With it, the build runs and then only the named phases (``PHASES``: kernels,
-quant_kernels, conv_kernels, rest_kernels, sweep, tools, goldens, parity,
-tp, main_path, cloning, quantized, streaming, server, checkpoint), and the
+quant_kernels, conv_kernels, rest_kernels, sweep, tools, goldens, graphs,
+parity, tp, main_path, cloning, quantized, streaming, server, checkpoint), and the
 last line is ``{"partial": [...]}``: a partial run never prints the ok
 line, and the all-kernels check of the kernels line runs only in a whole
 run. An unknown name fails.
@@ -113,6 +113,22 @@ Phases, each fatal on failure:
   goldens   the goldens model (2 layers × 128, weights rebuilt from the
              JAX package's seeded numpy stream) on the card must emit
              exactly the tokens of ``tests/goldens.json``;
+  graphs     the engines' decode steps as CUDA graphs (``runtime/graphs``;
+             every engine on the card without a mesh replays them, so every
+             later phase's requests, RTF and first-chunk lines run graphed):
+             at full width, 8 slots (4 live: global, semantic, zero-shot)
+             and block 32, one ``decode_block`` eager and one replayed as
+             ``continuous.BlockGraphs`` from the same seeded slots, for bf16,
+             int8 and int4 weights: emits, logits, state and slot tensors
+             equal bit for bit and the same counted launches per step, or
+             the phase fails; wall per step of both blocks, and over a
+             2-step block both ways wall, device busy ms and kernels per
+             step (torch.profiler); each program's warm-up, capture and
+             instantiate seconds and pool bytes; the other unit (the draws
+             and 32 steps as one program, bf16): its capture readings and
+             replay wall beside the step unit's; then ``tests/goldens.json``
+             exactly through the graphed static and continuous engines,
+             each having replayed its programs;
   parity    the reference-RNG parity engine
              (``runtime/parity.ReferenceRngEngine``: Rust StdRng, the
              Rust-order host sampler) on the card: the goldens model emits
@@ -161,8 +177,9 @@ Phases, each fatal on failure:
              bf16 weights, f32 state; full-size BiCodec; random weights
              from a fixed seed): valid tokens, finite waveforms of
              len(semantic) × 320 samples, and kernel launch counts equal
-             to 32 × (decode steps) and 32 × (prefill chunks); then one
-             decode step profiled for its device busy share;
+             to 32 × (decode steps) and 32 × (prefill chunks), counted on
+             the graphs' replays; then one eager decode step profiled for
+             its device busy share;
   cloning    8 zero-shot requests through ``synthesize_batch`` at full
              width (the LM above, full BiCodec encode and decode, 24 × 1024
              wav2vec2): 6 by reference WAV clips (3 seeded clips of 4-8 s,
@@ -278,6 +295,11 @@ import time
 
 SEED = 20261016
 STREAM_SLOTS, STREAM_BUCKETS = 8, (2, 4)   # the streaming phase's engine
+# seconds between the streaming phase's staggered requests: short enough
+# that requests overlap at the graphed step's speed (a full-width request
+# lives 1-3 s, a goldens-model one well under 0.15 s), so admission,
+# bucket changes and compaction run while others decode
+STREAM_STAGGER_S, WITNESS_STAGGER_S = 0.3, 0.02
 TOOLS_BATCH = 128    # the attribution tools' decode batch besides 8
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12        # H100 SXM, f32 outside the tensor cores
@@ -1485,9 +1507,10 @@ def goldens_requests(TtsArgs):
     }
 
 
-def run_goldens(device: str, root: str):
+def run_goldens(device: str, root: str, with_engine: bool = False):
     """Tokens of the goldens requests on ``device``; returns
-    {name: {"global": [...], "semantic": [...]}}."""
+    {name: {"global": [...], "semantic": [...]}} (and the engine, with
+    ``with_engine``)."""
     from rwkv_tts_tpu_torch.config import EngineConfig, RwkvConfig, TtsArgs
     from rwkv_tts_tpu_torch.runtime.engine import TtsEngine
     from rwkv_tts_tpu_torch.utils import bridge
@@ -1502,7 +1525,7 @@ def run_goldens(device: str, root: str):
         res = eng.generate(req)
         out[name] = {"global": res.global_tokens,
                      "semantic": res.semantic_tokens}
-    return out
+    return (out, eng) if with_engine else out
 
 
 def phase_goldens(root: str) -> None:
@@ -2377,6 +2400,327 @@ def top_line(by_name) -> str:
 
 
 # --------------------------------------------------------------------------
+# graphs: the engines' decode steps replayed as CUDA graphs
+# --------------------------------------------------------------------------
+
+GRAPH_LAYOUTS = ("bf16", "int8", "int4")
+GRAPH_SLOTS, GRAPH_BLOCK = 8, 32
+GRAPH_PROFILE_STEPS = 2     # torch.profiler's post-processing: ~0.5 ms a
+                            # kernel, so a short block
+
+
+def seeded_slots(torch, CT, cfg, B: int, device, seed: int):
+    """A continuous engine's state, logits and slot tensors for ``B``
+    slots from a seed: a random state and random logits; slot 0 in the
+    global stage, slots 1 … B/2 − 1 semantic (slot 1 zero-shot, its EOS
+    forbidden for 20 steps), the rest idle; limits far past a block."""
+    from rwkv_tts_tpu_torch.models import rwkv7
+    from rwkv_tts_tpu_torch.runtime.engine import SEMANTIC_SLICE
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    state = rwkv7.init_state(cfg, B, device=device)
+    for v in state.values():
+        v.copy_((0.1 * torch.randn(v.shape, generator=gen,
+                                   device=device)).to(v.dtype))
+    logits = torch.randn((B, min(SEMANTIC_SLICE, cfg.padded_vocab_size)),
+                         generator=gen, device=device)
+    slots = CT.init_slots(B, device)
+    live = max(2, B // 2)
+    slots["stage"][:live] = CT.SEMANTIC
+    slots["stage"][0] = CT.GLOBAL
+    slots["limit"][:live] = 1000
+    slots["zs"][1] = True
+    slots["hard_min"][1] = 20
+    for key in ("gkey", "skey"):
+        slots[key][:live] = torch.randint(0, 1 << 32, (live, 2),
+                                          generator=gen, device=device)
+    return state, logits, slots
+
+
+def first_emit_difference(torch, a, b):
+    """(step, slot) of the first differing emit of two [K, B] blocks, or
+    None."""
+    diff = (a != b).nonzero()
+    return None if not len(diff) else tuple(int(x) for x in diff[0])
+
+
+def graph_block_check(torch, params, cfg, device, B: int = GRAPH_SLOTS,
+                      block: int = GRAPH_BLOCK, seed: int = SEED + 17,
+                      profile: bool = True):
+    """One ``decode_block`` of ``block`` steps eager and one replayed as
+    graphs (``continuous.BlockGraphs``) from the same seeded slots
+    (``seeded_slots``): whether the emits, logits, state and slot tensors
+    are equal bit for bit (the first differing emit and the largest
+    differences otherwise), each block's wall and counted launches per
+    step, the capture's readings per program, and on a card, over a block
+    of ``GRAPH_PROFILE_STEPS`` both ways, ``profile_steps``' wall, device
+    busy ms and kernels per step."""
+    from rwkv_tts_tpu_torch.runtime import continuous as CT
+
+    def sync():
+        if device != "cpu":
+            torch.cuda.synchronize()
+
+    state, logits, slots = seeded_slots(torch, CT, cfg, B, device, seed)
+    e_state = {k: v.clone() for k, v in state.items()}
+    e_logits, e_slots = logits.clone(), {k: v.clone()
+                                         for k, v in slots.items()}
+    bg = CT.BlockGraphs(params, cfg, state, logits, slots, block)
+    sync()
+    t0 = time.perf_counter()
+    bg.programs(B)
+    sync()
+    first_s = time.perf_counter() - t0
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    g_emits = bg.run(B).clone()
+    sync()
+    g_wall = (time.perf_counter() - t0) * 1e3 / block
+    g_launches = launch_counts()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    _, e_logits, e_slots, e_emits = CT.decode_block(
+        params, e_state, e_logits, e_slots, cfg, block)
+    sync()
+    e_wall = (time.perf_counter() - t0) * 1e3 / block
+    e_launches = launch_counts()
+
+    equal = {"emits": bool(torch.equal(g_emits, e_emits)),
+             "logits": bool(torch.equal(bg.logits, e_logits)),
+             "state": all(bool(torch.equal(state[k], e_state[k]))
+                          for k in state),
+             "slots": all(bool(torch.equal(slots[k], e_slots[k]))
+                          for k in slots)}
+    out = {"equal": equal, "bitwise": all(equal.values()),
+           "first_emit_diff": first_emit_difference(torch, g_emits, e_emits),
+           "logits_max_abs": float((bg.logits - e_logits).abs().max()),
+           "state_max_abs": max(float((state[k].float()
+                                       - e_state[k].float()).abs().max())
+                                for k in state),
+           "live_emits": int((e_emits >= 0).sum()),
+           "wall_ms": {"eager": e_wall, "graphed": g_wall},
+           "launches_per_step": {
+               "eager": {k: v / block for k, v in e_launches.items() if v},
+               "graphed": {k: v / block for k, v in g_launches.items()
+                           if v}},
+           "first_use_s": first_s,
+           "programs": {k[0]: v for k, v in bg.cache.stats().items()}}
+    if profile and device != "cpu":
+        draws, step = bg.programs(B)
+
+        def eager_run():
+            CT.decode_block(params, e_state, e_logits, e_slots, cfg,
+                            GRAPH_PROFILE_STEPS)
+            torch.cuda.synchronize()
+
+        def graphed_run():
+            draws.replay()
+            for _ in range(GRAPH_PROFILE_STEPS):
+                step.replay()
+            torch.cuda.synchronize()
+
+        out["profile"] = {
+            name: profile_steps(torch, run, GRAPH_PROFILE_STEPS, 3)
+            for name, run in (("eager", eager_run),
+                              ("graphed", graphed_run))}
+    bg.cache.clear()
+    return out
+
+
+def whole_block_unit(torch, params, cfg, device, B: int = GRAPH_SLOTS,
+                     block: int = GRAPH_BLOCK, seed: int = SEED + 17):
+    """The other unit a graph could hold: the draws and all ``block``
+    steps captured as one program, from the seeded slots of
+    ``graph_block_check``. Returns its capture readings, its replay's wall
+    and whether its emits equal the step unit's (K + 1 replays) from the
+    same slots."""
+    from rwkv_tts_tpu_torch.runtime import continuous as CT
+
+    runs = {}
+    for unit in ("step", "block"):
+        state, logits, slots = seeded_slots(torch, CT, cfg, B, device, seed)
+        bg = CT.BlockGraphs(params, cfg, state, logits, slots, block)
+        if unit == "step":
+            bg.programs(B)
+        else:
+            def body(bufs, bg=bg):
+                bg._draws_body(bufs)
+                for _ in range(block):
+                    bg._step_body(bufs)
+
+            prog = bg.cache.program(("block", B), body, bg._views(B))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if unit == "step":
+            bg.run(B)
+        else:
+            prog.replay()
+        emits = bg.emits.clone()
+        torch.cuda.synchronize()
+        runs[unit] = {"emits": emits,
+                      "replay_ms": (time.perf_counter() - t0) * 1e3,
+                      "programs": bg.cache.stats()}
+        bg.cache.clear()
+    blk = runs["block"]["programs"][("block", B)]
+    return {"block": {k: blk[k] for k in ("warmup_s", "capture_s",
+                                          "instantiate_s", "pool_bytes")},
+            "block_replay_ms": runs["block"]["replay_ms"],
+            "step_replay_ms": runs["step"]["replay_ms"],
+            "same_emits": bool(torch.equal(runs["block"]["emits"],
+                                           runs["step"]["emits"]))}
+
+
+def continuous_goldens(device: str, root: str):
+    """The goldens requests through a ``ContinuousEngine`` on the goldens
+    model (4 slots, block 8), exactly ``tests/goldens.json``: returns the
+    number of requests and the engine's graph programs (key: replays)."""
+    import threading
+
+    from rwkv_tts_tpu_torch.config import EngineConfig, RwkvConfig, TtsArgs
+    from rwkv_tts_tpu_torch.runtime import continuous as CT
+    from rwkv_tts_tpu_torch.utils import bridge
+
+    gcfg = RwkvConfig(**GOLDENS_CFG)
+    geng = CT.ContinuousEngine(
+        bridge.rwkv7_params(goldens_params(gcfg, 1234), device), gcfg,
+        EngineConfig(prefill_buckets=(64, 128), max_semantic_tokens=16),
+        block=8, slots=4, device=device)
+    try:
+        got, done = {}, threading.Event()
+        reqs = goldens_requests(TtsArgs)
+
+        def mk(name):
+            def cb(res):
+                got[name] = res
+                if len(got) == len(reqs):
+                    done.set()
+            return cb
+
+        for name, r in reqs.items():
+            geng.submit(r, mk(name))
+        if not done.wait(300.0):
+            fail(f"goldens: only {sorted(got)} finished through the "
+                 f"continuous engine")
+    finally:
+        geng.stop()
+    with open(os.path.join(root, "tests", "goldens.json")) as f:
+        want = json.load(f)
+    for name in want:
+        if isinstance(got[name], Exception):
+            fail(f"goldens: {name} through the continuous engine: "
+                 f"{got[name]!r}")
+        mine = {"global": got[name].global_tokens,
+                "semantic": got[name].semantic_tokens}
+        if mine != want[name]:
+            fail(f"goldens: {name} through the continuous engine: {mine} "
+                 f"vs {want[name]}")
+    programs = {} if geng.graphs is None else {
+        str(k): p.replays for k, p in geng.graphs.cache.programs.items()}
+    return {"requests": len(want), "programs": programs}
+
+
+def static_goldens(device: str, root: str):
+    """``tests/goldens.json`` through the static engine (``run_goldens``),
+    exactly; returns the number of requests and the engine's graph
+    programs (key: replays)."""
+    with open(os.path.join(root, "tests", "goldens.json")) as f:
+        want = json.load(f)
+    got, eng = run_goldens(device, root, with_engine=True)
+    for name in want:
+        if got[name] != want[name]:
+            fail(f"goldens: {name} through the static engine: {got[name]} "
+                 f"vs {want[name]}")
+    programs = {} if eng.graphs is None else {
+        str(k): p.replays for k, p in eng.graphs.cache.programs.items()}
+    return {"requests": len(want), "programs": programs}
+
+
+def graphs(torch, lm_cfg, device: str, root: str,
+           layouts=GRAPH_LAYOUTS, whole_block: bool = True):
+    """The ``graphs`` phase on ``device`` (see the module docstring):
+    ``graph_block_check`` at full width for each layout of ``layouts``
+    (fails unless the graphed block equals the eager one bit for bit with
+    the same counted launches per step), the whole-block unit
+    (``whole_block_unit``, bf16) on a card, then the goldens through the
+    graphed static and continuous engines. Returns the readings."""
+    from rwkv_tts_tpu_torch.models import rwkv7
+
+    quant = {"bf16": None, "int8": "int8", "int4": "int4"}
+    out = {"blocks": {}}
+    for layout in layouts:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(SEED + 31)
+        params = rwkv7.make_serving_params(lm_cfg, gen, quant=quant[layout],
+                                           device=device)
+        r = graph_block_check(torch, params, lm_cfg, device)
+        if not r["bitwise"]:
+            fail(f"graphs: {layout}: the graphed block parts from the eager "
+                 f"one: {r['equal']}, first differing emit (step, slot) "
+                 f"{r['first_emit_diff']}, logits max abs "
+                 f"{r['logits_max_abs']:.3g}, state max abs "
+                 f"{r['state_max_abs']:.3g}")
+        lp = r["launches_per_step"]
+        if lp["eager"] != lp["graphed"]:
+            fail(f"graphs: {layout}: launches per step eager {lp['eager']} "
+                 f"vs graphed {lp['graphed']}")
+        if layout == "bf16" and whole_block and device != "cpu":
+            out["whole_block"] = whole_block_unit(torch, params, lm_cfg,
+                                                  device)
+        out["blocks"][layout] = r
+        del params
+        if device != "cpu":
+            torch.cuda.empty_cache()
+    out["static_goldens"] = static_goldens(device, root)
+    out["continuous_goldens"] = continuous_goldens(device, root)
+    if device != "cpu":
+        for what in ("static_goldens", "continuous_goldens"):
+            if not any(out[what]["programs"].values()):
+                fail(f"graphs: {what} replayed no graph: {out[what]}")
+    return out
+
+
+def graphs_lines(g, lm_cfg, card: str):
+    """The graphs phase's printed lines."""
+    lines = []
+    for layout, r in g["blocks"].items():
+        line = (f"graphs: {layout}, {lm_cfg.n_layer} layers x "
+                f"{lm_cfg.n_embd}, {GRAPH_SLOTS} slots, block "
+                f"{GRAPH_BLOCK}: graphed block equal to the eager block bit "
+                f"for bit {r['equal']} ({r['live_emits']} live emits); "
+                f"wall per step eager {r['wall_ms']['eager']:.3f} ms, "
+                f"graphed {r['wall_ms']['graphed']:.3f} ms; counted launches "
+                f"per step {r['launches_per_step']['graphed']} (eager the "
+                f"same); first use (warm-up, capture, instantiate of both "
+                f"programs and one draws replay) {r['first_use_s']:.2f} s, "
+                f"programs {r['programs']}")
+        for name, (wall, busy, kernels, top) in r.get("profile", {}).items():
+            line += (f"; {name} over a {GRAPH_PROFILE_STEPS}-step block: "
+                     f"wall {wall:.3f} ms, device busy {busy:.3f} ms "
+                     f"({100 * busy / wall:.1f}%), {kernels:.0f} kernels per "
+                     f"step")
+        lines.append(line + f"; {card}")
+    wb = g.get("whole_block")
+    if wb:
+        lines.append(
+            f"graphs: one bf16 block as one program (draws + {GRAPH_BLOCK} "
+            f"steps): warm-up {wb['block']['warmup_s']:.2f} s, capture "
+            f"{wb['block']['capture_s']:.2f} s, instantiate "
+            f"{wb['block']['instantiate_s']:.2f} s, pool "
+            f"{wb['block']['pool_bytes']} bytes, replay "
+            f"{wb['block_replay_ms']:.3f} ms; the step unit's block "
+            f"({GRAPH_BLOCK + 1} replays) {wb['step_replay_ms']:.3f} ms; the "
+            f"same emits {wb['same_emits']}; {card}")
+    for what in ("static_goldens", "continuous_goldens"):
+        lines.append(f"graphs: {g[what]['requests']} goldens requests emit "
+                     f"tests/goldens.json through the "
+                     f"{what.split('_')[0]} engine, graphed programs "
+                     f"(replays) {g[what]['programs']}")
+    return lines
+
+
+# --------------------------------------------------------------------------
 # cloning: zero-shot requests by reference audio and by voice_id
 # --------------------------------------------------------------------------
 
@@ -3208,6 +3552,19 @@ def bucketed_block_check(torch, CT, rwkv7, params, cfg, device, B, bucket,
     return same, steps * live, diff, untouched
 
 
+def log_block_slots(eng):
+    """A list that grows by the slots each of ``eng``'s decode blocks runs
+    on (its bucket, or all of them), eager or graphed."""
+    slots, real = [], eng._decode
+
+    def logged(bucket):
+        slots.append(min(bucket, eng.B))
+        return real(bucket)
+
+    eng._decode = logged
+    return slots
+
+
 def same_tokens(a, b) -> bool:
     return (list(a.global_tokens) == list(b.global_tokens)
             and list(a.semantic_tokens) == list(b.semantic_tokens))
@@ -3276,9 +3633,9 @@ def token_witnesses(torch, pipe, lm_cfg, ecfg, device, block, requests,
     through a ``ContinuousEngine`` of as many slots, without buckets,
     admitted as one burst: the prefill and every decode product then have
     the static engine's shapes, so the tokens must be the static engine's
-    (``static``) exactly. ``staggered``: the same 8 requests, 0.15 s
-    apart, through an engine of 8 slots with buckets 2 and 4 over the
-    goldens model (f32, 2 layers x 128, where a product's rounding is far
+    (``static``) exactly. ``staggered``: the same 8 requests,
+    ``WITNESS_STAGGER_S`` apart, through an engine of 8 slots with buckets
+    2 and 4 over the goldens model (f32, 2 layers x 128, where a product's rounding is far
     below a draw's margin), against its static engine: admission while
     others decode, bucketed blocks on views, relocation and the decode
     thread's stream on ``device``, exactly. ``f32``: the requests (at most
@@ -3313,17 +3670,8 @@ def token_witnesses(torch, pipe, lm_cfg, ecfg, device, block, requests,
         EngineConfig(prefill_buckets=(64, 128),
                      max_semantic_tokens=ecfg.max_semantic_tokens),
         block=8, slots=STREAM_SLOTS, buckets=STREAM_BUCKETS, device=device)
-    block_slots, real_block = [], CT.decode_block
-
-    def logged_block(params, state, logits, *a, **kw):
-        block_slots.append(logits.shape[0])
-        return real_block(params, state, logits, *a, **kw)
-
-    CT.decode_block = logged_block
-    try:
-        got = through_engine(eng, requests, stagger_s=0.15)
-    finally:
-        CT.decode_block = real_block
+    block_slots = log_block_slots(eng)
+    got = through_engine(eng, requests, stagger_s=WITNESS_STAGGER_S)
     ref = static_by_mode(eng.inner, requests)
     out["staggered"] = {
         "same": sum(same_tokens(a, b) for a, b in zip(got, ref)),
@@ -3367,7 +3715,8 @@ STREAM_TOKENS = {"exact": 160, "low": 120, "ultra": 80, "flash": 60}
 
 
 def streaming(torch, lm_cfg, bc_cfg, device: str, engine_cfg=None,
-              block: int = 32, tokens=None, stagger_s: float = 1.5,
+              block: int = 32, tokens=None,
+              stagger_s: float = STREAM_STAGGER_S,
               exact_tol: float = 1e-2, chain_tol=None,
               warmup: bool = True, goldens_root=None, solo_plan=()):
     """The ``streaming`` phase on ``device`` (see the module docstring),
@@ -3423,14 +3772,7 @@ def streaming(torch, lm_cfg, bc_cfg, device: str, engine_cfg=None,
         real_submit(args, cb, chunk_cb)
 
     eng.submit = submit
-    block_slots = []            # slots each decode block ran on
-    real_block = CT.decode_block
-
-    def logged_block(params, state, logits, *a, **kw):
-        block_slots.append(logits.shape[0])
-        return real_block(params, state, logits, *a, **kw)
-
-    CT.decode_block = logged_block
+    block_slots = log_block_slots(eng)      # slots each decode block ran on
     try:
         if warmup:
             # the engine's admission, decode, relocation and cancel paths,
@@ -3665,7 +4007,6 @@ def streaming(torch, lm_cfg, bc_cfg, device: str, engine_cfg=None,
         agree = [first_difference(r["result"], g)
                  for r, g in zip(runs, static)]
     finally:
-        CT.decode_block = real_block
         eng.stop()
     profiled = block_profile(torch, eng) if device == "cuda" else None
 
@@ -3707,39 +4048,7 @@ def streaming(torch, lm_cfg, bc_cfg, device: str, engine_cfg=None,
     # the goldens requests through the continuous engine
     goldens = None
     if goldens_root is not None:
-        gcfg = RwkvConfig(**GOLDENS_CFG)
-        geng = CT.ContinuousEngine(
-            bridge.rwkv7_params(goldens_params(gcfg, 1234), device), gcfg,
-            EngineConfig(prefill_buckets=(64, 128), max_semantic_tokens=16),
-            block=8, slots=4, device=device)
-        try:
-            got, done = {}, threading.Event()
-            reqs = goldens_requests(TtsArgs)
-
-            def mk(name):
-                def cb(res):
-                    got[name] = res
-                    if len(got) == len(reqs):
-                        done.set()
-                return cb
-
-            for name, r in reqs.items():
-                geng.submit(r, mk(name))
-            if not done.wait(300.0):
-                fail(f"streaming: goldens: only {sorted(got)} finished")
-        finally:
-            geng.stop()
-        with open(os.path.join(goldens_root, "tests", "goldens.json")) as f:
-            want = json.load(f)
-        for name in want:
-            if isinstance(got[name], Exception):
-                fail(f"streaming: goldens: {name}: {got[name]!r}")
-            mine = {"global": got[name].global_tokens,
-                    "semantic": got[name].semantic_tokens}
-            if mine != want[name]:
-                fail(f"streaming: goldens: {name} through the continuous "
-                     f"engine: {mine} vs {want[name]}")
-        goldens = len(want)
+        goldens = continuous_goldens(device, goldens_root)["requests"]
 
     return {"runs": runs, "launches": launches, "stats": stats,
             "hist": hist,
@@ -4706,7 +5015,7 @@ KERNEL_ENTRIES = {
 
 
 PHASES = ("kernels", "quant_kernels", "conv_kernels", "rest_kernels",
-          "sweep", "tools", "goldens", "parity", "tp", "main_path",
+          "sweep", "tools", "goldens", "graphs", "parity", "tp", "main_path",
           "cloning", "quantized", "streaming", "server", "checkpoint")
 
 # the summary line's bytes: with the kernels line and the ok line it stays
@@ -4892,6 +5201,29 @@ def main(argv=None) -> None:
     if "goldens" in selected:
         phase_goldens(root)
         note("goldens", exact=True)
+    if "graphs" in selected:
+        g = graphs(torch, lm_cfg, "cuda", root)
+        for line in graphs_lines(g, lm_cfg, card):
+            print(line, flush=True)
+        wb = g["whole_block"]
+        note("graphs", **{
+            lay: {"bitwise": r["bitwise"],
+                  "wall_ms": [r["wall_ms"]["eager"], r["wall_ms"]["graphed"]],
+                  "busy_ms": [r["profile"][k][1] for k in ("eager",
+                                                            "graphed")],
+                  "kernels": [r["profile"][k][2] for k in ("eager",
+                                                            "graphed")],
+                  "first_use_s": r["first_use_s"],
+                  "pool_mb": sum(v["pool_bytes"] for v in
+                                 r["programs"].values()) / 2 ** 20}
+            for lay, r in g["blocks"].items()},
+            whole_block_s=[wb["block"][k] for k in (
+                "warmup_s", "capture_s", "instantiate_s")],
+            block_replay_ms=[wb["block_replay_ms"], wb["step_replay_ms"]],
+            goldens=[g["static_goldens"]["requests"],
+                     g["continuous_goldens"]["requests"]])
+        del g
+        torch.cuda.empty_cache()
 
     if "parity" in selected:
         pr = parity(torch, lm_cfg, "cuda", root)
@@ -4970,7 +5302,7 @@ def main(argv=None) -> None:
               f"{[len(r.semantic_tokens) for r in res]}", flush=True)
         wall_ms, busy_ms, kernels, by_name = step_profile(torch,
                                                           out["pipe"].engine)
-        print(f"main_path: decode step at batch "
+        print(f"main_path: eager decode step (the graphs' oracle) at batch "
               f"{out['pipe'].engine.engine_cfg.batch_size}: wall {wall_ms:.3f} ms, "
               f"device busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), "
               f"{kernels:.0f} kernels per step; top kernels per step: "
@@ -5126,13 +5458,15 @@ def main(argv=None) -> None:
               f"mode's 4 requests at the streaming weights as one burst through "
               f"4 slots without buckets (the static engine's shapes): "
               f"{wit['burst']['same']} of 8 emit the same tokens (in common "
-              f"{wit['burst']['agree']}; must be 8); the 8 requests 0.15 s apart "
+              f"{wit['burst']['agree']}; must be 8); the 8 requests "
+              f"{WITNESS_STAGGER_S} s apart "
               f"over the goldens model (f32, 2 x 128) through 8 slots with "
               f"buckets 2 and 4: {wit['staggered']['same']} of 8 (must be 8; "
               f"blocks ran on {wit['staggered']['buckets']} slots, "
               f"{wit['staggered']['relocations']} relocations, "
               f"{wit['staggered']['blocks']} blocks); with f32 weights at full "
-              f"width, at most 48 semantic tokens, 1.5 s apart through 8 slots "
+              f"width, at most 48 semantic tokens, {STREAM_STAGGER_S} s apart "
+              f"through 8 slots "
               f"with buckets: {wit['f32']['same']} of 8 (reported; in common "
               f"{wit['f32']['agree']}, semantic lengths {wit['f32']['lengths']})"
               f"; a bucketed block against the whole block (tokens of the live "

@@ -10,6 +10,13 @@ back to another path.
 
 Nothing here runs at import time: the package imports where there is no
 ``nvcc`` and no card.
+
+``count_launch`` is the one place the kernel wrappers count their launches
+(``LAUNCHES`` of ``ops/wkv7``, ``ops/quant`` and ``ops/conv1d``). While
+the calling thread captures a CUDA graph (``record_launches``), a wrapper's
+launch is recorded into the graph instead of running, so it is noted for
+the capture and not counted; the graph adds the capture's launches to the
+counts on every replay (``runtime/graphs.py``).
 """
 
 from __future__ import annotations
@@ -19,9 +26,10 @@ import hashlib
 import os
 import shutil
 import subprocess
+import contextlib
 import threading
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Iterator, List, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "rwkv_tts_tpu_torch"
@@ -36,6 +44,42 @@ build_log: Dict[str, str] = {}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+# the counts are shared by every thread (the decode thread, the streaming
+# vocoders' threads); a thread that captures notes its launches here
+_count_lock = threading.Lock()
+_capturing = threading.local()
+
+
+def count_launch(table: Dict[str, int], name: str) -> None:
+    """One launch of kernel ``name``, counted in ``table``: at once, or,
+    while this thread captures a graph, noted for that capture."""
+    noted = getattr(_capturing, "launches", None)
+    if noted is not None:
+        noted.append((table, name))
+        return
+    with _count_lock:
+        table[name] += 1
+
+
+@contextlib.contextmanager
+def record_launches() -> Iterator[List[Tuple[Dict[str, int], str]]]:
+    """Within the block, this thread's launches are noted in the list it
+    yields (one (table, name) each) instead of counted."""
+    if getattr(_capturing, "launches", None) is not None:
+        raise RuntimeError("record_launches does not nest")
+    _capturing.launches = noted = []
+    try:
+        yield noted
+    finally:
+        _capturing.launches = None
+
+
+def add_launches(launches: Iterable[Tuple[Dict[str, int], str, int]]
+                 ) -> None:
+    """Add each (table, name, n) to the counts: a replayed graph's."""
+    with _count_lock:
+        for table, name, n in launches:
+            table[name] += n
 
 
 def nvcc() -> str:

@@ -38,7 +38,6 @@ tensors on a card, where it launches or raises: there is no fallback.
 from __future__ import annotations
 
 import ctypes
-import threading
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -80,20 +79,19 @@ _ARGTYPES = {
 }
 _FLOATS = (torch.float32, torch.bfloat16)
 _fn = None                # the loaded library
-# the streaming vocoders of several requests launch from their own threads
-_count_lock = threading.Lock()
 
 
 def reset_launches() -> None:
-    with _count_lock:
+    with _build._count_lock:
         for k in LAUNCHES:
             LAUNCHES[k] = 0
         PACKS["conv1d"] = 0
 
 
 def _count(table, name) -> None:
-    with _count_lock:
-        table[name] += 1
+    # the streaming vocoders of several requests launch from their own
+    # threads: _build counts under its lock
+    _build.count_launch(table, name)
 
 
 def _kernel(name: str = "conv1d"):

@@ -67,8 +67,9 @@ f32, bf16 = torch.float32, torch.bfloat16
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _build._count_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
 
 
 # --------------------------------------------------------------------------
@@ -206,8 +207,19 @@ NF4_CODE = (
 )
 
 
+# NF4_CODE on each device it was asked for, built once: a dequantization
+# inside a decode step then copies nothing from the host (a CUDA graph's
+# capture refuses a copy from pageable memory)
+_nf4_codes: Dict[torch.device, torch.Tensor] = {}
+
+
 def _nf4_code(device) -> torch.Tensor:
-    return torch.tensor(NF4_CODE, dtype=f32, device=device)
+    device = torch.device(device)
+    code = _nf4_codes.get(device)
+    if code is None:
+        code = torch.tensor(NF4_CODE, dtype=f32, device=device)
+        _nf4_codes[device] = code
+    return code
 
 
 def quantize_tensor_nf4(w: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -472,7 +484,7 @@ def _launch(name, x, wq, ws, M, K, N, plan):
     if err:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
                            f"{err}")
-    LAUNCHES[name] += 1
+    _build.count_launch(LAUNCHES, name)
     return out
 
 

@@ -120,8 +120,9 @@ _fns: Dict[str, object] = {}
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _build._count_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
 
 
 def _kernel(name: str):
@@ -148,7 +149,7 @@ def _launch(name: str, device: torch.device, *args,
     if err:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
                            f"{err}")
-    LAUNCHES[count or name] += 1
+    _build.count_launch(LAUNCHES, count or name)
 
 
 # --------------------------------------------------------------------------

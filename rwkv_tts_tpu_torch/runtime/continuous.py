@@ -44,6 +44,15 @@ On a card the decode thread runs everything on a stream of its own;
 callers' threads (the streaming vocoder) stay on theirs. The host reads one
 block's emits and stage snapshot through one pinned, non-blocking copy and
 an event.
+
+On a card without a mesh a block is not enqueued op by op: ``BlockGraphs``
+replays CUDA graphs (``runtime/graphs.py``), the counterpart of the JAX
+engine's one jitted program per (bucket, block). Per occupancy bucket (and
+the whole batch) one graph computes the block's draw tables and one graph
+is ``decode_step``, replayed K times; the state, logits, slot tensors,
+draw tables, emits and step counter are static buffers, which admission,
+relocation and cancel write in place. The eager ``decode_block`` stays the
+CPU's and the meshes' path and the graphs' oracle.
 """
 
 from __future__ import annotations
@@ -66,6 +75,7 @@ from ..models import rwkv7
 from ..utils import threefry
 from ..utils.device import resolve_device
 from ..utils.metrics import STAGE_BUCKETS, Histogram
+from . import graphs
 from .engine import (SEMANTIC_SLICE, GenerationResult, TtsEngine,
                      _mask_global, _mask_semantic, _sample, _stepper,
                      zs_hard_min)
@@ -101,121 +111,149 @@ def init_slots(B: int, device) -> Dict[str, torch.Tensor]:
     }
 
 
-def decode_block(params, state, logits, slots, cfg: RwkvConfig, block: int,
-                 step_fn=None):
-    """Advance every active slot up to ``block`` unified steps.
-
-    slots: dict of per-slot tensors (``init_slots``). Returns (state,
-    logits, slots, emits [block, B]): emits holds the raw emitted global or
-    semantic token, NO_EMIT for idle and override steps and FINISHED on the
-    step a slot retires on EOS. ``state`` is updated in place; ``logits``
-    and every tensor of ``slots`` come back new. Nothing in here reads a
-    value back to the host. ``step_fn`` replaces ``rwkv7.step`` (the
-    sharded programs' hook, ``engine.global_stage``'s contract)."""
-    gk, sk = C.GLOBAL_SAMPLING, C.SEMANTIC_SAMPLING
-    hs = min(SEMANTIC_SLICE, cfg.padded_vocab_size)
-    dev = logits.device
-    # _mask_semantic slices the logits to the semantic prefix; the EOS
-    # masks live in that sliced coordinate space
-    is_eos_col = torch.arange(hs, device=dev) == C.TTS_EOS_TOKEN
-    s = dict(slots)
-    # a slot's draw at a step is uniform(fold_in(key, counter)) and its
-    # counters advance by at most one a step, so the block's draws are the
-    # counters base … base + block − 1: one vectorised threefry call per
-    # stream and block (the hash is some 300 small tensor operations)
-    # instead of one per step, then a gather by how far each slot has come
-    base_g, base_s = s["n_glob"], s["n_step"]
-    ahead = torch.arange(block, dtype=torch.int64, device=dev)[None, :]
+def block_draws(slots, block: int) -> Dict[str, torch.Tensor]:
+    """The draws a block of ``block`` steps can take. A slot's draw at a
+    step is uniform(fold_in(key, counter)) and its counters advance by at
+    most one a step, so the block's draws are the counters base … base +
+    block − 1: one vectorised threefry call per stream and block (the hash
+    is some 300 small tensor operations) instead of one per step, then a
+    gather by how far each slot has come (``decode_step``). Returns new
+    tensors: ``base_g``, ``base_s`` [B] (the counters at the block's
+    start) and the tables ``g``, ``s``, ``rs`` [B, block] (global,
+    semantic, zero-shot resample)."""
+    base_g, base_s = slots["n_glob"].clone(), slots["n_step"].clone()
+    ahead = torch.arange(block, dtype=torch.int64,
+                         device=base_g.device)[None, :]
 
     def draws(keys, counters):
         return threefry.uniform(threefry.fold_in(keys[:, None, :], counters))
 
-    tab_g = draws(s["gkey"], base_g[:, None] + ahead)
-    tab_s = draws(s["skey"], base_s[:, None] + ahead)
-    tab_rs = draws(s["skey"], base_s[:, None] + ahead + (1 << 20))
-    step = _stepper(cfg, step_fn)
-    emits = []
+    return {"base_g": base_g, "base_s": base_s,
+            "g": draws(slots["gkey"], base_g[:, None] + ahead),
+            "s": draws(slots["skey"], base_s[:, None] + ahead),
+            "rs": draws(slots["skey"], base_s[:, None] + ahead + (1 << 20))}
+
+
+def decode_step(params, state, logits, slots, draws, emits, k,
+                cfg: RwkvConfig, step_fn=None):
+    """One unified step of every slot: the body of ``decode_block``, and
+    the body its CUDA graph captures (``ContinuousEngine``).
+
+    Every per-step index is a device tensor: the draws are read at the
+    slots' counters less ``draws``' bases, and the step's emits [B] land in
+    row ``k`` ([1] int64, advanced by one) of ``emits`` [block, B]: the
+    raw emitted global or semantic token, NO_EMIT for idle and override
+    steps and FINISHED on the step a slot retires on EOS. ``state`` is
+    updated in place; returns (logits, slots), both new. Nothing in here
+    reads a value back to the host. ``step_fn`` replaces ``rwkv7.step``
+    (the sharded programs' hook, ``engine.global_stage``'s contract)."""
+    gk, sk = C.GLOBAL_SAMPLING, C.SEMANTIC_SAMPLING
+    hs = min(SEMANTIC_SLICE, cfg.padded_vocab_size)
+    # _mask_semantic slices the logits to the semantic prefix; the EOS
+    # masks live in that sliced coordinate space
+    is_eos_col = torch.arange(hs, device=logits.device) == C.TTS_EOS_TOKEN
+    s = slots
+    stage, override = s["stage"], s["override"]
+    active = stage != IDLE
+    has_ov = override >= 0
+
+    at_s = (s["n_step"] - draws["base_s"])[:, None]
+    u_g = draws["g"].gather(1, (s["n_glob"] - draws["base_g"])[:, None])[:, 0]
+    u_s = draws["s"].gather(1, at_s)[:, 0]
+    tok_g = _sample(_mask_global(logits), u_g, gk)
+
+    slogits = _mask_semantic(logits)
+    forbid_eos = s["n_step"] < s["hard_min"]
+    slogits = slogits.masked_fill(
+        forbid_eos[:, None] & is_eos_col[None, :], float("-inf"))
+    tok_s = _sample(slogits, u_s, sk)
+
+    # zero-shot EOS-window gate and resample
+    # (zero_shot_inference.rs:219-309); only a live zero-shot slot in the
+    # semantic stage takes the second draw
+    ratio = s["win"].sum(dim=1) / s["nwin"].clamp(min=1)
+    allow_eos = ((s["nwin"] >= C.ZS_EOS_WINDOW)
+                 & (ratio >= C.ZS_EOS_RATIO_THRESHOLD))
+    need_rs = (s["zs"] & (stage == SEMANTIC)
+               & (tok_s == C.TTS_EOS_TOKEN) & ~allow_eos)
+    no_eos = slogits.masked_fill(is_eos_col, float("-inf"))
+    tok_s = torch.where(
+        need_rs, _sample(no_eos, draws["rs"].gather(1, at_s)[:, 0], sk),
+        tok_s)
+
+    in_glob = active & (stage == GLOBAL) & ~has_ov
+    in_sem = active & (stage == SEMANTIC) & ~has_ov
+
+    is_eos = tok_s == C.TTS_EOS_TOKEN
+    zs_sem = in_sem & s["zs"]
+    win = torch.where(
+        zs_sem[:, None],
+        torch.cat([s["win"][:, 1:], ~is_eos[:, None]], dim=1), s["win"])
+    nwin = torch.where(zs_sem, (s["nwin"] + 1).clamp(max=C.ZS_EOS_WINDOW),
+                       s["nwin"])
+
+    hit_limit = s["n_step"] + 1 >= s["limit"]
+    retires = in_sem & (is_eos | hit_limit)
+    # the n_step guard covers limit <= 0: a slot retiring at its cap still
+    # emits its last in-cap token, as the static engine's i < limits gate
+    # does, and limit 0 emits none
+    sem_emit = in_sem & ~is_eos & (s["n_step"] < s["limit"])
+
+    feed = torch.where(has_ov, override.clamp(min=0),
+                       torch.zeros_like(override))
+    feed = torch.where(in_glob, tok_g + C.GLOBAL_TOKEN_OFFSET, feed)
+    feed = torch.where(sem_emit, tok_s, feed)
+
+    emit = torch.full_like(stage, NO_EMIT)
+    emit = torch.where(in_glob, tok_g, emit)
+    emit = torch.where(sem_emit, tok_s, emit)
+    emit = torch.where(retires & is_eos, torch.full_like(stage, FINISHED),
+                       emit)
+    # a slot retiring on its limit still emits its last token; the host
+    # sees the retirement in the block's stage snapshot
+
+    n_glob = torch.where(in_glob, s["n_glob"] + 1, s["n_glob"])
+    n_step = torch.where(in_sem, s["n_step"] + 1, s["n_step"])
+    # after the 32nd global token was fed, the next step feeds TAG_1
+    new_override = torch.where(
+        in_glob & (n_glob >= C.GLOBAL_TOKENS_SIZE),
+        torch.full_like(override, C.TTS_TAG_1),
+        torch.full_like(override, -1))
+    # the override fired this step: the slot turns semantic
+    stage = torch.where(active & has_ov & (stage == GLOBAL),
+                        torch.full_like(stage, SEMANTIC), stage)
+    stage = torch.where(retires, torch.full_like(stage, IDLE), stage)
+    override = torch.where(has_ov, torch.full_like(override, -1),
+                           new_override)
+
+    # idle slots are stepped too (feed 0): admission overwrites state,
+    # logits and every slot field, and nothing relies on a retired slot's
+    # state
+    logits, state = _stepper(cfg, step_fn)(params, feed, state, hs)
+    emits.index_copy_(0, k, emit[None])
+    k.add_(1)
+    return logits, dict(s, stage=stage, override=override, n_glob=n_glob,
+                        n_step=n_step, win=win, nwin=nwin)
+
+
+def decode_block(params, state, logits, slots, cfg: RwkvConfig, block: int,
+                 step_fn=None):
+    """Advance every active slot up to ``block`` unified steps
+    (``decode_step`` ``block`` times over one ``block_draws``).
+
+    slots: dict of per-slot tensors (``init_slots``). Returns (state,
+    logits, slots, emits [block, B]). ``state`` is updated in place;
+    ``logits`` and every tensor of ``slots`` come back new. Nothing in
+    here reads a value back to the host. This is the CPU's path, the
+    meshes' path and the oracle of the graphed block on a card."""
+    draws = block_draws(slots, block)
+    emits = torch.full((block, logits.shape[0]), NO_EMIT, dtype=torch.int64,
+                       device=logits.device)
+    k = torch.zeros((1,), dtype=torch.int64, device=logits.device)
     for _ in range(block):
-        stage, override = s["stage"], s["override"]
-        active = stage != IDLE
-        has_ov = override >= 0
-
-        at_s = (s["n_step"] - base_s)[:, None]
-        u_g = tab_g.gather(1, (s["n_glob"] - base_g)[:, None])[:, 0]
-        u_s = tab_s.gather(1, at_s)[:, 0]
-        tok_g = _sample(_mask_global(logits), u_g, gk)
-
-        slogits = _mask_semantic(logits)
-        forbid_eos = s["n_step"] < s["hard_min"]
-        slogits = slogits.masked_fill(
-            forbid_eos[:, None] & is_eos_col[None, :], float("-inf"))
-        tok_s = _sample(slogits, u_s, sk)
-
-        # zero-shot EOS-window gate and resample
-        # (zero_shot_inference.rs:219-309); only a live zero-shot slot in
-        # the semantic stage takes the second draw
-        ratio = s["win"].sum(dim=1) / s["nwin"].clamp(min=1)
-        allow_eos = ((s["nwin"] >= C.ZS_EOS_WINDOW)
-                     & (ratio >= C.ZS_EOS_RATIO_THRESHOLD))
-        need_rs = (s["zs"] & (stage == SEMANTIC)
-                   & (tok_s == C.TTS_EOS_TOKEN) & ~allow_eos)
-        no_eos = slogits.masked_fill(is_eos_col, float("-inf"))
-        tok_s = torch.where(
-            need_rs, _sample(no_eos, tab_rs.gather(1, at_s)[:, 0], sk), tok_s)
-
-        in_glob = active & (stage == GLOBAL) & ~has_ov
-        in_sem = active & (stage == SEMANTIC) & ~has_ov
-
-        is_eos = tok_s == C.TTS_EOS_TOKEN
-        zs_sem = in_sem & s["zs"]
-        win = torch.where(
-            zs_sem[:, None],
-            torch.cat([s["win"][:, 1:], ~is_eos[:, None]], dim=1), s["win"])
-        nwin = torch.where(zs_sem, (s["nwin"] + 1).clamp(max=C.ZS_EOS_WINDOW),
-                           s["nwin"])
-
-        hit_limit = s["n_step"] + 1 >= s["limit"]
-        retires = in_sem & (is_eos | hit_limit)
-        # the n_step guard covers limit <= 0: a slot retiring at its cap
-        # still emits its last in-cap token, as the static engine's
-        # i < limits gate does, and limit 0 emits none
-        sem_emit = in_sem & ~is_eos & (s["n_step"] < s["limit"])
-
-        feed = torch.where(has_ov, override.clamp(min=0),
-                           torch.zeros_like(override))
-        feed = torch.where(in_glob, tok_g + C.GLOBAL_TOKEN_OFFSET, feed)
-        feed = torch.where(sem_emit, tok_s, feed)
-
-        emit = torch.full_like(stage, NO_EMIT)
-        emit = torch.where(in_glob, tok_g, emit)
-        emit = torch.where(sem_emit, tok_s, emit)
-        emit = torch.where(retires & is_eos,
-                           torch.full_like(stage, FINISHED), emit)
-        # a slot retiring on its limit still emits its last token; the
-        # host sees the retirement in the block's stage snapshot
-
-        n_glob = torch.where(in_glob, s["n_glob"] + 1, s["n_glob"])
-        n_step = torch.where(in_sem, s["n_step"] + 1, s["n_step"])
-        # after the 32nd global token was fed, the next step feeds TAG_1
-        new_override = torch.where(
-            in_glob & (n_glob >= C.GLOBAL_TOKENS_SIZE),
-            torch.full_like(override, C.TTS_TAG_1),
-            torch.full_like(override, -1))
-        # the override fired this step: the slot turns semantic
-        stage = torch.where(active & has_ov & (stage == GLOBAL),
-                            torch.full_like(stage, SEMANTIC), stage)
-        stage = torch.where(retires, torch.full_like(stage, IDLE), stage)
-        override = torch.where(has_ov, torch.full_like(override, -1),
-                               new_override)
-
-        # idle slots are stepped too (feed 0): admission overwrites state,
-        # logits and every slot field, and nothing relies on a retired
-        # slot's state
-        logits, state = step(params, feed, state, hs)
-        s = dict(s, stage=stage, override=override, n_glob=n_glob,
-                 n_step=n_step, win=win, nwin=nwin)
-        emits.append(emit)
-    return state, logits, s, torch.stack(emits)
+        logits, slots = decode_step(params, state, logits, slots, draws,
+                                    emits, k, cfg, step_fn=step_fn)
+    return state, logits, slots, emits
 
 
 def decode_block_bucketed(params, state, logits, slots, cfg: RwkvConfig,
@@ -239,6 +277,79 @@ def decode_block_bucketed(params, state, logits, slots, cfg: RwkvConfig,
                             device=emits.device)
     emits_full[:, :bucket] = emits
     return state, logits, slots, emits_full
+
+
+class BlockGraphs:
+    """``decode_block`` as CUDA graphs over an engine's static buffers.
+
+    ``state`` [L, B, …], ``logits`` [B, W] and ``slots`` ([B] tensors) are
+    the engine's own; the draw tables, the emit buffer [block, B] and the
+    step counter are made here. For the first ``b`` slots (an occupancy
+    bucket, or all B) two programs run on views of them: ``("draws", b)``
+    (``block_draws``, the emits set to NO_EMIT, the counter to 0) and
+    ``("step", b)`` (``decode_step``, its logits and slot fields copied
+    back into the buffers), the second replayed ``block`` times. The
+    buffers must keep their storage while the programs live."""
+
+    def __init__(self, params, cfg: RwkvConfig, state, logits, slots,
+                 block: int):
+        self.params, self.cfg, self.block = params, cfg, block
+        self.state, self.logits, self.slots = state, logits, slots
+        B, dev = logits.shape[0], logits.device
+        i64 = dict(dtype=torch.int64, device=dev)
+        self.draws = {"base_g": torch.zeros((B,), **i64),
+                      "base_s": torch.zeros((B,), **i64)}
+        for n in ("g", "s", "rs"):
+            self.draws[n] = torch.zeros((B, block), dtype=torch.float32,
+                                        device=dev)
+        self.emits = torch.full((block, B), NO_EMIT, **i64)
+        self.k = torch.zeros((1,), **i64)
+        self.cache = graphs.GraphCache(dev)
+
+    def _views(self, b: int):
+        return {"state": {k: v[:, :b] for k, v in self.state.items()},
+                "logits": self.logits[:b],
+                "slots": {k: v[:b] for k, v in self.slots.items()},
+                "draws": {k: v[:b] for k, v in self.draws.items()},
+                "emits": self.emits[:, :b], "all_emits": self.emits,
+                "k": self.k}
+
+    def _draws_body(self, bufs) -> None:
+        for n, v in block_draws(bufs["slots"], self.block).items():
+            bufs["draws"][n].copy_(v)
+        bufs["all_emits"].fill_(NO_EMIT)
+        bufs["k"].zero_()
+
+    def _step_body(self, bufs) -> None:
+        slots = bufs["slots"]
+        logits, new = decode_step(self.params, bufs["state"], bufs["logits"],
+                                  slots, bufs["draws"], bufs["emits"],
+                                  bufs["k"], self.cfg)
+        bufs["logits"].copy_(logits)
+        for n, v in new.items():
+            if v is not slots[n]:
+                slots[n].copy_(v)
+
+    def programs(self, b: int):
+        """The (draws, step) programs of the first ``b`` slots, captured at
+        first use. The draws program runs once before the step's capture:
+        the step's warm-up reads the tables at the slots' counters."""
+        if ("step", b) not in self.cache:
+            bufs = self._views(b)
+            self.cache.program(("draws", b), self._draws_body, bufs).replay()
+            self.cache.program(("step", b), self._step_body, bufs)
+        return (self.cache.programs[("draws", b)],
+                self.cache.programs[("step", b)])
+
+    def run(self, b: int):
+        """One block on the first ``b`` slots, enqueued on the current
+        stream; returns the static emits [block, B] (NO_EMIT from slot b
+        up), which the next block overwrites."""
+        draws, step = self.programs(b)
+        draws.replay()
+        for _ in range(self.block):
+            step.replay()
+        return self.emits
 
 
 def _idle_slots(slots, idx):
@@ -373,8 +484,8 @@ class ContinuousEngine:
         # the decode thread's stream (a card only), made when it starts
         self._stream = None
         # where each block's wall clock goes on the host: ``dispatch_s``
-        # enqueues a block (in eager PyTorch that is every launch of its K
-        # steps), ``process_s`` waits for the previous block's readback and
+        # enqueues a block (eager: every launch of its K steps; graphed:
+        # K + 1 replays), ``process_s`` waits for the previous block's readback and
         # routes its tokens
         self.stats = {"blocks": 0, "dispatch_s": 0.0, "process_s": 0.0,
                       "admit_s": 0.0, "admitted": 0, "relocations": 0,
@@ -419,14 +530,21 @@ class ContinuousEngine:
         return params
 
     def _reset_device_state(self):
+        """Fresh state, logits and slot tensors; drops the graphs, which
+        address the old ones."""
         width = min(SEMANTIC_SLICE, self.cfg.padded_vocab_size)
         state = rwkv7.init_state(self.cfg, self.B, device=self.device)
+        self.graphs = None
         if self.mesh is None:
             self._Bl = self.B
             self.state = state
             self.logits = torch.zeros((self.B, width), dtype=torch.float32,
                                       device=self.device)
             self.slots = init_slots(self.B, self.device)
+            if self.device.type == "cuda":
+                self.graphs = BlockGraphs(self.params, self.cfg, self.state,
+                                          self.logits, self.slots,
+                                          self.block)
             return
         from ..parallel import mesh as meshlib
         from ..parallel import tp as tplib
@@ -455,7 +573,17 @@ class ContinuousEngine:
                 self.slots[d], step_fn)
 
     def _set_row(self, d: int, logits, slots):
-        if self.mesh is None:
+        """Data row ``d``'s logits and slot tensors become ``logits`` and
+        ``slots``. Under graphs the engine's tensors are the programs'
+        static buffers: the values are copied into them, on the current
+        stream, before the next replay is enqueued."""
+        if self.graphs is not None:
+            if logits is not self.logits:
+                self.logits.copy_(logits)
+            for k, v in slots.items():
+                if v is not self.slots[k]:
+                    self.slots[k].copy_(v)
+        elif self.mesh is None:
             self.logits, self.slots = logits, slots
         else:
             self.logits[d], self.slots[d] = logits, slots
@@ -666,9 +794,15 @@ class ContinuousEngine:
         self.stop()
         if self.buckets and self.B > 1:
             one = torch.ones((1,), dtype=torch.int64, device=self.device)
-            self.state, self.logits, self.slots = _relocate(
-                self.state, self.logits, self.slots, one, one - 1)
+            _, logits, slots = _relocate(self.state, self.logits, self.slots,
+                                         one, one - 1)
+            self._set_row(0, logits, slots)
         self._idle([0])
+        # every bucket's graphs, captured before serving (the bursts above
+        # reached most of them already)
+        if self.graphs is not None:
+            for b in self.buckets + (self.B,):
+                self.graphs.programs(b)
 
     def generate(self, args: TtsArgs, timeout: float = 600.0
                  ) -> GenerationResult:
@@ -796,8 +930,13 @@ class ContinuousEngine:
     def _decode(self, bucket: int):
         """One decode block on every data row (on the first ``bucket``
         slots where that is fewer than all: occupancy buckets, which a
-        mesh does not take); returns the block's emits [K, B] and stage
-        snapshot [B] on the engine's device."""
+        mesh does not take), replayed as graphs on a card without a mesh;
+        returns the block's emits [K, B] and stage snapshot [B] on the
+        engine's device. Under graphs both are static buffers that the
+        next block overwrites: ``_readback`` copies them before that block
+        is enqueued."""
+        if self.graphs is not None:
+            return self.graphs.run(bucket), self.slots["stage"]
         emits, stages = [], []
         for d in range(1 if self.mesh is None else self.mesh.dp):
             params, state, logits, slots, step_fn = self._row(d)
@@ -850,10 +989,11 @@ class ContinuousEngine:
             free = [i for i in range(b_n) if i not in self._live]
             dst = free[:len(src)]
         if src:
-            self.state, self.logits, self.slots = _relocate(
+            _, logits, slots = _relocate(
                 self.state, self.logits, self.slots,
                 torch.tensor(src, dtype=torch.int64, device=self.device),
                 torch.tensor(dst, dtype=torch.int64, device=self.device))
+            self._set_row(0, logits, slots)
             with self._lock:
                 for s, d in zip(src, dst):
                     live = self._live.pop(s)
@@ -886,9 +1026,10 @@ class ContinuousEngine:
 
     def _readback(self, emits, stage):
         """Start one block's transfer to the host: emits [K, B] and the
-        stage snapshot [B] as one [K + 1, B] array. On a card the copy goes
-        into pinned memory without blocking, and an event marks its end;
-        returns (host tensor, event or None)."""
+        stage snapshot [B] as one [K + 1, B] array, gathered on the decode
+        stream before the next block is enqueued there. On a card the copy
+        goes into pinned memory without blocking, and an event marks its
+        end; returns (host tensor, event or None)."""
         both = torch.cat([emits, stage[None]])
         if self.device.type != "cuda":
             return both, None

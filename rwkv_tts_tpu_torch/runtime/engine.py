@@ -15,17 +15,24 @@ engine's contracts, cited where they bind:
   * stage RNG streams seed+1000 (global), seed+2000 (semantic); draws are
                       uniform(fold_in(key, i)) — ``utils/threefry``, bit-equal to JAX
 
-The decode loop is a Python loop over ``rwkv7.step``. It asks the card
-whether every slot is done once per ``EngineConfig.decode_block`` steps
-instead of every step; steps after the last slot finished emit nothing, so
-the tokens are those of the JAX engine's per-step check.
+The decode loop is a Python loop over one stage step (``global_step``,
+``semantic_step``), whose every per-step index is a device counter. It
+asks the card whether every slot is done once per
+``EngineConfig.decode_block`` steps instead of every step; steps after the
+last slot finished emit nothing, so the tokens are those of the JAX
+engine's per-step check. On a card without tensor parallelism the engine
+replays each stage step as a CUDA graph (``StageGraphs``), the counterpart
+of the JAX engine's jitted stage programs; the eager ``global_stage`` and
+``semantic_stage`` stay the CPU's and the meshes' path and the graphs'
+oracle.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import List, Sequence, Tuple
+import threading
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -39,6 +46,7 @@ from ..tokenizer.properties import convert_standard_properties_to_tokens
 from ..tokenizer.rwkv_tokenizer import CachedEncoder
 from ..utils import threefry
 from ..utils.device import resolve_device
+from . import graphs
 
 # both sampling domains are prefixes of the unified vocab, so the decode
 # step computes only these logits (semantic ids ≤ 8192, global ids < 4096)
@@ -88,6 +96,23 @@ def _stepper(cfg: RwkvConfig, step_fn):
                                                      head_slice=hs)
 
 
+def global_step(params, state, logits, u, toks, i, cfg: RwkvConfig,
+                step_fn=None):
+    """One global-stage step: the body of ``global_stage`` and of its
+    graph. Draws column ``i`` ([1] int64 on the device) of the uniforms
+    ``u`` [B, 32], writes the token into column ``i`` of ``toks`` [B, 32],
+    feeds it back +8196 (``state`` in place) and advances ``i``; returns
+    the new logits."""
+    hs = min(SEMANTIC_SLICE, cfg.padded_vocab_size)
+    tok = _sample(_mask_global(logits), u.index_select(1, i)[:, 0],
+                  C.GLOBAL_SAMPLING)
+    logits, _ = _stepper(cfg, step_fn)(params, tok + C.GLOBAL_TOKEN_OFFSET,
+                                       state, hs)
+    toks.index_copy_(1, i, tok[:, None])
+    i.add_(1)
+    return logits
+
+
 def global_stage(params, state, first_logits, base_keys, cfg: RwkvConfig,
                  step_fn=None) -> Tuple[torch.Tensor, dict, torch.Tensor]:
     """Exactly 32 global (speaker) tokens; each is fed back +8196.
@@ -96,17 +121,94 @@ def global_stage(params, state, first_logits, base_keys, cfg: RwkvConfig,
     state, logits after the last token). ``state`` is updated in place.
     ``step_fn`` replaces the decode step (``_stepper``): the hook the
     tensor-parallel engine drives (``parallel/tp.make_step_fn``)."""
-    gk = C.GLOBAL_SAMPLING
     hs = min(SEMANTIC_SLICE, cfg.padded_vocab_size)
-    step = _stepper(cfg, step_fn)
+    dev = first_logits.device
     u = threefry.step_uniforms(base_keys, C.GLOBAL_TOKENS_SIZE)
     logits = first_logits[..., :hs]
-    toks = []
-    for i in range(C.GLOBAL_TOKENS_SIZE):
-        tok = _sample(_mask_global(logits), u[:, i], gk)
-        logits, state = step(params, tok + C.GLOBAL_TOKEN_OFFSET, state, hs)
-        toks.append(tok)
-    return torch.stack(toks, dim=1), state, logits
+    toks = torch.zeros((logits.shape[0], C.GLOBAL_TOKENS_SIZE),
+                       dtype=torch.int64, device=dev)
+    i = torch.zeros((1,), dtype=torch.int64, device=dev)
+    for _ in range(C.GLOBAL_TOKENS_SIZE):
+        logits = global_step(params, state, logits, u, toks, i, cfg,
+                             step_fn=step_fn)
+    return toks, state, logits
+
+
+def semantic_table(base_keys, limits, hard_min, max_steps: int,
+                   zero_shot: bool):
+    """What a semantic stage reads and never writes: the draws ``u``
+    [B, max_steps] (and the zero-shot resample's ``u_rs``), ``limits`` and
+    ``hard_min`` [B]."""
+    table = {"u": threefry.step_uniforms(base_keys, max_steps),
+             "limits": limits, "hard_min": hard_min}
+    if zero_shot:
+        table["u_rs"] = threefry.step_uniforms(base_keys, max_steps,
+                                               offset=1 << 20)
+    return table
+
+
+def semantic_carry(B: int, max_steps: int, device):
+    """A semantic stage's running values, at its start: ``buf`` [B,
+    max_steps] of tokens, ``done``, ``lens`` [B], the zero-shot EOS window
+    ``win`` [B, 12] and its fill ``nwin`` [B]."""
+    return {
+        "buf": torch.zeros((B, max_steps), dtype=torch.int64, device=device),
+        "done": torch.zeros((B,), dtype=torch.bool, device=device),
+        "lens": torch.zeros((B,), dtype=torch.int64, device=device),
+        "win": torch.zeros((B, C.ZS_EOS_WINDOW), dtype=torch.bool,
+                           device=device),
+        "nwin": torch.zeros((B,), dtype=torch.int64, device=device)}
+
+
+def semantic_step(params, state, logits, table, carry, i, cfg: RwkvConfig,
+                  zero_shot: bool, step_fn=None):
+    """One semantic-stage step: the body of ``semantic_stage`` and of its
+    graph. ``i`` ([1] int64 on the device) is the step: it picks the draws
+    of ``table`` (``semantic_table``), gates EOS before ``hard_min`` and
+    past ``limits``, and is the column of ``carry["buf"]`` the fed token
+    is written to; it advances by one. ``state`` is updated in place;
+    returns (logits, carry) with ``done``, ``lens``, ``win`` and ``nwin``
+    new."""
+    sk = C.SEMANTIC_SAMPLING
+    hs = min(SEMANTIC_SLICE, cfg.padded_vocab_size)
+    width = min(SEMANTIC_SLICE, logits.shape[-1])
+    is_eos_col = torch.arange(width, device=logits.device) == \
+        C.TTS_EOS_TOKEN
+    limits = table["limits"]
+    masked = _mask_semantic(logits)
+    forbid_eos = (i < table["hard_min"])[:, None] & is_eos_col[None, :]
+    masked = masked.masked_fill(forbid_eos, float("-inf"))
+    tok = _sample(masked, table["u"].index_select(1, i)[:, 0], sk)
+    win, nwin = carry["win"], carry["nwin"]
+    if zero_shot:
+        # EOS-window gate: accept EOS only if the window is full and ≥70%
+        # of it is non-EOS; otherwise resample with EOS masked. Both draws
+        # are computed and one is selected per slot — the same tokens as
+        # the JAX engine's gated second pass.
+        ratio = win.sum(dim=1) / nwin.clamp(min=1)
+        allow_eos = ((nwin >= C.ZS_EOS_WINDOW)
+                     & (ratio >= C.ZS_EOS_RATIO_THRESHOLD))
+        need_resample = (tok == C.TTS_EOS_TOKEN) & ~allow_eos
+        no_eos = masked.masked_fill(is_eos_col, float("-inf"))
+        tok = torch.where(
+            need_resample,
+            _sample(no_eos, table["u_rs"].index_select(1, i)[:, 0], sk), tok)
+        win = torch.cat([win[:, 1:], (tok != C.TTS_EOS_TOKEN)[:, None]],
+                        dim=1)
+        nwin = (nwin + 1).clamp(max=C.ZS_EOS_WINDOW)
+
+    is_eos = tok == C.TTS_EOS_TOKEN
+    active = ~carry["done"] & (i < limits)
+    emit = active & ~is_eos
+    feed = torch.where(emit, tok, torch.zeros_like(tok))
+    carry["buf"].index_copy_(1, i, feed[:, None])
+    lens = carry["lens"] + emit
+    done = carry["done"] | (active & is_eos) | (i + 1 >= limits)
+    # the raw token goes back (semantic ids are raw,
+    # normal_mode_inference.rs:389-390); done slots feed a harmless 0
+    logits, _ = _stepper(cfg, step_fn)(params, feed, state, hs)
+    i.add_(1)
+    return logits, dict(carry, done=done, lens=lens, win=win, nwin=nwin)
 
 
 def semantic_stage(params, state, first_logits, base_keys, limits, hard_min,
@@ -123,64 +225,152 @@ def semantic_stage(params, state, first_logits, base_keys, limits, hard_min,
     place."""
     B = first_logits.shape[0]
     dev = first_logits.device
-    sk = C.SEMANTIC_SAMPLING
     hs = min(SEMANTIC_SLICE, cfg.padded_vocab_size)
-    step = _stepper(cfg, step_fn)
     n_steps = 0
     if feed_tag1:
         tag1 = torch.full((B,), C.TTS_TAG_1, dtype=torch.int64, device=dev)
-        first_logits, state = step(params, tag1, state, hs)
+        first_logits, state = _stepper(cfg, step_fn)(params, tag1, state, hs)
         n_steps += 1
     logits = first_logits[..., :hs]
-    u = threefry.step_uniforms(base_keys, max_steps)
-    if zero_shot:
-        u_resample = threefry.step_uniforms(base_keys, max_steps,
-                                            offset=1 << 20)
-
-    buf = torch.zeros((B, max_steps), dtype=torch.int64, device=dev)
-    done = torch.zeros((B,), dtype=torch.bool, device=dev)
-    lens = torch.zeros((B,), dtype=torch.int64, device=dev)
-    win = torch.zeros((B, C.ZS_EOS_WINDOW), dtype=torch.bool, device=dev)
-    nwin = torch.zeros((B,), dtype=torch.int64, device=dev)
-    width = min(SEMANTIC_SLICE, logits.shape[-1])
-    is_eos_col = torch.arange(width, device=dev) == C.TTS_EOS_TOKEN
-    zero = torch.zeros((), dtype=torch.int64, device=dev)
-
-    for i in range(max_steps):
-        masked = _mask_semantic(logits)
-        forbid_eos = (i < hard_min)[:, None] & is_eos_col[None, :]
-        masked = masked.masked_fill(forbid_eos, float("-inf"))
-        tok = _sample(masked, u[:, i], sk)
-        if zero_shot:
-            # EOS-window gate: accept EOS only if the window is full and
-            # ≥70% of it is non-EOS; otherwise resample with EOS masked.
-            # Both draws are computed and one is selected per slot — the
-            # same tokens as the JAX engine's gated second pass.
-            ratio = win.sum(dim=1) / nwin.clamp(min=1)
-            allow_eos = ((nwin >= C.ZS_EOS_WINDOW)
-                         & (ratio >= C.ZS_EOS_RATIO_THRESHOLD))
-            need_resample = (tok == C.TTS_EOS_TOKEN) & ~allow_eos
-            no_eos = masked.masked_fill(is_eos_col, float("-inf"))
-            tok = torch.where(need_resample,
-                              _sample(no_eos, u_resample[:, i], sk), tok)
-            win = torch.cat([win[:, 1:], (tok != C.TTS_EOS_TOKEN)[:, None]],
-                            dim=1)
-            nwin = (nwin + 1).clamp(max=C.ZS_EOS_WINDOW)
-
-        is_eos = tok == C.TTS_EOS_TOKEN
-        active = ~done & (i < limits)
-        emit = active & ~is_eos
-        feed = torch.where(emit, tok, zero)
-        buf[:, i] = feed
-        lens += emit
-        done = done | (active & is_eos) | (i + 1 >= limits)
-        # the raw token goes back (semantic ids are raw,
-        # normal_mode_inference.rs:389-390); done slots feed a harmless 0
-        logits, state = step(params, feed, state, hs)
+    table = semantic_table(base_keys, limits, hard_min, max_steps, zero_shot)
+    carry = semantic_carry(B, max_steps, dev)
+    i = torch.zeros((1,), dtype=torch.int64, device=dev)
+    for n in range(max_steps):
+        logits, carry = semantic_step(params, state, logits, table, carry, i,
+                                      cfg, zero_shot, step_fn=step_fn)
         n_steps += 1
-        if (i + 1) % decode_block == 0 and bool(done.all()):
+        if (n + 1) % decode_block == 0 and bool(carry["done"].all()):
             break
-    return buf, lens, state, n_steps
+    return carry["buf"], carry["lens"], state, n_steps
+
+
+class StageGraphs:
+    """The static engine's stage steps as CUDA graphs (``runtime/graphs``).
+
+    Per padded batch B one set of static buffers: the state, the logits,
+    the TAG_1 feed, the global stage's draws and tokens, one step counter,
+    and per semantic length the semantic stage's table and carry. Per (B,
+    stage, zero-shot) one program over them, captured at first use:
+    ``global_step``, the TAG_1 step, ``semantic_step``. A stage copies its
+    inputs into the buffers (nothing where they already are: the stages
+    chain through them), resets the counter and replays its program once a
+    step; the host checks ``done`` every ``decode_block`` steps, as the
+    eager stage does."""
+
+    def __init__(self, params, cfg: RwkvConfig, device):
+        self.params, self.cfg = params, cfg
+        self.device = device
+        self.cache = graphs.GraphCache(device)
+        self.sets: dict = {}
+
+    def _buffers(self, B: int, max_steps: int = 0):
+        """B's buffers; with ``max_steps`` also the semantic stage's table
+        and carry of that length."""
+        dev, cfg = self.device, self.cfg
+        i64 = dict(dtype=torch.int64, device=dev)
+        bufs = self.sets.get(B)
+        if bufs is None:
+            bufs = {
+                "state": rwkv7.init_state(cfg, B, device=dev),
+                "logits": torch.zeros(
+                    (B, min(SEMANTIC_SLICE, cfg.padded_vocab_size)),
+                    dtype=torch.float32, device=dev),
+                "tag1": torch.full((B,), C.TTS_TAG_1, **i64),
+                "u_g": torch.zeros((B, C.GLOBAL_TOKENS_SIZE),
+                                   dtype=torch.float32, device=dev),
+                "toks": torch.zeros((B, C.GLOBAL_TOKENS_SIZE), **i64),
+                "i": torch.zeros((1,), **i64)}
+            self.sets[B] = bufs
+        if not max_steps:
+            return bufs
+        sem = self.sets.get((B, max_steps))
+        if sem is None:
+            sem = {"table": {
+                "u": torch.zeros((B, max_steps), dtype=torch.float32,
+                                 device=dev),
+                "u_rs": torch.zeros((B, max_steps), dtype=torch.float32,
+                                    device=dev),
+                "limits": torch.zeros((B,), **i64),
+                "hard_min": torch.zeros((B,), **i64)},
+                "carry": semantic_carry(B, max_steps, dev)}
+            self.sets[(B, max_steps)] = sem
+        return dict(bufs, **sem)
+
+    def _load(self, bufs, state, logits) -> None:
+        """The stage's input state and logits into the buffers."""
+        for k, v in state.items():
+            if v is not bufs["state"][k]:
+                bufs["state"][k].copy_(v)
+        hs = bufs["logits"].shape[-1]
+        if logits is not bufs["logits"]:
+            bufs["logits"].copy_(logits[..., :hs])
+
+    def _global_body(self, bufs) -> None:
+        bufs["logits"].copy_(global_step(
+            self.params, bufs["state"], bufs["logits"], bufs["u_g"],
+            bufs["toks"], bufs["i"], self.cfg))
+
+    def _tag1_body(self, bufs) -> None:
+        hs = bufs["logits"].shape[-1]
+        logits, _ = rwkv7.step(self.params, bufs["tag1"], bufs["state"],
+                               self.cfg, head_slice=hs)
+        bufs["logits"].copy_(logits)
+
+    def _semantic_body(self, bufs, zero_shot: bool) -> None:
+        carry = bufs["carry"]
+        logits, new = semantic_step(self.params, bufs["state"],
+                                    bufs["logits"], bufs["table"], carry,
+                                    bufs["i"], self.cfg, zero_shot)
+        bufs["logits"].copy_(logits)
+        for n in ("done", "lens", "win", "nwin"):
+            if new[n] is not carry[n]:
+                carry[n].copy_(new[n])
+
+    def global_stage(self, state, first_logits, base_keys):
+        """``global_stage`` replayed; returns (tokens [B, 32], the
+        buffers' state, the buffers' logits)."""
+        B = first_logits.shape[0]
+        bufs = self._buffers(B)
+        self._load(bufs, state, first_logits)
+        bufs["u_g"].copy_(threefry.step_uniforms(base_keys,
+                                                 C.GLOBAL_TOKENS_SIZE))
+        bufs["i"].zero_()
+        prog = self.cache.program((B, "global"), self._global_body, bufs)
+        for _ in range(C.GLOBAL_TOKENS_SIZE):
+            prog.replay()
+        return bufs["toks"].clone(), bufs["state"], bufs["logits"]
+
+    def semantic_stage(self, state, first_logits, base_keys, limits,
+                       hard_min, max_steps: int, zero_shot: bool,
+                       feed_tag1: bool, decode_block: int):
+        """``semantic_stage`` replayed; the same returns (tokens and
+        lengths copied out of the buffers)."""
+        B = first_logits.shape[0]
+        bufs = self._buffers(B, max_steps)
+        self._load(bufs, state, first_logits)
+        n_steps = 0
+        if feed_tag1:
+            self.cache.program((B, "tag1"), self._tag1_body, bufs).replay()
+            n_steps += 1
+        table = semantic_table(base_keys, limits, hard_min, max_steps,
+                               zero_shot)
+        for k, v in table.items():
+            bufs["table"][k].copy_(v)
+        for k, v in semantic_carry(B, max_steps, self.device).items():
+            bufs["carry"][k].copy_(v)
+        bufs["i"].zero_()
+        prog = self.cache.program(
+            (B, max_steps, "semantic", zero_shot),
+            lambda b: self._semantic_body(b, zero_shot), bufs)
+        done = bufs["carry"]["done"]
+        for n in range(max_steps):
+            prog.replay()
+            n_steps += 1
+            if (n + 1) % decode_block == 0 and bool(done.all()):
+                break
+        carry = bufs["carry"]
+        return (carry["buf"].clone(), carry["lens"].clone(), bufs["state"],
+                n_steps)
 
 
 @dataclasses.dataclass
@@ -211,7 +401,9 @@ class TtsEngine:
         device is the mesh's first). It takes the raw layout, plain or
         int8; partial quantization, the fused ``zrkv`` layout and the 4-bit
         layouts are refused, as in the JAX engine (``engine.py:312-347``).
-        On a card the shards' WKV runs the hand-written kernels."""
+        On a card the shards' WKV runs the hand-written kernels, eagerly;
+        without ``tp_mesh`` the stages replay CUDA graphs there
+        (``StageGraphs``)."""
         self._step_fn = None
         self.tp_mesh = tp_mesh
         if tp_mesh is not None:
@@ -230,6 +422,38 @@ class TtsEngine:
         # (lightweight_tts_pipeline.rs:149-151)
         self.encoder = CachedEncoder(self.tokenizer, normalize=False)
         self.counters = {"prefill_chunks": 0, "decode_steps": 0}
+        self.graphs: Optional[StageGraphs] = None
+        if self.device.type == "cuda" and tp_mesh is None:
+            self.graphs = StageGraphs(params, cfg, self.device)
+        # the graphed stages chain through one set of buffers per batch:
+        # one thread's stages at a time (generate_batch, the speaker
+        # tokens, the pipeline's warm-up)
+        self.stage_lock = threading.RLock()
+
+    def run_global(self, state, logits, base_keys):
+        """The global stage, graphed on a card (``StageGraphs``), else
+        ``global_stage`` through the step hook; the same returns."""
+        if self.graphs is not None:
+            return self.graphs.global_stage(state, logits, base_keys)
+        return global_stage(self.params, state, logits, base_keys, self.cfg,
+                            step_fn=self._step_fn)
+
+    def run_semantic(self, state, logits, base_keys, limits, hard_min,
+                     zero_shot: bool, feed_tag1: bool):
+        """The semantic stage at the engine's ``max_semantic_tokens`` and
+        ``decode_block``, graphed on a card, else ``semantic_stage``; the
+        same returns."""
+        ecfg = self.engine_cfg
+        if self.graphs is not None:
+            return self.graphs.semantic_stage(
+                state, logits, base_keys, limits, hard_min,
+                ecfg.max_semantic_tokens, zero_shot, feed_tag1,
+                ecfg.decode_block)
+        return semantic_stage(self.params, state, logits, base_keys, limits,
+                              hard_min, self.cfg, ecfg.max_semantic_tokens,
+                              zero_shot, feed_tag1=feed_tag1,
+                              decode_block=ecfg.decode_block,
+                              step_fn=self._step_fn)
 
     def _shard_tp(self, params, cfg: RwkvConfig, mesh, device):
         """The JAX engine's refusals in its order, then the head-sharded
@@ -371,26 +595,20 @@ class TtsEngine:
         sem_keys = self._keys(seeds, C.SEMANTIC_SEED_OFFSET)
 
         logits, state = self.prefill(prompts, self.init_state(B))
-        if zero_shot:
-            glob = None
-            sem, lens, _, n = semantic_stage(
-                self.params, state, logits, sem_keys, limits, hard_min, cfg,
-                ecfg.max_semantic_tokens, True,
-                decode_block=ecfg.decode_block, step_fn=self._step_fn)
-        else:
-            glob, state, logits = global_stage(
-                self.params, state, logits,
-                self._keys(seeds, C.GLOBAL_SEED_OFFSET), cfg,
-                step_fn=self._step_fn)
-            self.counters["decode_steps"] += C.GLOBAL_TOKENS_SIZE
-            sem, lens, _, n = semantic_stage(
-                self.params, state, logits, sem_keys, limits, hard_min, cfg,
-                ecfg.max_semantic_tokens, False, feed_tag1=True,
-                decode_block=ecfg.decode_block, step_fn=self._step_fn)
-        self.counters["decode_steps"] += n
-
-        sem_np, len_np = sem.cpu().numpy(), lens.cpu().numpy()
-        glob_np = None if zero_shot else glob.cpu().numpy()
+        with self.stage_lock:
+            if zero_shot:
+                glob = None
+                sem, lens, _, n = self.run_semantic(
+                    state, logits, sem_keys, limits, hard_min, True, False)
+            else:
+                glob, state, logits = self.run_global(
+                    state, logits, self._keys(seeds, C.GLOBAL_SEED_OFFSET))
+                self.counters["decode_steps"] += C.GLOBAL_TOKENS_SIZE
+                sem, lens, _, n = self.run_semantic(
+                    state, logits, sem_keys, limits, hard_min, False, True)
+            self.counters["decode_steps"] += n
+            sem_np, len_np = sem.cpu().numpy(), lens.cpu().numpy()
+            glob_np = None if zero_shot else glob.cpu().numpy()
         out = []
         for i, r in enumerate(requests):
             toks = [int(t) for t in sem_np[i, :len_np[i]]]
@@ -423,9 +641,8 @@ class TtsEngine:
         prompt = list(props) + [C.TTS_TAG_2, C.TTS_TAG_0]
         B = 1 if self.tp_mesh is None else self.tp_mesh.dp
         logits, state = self.prefill([prompt] * B, self.init_state(B))
-        glob, _, _ = global_stage(
-            self.params, state, logits,
-            self._keys([seed] * B, C.GLOBAL_SEED_OFFSET), self.cfg,
-            step_fn=self._step_fn)
-        self.counters["decode_steps"] += C.GLOBAL_TOKENS_SIZE
-        return [int(t) for t in glob[0].tolist()]
+        with self.stage_lock:
+            glob, _, _ = self.run_global(
+                state, logits, self._keys([seed] * B, C.GLOBAL_SEED_OFFSET))
+            self.counters["decode_steps"] += C.GLOBAL_TOKENS_SIZE
+            return [int(t) for t in glob[0].tolist()]

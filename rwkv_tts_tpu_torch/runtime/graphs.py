@@ -1,0 +1,148 @@
+"""CUDA graphs of the engines' decode steps: the card's counterpart of the
+JAX engines' jitted decode programs.
+
+The JAX package runs each engine's decode as one compiled device program
+(``rwkv_tts_tpu/runtime/engine.py`` ``global_stage`` / ``semantic_stage``,
+``rwkv_tts_tpu/runtime/continuous.py`` ``decode_block``). Eager PyTorch
+enqueues the same step op by op from Python, thousands of launches a step.
+A CUDA graph records a step's launches once and enqueues all of them with
+one call, so the host stops pacing the card.
+
+``GraphCache`` holds one captured ``Program`` per shape key. A program's
+body reads and writes only static buffers (tensors whose storage outlives
+the program: the recurrent state, the logits, the slot tensors, the draw
+tables, the emit buffer and a device-side step counter), so every replay
+runs the body on what the buffers hold then. Capture follows torch's
+recipe:
+
+  * the body runs once first on a copy of its buffers, on the capture
+    stream (the kernels' first-call set-up in their C entries, the
+    libraries' handles and workspaces), so the buffers' values are not
+    touched;
+  * then it is captured on that stream with ``capture_error_mode =
+    "thread_local"``: other threads (the streaming vocoders) keep
+    launching while the decode thread captures;
+  * every program of a cache shares one memory pool
+    (``torch.cuda.graph_pool_handle``): programs of one cache replay one
+    at a time, on one stream, so their intermediates may share memory.
+
+A capture or replay that fails raises; nothing falls back to eager.
+
+Launch counts: a kernel wrapper called under capture records its kernel
+into the graph instead of launching it, so ``ops/_build.record_launches``
+notes it instead of counting it; each replay adds the capture's launches
+to the counts (``ops/_build.add_launches``), so the ``LAUNCHES`` tables
+count the kernels the card ran, eager or graphed.
+"""
+
+from __future__ import annotations
+
+import collections
+import time
+from typing import Any, Callable, Dict, Hashable, List, Tuple
+
+import torch
+
+from ..ops import _build
+
+
+def clone_tree(tree):
+    """A copy of every tensor in a (nested) dict, list or tuple."""
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    if isinstance(tree, dict):
+        return {k: clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(clone_tree(v) for v in tree)
+    return tree
+
+
+class Program:
+    """One captured body: its graph, the buffers it addresses (kept alive
+    as long as the graph), the launches one replay makes, and what the
+    capture took: ``capture_s`` (the body recorded, after the warm-up),
+    ``instantiate_s`` (the graph ended and instantiated), ``warmup_s`` and
+    ``pool_bytes`` (memory the pool reserved for it)."""
+
+    def __init__(self, graph, buffers, launches, stats):
+        self.graph = graph
+        self.buffers = buffers
+        self.launches: List[Tuple[Dict[str, int], str, int]] = launches
+        self.stats = stats
+        self.replays = 0
+
+    def replay(self) -> None:
+        """Enqueue the whole body on the current stream."""
+        self.graph.replay()
+        _build.add_launches(self.launches)
+        self.replays += 1
+
+    def kernel_launches(self) -> Dict[str, int]:
+        """The counted kernels one replay launches, by name."""
+        return {name: n for _, name, n in self.launches}
+
+
+class GraphCache:
+    """Captured programs by key, on one card, in one memory pool.
+
+    ``program(key, body, buffers)`` returns the program of ``key``,
+    capturing ``body(buffers)`` at its first use. The caller replays
+    programs of one cache from one stream at a time."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        if self.device.type != "cuda":
+            raise ValueError(f"CUDA graphs need a card, not {self.device}")
+        if self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        self.pool = torch.cuda.graph_pool_handle()
+        self.stream = torch.cuda.Stream(self.device)
+        self.programs: Dict[Hashable, Program] = {}
+
+    def __contains__(self, key) -> bool:
+        return key in self.programs
+
+    def program(self, key: Hashable, body: Callable[[Any], None],
+                buffers) -> Program:
+        prog = self.programs.get(key)
+        if prog is None:
+            prog = self.capture(body, buffers)
+            self.programs[key] = prog
+        return prog
+
+    def capture(self, body: Callable[[Any], None], buffers) -> Program:
+        """Warm ``body`` up on a copy of ``buffers``, then capture
+        ``body(buffers)``; raises if either fails."""
+        dev = self.device
+        cur = torch.cuda.current_stream(dev)
+        t0 = time.perf_counter()
+        self.stream.wait_stream(cur)
+        with torch.cuda.stream(self.stream):
+            body(clone_tree(buffers))
+        self.stream.synchronize()
+        t1 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        with _build.record_launches() as noted:
+            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
+                                  capture_error_mode="thread_local"):
+                reserved = torch.cuda.memory_reserved(dev)
+                body(buffers)
+                pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+                t2 = time.perf_counter()
+        t3 = time.perf_counter()
+        # the replays run on the caller's stream, after what it enqueued
+        cur.wait_stream(self.stream)
+        counts = collections.Counter((id(t), n) for t, n in noted)
+        tables = {id(t): t for t, _ in noted}
+        launches = [(tables[i], n, c) for (i, n), c in counts.items()]
+        return Program(graph, buffers, launches, {
+            "warmup_s": t1 - t0, "capture_s": t2 - t1,
+            "instantiate_s": t3 - t2, "pool_bytes": pool_bytes})
+
+    def clear(self) -> None:
+        """Drop every program (their graphs and pool memory)."""
+        self.programs.clear()
+
+    def stats(self) -> Dict[Hashable, dict]:
+        return {k: dict(p.stats, replays=p.replays)
+                for k, p in self.programs.items()}

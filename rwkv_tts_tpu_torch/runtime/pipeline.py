@@ -42,7 +42,7 @@ from ..config import (BiCodecConfig, EngineConfig, RwkvConfig, TtsArgs,
 from ..models import bicodec, rwkv7, wav2vec2
 from ..utils.device import resolve_device
 from ..utils.rtf import StageTimer
-from .engine import GenerationResult, TtsEngine, global_stage, semantic_stage
+from .engine import GenerationResult, TtsEngine
 from .voice_store import VoiceStore
 
 log = logging.getLogger(__name__)
@@ -397,7 +397,8 @@ class TtsPipeline:
         """Run every serving shape once before traffic arrives, each with a
         hard limit of one semantic token: eager PyTorch compiles nothing,
         but the first call of a shape builds and loads the kernels, creates
-        the library handles and grows the allocator's pools. Returns wall
+        the library handles and grows the allocator's pools, and on a card
+        captures the static engine's stage graphs of that batch. Returns wall
         seconds by step, under the JAX pipeline's labels
         (``_warmup_pipeline``, ``pipeline.py:428``).
 
@@ -415,7 +416,7 @@ class TtsPipeline:
         from .streaming import StreamingVocoder
 
         eng = self.engine
-        cfg, ecfg, dev = eng.cfg, eng.engine_cfg, eng.device
+        ecfg, dev = eng.engine_cfg, eng.device
         out: Dict[str, object] = {}
         skipped: List[str] = []
         t_warm0 = time.perf_counter()
@@ -438,20 +439,18 @@ class TtsPipeline:
             return torch.ones((B,), dtype=torch.int64, device=dev)
 
         def semantic(state, logits, B, zs):
-            semantic_stage(eng.params, state, logits, eng._keys([0] * B, 0),
-                           ones(B), ones(B) - 1, cfg,
-                           ecfg.max_semantic_tokens, zs, feed_tag1=not zs,
-                           decode_block=ecfg.decode_block,
-                           step_fn=eng._step_fn)
+            eng.run_semantic(state, logits, eng._keys([0] * B, 0), ones(B),
+                             ones(B) - 1, zs, not zs)
 
         def lm(B, T, zs):
-            # the static engine's serving chain at (B, T) on zero tokens
+            # the static engine's serving chain at (B, T) on zero tokens;
+            # on a card it captures the stages' graphs of batch B
             logits, st = eng.prefill([[0] * T] * B, eng.init_state(B))
-            if not zs:
-                _, st, logits = global_stage(eng.params, st, logits,
-                                             eng._keys([0] * B, 0), cfg,
-                                             step_fn=eng._step_fn)
-            semantic(st, logits, B, zs)
+            with eng.stage_lock:
+                if not zs:
+                    _, st, logits = eng.run_global(st, logits,
+                                                   eng._keys([0] * B, 0))
+                semantic(st, logits, B, zs)
 
         modes = (False, True) if zero_shot_too else (False,)
         buckets = prefill_buckets or ecfg.prefill_buckets[:2]
@@ -483,18 +482,21 @@ class TtsPipeline:
                                                    eng.init_state(B1))
 
             def glob():
-                _, box["st"], box["lg"] = global_stage(
-                    eng.params, box["st"], box["lg"], eng._keys([0] * B1, 0),
-                    cfg, step_fn=eng._step_fn)
+                _, box["st"], box["lg"] = eng.run_global(
+                    box["st"], box["lg"], eng._keys([0] * B1, 0))
 
             timed(f"prefill_{Tmax}", prefill)
-            timed("global_stage", glob)
-            for zs in modes:
-                # semantic_stage updates the state in place: each mode
-                # starts from its own copy
-                timed(f"semantic_{'zs' if zs else 'normal'}", lambda: semantic(
-                    {k: v.clone() for k, v in box["st"].items()}, box["lg"],
-                    B1, zs))
+            with eng.stage_lock:
+                timed("global_stage", glob)
+                for zs in modes:
+                    # semantic_stage updates the state in place: each mode
+                    # starts from its own copy (on a card, of the graphs'
+                    # buffers, which the first mode has moved on: tokens of
+                    # a warm-up are not kept)
+                    timed(f"semantic_{'zs' if zs else 'normal'}",
+                          lambda: semantic({k: v.clone() for k, v in
+                                            box["st"].items()}, box["lg"],
+                                           B1, zs))
         if self.cached_speaker_default and not over("speaker_cache"):
             # requests without a seed resolve under the seed=None key, a
             # speaker of its own: warm both keys
