@@ -283,6 +283,7 @@ package is missing, or when any phase fails.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import json
@@ -1676,6 +1677,10 @@ def parity(torch, lm_cfg, device: str, root: str, max_tokens: int = 16,
         fail(f"parity: the zero-shot prompt has {prompt_len} tokens, not "
              "in the 128 bucket")
     pe.generate(TtsArgs(text="warm", seed=1, max_tokens=2))
+    # each request's prefill bucket, so that no graph is captured (its
+    # warm-up launches counted) in the measured runs
+    for req in requests.values():
+        eng.prefill([eng.build_prompt(req)[0]], eng.init_state(1))
     if device == "cuda":
         torch.cuda.synchronize()
     eng.counters = {k: 0 for k in eng.counters}
@@ -2637,23 +2642,285 @@ def static_goldens(device: str, root: str):
     return {"requests": len(want), "programs": programs}
 
 
+PREFILL_GRAPH_BUCKETS = (64, 256)
+PREFILL_GRAPH_SHAPES = ((8, 64), (8, 256))
+
+
+def seeded_prompts(rng, B: int, T: int, vocab: int, longest=None):
+    """``B`` prompts of random ids: lengths drawn in (T/2, T], the first
+    ``longest`` long (T when None)."""
+    lens = rng.integers(T // 2 + 1, T + 1, B)
+    lens[0] = T if longest is None else longest
+    return [[int(t) for t in rng.integers(0, vocab, n)] for n in lens]
+
+
+def timed_call(torch, fn, device):
+    """(``fn()``, host ms to its end on the card)."""
+    if device != "cpu":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    if device != "cpu":
+        torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def counted(torch, fn, device):
+    """(``fn()``, host ms, the launches it counted)."""
+    reset_launch_counts()
+    out, ms = timed_call(torch, fn, device)
+    return out, ms, {k: v for k, v in launch_counts().items() if v}
+
+
+def profiled(torch, runs, steps: int = 1):
+    """{name: ``profile_steps`` of ``runs[name]`` over ``steps``}: wall,
+    device busy ms, kernels, top kernel."""
+    def synced(fn):
+        def run():
+            fn()
+            torch.cuda.synchronize()
+        return run
+
+    return {name: profile_steps(torch, synced(fn), steps, 1)
+            for name, fn in runs.items()}
+
+
+def prefill_graph_check(torch, params, cfg, device,
+                        shapes=PREFILL_GRAPH_SHAPES,
+                        buckets=PREFILL_GRAPH_BUCKETS, seed: int = SEED + 41,
+                        profile: bool = True):
+    """``TtsEngine.prefill`` replayed from an ``engine.PrefillGraphs``
+    against the eager prefill of the same prompts (``prefill_on(None,
+    ...)``, the CPU's and the meshes' path): seeded prompts at each (B, T)
+    of ``shapes`` and a two-chunk batch (row 0 past the largest bucket, the
+    rest shorter, so the second chunk merges rows of length 0). Per case:
+    logits and state equal bit for bit, the launches each way, wall per
+    chunk each way, on a card and for the one-chunk cases
+    ``profile_steps``' busy ms each way (``profile``: torch.profiler's
+    post-processing costs ~0.5 ms a kernel); the programs' capture
+    readings."""
+    import numpy as np
+
+    from rwkv_tts_tpu_torch.config import EngineConfig
+    from rwkv_tts_tpu_torch.runtime import engine as E
+
+    eng = E.TtsEngine(params, cfg, EngineConfig(prefill_buckets=buckets),
+                      device=device)
+    pg = E.PrefillGraphs(eng.params, cfg, eng.device)
+    rng = np.random.default_rng(seed)
+    cases = {f"{B}x{T}": seeded_prompts(rng, B, T, cfg.vocab_size)
+             for B, T in shapes}
+    B2 = shapes[0][0]
+    cases["two_chunk"] = seeded_prompts(rng, B2, buckets[-1], cfg.vocab_size,
+                                        longest=buckets[-1] + 44)
+    out = {}
+    for name, prompts in cases.items():
+        B = len(prompts)
+        n_chunks = len(E.prefill_chunks(prompts, buckets))
+
+        def eager(prompts=prompts, B=B):
+            return eng.prefill_on(None, prompts, eng.init_state(B))
+
+        def graphed(prompts=prompts, B=B):
+            return eng.prefill_on(pg, prompts, eng.init_state(B))
+
+        _, first_ms = timed_call(torch, graphed, device)
+        g, g_ms, g_l = counted(torch, graphed, device)
+        e, e_ms, e_l = counted(torch, eager, device)
+        equal = {"logits": bool(torch.equal(g[0], e[0])),
+                 "state": all(bool(torch.equal(g[1][k], e[1][k]))
+                              for k in e[1])}
+        r = {"equal": equal, "bitwise": all(equal.values()),
+             "chunks": n_chunks, "first_use_ms": first_ms,
+             "wall_ms": {"eager": e_ms / n_chunks,
+                         "graphed": g_ms / n_chunks},
+             "launches": {"eager": e_l, "graphed": g_l},
+             "logits_max_abs": float((g[0] - e[0]).abs().max())}
+        if profile and device != "cpu" and n_chunks == 1:
+            r["profile"] = profiled(torch, {"eager": eager,
+                                            "graphed": graphed})
+        out[name] = r
+    out["programs"] = {str(k): v for k, v in pg.cache.stats().items()}
+    pg.cache.clear()
+    return out
+
+
+def window_graph_check(torch, bc_params, bc_cfg, device, batches=(1, 8),
+                       detok_buckets=None, seed: int = SEED + 43,
+                       profile_lengths=(28, 202)):
+    """``bicodec.DecodeGraphs`` against the eager ``bicodec.decode`` on
+    seeded tokens: every streaming window length
+    (``stream_window_lengths``) at B = 1 and every detokenize bucket at
+    each B of ``batches``. Per (B, S): the waveforms equal bit for bit,
+    the launches each way, wall each way, and for the window lengths of
+    ``profile_lengths`` (and on a card) ``profile_steps``' busy ms each
+    way; the programs' capture readings and the cache's turns."""
+    import numpy as np
+
+    from rwkv_tts_tpu_torch.models import bicodec
+
+    dev = bc_params["quantizer"]["codebook"].device
+    dg = bicodec.DecodeGraphs(bc_params, bc_cfg, dev)
+    rows = bc_params["quantizer"]["codebook"].shape[0]
+    windows = sorted({n for pair in stream_window_lengths(bc_cfg).values()
+                      for n in pair})
+    shapes = [("window", 1, n) for n in windows] + [
+        ("detokenize", B, S) for B in batches
+        for S in (detok_buckets or bicodec.DETOKENIZE_BUCKETS)]
+    rng = np.random.default_rng(seed)
+    out = {"cases": []}
+    for kind, B, S in shapes:
+        g = rng.integers(0, 4096, (B, 32))
+        s = rng.integers(0, rows, (B, S))
+
+        def eager(g=g, s=s):
+            return bicodec.decode(bc_params, torch.from_numpy(g).to(dev),
+                                  torch.from_numpy(s).to(dev), bc_cfg)
+
+        def graphed(g=g, s=s):
+            return dg.decode(g, s)
+
+        _, first_ms = timed_call(torch, graphed, device)
+        wg, g_ms, g_l = counted(torch, graphed, device)
+        we, e_ms, e_l = counted(torch, eager, device)
+        r = {"kind": kind, "B": B, "S": S,
+             "bitwise": bool(torch.equal(wg, we)),
+             "max_abs": float((wg - we).abs().max()),
+             "first_use_ms": first_ms,
+             "wall_ms": {"eager": e_ms, "graphed": g_ms},
+             "launches": {"eager": e_l, "graphed": g_l}}
+        if kind == "window" and S in profile_lengths and device != "cpu":
+            r["profile"] = profiled(torch, {"eager": eager,
+                                            "graphed": graphed})
+        out["cases"].append(r)
+    out["programs"] = {str(k): v for k, v in dg.cache.stats().items()}
+    out["turns"], out["wait_s"] = getattr(dg.cache, "turns", 0), \
+        getattr(dg.cache, "wait_s", 0.0)
+    dg.cache.clear()
+    return out
+
+
+def parity_step_check(torch, params, cfg, device, tokens: int = 16,
+                      seed: int = SEED + 47, profile: bool = True,
+                      profile_tokens: int = 2):
+    """``parity.StepGraphs`` against the eager ``rwkv7.step`` at batch 1
+    with the whole head, from one seeded state, feeding the same ``tokens``
+    seeded ids each way with the logits row read back after each (as
+    ``ReferenceRngEngine._advance`` does): every row and the final state
+    equal bit for bit; wall per token each way (read-back included), the
+    launches per token, the program's capture readings, and on a card
+    ``profile_steps``' busy ms per token over the first
+    ``profile_tokens``."""
+    import numpy as np
+
+    from rwkv_tts_tpu_torch.models import rwkv7
+    from rwkv_tts_tpu_torch.runtime import parity as PR
+
+    rng = np.random.default_rng(seed)
+    ids = [int(t) for t in rng.integers(0, cfg.vocab_size, tokens)]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    state0 = rwkv7.init_state(cfg, 1, device=device)
+    for v in state0.values():
+        v.copy_((0.1 * torch.randn(v.shape, generator=gen,
+                                   device=device)).to(v.dtype))
+    sg = PR.StepGraphs(params, cfg, device)
+
+    def eager(ids=ids):
+        st = {k: v.clone() for k, v in state0.items()}
+        rows = []
+        for t in ids:
+            tok = torch.tensor([t], dtype=torch.int64, device=device)
+            logits, st = rwkv7.step(params, tok, st, cfg)
+            rows.append(logits[0].to("cpu", copy=True))
+        return rows, st
+
+    def graphed(ids=ids):
+        st = {k: v.clone() for k, v in state0.items()}
+        rows = []
+        for t in ids:
+            logits, st = sg.advance([t], st)
+            rows.append(logits[0].to("cpu", copy=True))
+        return rows, st
+
+    _, first_ms = timed_call(torch, graphed, device)
+    g, g_ms, g_l = counted(torch, graphed, device)
+    e, e_ms, e_l = counted(torch, eager, device)
+    r = {"bitwise": all(bool(torch.equal(a, b)) for a, b in zip(g[0], e[0]))
+         and all(bool(torch.equal(g[1][k], e[1][k])) for k in e[1]),
+         "tokens": tokens, "first_use_ms": first_ms,
+         "wall_ms": {"eager": e_ms / tokens, "graphed": g_ms / tokens},
+         "launches": {"eager": {k: v / tokens for k, v in e_l.items()},
+                      "graphed": {k: v / tokens for k, v in g_l.items()}},
+         "programs": {str(k): v for k, v in sg.cache.stats().items()}}
+    if profile and device != "cpu":
+        few = ids[:profile_tokens]
+        r["profile"] = profiled(torch, {"eager": lambda: eager(few),
+                                        "graphed": lambda: graphed(few)},
+                                len(few))
+    sg.cache.clear()
+    return r
+
+
+def parity_goldens(device: str, root: str):
+    """``tests/goldens_parity.json`` through ``ReferenceRngEngine`` on the
+    goldens model, exactly, with its step and prefill graphed on a card;
+    returns the number of requests and the step program's replays."""
+    from rwkv_tts_tpu_torch.config import EngineConfig, RwkvConfig, TtsArgs
+    from rwkv_tts_tpu_torch.runtime.engine import TtsEngine
+    from rwkv_tts_tpu_torch.runtime.parity import ReferenceRngEngine
+    from rwkv_tts_tpu_torch.utils import bridge
+
+    gcfg = RwkvConfig(**GOLDENS_CFG)
+    pe = ReferenceRngEngine(TtsEngine(
+        bridge.rwkv7_params(goldens_params(gcfg, 1234), device), gcfg,
+        EngineConfig(prefill_buckets=(64, 128), max_semantic_tokens=16),
+        device=device))
+    with open(os.path.join(root, "tests", "goldens_parity.json")) as f:
+        want = json.load(f)
+    for name, req in parity_requests(TtsArgs).items():
+        res = pe.generate(req)
+        got = {"global": res.global_tokens, "semantic": res.semantic_tokens}
+        if got != want[name]:
+            fail(f"graphs: parity goldens {name}: {got} vs "
+                 f"tests/goldens_parity.json {want[name]}")
+    replays = 0 if pe.graphs is None else sum(
+        p.replays for p in pe.graphs.cache.programs.values())
+    return {"requests": len(want), "step_replays": replays,
+            "decode_steps": pe.engine.counters["decode_steps"]}
+
+
 def graphs(torch, lm_cfg, device: str, root: str,
-           layouts=GRAPH_LAYOUTS, whole_block: bool = True):
+           layouts=GRAPH_LAYOUTS, whole_block: bool = True, bc_cfg=None,
+           window_batches=(1, 8), detok_buckets=None):
     """The ``graphs`` phase on ``device`` (see the module docstring):
     ``graph_block_check`` at full width for each layout of ``layouts``
     (fails unless the graphed block equals the eager one bit for bit with
     the same counted launches per step), the whole-block unit
-    (``whole_block_unit``, bf16) on a card, then the goldens through the
-    graphed static and continuous engines. Returns the readings."""
-    from rwkv_tts_tpu_torch.models import rwkv7
+    (``whole_block_unit``, bf16) on a card, ``prefill_graph_check`` per
+    layout, ``parity_step_check`` (bf16), ``window_graph_check`` over a
+    seeded BiCodec of ``bc_cfg`` prepared as the pipeline prepares it (each
+    fails unless graphed equals eager bit for bit with the same counted
+    launches), then the goldens through the graphed static and continuous
+    engines and the parity goldens through the graphed parity engine.
+    Returns the readings."""
+    from rwkv_tts_tpu_torch.models import bicodec, rwkv7
 
     quant = {"bf16": None, "int8": "int8", "int4": "int4"}
-    out = {"blocks": {}}
+    out = {"blocks": {}, "prefill": {}, "seconds": collections.Counter()}
+    clock = [time.perf_counter()]
+
+    def lap(what):
+        now = time.perf_counter()
+        out["seconds"][what] += now - clock[0]
+        clock[0] = now
+
     for layout in layouts:
         gen = torch.Generator(device=device)
         gen.manual_seed(SEED + 31)
         params = rwkv7.make_serving_params(lm_cfg, gen, quant=quant[layout],
                                            device=device)
+        lap("params")
         r = graph_block_check(torch, params, lm_cfg, device)
         if not r["bitwise"]:
             fail(f"graphs: {layout}: the graphed block parts from the eager "
@@ -2669,15 +2936,67 @@ def graphs(torch, lm_cfg, device: str, root: str,
             out["whole_block"] = whole_block_unit(torch, params, lm_cfg,
                                                   device)
         out["blocks"][layout] = r
+        lap("blocks")
+        pf = prefill_graph_check(torch, params, lm_cfg, device,
+                                 profile=layout == "bf16")
+        lap("prefill")
+        for case, c in pf.items():
+            if case == "programs":
+                continue
+            if not c["bitwise"]:
+                fail(f"graphs: {layout} prefill {case}: the graphed prefill "
+                     f"parts from the eager one: {c['equal']}, logits max "
+                     f"abs {c['logits_max_abs']:.3g}")
+            if c["launches"]["eager"] != c["launches"]["graphed"]:
+                fail(f"graphs: {layout} prefill {case}: launches eager "
+                     f"{c['launches']['eager']} vs graphed "
+                     f"{c['launches']['graphed']}")
+        out["prefill"][layout] = pf
+        if layout == "bf16":
+            ps = parity_step_check(torch, params, lm_cfg, device)
+            if not ps["bitwise"] or \
+                    ps["launches"]["eager"] != ps["launches"]["graphed"]:
+                fail(f"graphs: the graphed parity step parts from the eager "
+                     f"one: bitwise {ps['bitwise']}, launches per token "
+                     f"{ps['launches']}")
+            out["parity_step"] = ps
+            lap("parity_step")
         del params
         if device != "cpu":
             torch.cuda.empty_cache()
+    if bc_cfg is not None:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(SEED + 37)
+        bc_params = bicodec.prepare_params(
+            bicodec.init_params(bc_cfg, gen, device), bc_cfg)
+        w = window_graph_check(torch, bc_params, bc_cfg, device,
+                               batches=window_batches,
+                               detok_buckets=detok_buckets)
+        for c in w["cases"]:
+            if not c["bitwise"] or \
+                    c["launches"]["eager"] != c["launches"]["graphed"]:
+                fail(f"graphs: the {c['kind']} program at (B, S) = "
+                     f"({c['B']}, {c['S']}) parts from the eager decode: "
+                     f"bitwise {c['bitwise']} (max abs {c['max_abs']:.3g}), "
+                     f"launches {c['launches']}")
+        out["windows"] = w
+        del bc_params
+        if device != "cpu":
+            torch.cuda.empty_cache()
+        lap("windows")
     out["static_goldens"] = static_goldens(device, root)
     out["continuous_goldens"] = continuous_goldens(device, root)
+    out["parity_goldens"] = parity_goldens(device, root)
+    lap("goldens")
     if device != "cpu":
         for what in ("static_goldens", "continuous_goldens"):
             if not any(out[what]["programs"].values()):
                 fail(f"graphs: {what} replayed no graph: {out[what]}")
+        pg = out["parity_goldens"]
+        if pg["step_replays"] != pg["decode_steps"]:
+            fail(f"graphs: the parity goldens replayed the step graph "
+                 f"{pg['step_replays']} times for {pg['decode_steps']} "
+                 f"decode steps")
     return out
 
 
@@ -2712,11 +3031,71 @@ def graphs_lines(g, lm_cfg, card: str):
             f"{wb['block_replay_ms']:.3f} ms; the step unit's block "
             f"({GRAPH_BLOCK + 1} replays) {wb['step_replay_ms']:.3f} ms; the "
             f"same emits {wb['same_emits']}; {card}")
+    def prof(r, unit):
+        return "".join(
+            f"; {name}: wall {wall:.3f} ms, device busy {busy:.3f} ms "
+            f"({100 * busy / wall:.1f}%), {kernels:.0f} kernels a {unit}"
+            for name, (wall, busy, kernels, _) in r.get("profile",
+                                                        {}).items())
+
+    def captures(programs):
+        return "; ".join(
+            f"{k}: warm-up {v['warmup_s']:.2f} s, capture "
+            f"{v['capture_s']:.2f} s, instantiate {v['instantiate_s']:.2f} "
+            f"s, pool {v['pool_bytes'] / 2 ** 20:.0f} MiB"
+            for k, v in programs.items() if "warmup_s" in v)
+
+    for layout, pf in g["prefill"].items():
+        for case, c in pf.items():
+            if case == "programs":
+                continue
+            lines.append(
+                f"graphs: {layout} prefill {case} ({c['chunks']} chunk(s), "
+                f"{lm_cfg.n_layer} layers x {lm_cfg.n_embd}): graphed equal "
+                f"to eager bit for bit {c['equal']}; wall per chunk eager "
+                f"{c['wall_ms']['eager']:.3f} ms, graphed "
+                f"{c['wall_ms']['graphed']:.3f} ms (first use "
+                f"{c['first_use_ms']:.1f} ms); counted launches "
+                f"{c['launches']['graphed']} (eager the same)"
+                + prof(c, "chunk") + f"; {card}")
+        lines.append(f"graphs: {layout} prefill programs: "
+                     f"{captures(pf['programs'])}; {card}")
+    ps = g.get("parity_step")
+    if ps:
+        lines.append(
+            f"graphs: parity step at batch 1, whole head, {ps['tokens']} "
+            f"tokens: graphed equal to eager bit for bit {ps['bitwise']}; "
+            f"wall per token with the logits read back eager "
+            f"{ps['wall_ms']['eager']:.3f} ms, graphed "
+            f"{ps['wall_ms']['graphed']:.3f} ms; launches per token "
+            f"{ps['launches']['graphed']} (eager the same)"
+            + prof(ps, "token") + f"; {captures(ps['programs'])}; {card}")
+    w = g.get("windows")
+    if w:
+        for c in w["cases"]:
+            lines.append(
+                f"graphs: vocoder {c['kind']} (B, S) = ({c['B']}, {c['S']}): "
+                f"graphed equal to eager bit for bit {c['bitwise']}; wall "
+                f"eager {c['wall_ms']['eager']:.3f} ms, graphed "
+                f"{c['wall_ms']['graphed']:.3f} ms (first use "
+                f"{c['first_use_ms']:.1f} ms); counted launches "
+                f"{c['launches']['graphed']} (eager the same)"
+                + prof(c, "window") + f"; {card}")
+        lines.append(f"graphs: vocoder programs ({w['turns']} turns, "
+                     f"{w['wait_s']:.3f} s waiting for a turn): "
+                     f"{captures(w['programs'])}; {card}")
     for what in ("static_goldens", "continuous_goldens"):
         lines.append(f"graphs: {g[what]['requests']} goldens requests emit "
                      f"tests/goldens.json through the "
                      f"{what.split('_')[0]} engine, graphed programs "
                      f"(replays) {g[what]['programs']}")
+    lines.append("graphs: seconds by check " + ", ".join(
+        f"{k} {v:.1f}" for k, v in g["seconds"].items()))
+    pg = g["parity_goldens"]
+    lines.append(f"graphs: {pg['requests']} requests emit "
+                 f"tests/goldens_parity.json through the parity engine, "
+                 f"its step graph replayed {pg['step_replays']} times for "
+                 f"{pg['decode_steps']} decode steps")
     return lines
 
 
@@ -3362,30 +3741,34 @@ def block_profile(torch, eng, steps: int = 8, top: int = 5):
 
 @contextlib.contextmanager
 def logged_windows(bicodec):
-    """Within the block every ``bicodec.decode`` call (one per vocoder
-    window) appends (the calling thread's id, the padded window length in
-    latents, seconds on the host's clock with the caller's stream
-    synchronised) to the list this yields."""
+    """Within the block every ``bicodec.decode_host`` call (one per vocoder
+    window, graphed on a card or eager) appends (the calling thread's id,
+    the padded window length in latents, seconds on the host's clock with
+    the caller's stream synchronised, the wait for the vocoder graphs'
+    turn included) to the list this yields."""
     import threading
 
+    import numpy as np
     import torch
 
-    log, real = [], bicodec.decode
+    log, real = [], bicodec.decode_host
 
-    def decode(params, global_tokens, semantic_tokens, cfg):
+    def decode_host(params, global_tokens, semantic_tokens, cfg,
+                    graphs=None):
         t0 = time.perf_counter()
-        wav = real(params, global_tokens, semantic_tokens, cfg)
+        wav = real(params, global_tokens, semantic_tokens, cfg, graphs)
         if wav.is_cuda:
             torch.cuda.current_stream(wav.device).synchronize()
-        log.append((threading.get_ident(), semantic_tokens.shape[1],
+        log.append((threading.get_ident(),
+                    np.asarray(semantic_tokens).shape[1],
                     time.perf_counter() - t0))
         return wav
 
-    bicodec.decode = decode
+    bicodec.decode_host = decode_host
     try:
         yield log
     finally:
-        bicodec.decode = real
+        bicodec.decode_host = real
 
 
 def exact_mode_chain(torch, bicodec, C1, StreamingVocoder, params, cfg, g,
@@ -3393,8 +3776,9 @@ def exact_mode_chain(torch, bicodec, C1, StreamingVocoder, params, cfg, g,
     """Where an exact-mode stream and the one-shot decode of the same tokens
     part under a ``conv_impl`` that routes to ``ops.conv1d``.
 
-    The tokens are vocoded four times, window by window as the stream does
-    and whole as ``detokenize`` does, once with the kernel and once with
+    The tokens are vocoded four times, eagerly (no vocoder graph), window
+    by window as the stream does and whole as ``detokenize`` does, once
+    with the kernel and once with
     ``conv1d_plain`` in its place (the same padded lengths, so the
     library's transposed convs run the same algorithms either way). Every
     kernel call of every window is also held against the plain version on
@@ -3481,6 +3865,10 @@ def exact_mode_chain(torch, bicodec, C1, StreamingVocoder, params, cfg, g,
     def plain(x, w, b, *a):
         return C1.conv1d_plain(x, w, b, *a)
 
+    # the taps are the eager decode's Python calls, which a replayed graph
+    # does not make: the chain is handed no vocoder graphs and runs eager
+    # (the graphs phase holds every graphed window against the eager one
+    # bit for bit)
     whole_k, whole_p = whole(real_conv), whole(plain)
     win_k, win_p = windows(real_conv, True), windows(plain, False)
     n_taps = len(whole_k)
@@ -3755,6 +4143,8 @@ def streaming(torch, lm_cfg, bc_cfg, device: str, engine_cfg=None,
                        bicodec.init_params(bc_cfg, gen, device), bc_cfg,
                        voice_store=store, engine_cfg=ecfg, device=device)
     bc_params, bc_cfg = pipe.bicodec_params, pipe.bicodec_cfg
+    # the streams vocode through the pipeline's graphs, as the server's do
+    dg = pipe.decode_graphs
     eng = CT.ContinuousEngine(pipe.engine.params, lm_cfg, ecfg, block=block,
                               slots=STREAM_SLOTS, buckets=STREAM_BUCKETS,
                               device=device)
@@ -3773,14 +4163,32 @@ def streaming(torch, lm_cfg, bc_cfg, device: str, engine_cfg=None,
 
     eng.submit = submit
     block_slots = log_block_slots(eng)      # slots each decode block ran on
+    requests = []
+    for i, (kind, mode) in enumerate(STREAM_PLAN):
+        kw = dict(text=TEXTS[i], seed=300 + i, max_tokens=tokens[mode],
+                  gender=("female", "male")[i % 2])
+        if kind == "cached":
+            kw["cached_speaker"] = True
+        if kind == "voice":
+            kw["voice_id"] = voice_ids[i % len(voice_ids)]
+        requests.append(TtsArgs(**kw))
     try:
         if warmup:
-            # the engine's admission, decode, relocation and cancel paths,
-            # and both window shapes of every latency mode
-            eng.warmup(max_burst=1, prefill_buckets=1)
+            # the engine's admission (every burst bucket at every prompt
+            # bucket the requests reach: on a card each is a prefill graph,
+            # captured here and not in the measured run), decode,
+            # relocation and cancel paths, and both window shapes of every
+            # latency mode
+            longest = max(len(eng.inner.build_prompt(
+                r if kind == "property" else dataclasses.replace(
+                    r, zero_shot=True, ref_global_tokens=[0] * 32))[0])
+                for r, (kind, _) in zip(requests, STREAM_PLAN))
+            pb = ecfg.prefill_buckets
+            eng.warmup(max_burst=STREAM_SLOTS, prefill_buckets=next(
+                (i + 1 for i, b in enumerate(pb) if longest <= b), len(pb)))
             for mode in STREAM_TOKENS:
                 sv = StreamingVocoder(bc_params, bc_cfg, [0] * 32,
-                                      latency_mode=mode)
+                                      latency_mode=mode, graphs=dg)
                 sv.push([1] * (sv.chunk + sv.lookahead + 1), flush=True)
             eng.stats = {k: type(v)() for k, v in eng.stats.items()}
             eng.hist = {k: type(h)(h.name, h.bounds, h.help)
@@ -3795,7 +4203,8 @@ def streaming(torch, lm_cfg, bc_cfg, device: str, engine_cfg=None,
             args = pipe.resolve_voice(TtsArgs(**kw))   # the cache's miss
             t1 = time.perf_counter()
             it = stream_synthesize(eng, bc_params, bc_cfg, args,
-                                   latency_mode=mode, timeout=600.0)
+                                   latency_mode=mode, timeout=600.0,
+                                   vocoder_graphs=dg)
             first = next(it)
             ms = (time.perf_counter() - t1) * 1e3
             n_chunks = 1 + sum(1 for _ in it)
@@ -3809,15 +4218,6 @@ def streaming(torch, lm_cfg, bc_cfg, device: str, engine_cfg=None,
                         for k, h in eng.hist.items()}
             block_slots.clear()
 
-        requests = []
-        for i, (kind, mode) in enumerate(STREAM_PLAN):
-            kw = dict(text=TEXTS[i], seed=300 + i, max_tokens=tokens[mode],
-                      gender=("female", "male")[i % 2])
-            if kind == "cached":
-                kw["cached_speaker"] = True
-            if kind == "voice":
-                kw["voice_id"] = voice_ids[i % len(voice_ids)]
-            requests.append(TtsArgs(**kw))
         runs = [{"kind": k, "mode": m, "chunks": [], "windows": []}
                 for k, m in STREAM_PLAN]
 
@@ -3833,13 +4233,17 @@ def streaming(torch, lm_cfg, bc_cfg, device: str, engine_cfg=None,
                 run["t_submit"] = time.perf_counter()
                 for chunk in stream_synthesize(
                         eng, bc_params, bc_cfg, run["args"],
-                        latency_mode=run["mode"], timeout=600.0):
+                        latency_mode=run["mode"], timeout=600.0,
+                        vocoder_graphs=dg):
                     run["chunks"].append((time.perf_counter(), chunk))
             except BaseException as e:  # noqa: BLE001: reported below
                 run["error"] = e
 
         pipe.engine.counters = {k: 0 for k in pipe.engine.counters}
         eng.inner.counters = {k: 0 for k in eng.inner.counters}
+        # the streams share the vocoder's graphs (a card): their turns
+        if dg is not None:
+            dg.cache.turns, dg.cache.wait_s = 0, 0.0
         reset_launch_counts()
         t0 = time.perf_counter()
         threads = [threading.Thread(target=consume, args=(i,))
@@ -3858,6 +4262,7 @@ def streaming(torch, lm_cfg, bc_cfg, device: str, engine_cfg=None,
             torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
         launches, packs = launch_counts(), dict(C1.PACKS)
+        turns = None if dg is None else (dg.cache.turns, dg.cache.wait_s)
         stats = dict(eng.stats)
         hist = {k: (h.n, h.total, list(h.counts))
                 for k, h in eng.hist.items()}
@@ -3984,7 +4389,8 @@ def streaming(torch, lm_cfg, bc_cfg, device: str, engine_cfg=None,
         victim = pipe.resolve_voice(TtsArgs(
             text=TEXTS[0], seed=77, max_tokens=max(tokens.values()) * 4))
         it = stream_synthesize(eng, bc_params, bc_cfg, victim,
-                               latency_mode="flash", timeout=600.0)
+                               latency_mode="flash", timeout=600.0,
+                               vocoder_graphs=dg)
         first = next(it)
         if first.final or not first.audio.size:
             fail("streaming: the request to cancel ended before its cancel")
@@ -4057,7 +4463,7 @@ def streaming(torch, lm_cfg, bc_cfg, device: str, engine_cfg=None,
             "agree": agree, "solo": solo, "block": profiled,
             "steps": steps, "prefill_chunks": chunks_pf, "goldens": goldens,
             "witness": witness, "bf16_blocks": bf16_blocks,
-            "conv_per_window": n_conv, "packs": packs}
+            "conv_per_window": n_conv, "packs": packs, "turns": turns}
 
 
 # --------------------------------------------------------------------------
@@ -4153,22 +4559,33 @@ def server(torch, lm_cfg, bc_cfg, w2v_cfg, device: str, engine_cfg=None,
     from rwkv_tts_tpu_torch.server import app as A
 
     ecfg = engine_cfg or EngineConfig(max_semantic_tokens=48)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(SEED + 5)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_server_")
     t_phase = time.perf_counter()
-    pipe = TtsPipeline(
-        rwkv7.init_params(lm_cfg, gen, device), lm_cfg,
-        bicodec.init_params(bc_cfg, gen, device), bc_cfg,
-        wav2vec2.init_params(w2v_cfg, gen, device), w2v_cfg,
-        voice_store=VoiceStore(os.path.join(tmp, "raf")), engine_cfg=ecfg,
-        w2v_output_layers=w2v_layers or wav2vec2.OUTPUT_LAYERS,
-        device=device)
-    init_s = time.perf_counter() - t_phase
-    # the server's --warmup, cut to batch 1 and the first bucket: each
-    # serving shape once before the first request
-    warm = pipe.warmup(prefill_buckets=ecfg.prefill_buckets[:1],
-                       detok_buckets=(64,), batch_ladder=(1,))
+
+    def make_pipe():
+        gen = torch.Generator(device=device)
+        gen.manual_seed(SEED + 5)
+        return TtsPipeline(
+            rwkv7.init_params(lm_cfg, gen, device), lm_cfg,
+            bicodec.init_params(bc_cfg, gen, device), bc_cfg,
+            wav2vec2.init_params(w2v_cfg, gen, device), w2v_cfg,
+            voice_store=VoiceStore(os.path.join(tmp, "raf")),
+            engine_cfg=ecfg,
+            w2v_output_layers=w2v_layers or wav2vec2.OUTPUT_LAYERS,
+            device=device)
+
+    def reserved(graphs=None):
+        """``card_memory`` once what no tensor uses is handed back (None on
+        the CPU); ``graphs``: the vocoder graphs whose pool to read."""
+        if device != "cuda":
+            return None
+        import gc
+
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return card_memory(torch, graphs and graphs.cache.pool)
+
     batch_cfg = BatchConfig(max_batch_size=4, collect_timeout_ms=20,
                             inference_timeout_ms=900000)
     servers = []
@@ -4200,18 +4617,9 @@ def server(torch, lm_cfg, bc_cfg, w2v_cfg, device: str, engine_cfg=None,
     requests = [dict(text=TEXTS[i], seed=500 + i, **props[i])
                 for i in range(4)]
     alone = dict(text=SERVER_TEXT, seed=521)
-    out = {"requests": [], "warmup": warm}
-    reset_launch_counts()
-    try:
-        app = A.create_app(pipe, batch_cfg, stream_block=16)
-        port = serve(app)
-        status, _, body = http_call(port, "GET", "/healthz")
-        hz = json.loads(body)
-        if status != 200 or hz["status"] != "ok" or hz["model"]["n_layer"] \
-                != lm_cfg.n_layer or hz["model"]["n_embd"] != lm_cfg.n_embd:
-            fail(f"server: /healthz {status} {hz}")
 
-        # four property requests at once, through the continuous engine
+    def at_once(port, what):
+        """The four property requests at once: (wall s, [request row])."""
         box = [None] * len(requests)
 
         def call(i):
@@ -4227,27 +4635,82 @@ def server(torch, lm_cfg, bc_cfg, w2v_cfg, device: str, engine_cfg=None,
         for t in threads:
             t.join(timeout=900.0)
         if any(t.is_alive() for t in threads):
-            fail("server: a concurrent /api/tts request did not end in 900 s")
-        out["concurrent_s"] = time.perf_counter() - t0
+            fail(f"server: a {what} /api/tts request did not end in 900 s")
+        rows = []
         for i, (st, b, ms) in enumerate(box):
-            j, _, wav = wav_of(st, b, f"concurrent request {i}")
-            out["requests"].append({
-                "what": f"concurrent {i}", "status": st, "wall_ms": ms,
-                "samples": len(wav), "rtf": j["rtf"],
-                "timings_ms": j["timings_ms"]})
+            j, _, wav = wav_of(st, b, f"{what} request {i}")
+            rows.append({"what": f"{what} {i}", "status": st, "wall_ms": ms,
+                         "samples": len(wav), "rtf": j["rtf"],
+                         "timings_ms": j["timings_ms"]})
+        return time.perf_counter() - t0, rows
+
+    def one(port, payload, what):
+        t0 = time.perf_counter()
+        st, _, b = http_call(port, "POST", "/api/tts", payload)
+        j, blob, wav = wav_of(st, b, what)
+        return blob, {"what": what, "status": st,
+                      "wall_ms": (time.perf_counter() - t0) * 1e3,
+                      "samples": len(wav), "rtf": j["rtf"],
+                      "timings_ms": j["timings_ms"]}
+
+    out = {"requests": [], "memory": {"start": reserved()}}
+    try:
+        # a server started without --warmup, its default: its first
+        # requests capture the CUDA graphs of their shapes (the prefill of
+        # each burst bucket, the decode blocks, the vocoder's buckets) on a
+        # card. Then torn down; the server measured below is another one.
+        cold_pipe = make_pipe()
+        cold_app = A.create_app(cold_pipe, batch_cfg, stream_block=16)
+        cold_port = serve(cold_app)
+        cold_s, cold_rows = at_once(cold_port, "cold concurrent")
+        _, cold_alone = one(cold_port, alone, "cold alone")
+        out["cold"] = {"concurrent_s": cold_s,
+                       "requests": cold_rows + [cold_alone]}
+        srv, _ = servers.pop()
+        srv.shutdown()
+        srv.server_close()
+        cold_app.close()
+        del cold_pipe, cold_app, srv
+        out["memory"]["cold_closed"] = reserved()
+
+        t0 = time.perf_counter()
+        pipe = make_pipe()
+        init_s = time.perf_counter() - t0
+        out["memory"]["pipeline"] = reserved(pipe.decode_graphs)
+        app = A.create_app(pipe, batch_cfg, stream_block=16)
+        port = serve(app)
+        # the server's --warmup, cut: the pipeline's at batch 1, the first
+        # prefill bucket and detokenize 64 (--warmup: every batch width,
+        # the first two buckets, detokenize 64, 256 and 1024); then the
+        # continuous engine's at bursts of 1, 2 and 4 (the four concurrent
+        # requests) and the first bucket (--warmup: every burst up to the
+        # engine's slots, two buckets). On a card the graphs of these
+        # shapes are captured here, before the launch counts are zeroed.
+        warm = pipe.warmup(prefill_buckets=ecfg.prefill_buckets[:1],
+                           detok_buckets=(64,), batch_ladder=(1,))
+        t0 = time.perf_counter()
+        A._get_continuous(app).warmup(max_burst=len(requests),
+                                      prefill_buckets=1)
+        warm["continuous"] = round(time.perf_counter() - t0, 2)
+        out["warmup"] = warm
+        out["memory"]["warmed"] = reserved(pipe.decode_graphs)
+        reset_launch_counts()
+        status, _, body = http_call(port, "GET", "/healthz")
+        hz = json.loads(body)
+        if status != 200 or hz["status"] != "ok" or hz["model"]["n_layer"] \
+                != lm_cfg.n_layer or hz["model"]["n_embd"] != lm_cfg.n_embd:
+            fail(f"server: /healthz {status} {hz}")
+
+        # four property requests at once, through the continuous engine
+        out["concurrent_s"], rows = at_once(port, "concurrent")
+        out["requests"] += rows
 
         # one request alone, twice: the same bytes
         alone_wavs = []
         for k in range(2):
-            t0 = time.perf_counter()
-            st, _, b = http_call(port, "POST", "/api/tts", alone)
-            j, blob, wav = wav_of(st, b, f"alone {k}")
+            blob, row = one(port, alone, f"alone {k}")
             alone_wavs.append(blob)
-            out["requests"].append({
-                "what": f"alone {k}", "status": st,
-                "wall_ms": (time.perf_counter() - t0) * 1e3,
-                "samples": len(wav), "rtf": j["rtf"],
-                "timings_ms": j["timings_ms"]})
+            out["requests"].append(row)
         if alone_wavs[0] != alone_wavs[1]:
             a, b = (read_wav(w)[0] for w in alone_wavs)
             fail(f"server: the same seeded request alone twice gave two "
@@ -4396,6 +4859,9 @@ def server(torch, lm_cfg, bc_cfg, w2v_cfg, device: str, engine_cfg=None,
         if device == "cuda":
             torch.cuda.synchronize()
         out["launches"] = launch_counts()
+        if device == "cuda":
+            out["memory"].update(vocoder_memory(torch, np, bicodec, pipe,
+                                                reserved))
     finally:
         for srv, app in servers:
             srv.shutdown()
@@ -4411,6 +4877,46 @@ def server(torch, lm_cfg, bc_cfg, w2v_cfg, device: str, engine_cfg=None,
                  f"{zero} ({out['launches']})")
     out["wall_s"] = time.perf_counter() - t_phase
     out["init_s"] = init_s
+    return out
+
+
+def card_memory(torch, pool=None):
+    """Bytes the caching allocator reserves on the card: in all
+    (``total``), in the CUDA graphs' private pools (``graphs``, every
+    segment outside the default pool) and, given a pool handle, in that
+    pool (``pool``)."""
+    segs = torch.cuda.memory_snapshot()
+    out = {"total": torch.cuda.memory_reserved(),
+           "graphs": sum(sg["total_size"] for sg in segs
+                         if tuple(sg["segment_pool_id"]) != (0, 0))}
+    if pool is not None:
+        out["pool"] = sum(sg["total_size"] for sg in segs
+                          if tuple(sg["segment_pool_id"]) == tuple(pool))
+    return out
+
+
+def vocoder_memory(torch, np, bicodec, pipe, reserved):
+    """What the pipeline's vocoder programs keep reserved on the card after
+    the longest detokenize bucket's decode at B = 1 (``vocode`` decodes a
+    request alone; ~2000 semantic tokens reach that bucket) and at B = 8,
+    graphed, against the same B = 8 decode eager, whose memory goes back to
+    the caching allocator: ``reserved()`` readings (``pool``: the vocoder
+    programs' own) and each decode's wall ms, a graphed one's first use
+    (its capture) included."""
+    cfg, dg = pipe.bicodec_cfg, pipe.decode_graphs
+    S = bicodec.DETOKENIZE_BUCKETS[-1] - bicodec.receptive_latents(cfg)
+    rng = np.random.default_rng(SEED + 8)
+    out = {"after_requests": reserved(dg), "semantic_tokens": S}
+    for B, graphs in ((1, dg), (8, dg), (8, None)):
+        g = rng.integers(0, 4096, (B, 32))
+        sem = rng.integers(0, 8192, (B, S))
+        t0 = time.perf_counter()
+        bicodec.detokenize(pipe.bicodec_params, g, sem, cfg, graphs=graphs)
+        ms = (time.perf_counter() - t0) * 1e3
+        key = f"{'graphed' if graphs is not None else 'eager'}_b{B}"
+        out[key] = reserved(dg)
+        out[key + "_ms"] = ms
+    out["programs"] = len(dg.cache.programs)
     return out
 
 
@@ -5202,10 +5708,19 @@ def main(argv=None) -> None:
         phase_goldens(root)
         note("goldens", exact=True)
     if "graphs" in selected:
-        g = graphs(torch, lm_cfg, "cuda", root)
+        g = graphs(torch, lm_cfg, "cuda", root,
+                   bc_cfg=dataclasses.replace(bc_cfg, conv_impl="mxu_fused"))
         for line in graphs_lines(g, lm_cfg, card):
             print(line, flush=True)
         wb = g["whole_block"]
+
+        def walls(r):
+            return [r["wall_ms"]["eager"], r["wall_ms"]["graphed"]] + [
+                r["profile"][k][1] for k in ("eager", "graphed")
+                if k in r.get("profile", {})]
+
+        win = {f"{c['B']}x{c['S']}": walls(c) for c in g["windows"]["cases"]
+               if "profile" in c or (c["B"], c["S"]) == (8, 2048)}
         note("graphs", **{
             lay: {"bitwise": r["bitwise"],
                   "wall_ms": [r["wall_ms"]["eager"], r["wall_ms"]["graphed"]],
@@ -5221,7 +5736,14 @@ def main(argv=None) -> None:
                 "warmup_s", "capture_s", "instantiate_s")],
             block_replay_ms=[wb["block_replay_ms"], wb["step_replay_ms"]],
             goldens=[g["static_goldens"]["requests"],
-                     g["continuous_goldens"]["requests"]])
+                     g["continuous_goldens"]["requests"],
+                     g["parity_goldens"]["requests"]],
+            prefill_ms={f"{lay}_{case}": walls(c)
+                        for lay, pf in g["prefill"].items()
+                        for case, c in pf.items() if "x" in case},
+            parity_ms=walls(g["parity_step"]), window_ms=win,
+            vocoder_pool_mb=sum(v["pool_bytes"] for v in
+                                g["windows"]["programs"].values()) / 2 ** 20)
         del g
         torch.cuda.empty_cache()
 
@@ -5422,6 +5944,11 @@ def main(argv=None) -> None:
                   f"{k}: n {n}, mean {1e3 * tot / max(n, 1):.1f} ms, bucket "
                   f"counts {counts}" for k, (n, tot, counts)
                   in st["hist"].items()) + f"; {card}", flush=True)
+        if st["turns"] is not None:
+            print(f"streaming: the 8 streams took {st['turns'][0]} turns at "
+                  f"the shared vocoder graphs, {st['turns'][1]:.3f} s of "
+                  f"host time waiting for a turn in all; {card}", flush=True)
+
         def col(key):
             return [float(f"{e[key]:.3g}") for e in st["exact"]]
 
@@ -5475,8 +6002,13 @@ def main(argv=None) -> None:
               f"weights: {st['bf16_blocks']} (reported); {card}", flush=True)
 
         paths["streaming"] = st["launches"]
+        win_ms = [1e3 * sec for r in st["runs"] for _, sec in r["windows"]]
         note("streaming", solo_first_ms=[r["first_chunk_ms"]
                                          for r in st["solo"]],
+             first_ms=[min(r["first_chunk_ms"] for r in st["runs"]),
+                       max(r["first_chunk_ms"] for r in st["runs"])],
+             window_ms=[sum(win_ms) / len(win_ms), max(win_ms)],
+             vocoder_turns=st["turns"],
              burst_same=wit["burst"]["same"],
              staggered_same=wit["staggered"]["same"],
              goldens=st["goldens"], block_busy_ms=st["block"][1])
@@ -5492,8 +6024,29 @@ def main(argv=None) -> None:
               f"request; phase wall {sv['wall_s']:.1f} s (init "
               f"{sv['init_s']:.2f} s), 4 concurrent /api/tts in "
               f"{sv['concurrent_s']:.2f} s; {card}", flush=True)
-        print(f"server: TtsPipeline.warmup at batch 1, the first bucket, "
-              f"detokenize 64 (s by step): {sv['warmup']}", flush=True)
+        cold = sv["cold"]
+        print(f"server: a server without --warmup (its default), then torn "
+              f"down: 4 concurrent /api/tts in {cold['concurrent_s']:.2f} s, "
+              + "; ".join(f"{r['what']}: wall {r['wall_ms']:.1f} ms, RTF "
+                          f"{r['rtf']:.4f}" for r in cold["requests"])
+              + f" (each first use captures its shapes' graphs); {card}",
+              flush=True)
+        print(f"server: the measured server's warm-up, before the launch "
+              f"counts are zeroed: TtsPipeline.warmup at batch 1, the first "
+              f"bucket, detokenize 64, then the continuous engine's at "
+              f"bursts 1, 2, 4 and the first bucket (s by step): "
+              f"{sv['warmup']}", flush=True)
+        mem = {k: ({n: round(b / 2**20, 1) for n, b in v.items()}
+                   if isinstance(v, dict) else v)
+               for k, v in sv["memory"].items()}
+        print(f"server: card memory reserved, MiB after handing back what "
+              f"no tensor uses (total, in the graphs' pools, in the vocoder "
+              f"programs' pool), at: the phase's start, the cold server "
+              f"closed, the measured pipeline loaded, warmed, after its "
+              f"requests, after a detokenize of {mem.get('semantic_tokens')}"
+              f" semantic tokens (the 2048-latent bucket) graphed at B = 1 "
+              f"and 8 and eager at B = 8 (*_ms: that decode's wall ms, a "
+              f"capture included): {mem}; {card}", flush=True)
         for r in sv["requests"]:
             print(f"server: /api/tts {r['what']}: {r['status']}, "
                   f"{r['samples']} samples, wall {r['wall_ms']:.1f} ms, RTF "
@@ -5518,7 +6071,11 @@ def main(argv=None) -> None:
               f"{sv['launches']}", flush=True)
         paths["server"] = sv["launches"]
         note("server", rtf=[r["rtf"] for r in sv["requests"]],
-             first_line_ms=[r["first_line_ms"] for r in sv["streams"]])
+             cold_rtf=[r["rtf"] for r in sv["cold"]["requests"]],
+             first_line_ms=[r["first_line_ms"] for r in sv["streams"]],
+             vocoder_pool_mib={k: round(sv["memory"][k]["pool"] / 2**20)
+                               for k in ("warmed", "graphed_b1",
+                                         "graphed_b8", "eager_b8")})
 
     if "checkpoint" in selected:
         torch.cuda.empty_cache()

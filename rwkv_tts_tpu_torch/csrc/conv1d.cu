@@ -705,12 +705,12 @@ extern "C" int conv1d_f32(const void* x, const void* w, const float* bias,
   const long long staging = static_cast<long long>(kBO) * kSP * 4;
   const long long bytes = operands > staging ? operands : staging;
   if (bytes > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  if (bytes > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        conv1d_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(bytes));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  // once, at the largest size any call asks for (as the bf16 entry sets
+  // its own): no attribute call runs while a CUDA graph captures the call
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      conv1d_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kMaxSmem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid((T_out + kBT - 1) / kBT, (O + kBO - 1) / kBO, B);
   conv1d_f32_kernel<<<grid, kThreads, static_cast<size_t>(bytes),
                       static_cast<cudaStream_t>(stream)>>>(a);

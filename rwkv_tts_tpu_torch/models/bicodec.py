@@ -59,6 +59,7 @@ from ..config import BiCodecConfig
 from ..ops.conv1d import PackedWeight, pack_weight
 from ..ops.conv1d import conv1d as conv1d_kernel
 from ..ops.conv1d import snake as snake_f32
+from ..runtime import graphs
 from ..utils.device import resolve_device
 
 Params = Dict[str, Any]
@@ -246,9 +247,24 @@ def fvq_detokenize(p, idx):
     return (zq @ p["out_w"] + p["out_b"]).transpose(1, 2)
 
 
+# the FSQ levels on each device, built once: decode reads them on every
+# call, and a CUDA graph's capture refuses a copy from pageable memory
+_fsq_levels: Dict[Tuple[Tuple[int, ...], torch.device], torch.Tensor] = {}
+
+
+def _levels_on(levels, device) -> torch.Tensor:
+    key = (tuple(levels), torch.device(device))
+    lv = _fsq_levels.get(key)
+    if lv is None:
+        with torch.inference_mode(False):
+            lv = torch.tensor(levels, dtype=torch.int64, device=device)
+        _fsq_levels[key] = lv
+    return lv
+
+
 def fsq_dequantize(code, levels):
     """codes [...] → normalized vectors [..., d]."""
-    lv = torch.tensor(levels, dtype=torch.int64, device=code.device)
+    lv = _levels_on(levels, code.device)
     basis = torch.cumprod(torch.cat([torch.ones_like(lv[:1]), lv[:-1]]), 0)
     digits = (code[..., None].long() // basis) % lv
     half_w = (lv // 2).float()
@@ -563,7 +579,20 @@ def decode(params: Params, global_tokens: torch.Tensor,
     ``cfg.dtype`` is the compute policy: with "bfloat16" the prenet's and
     the wave generator's products take bf16 operands; norms, snake and the
     output tanh stay f32. The quantizer and speaker subtrees stay f32 (the
-    encode path shares them) and their small outputs are cast here."""
+    encode path shares them) and their small outputs are cast here.
+
+    The checks (``check_decode_params``, ``check_semantic_tokens``), then
+    ``decode_body``; the graphed callers (``DecodeGraphs``) check the
+    tokens on the host and capture the body alone."""
+    check_decode_params(params, cfg)
+    check_semantic_tokens(semantic_tokens,
+                          params["quantizer"]["codebook"].shape[0])
+    return decode_body(params, global_tokens, semantic_tokens, cfg)
+
+
+def check_decode_params(params: Params, cfg: BiCodecConfig) -> None:
+    """Raise ``ValueError`` unless the tree is cast for ``cfg.dtype`` and,
+    under a kernel ``conv_impl``, carries its routed conv weights packed."""
     cdt = _DTYPES[cfg.dtype]
     if params["wavegen"]["in_w"].dtype != cdt:
         # no cast in here: it would convert every weight per call, once per
@@ -580,8 +609,14 @@ def decode(params: Params, global_tokens: torch.Tensor,
                 f"decode under conv_impl {cfg.conv_impl!r} needs the routed "
                 f"conv weights packed once at load (pack_params, which "
                 f"prepare_params runs); no packed copy of {missing}")
-    check_semantic_tokens(semantic_tokens,
-                          params["quantizer"]["codebook"].shape[0])
+
+
+def decode_body(params: Params, global_tokens: torch.Tensor,
+                semantic_tokens: torch.Tensor,
+                cfg: BiCodecConfig) -> torch.Tensor:
+    """``decode`` without its checks: no value is read back to the host, so
+    a CUDA graph can capture it. The tokens must be in range."""
+    cdt = _DTYPES[cfg.dtype]
     zq = fvq_detokenize(params["quantizer"], semantic_tokens).to(cdt)
     d = speaker_detokenize(params["speaker"], global_tokens, cfg).to(cdt)
     x = prenet_forward(params["prenet"], zq, d, cfg) + d[:, :, None]
@@ -689,6 +724,91 @@ class OnnxBiCodec:
             s.shape[0], -1)
 
 
+class DecodeGraphs:
+    """``decode_body`` as CUDA graphs (``runtime/graphs``) over one native
+    tree on a card: the counterpart of the JAX package's jitted
+    ``bicodec.decode``. Per (B, S) one program over static buffers (the
+    global [B, 32] and semantic [B, S] tokens, the waveform [B, S·hop]),
+    captured at first use; the cuDNN convs pick their algorithms in the
+    capture's warm-up. The streams' threads share the programs: ``decode``
+    holds the cache's turn (``GraphCache.exclusive``) from the copy-in to a
+    device copy of the waveform, and the caller reads that copy back after
+    the turn. The programs' pool stays reserved while the owner keeps them,
+    unlike eager memory, which goes back to the caching allocator; the
+    largest shapes hold the most (``cache.clear()`` returns it)."""
+
+    def __init__(self, params: Params, cfg: BiCodecConfig, device):
+        self.params, self.cfg = params, cfg
+        self.device = torch.device(device)
+        self.cache = graphs.GraphCache(self.device)
+        self.sets: Dict[Tuple[int, int], Dict[str, torch.Tensor]] = {}
+
+    def _buffers(self, B: int, S: int) -> Dict[str, torch.Tensor]:
+        bufs = self.sets.get((B, S))
+        if bufs is None:
+            i64 = dict(dtype=torch.int64, device=self.device)
+            with torch.inference_mode(False):
+                bufs = {"g": torch.zeros((B, 32), **i64),
+                        "s": torch.zeros((B, S), **i64),
+                        "wav": torch.zeros((B, S * self.cfg.hop),
+                                           dtype=torch.float32,
+                                           device=self.device)}
+            self.sets[(B, S)] = bufs
+        return bufs
+
+    def _body(self, bufs) -> None:
+        bufs["wav"].copy_(decode_body(self.params, bufs["g"], bufs["s"],
+                                      self.cfg))
+
+    def decode(self, global_tokens: np.ndarray,
+               semantic_tokens: np.ndarray) -> torch.Tensor:
+        """Host tokens (int64 [B, 32], [B, S], checked in range) → a device
+        copy of the waveform [B, S·hop] f32."""
+        g = torch.from_numpy(global_tokens).to(self.device)
+        s = torch.from_numpy(semantic_tokens).to(self.device)
+        with self.cache.exclusive():
+            bufs = self._buffers(*s.shape)
+            bufs["g"].copy_(g)
+            bufs["s"].copy_(s)
+            self.cache.program(tuple(s.shape), self._body, bufs).replay()
+            return bufs["wav"].clone()
+
+
+def decode_graphs(params: Params, cfg: BiCodecConfig
+                  ) -> Optional[DecodeGraphs]:
+    """A ``DecodeGraphs`` over a native tree on a card, its owner's to keep
+    and to pass to ``decode_host``, ``detokenize`` and ``StreamingVocoder``
+    (the pipeline holds one); None for a tree on the CPU. The tree is
+    checked here, as ``decode`` checks it."""
+    dev = params["quantizer"]["codebook"].device
+    if dev.type != "cuda":
+        return None
+    check_decode_params(params, cfg)
+    return DecodeGraphs(params, cfg, dev)
+
+
+def decode_host(params, global_tokens, semantic_tokens,
+                cfg: BiCodecConfig,
+                graphs: Optional[DecodeGraphs] = None) -> torch.Tensor:
+    """Tokens on the host (lists or int64 arrays, global [B, 32], semantic
+    [B, S]) → the waveform [B, S·hop] f32 on the codec's device: the
+    vocoder's one entry for the streaming windows and ``detokenize``. The
+    tokens are checked on the host (``ValueError`` out of range); then
+    ``graphs`` (the tree's ``DecodeGraphs``) replays its program, or
+    without it ``decode`` runs eagerly, or an ``OnnxBiCodec`` its
+    detokenize graph (eager)."""
+    onnx = isinstance(params, OnnxBiCodec)
+    g = np.asarray(global_tokens, np.int64)
+    s = np.asarray(semantic_tokens, np.int64)
+    check_semantic_tokens(s, cfg.semantic_codebook if onnx
+                          else params["quantizer"]["codebook"].shape[0])
+    if graphs is not None and not onnx:
+        return graphs.decode(g, s)
+    dev = params.device if onnx else params["quantizer"]["codebook"].device
+    g_t, s_t = torch.from_numpy(g).to(dev), torch.from_numpy(s).to(dev)
+    return params.decode(g_t, s_t) if onnx else decode(params, g_t, s_t, cfg)
+
+
 def receptive_latents(cfg: BiCodecConfig) -> int:
     """Conservative one-sided receptive field of ``decode`` in latent frames
     (drives the bucket padding margin)."""
@@ -714,17 +834,18 @@ def _detok_bucket(n: int, buckets) -> int:
 
 
 def detokenize(params: Params, global_tokens, semantic_tokens,
-               cfg: BiCodecConfig, bucket=DETOKENIZE_BUCKETS) -> np.ndarray:
+               cfg: BiCodecConfig, bucket=DETOKENIZE_BUCKETS,
+               graphs: Optional[DecodeGraphs] = None) -> np.ndarray:
     """Host wrapper: edge-pads the semantic sequence (last token repeated)
     by at least the receptive field up to a bucket, decodes on the
     parameters' device, trims to S·320 samples → f32 numpy [B, S·320].
     ``bucket`` is an int (fixed multiple) or a sequence of bucket sizes.
     ``params`` may be an ``OnnxBiCodec``; ``cfg`` may then be None, and the
-    padding uses the published model's dimensions (``BiCodecConfig()``)."""
-    onnx = isinstance(params, OnnxBiCodec)
+    padding uses the published model's dimensions (``BiCodecConfig()``).
+    Decodes through ``decode_host``: with ``graphs`` (the tree's
+    ``DecodeGraphs``) it replays the program of its (B, padded) bucket."""
     if cfg is None:
         cfg = BiCodecConfig()
-    dev = params.device if onnx else params["quantizer"]["codebook"].device
     g = np.asarray(global_tokens, np.int64)
     if g.ndim == 1:
         g = g[None]
@@ -734,17 +855,14 @@ def detokenize(params: Params, global_tokens, semantic_tokens,
     S = s.shape[1]
     if S == 0:
         return np.zeros((s.shape[0], 0), np.float32)
-    # on the host, before any token reaches the device's gather
-    check_semantic_tokens(s, cfg.semantic_codebook if onnx
-                          else params["quantizer"]["codebook"].shape[0])
     need = S + receptive_latents(cfg)
     if isinstance(bucket, int):
         padded = need + ((-need) % bucket)
     else:
         padded = _detok_bucket(need, tuple(bucket))
     s_pad = np.pad(s, ((0, 0), (0, padded - S)), mode="edge")
-    g, s_pad = torch.from_numpy(g).to(dev), torch.from_numpy(s_pad).to(dev)
-    wav = params.decode(g, s_pad) if onnx else decode(params, g, s_pad, cfg)
+    # checked on the host, before any token reaches the device's gather
+    wav = decode_host(params, g, s_pad, cfg, graphs)
     return wav[:, :S * cfg.hop].cpu().numpy().astype(np.float32)
 
 

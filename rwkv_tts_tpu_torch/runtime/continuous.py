@@ -27,8 +27,11 @@ retired from slots between decode blocks:
     summation order depends on the batch a request shares).
 
 The JAX engine pads every index vector and admission burst to a power of
-two so that XLA compiles one program per bucket. Eager PyTorch compiles
-nothing, so bursts, relocations and cancels run at their own size.
+two so that XLA compiles one program per bucket. The port pads the
+admission burst the same way (the last prompt repeated, the copies never
+scattered), so that on a card the burst's prefill replays one graph per
+(burst bucket, prompt-length bucket); relocations and cancels run at their
+own size.
 
 Under a ``mesh`` (``parallel/mesh.Mesh``) the slots split over its
 ``data`` axis: each data row holds its slots' state, logits and slot
@@ -51,8 +54,10 @@ engine's one jitted program per (bucket, block). Per occupancy bucket (and
 the whole batch) one graph computes the block's draw tables and one graph
 is ``decode_step``, replayed K times; the state, logits, slot tensors,
 draw tables, emits and step counter are static buffers, which admission,
-relocation and cancel write in place. The eager ``decode_block`` stays the
-CPU's and the meshes' path and the graphs' oracle.
+relocation and cancel write in place. Admission's prefill replays
+``engine.PrefillGraphs`` in the same cache (one thread and one stream run
+both). The eager ``decode_block`` and prefill stay the CPU's and the
+meshes' path and the graphs' oracle.
 """
 
 from __future__ import annotations
@@ -76,9 +81,9 @@ from ..utils import threefry
 from ..utils.device import resolve_device
 from ..utils.metrics import STAGE_BUCKETS, Histogram
 from . import graphs
-from .engine import (SEMANTIC_SLICE, GenerationResult, TtsEngine,
-                     _mask_global, _mask_semantic, _sample, _stepper,
-                     zs_hard_min)
+from .engine import (SEMANTIC_SLICE, GenerationResult, PrefillGraphs,
+                     TtsEngine, _mask_global, _mask_semantic, _sample,
+                     _stepper, zs_hard_min)
 
 log = logging.getLogger(__name__)
 
@@ -535,6 +540,7 @@ class ContinuousEngine:
         width = min(SEMANTIC_SLICE, self.cfg.padded_vocab_size)
         state = rwkv7.init_state(self.cfg, self.B, device=self.device)
         self.graphs = None
+        self.prefill_graphs = None
         if self.mesh is None:
             self._Bl = self.B
             self.state = state
@@ -545,6 +551,9 @@ class ContinuousEngine:
                 self.graphs = BlockGraphs(self.params, self.cfg, self.state,
                                           self.logits, self.slots,
                                           self.block)
+                self.prefill_graphs = PrefillGraphs(
+                    self.params, self.cfg, self.device,
+                    cache=self.graphs.cache)
             return
         from ..parallel import mesh as meshlib
         from ..parallel import tp as tplib
@@ -757,8 +766,10 @@ class ContinuousEngine:
         ``prefill_buckets`` prompt-length buckets, then a relocation and a
         cancel on the drained engine. On a card this builds and loads the
         kernels and lets the libraries pick their algorithms before the
-        first real request. Each burst goes through ``submit_burst``, so
-        it admits as one burst of that size."""
+        first real request, and captures the graphs of every burst
+        bucket's prefill at those buckets and of every decode bucket. Each
+        burst goes through ``submit_burst``, so it admits as one burst of
+        that size."""
         hi = min(max_burst or self.B, self.B)
         sizes, m = [], 1
         while m < hi:
@@ -861,13 +872,17 @@ class ContinuousEngine:
         prompts, texts = zip(*(self.inner.build_prompt(e[0])
                                for _, e in incoming))
         m = len(incoming)
-        # the TP prefill splits the burst over the data axis: round it up
-        # by repeating the last prompt (the copies are never scattered)
-        mb = m if self.mesh is None or self.mesh.mp == 1 else \
-            -(-m // self.mesh.dp) * self.mesh.dp
+        # the burst pads to a power of two, at most the slot count, by
+        # repeating the last prompt (the copies are never scattered), as
+        # the JAX engine pads it: one prefill program per burst bucket.
+        # The TP prefill splits the burst over the data axis: round it up
+        # to a multiple of that too
+        mb = min(1 << (m - 1).bit_length(), self.B)
+        if self.mesh is not None and self.mesh.mp > 1:
+            mb = -(-mb // self.mesh.dp) * self.mesh.dp
         t0 = time.perf_counter()
-        lgb, stb = self.inner.prefill(
-            list(prompts) + [prompts[-1]] * (mb - m),
+        lgb, stb = self.inner.prefill_on(
+            self.prefill_graphs, list(prompts) + [prompts[-1]] * (mb - m),
             self.inner.init_state(mb))
         lgb = lgb[..., :min(SEMANTIC_SLICE, self.cfg.padded_vocab_size)]
         self.stats["prefill_s"] += time.perf_counter() - t0

@@ -22,9 +22,11 @@ asks the card whether every slot is done once per
 last slot finished emit nothing, so the tokens are those of the JAX
 engine's per-step check. On a card without tensor parallelism the engine
 replays each stage step as a CUDA graph (``StageGraphs``), the counterpart
-of the JAX engine's jitted stage programs; the eager ``global_stage`` and
-``semantic_stage`` stay the CPU's and the meshes' path and the graphs'
-oracle.
+of the JAX engine's jitted stage programs, and each prefill chunk as one
+(``PrefillGraphs``, per batch and prompt-length bucket), the counterpart of
+the jitted ``rwkv7.forward``; the eager ``global_stage``,
+``semantic_stage`` and ``rwkv7.forward`` stay the CPU's and the meshes'
+path and the graphs' oracle.
 """
 
 from __future__ import annotations
@@ -373,6 +375,108 @@ class StageGraphs:
                 n_steps)
 
 
+def prefill_chunks(prompts, buckets) -> List[Tuple[np.ndarray, np.ndarray]]:
+    """Right-padded prompts as the prefill's chunks: (tokens [B, T] int64,
+    lengths [B] int64) per chunk of at most the largest bucket, ``T`` the
+    bucket of the chunk's longest row (the reference's token_chunk_size,
+    normal_mode_inference.rs:63)."""
+    max_bucket = buckets[-1]
+    remaining = [list(p) for p in prompts]
+    chunks = []
+    while True:
+        chunk = [r[:max_bucket] for r in remaining]
+        remaining = [r[max_bucket:] for r in remaining]
+        lengths = np.array([len(c) for c in chunk], np.int64)
+        n = int(max(lengths.max(), 1))
+        T = next((b for b in buckets if n <= b), max_bucket)
+        tok_mat = np.zeros((len(chunk), T), np.int64)
+        for i, c in enumerate(chunk):
+            tok_mat[i, :len(c)] = c
+        chunks.append((tok_mat, lengths))
+        if not any(remaining):
+            return chunks
+
+
+class PrefillGraphs:
+    """The prefill's chunks as CUDA graphs (``runtime/graphs``).
+
+    Per batch B one set of static buffers: the state, the logits, the
+    lengths and a first-chunk flag; per (B, T) the token buffer. Per (B, T)
+    one program over them, captured at first use: ``rwkv7.forward`` on the
+    carried state, then the merge of the logits ``TtsEngine.prefill``
+    makes (a row keeps the logits of the chunk with its last real token;
+    the first chunk sets every row). A prompt longer than the largest
+    bucket replays that bucket's program once a chunk, the state carried
+    in the buffer. ``run`` holds the cache's turn (``GraphCache.exclusive``)
+    from the first copy-in to the copies of the outputs it returns.
+
+    ``cache``: the ``GraphCache`` to capture into; by default one of its
+    own (the static engine's: its prefill runs outside ``stage_lock``, so
+    it must not share the stages' pool). The continuous engine passes its
+    ``BlockGraphs``' cache: its admission and its blocks run on one thread
+    and one stream."""
+
+    def __init__(self, params, cfg: RwkvConfig, device, cache=None):
+        self.params, self.cfg = params, cfg
+        self.device = device
+        self.cache = cache if cache is not None else \
+            graphs.GraphCache(device)
+        self.sets: dict = {}
+
+    def _buffers(self, B: int, T: int):
+        dev, i64 = self.device, dict(dtype=torch.int64, device=self.device)
+        # plain tensors even under inference_mode (the parity engine's),
+        # which a later caller outside it may write
+        with torch.inference_mode(False):
+            bufs = self.sets.get(B)
+            if bufs is None:
+                bufs = {"state": rwkv7.init_state(self.cfg, B, device=dev),
+                        "logits": torch.zeros((B, self.cfg.padded_vocab_size),
+                                              dtype=torch.float32, device=dev),
+                        "lengths": torch.zeros((B,), **i64),
+                        "first": torch.ones((1,), dtype=torch.bool,
+                                            device=dev)}
+                self.sets[B] = bufs
+            tokens = self.sets.get((B, T))
+            if tokens is None:
+                tokens = self.sets[(B, T)] = torch.zeros((B, T), **i64)
+        return dict(bufs, tokens=tokens)
+
+    def _body(self, bufs) -> None:
+        logits, state = rwkv7.forward(self.params, bufs["tokens"],
+                                      bufs["state"], self.cfg,
+                                      lengths=bufs["lengths"])
+        for k, v in state.items():
+            if v is not bufs["state"][k]:
+                bufs["state"][k].copy_(v)
+        keep = bufs["first"] | (bufs["lengths"] > 0)
+        bufs["logits"].copy_(torch.where(keep[:, None], logits,
+                                         bufs["logits"]))
+
+    def run(self, chunks, state):
+        """``chunks`` (``prefill_chunks``) from ``state`` replayed; returns
+        copies of (logits [B, V], state)."""
+        B = chunks[0][0].shape[0]
+        # the host-to-card copies before the turn: they wait on the stream
+        dev_chunks = [(torch.from_numpy(t).to(self.device),
+                       torch.from_numpy(n).to(self.device))
+                      for t, n in chunks]
+        with self.cache.exclusive():
+            for j, (tok, lengths) in enumerate(dev_chunks):
+                bufs = self._buffers(B, tok.shape[1])
+                if j == 0:
+                    for k, v in state.items():
+                        if v is not bufs["state"][k]:
+                            bufs["state"][k].copy_(v)
+                bufs["first"].fill_(j == 0)
+                bufs["tokens"].copy_(tok)
+                bufs["lengths"].copy_(lengths)
+                self.cache.program((B, tok.shape[1]), self._body,
+                                   bufs).replay()
+            return (bufs["logits"].clone(),
+                    {k: v.clone() for k, v in bufs["state"].items()})
+
+
 @dataclasses.dataclass
 class GenerationResult:
     """A request's tokens, with the JAX engines' accounting:
@@ -402,8 +506,8 @@ class TtsEngine:
         int8; partial quantization, the fused ``zrkv`` layout and the 4-bit
         layouts are refused, as in the JAX engine (``engine.py:312-347``).
         On a card the shards' WKV runs the hand-written kernels, eagerly;
-        without ``tp_mesh`` the stages replay CUDA graphs there
-        (``StageGraphs``)."""
+        without ``tp_mesh`` the stages and the prefill replay CUDA graphs
+        there (``StageGraphs``, ``PrefillGraphs``)."""
         self._step_fn = None
         self.tp_mesh = tp_mesh
         if tp_mesh is not None:
@@ -423,8 +527,10 @@ class TtsEngine:
         self.encoder = CachedEncoder(self.tokenizer, normalize=False)
         self.counters = {"prefill_chunks": 0, "decode_steps": 0}
         self.graphs: Optional[StageGraphs] = None
+        self.prefill_graphs: Optional[PrefillGraphs] = None
         if self.device.type == "cuda" and tp_mesh is None:
             self.graphs = StageGraphs(params, cfg, self.device)
+            self.prefill_graphs = PrefillGraphs(params, cfg, self.device)
         # the graphed stages chain through one set of buffers per batch:
         # one thread's stages at a time (generate_batch, the speaker
         # tokens, the pipeline's warm-up)
@@ -507,28 +613,23 @@ class TtsEngine:
             prompt += [C.TTS_TAG_1]
         return prompt, text_ids
 
-    def _bucket(self, n: int) -> int:
-        for b in self.engine_cfg.prefill_buckets:
-            if n <= b:
-                return b
-        return self.engine_cfg.prefill_buckets[-1]
-
     def prefill(self, prompts, state):
         """Masked prefill of right-padded variable-length prompts, in chunks
         of the largest bucket with the state carried across chunks (the
-        reference's token_chunk_size, normal_mode_inference.rs:63)."""
-        B = len(prompts)
-        max_bucket = self.engine_cfg.prefill_buckets[-1]
-        remaining = [list(p) for p in prompts]
+        reference's token_chunk_size, normal_mode_inference.rs:63); on a
+        card without TP through the engine's ``PrefillGraphs``."""
+        return self.prefill_on(self.prefill_graphs, prompts, state)
+
+    def prefill_on(self, prefill_graphs: Optional[PrefillGraphs], prompts,
+                   state):
+        """``prefill`` replayed from ``prefill_graphs``, or eager where it
+        is None (the CPU, a mesh)."""
+        chunks = prefill_chunks(prompts, self.engine_cfg.prefill_buckets)
+        self.counters["prefill_chunks"] += len(chunks)
+        if prefill_graphs is not None:
+            return prefill_graphs.run(chunks, state)
         logits = None
-        while True:
-            chunk = [r[:max_bucket] for r in remaining]
-            remaining = [r[max_bucket:] for r in remaining]
-            lengths = np.array([len(c) for c in chunk], np.int64)
-            T = self._bucket(int(max(lengths.max(), 1)))
-            tok_mat = np.zeros((B, T), np.int64)
-            for i, c in enumerate(chunk):
-                tok_mat[i, :len(c)] = c
+        for tok_mat, lengths in chunks:
             lengths_t = torch.from_numpy(lengths).to(self.device)
             tok_t = torch.from_numpy(tok_mat).to(self.device)
             if self.tp_mesh is not None:
@@ -539,7 +640,6 @@ class TtsEngine:
             else:
                 new_logits, state = rwkv7.forward(
                     self.params, tok_t, state, self.cfg, lengths=lengths_t)
-            self.counters["prefill_chunks"] += 1
             # keep each slot's logits from the chunk with its last real
             # token (a zero-length chunk leaves state and logits alone)
             if logits is None:
@@ -547,8 +647,6 @@ class TtsEngine:
             else:
                 logits = torch.where((lengths_t > 0)[:, None], new_logits,
                                      logits)
-            if not any(remaining):
-                break
         return logits, state
 
     def _keys(self, seeds, offset: int) -> torch.Tensor:

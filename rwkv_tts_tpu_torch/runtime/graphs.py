@@ -1,12 +1,18 @@
-"""CUDA graphs of the engines' decode steps: the card's counterpart of the
-JAX engines' jitted decode programs.
+"""CUDA graphs of the port's device programs: the card's counterpart of the
+JAX package's jitted programs.
 
 The JAX package runs each engine's decode as one compiled device program
 (``rwkv_tts_tpu/runtime/engine.py`` ``global_stage`` / ``semantic_stage``,
-``rwkv_tts_tpu/runtime/continuous.py`` ``decode_block``). Eager PyTorch
-enqueues the same step op by op from Python, thousands of launches a step.
-A CUDA graph records a step's launches once and enqueues all of them with
-one call, so the host stops pacing the card.
+``rwkv_tts_tpu/runtime/continuous.py`` ``decode_block``), and likewise the
+prefill (``rwkv7.forward`` under ``jax.jit``, per prompt-length bucket), the
+vocoder (``bicodec.decode``, ``@jax.jit``) and the parity engine's step.
+Eager PyTorch enqueues the same work op by op from Python, thousands of
+launches a step. A CUDA graph records a body's launches once and enqueues
+all of them with one call, so the host stops pacing the card. The holders:
+``engine.StageGraphs`` and ``engine.PrefillGraphs`` (the static engine),
+``continuous.BlockGraphs`` (the continuous engine's blocks and, in the same
+cache, its admission prefill), ``bicodec.DecodeGraphs`` (the vocoder's
+windows and detokenize buckets) and ``parity.StepGraphs``.
 
 ``GraphCache`` holds one captured ``Program`` per shape key. A program's
 body reads and writes only static buffers (tensors whose storage outlives
@@ -24,9 +30,19 @@ recipe:
     launching while the decode thread captures;
   * every program of a cache shares one memory pool
     (``torch.cuda.graph_pool_handle``): programs of one cache replay one
-    at a time, on one stream, so their intermediates may share memory.
+    at a time, so their intermediates may share memory. A cache that one
+    thread drives replays on that thread's stream; a cache that several
+    threads share (the static engine's prefill, the vocoder's windows) is
+    entered through ``exclusive``, which also orders each caller's work
+    after the previous caller's on the card.
 
 A capture or replay that fails raises; nothing falls back to eager.
+
+A body must never address a tensor that is reallocated between replays:
+besides the pointers of its launches, the graph holds host-encoded TMA
+descriptors (``csrc/sm90.cuh``, the conv1d and GEMM kernels) by value.
+The buffers and the weights outlive their programs, and every
+intermediate lives in the pool at the address the capture gave it.
 
 Launch counts: a kernel wrapper called under capture records its kernel
 into the graph instead of launching it, so ``ops/_build.record_launches``
@@ -38,12 +54,40 @@ count the kernels the card ran, eager or graphed.
 from __future__ import annotations
 
 import collections
+import contextlib
+import gc
+import threading
 import time
 from typing import Any, Callable, Dict, Hashable, List, Tuple
 
 import torch
 
 from ..ops import _build
+
+
+_collector_lock = threading.Lock()
+_collector = {"holds": 0, "was_on": False}
+
+
+@contextlib.contextmanager
+def collector_off():
+    """Python's cyclic garbage collector held off while any thread captures.
+    A collection that starts inside a capture, in the capturing thread, may
+    free a dropped engine's graphs, and destroying a graph there is a call
+    that invalidates the capture. Nested and concurrent holds count: the
+    collector comes back, if it was on, when the last hold ends."""
+    with _collector_lock:
+        if _collector["holds"] == 0:
+            _collector["was_on"] = gc.isenabled()
+            gc.disable()
+        _collector["holds"] += 1
+    try:
+        yield
+    finally:
+        with _collector_lock:
+            _collector["holds"] -= 1
+            if _collector["holds"] == 0 and _collector["was_on"]:
+                gc.enable()
 
 
 def clone_tree(tree):
@@ -98,6 +142,33 @@ class GraphCache:
         self.pool = torch.cuda.graph_pool_handle()
         self.stream = torch.cuda.Stream(self.device)
         self.programs: Dict[Hashable, Program] = {}
+        self._turn = threading.Lock()
+        self._last_turn = None      # the event that ends the last turn
+        self.turns = 0
+        self.wait_s = 0.0           # host seconds spent waiting for a turn
+
+    @contextlib.contextmanager
+    def exclusive(self):
+        """One caller's turn at the cache's programs and buffers, for a
+        cache that several threads share: the host waits for the lock, the
+        caller's stream waits (on the card, not the host) for the end of
+        the previous turn's work, whatever stream that ran on, and the
+        turn's end is recorded on the caller's stream. Inside a turn copy
+        the inputs into the buffers, replay, and copy the outputs out on
+        the device; read them back on the host after the turn, so that no
+        caller holds another behind its read-back."""
+        t0 = time.perf_counter()
+        with self._turn:
+            self.wait_s += time.perf_counter() - t0
+            self.turns += 1
+            cur = torch.cuda.current_stream(self.device)
+            if self._last_turn is not None:
+                cur.wait_event(self._last_turn)
+            try:
+                yield
+            finally:
+                self._last_turn = torch.cuda.Event()
+                self._last_turn.record(cur)
 
     def __contains__(self, key) -> bool:
         return key in self.programs
@@ -122,7 +193,7 @@ class GraphCache:
         self.stream.synchronize()
         t1 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
-        with _build.record_launches() as noted:
+        with collector_off(), _build.record_launches() as noted:
             with torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
                                   capture_error_mode="thread_local"):
                 reserved = torch.cuda.memory_reserved(dev)

@@ -25,15 +25,18 @@ Parity contracts (loop level):
 
 The model runs on the engine's device: the prompt through
 ``TtsEngine.prefill`` (the sequential prefill kernel on a card) and every
-token through ``rwkv7.step`` with the whole head (the decode kernel). Each
-token's logits row comes back to the host once: batch 1, debug only, as
-in the JAX package. The production engines (``runtime/engine.py``,
+token through ``rwkv7.step`` with the whole head (the decode kernel). On a
+card without a mesh that step replays one CUDA graph (``StepGraphs``), the
+counterpart of the JAX package's jitted step, and the prefill the engine's
+``PrefillGraphs``. Each token's logits row comes back to the host once:
+batch 1, debug only, as in the JAX package. The production engines (``runtime/engine.py``,
 ``runtime/continuous.py``) sample on the device with threefry keys, a
 different (documented) draw.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import List, Tuple
 
 import numpy as np
@@ -44,6 +47,7 @@ from ..config import TtsArgs
 from ..models import rwkv7
 from ..ops.ref_sampler import sample_logits_reference
 from ..utils.rustrng import RustStdRng
+from . import graphs
 from .engine import GenerationResult, TtsEngine, zs_hard_min
 
 _M64 = 0xFFFFFFFFFFFFFFFF
@@ -54,16 +58,57 @@ _GLOBAL_ARGS = (1.0, 0.95, 20)    # temperature, top_p, top_k
 _SEMANTIC_ARGS = (1.0, 0.95, 80)
 
 
+class StepGraphs:
+    """``rwkv7.step`` at batch 1 with the whole head as one CUDA graph
+    (``runtime/graphs``) over static buffers: the state, the token [1] and
+    the logits [1, V]. ``advance`` loads a state not already in the
+    buffers, then per token fills the token buffer and replays."""
+
+    def __init__(self, params, cfg, device):
+        self.params, self.cfg = params, cfg
+        self.cache = graphs.GraphCache(device)
+        dev = torch.device(device)
+        with torch.inference_mode(False):
+            self.bufs = {
+                "state": rwkv7.init_state(self.cfg, 1, device=dev),
+                "tok": torch.zeros((1,), dtype=torch.int64, device=dev),
+                "logits": torch.zeros((1, self.cfg.padded_vocab_size),
+                                      dtype=torch.float32, device=dev)}
+
+    def _body(self, bufs) -> None:
+        logits, _ = rwkv7.step(self.params, bufs["tok"], bufs["state"],
+                               self.cfg)
+        bufs["logits"].copy_(logits)
+
+    def advance(self, tokens: List[int], state):
+        """Each token of ``tokens`` fed from ``state``; returns the
+        buffers' (logits [1, V], state), which the next call overwrites."""
+        bufs = self.bufs
+        for k, v in state.items():
+            if v is not bufs["state"][k]:
+                bufs["state"][k].copy_(v)
+        prog = self.cache.program("step", self._body, bufs)
+        for t in tokens:
+            bufs["tok"].fill_(t)
+            prog.replay()
+        return bufs["logits"], bufs["state"]
+
+
 class ReferenceRngEngine:
     """Wraps a TtsEngine's parameters and prompt assembly with the
     reference's host-side draw loop. Construction is cheap; it runs on the
-    engine's device. Each ``rwkv7.step`` it runs adds one to the engine's
-    ``counters["decode_steps"]``."""
+    engine's device (its step graphed where the engine's stages are). Each
+    ``rwkv7.step`` it runs adds one to the engine's
+    ``counters["decode_steps"]``. Calls of ``generate`` run one at a time:
+    the graphed step carries one state."""
 
     def __init__(self, engine: TtsEngine):
         if engine.tp_mesh is not None:
             raise ValueError("parity mode is a single-chip batch-1 path")
         self.engine = engine
+        self.graphs = None if engine.graphs is None else \
+            StepGraphs(engine.params, engine.cfg, engine.device)
+        self._lock = threading.Lock()
 
     # -- helpers ----------------------------------------------------------
 
@@ -77,13 +122,16 @@ class ReferenceRngEngine:
         return v[: self.engine.cfg.vocab_size]
 
     def _advance(self, params, tokens: List[int], state):
-        """Feed raw token ids (batch 1) and return (host_logits, state)."""
+        """Feed raw token ids (batch 1) and return (host_logits, state);
+        graphed on a card (``StepGraphs``)."""
         eng = self.engine
-        logits = None
+        eng.counters["decode_steps"] += len(tokens)
+        if self.graphs is not None:
+            logits, state = self.graphs.advance(tokens, state)
+            return self._host_logits(logits), state
         for t in tokens:
             tok = torch.tensor([t], dtype=torch.int64, device=eng.device)
             logits, state = rwkv7.step(params, tok, state, eng.cfg)
-            eng.counters["decode_steps"] += 1
         return self._host_logits(logits), state
 
     # -- public -----------------------------------------------------------
@@ -95,7 +143,7 @@ class ReferenceRngEngine:
                 "no-seed path draws from OS entropy "
                 "(StdRng::from_entropy) and cannot be reproduced")
         seed = int(args.seed) & _M64
-        with torch.inference_mode():
+        with self._lock, torch.inference_mode():
             return self._generate(args, seed)
 
     def _generate(self, args: TtsArgs, seed: int) -> GenerationResult:

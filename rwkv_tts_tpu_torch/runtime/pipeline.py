@@ -105,6 +105,12 @@ class TtsPipeline:
                                 tp_mesh=tp_mesh)
         self.bicodec_params = bicodec_params
         self.bicodec_cfg = bicodec_cfg
+        # on a card the native codec's windows and detokenize buckets replay
+        # CUDA graphs, held here for the pipeline's life; the ONNX graphs and
+        # the CPU decode eagerly
+        self.decode_graphs = (
+            None if isinstance(bicodec_params, bicodec.OnnxBiCodec)
+            else bicodec.decode_graphs(bicodec_params, bicodec_cfg))
         self.w2v_params = w2v_params
         self.w2v_cfg = w2v_cfg
         self.w2v_output_layers = w2v_output_layers
@@ -323,7 +329,8 @@ class TtsPipeline:
         if g.semantic_tokens:
             return bicodec.detokenize(
                 self.bicodec_params, g.global_tokens or [0] * 32,
-                g.semantic_tokens, self.bicodec_cfg)[0]
+                g.semantic_tokens, self.bicodec_cfg,
+                graphs=self.decode_graphs)[0]
         return np.zeros(C.SAMPLE_RATE, np.float32)
 
     def assemble_result(self, g: GenerationResult, wav: np.ndarray,
@@ -398,7 +405,9 @@ class TtsPipeline:
         hard limit of one semantic token: eager PyTorch compiles nothing,
         but the first call of a shape builds and loads the kernels, creates
         the library handles and grows the allocator's pools, and on a card
-        captures the static engine's stage graphs of that batch. Returns wall
+        captures the CUDA graphs of that shape: the static engine's stages
+        and prefill chunks of that batch, the detokenize buckets' and the
+        streaming windows' vocoder programs. Returns wall
         seconds by step, under the JAX pipeline's labels
         (``_warmup_pipeline``, ``pipeline.py:428``).
 
@@ -507,20 +516,15 @@ class TtsPipeline:
             if not over(f"detokenize_{S}"):
                 timed(f"detokenize_{S}", lambda: bicodec.detokenize(
                     self.bicodec_params, [0] * 32, [0] * S,
-                    self.bicodec_cfg))
+                    self.bicodec_cfg, graphs=self.decode_graphs))
         # streaming decodes two window lengths per latency mode (interior
-        # and flush), outside the detokenize buckets
+        # and flush), outside the detokenize buckets; on a card each
+        # captures its window's graph, as each detokenize bucket does
         codec = self.bicodec_params
-        onnx = isinstance(codec, bicodec.OnnxBiCodec)
-        codec_dev = codec.device if onnx else \
-            codec["quantizer"]["codebook"].device
 
         def window(W):
-            g = torch.zeros((1, 32), dtype=torch.int64, device=codec_dev)
-            s = torch.zeros((1, W), dtype=torch.int64, device=codec_dev)
-            if onnx:
-                return codec.decode(g, s)
-            return bicodec.decode(codec, g, s, self.bicodec_cfg)
+            return bicodec.decode_host(codec, [[0] * 32], [[0] * W],
+                                       self.bicodec_cfg, self.decode_graphs)
 
         for mode in ("exact", "low", "ultra", "flash"):
             sv = StreamingVocoder(codec, self.bicodec_cfg, [0] * 32,

@@ -19,7 +19,12 @@ The vocoder runs in the thread that consumes the stream, on that thread's
 current CUDA stream; the engine's decode thread decodes on a stream of its
 own (``runtime/continuous``). Only Python lists of tokens cross between
 them. The vocoder is the native BiCodec or the reference's exported
-graphs (``bicodec.OnnxBiCodec``).
+graphs (``bicodec.OnnxBiCodec``). Given the native tree's
+``bicodec.DecodeGraphs`` (the pipeline's ``decode_graphs`` on a card), a
+window replays the CUDA graph of its length, shared by every stream's
+thread one turn at a time: the counterpart of the JAX package's jitted
+``bicodec.decode``. Without it, and for the ONNX graphs, windows run
+eagerly.
 """
 
 from __future__ import annotations
@@ -31,7 +36,6 @@ import time
 from typing import Iterator, List, Optional
 
 import numpy as np
-import torch
 
 from .. import constants as C
 from ..config import BiCodecConfig
@@ -61,9 +65,11 @@ class StreamingVocoder:
                  chunk_tokens: int = 32, context_tokens: Optional[int] = None,
                  lookahead_tokens: Optional[int] = None,
                  low_latency: bool = False,
-                 latency_mode: Optional[str] = None):
+                 latency_mode: Optional[str] = None,
+                 graphs: Optional[bicodec.DecodeGraphs] = None):
         self.params = params
         self.cfg = cfg
+        self.graphs = graphs
         self.global_tokens = [min(max(int(t), 0), C.GLOBAL_VOCAB - 1)
                               for t in (global_tokens or [0] * 32)]
         if latency_mode is None:
@@ -122,16 +128,11 @@ class StreamingVocoder:
         # tail matches the full decode; an interior chunk's real lookahead
         # covers the emitted region and the filler beyond it is not heard
         padded = self.flush_bucket if flush else self.window_bucket
-        onnx = isinstance(self.params, bicodec.OnnxBiCodec)
-        dev = self.params.device if onnx else \
-            self.params["quantizer"]["codebook"].device
-        sem = torch.tensor([window + [window[-1]] * (padded - len(window))],
-                           dtype=torch.int64, device=dev)
-        g = torch.tensor([self.global_tokens], dtype=torch.int64, device=dev)
-        if onnx:
-            wav = self.params.decode(g, sem)
-        else:
-            wav = bicodec.decode(self.params, g, sem, self.cfg)
+        # checked on the host; with graphs, the window length's program
+        wav = bicodec.decode_host(
+            self.params, [self.global_tokens],
+            [window + [window[-1]] * (padded - len(window))], self.cfg,
+            self.graphs)
         hop = C.LATENT_HOP_LENGTH
         audio = wav[0, ctx * hop:(ctx + n_emit) * hop].cpu().numpy().astype(
             np.float32)
@@ -142,10 +143,13 @@ class StreamingVocoder:
 def stream_synthesize(continuous_engine, bicodec_params, bicodec_cfg,
                       args, chunk_tokens: int = 32, timeout: float = 600.0,
                       low_latency: bool = False,
-                      latency_mode: Optional[str] = None
+                      latency_mode: Optional[str] = None,
+                      vocoder_graphs: Optional[bicodec.DecodeGraphs] = None
                       ) -> Iterator[StreamChunk]:
     """Generator yielding audio chunks for one request, which must already
-    be resolved (``TtsPipeline.resolve_voice``).
+    be resolved (``TtsPipeline.resolve_voice``). ``vocoder_graphs``: the
+    codec tree's ``bicodec.DecodeGraphs`` (``TtsPipeline.decode_graphs``),
+    replayed for every window; None vocodes eagerly.
 
     A property-controlled request's speaker tokens exist only once its
     global stage ends, so vocoding starts at the first semantic chunk; a
@@ -167,7 +171,8 @@ def stream_synthesize(continuous_engine, bicodec_params, bicodec_cfg,
     def vocoder_for(global_tokens):
         return StreamingVocoder(bicodec_params, bicodec_cfg, global_tokens,
                                 chunk_tokens, low_latency=low_latency,
-                                latency_mode=latency_mode)
+                                latency_mode=latency_mode,
+                                graphs=vocoder_graphs)
 
     vocoder: Optional[StreamingVocoder] = None
     seq = 0

@@ -397,7 +397,8 @@ def _stream_lines(app, cont, args: TtsArgs, latency_mode, low_latency: bool):
     t0 = time.perf_counter()
     first_chunk_ms = None
     it = stream_synthesize(cont, pipe.bicodec_params, pipe.bicodec_cfg, args,
-                           low_latency=low_latency, latency_mode=latency_mode)
+                           low_latency=low_latency, latency_mode=latency_mode,
+                           vocoder_graphs=pipe.decode_graphs)
     try:
         while not flight.abandoned.is_set():
             try:

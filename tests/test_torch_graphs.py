@@ -19,6 +19,7 @@ block bit for bit, and the graphed static engine emits the goldens.
 
 import json
 import os
+import threading
 
 import pytest
 import torch
@@ -81,6 +82,11 @@ class EagerCache:
 
     def __init__(self, device):
         self.programs = {}
+        self._turn = threading.Lock()
+
+    def exclusive(self):
+        """A turn: the lock alone (one stream on the CPU)."""
+        return self._turn
 
     def __contains__(self, key):
         return key in self.programs

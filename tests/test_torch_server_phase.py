@@ -36,6 +36,11 @@ def test_chip_smoke_server_phase_at_tiny_shapes():
                                 max_semantic_tokens=16),
         w2v_layers=(2, 3))
     assert [r["status"] for r in out["requests"]] == [200] * 7
+    # the server without --warmup, before the measured one
+    assert [r["what"] for r in out["cold"]["requests"]] == \
+        [f"cold concurrent {i}" for i in range(4)] + ["cold alone"]
+    assert {r["samples"] for r in out["cold"]["requests"]} == {16 * 320}
+    assert "continuous" in out["warmup"]
     assert [r["what"] for r in out["requests"]][-1] == "by voice_id"
     assert {r["samples"] for r in out["requests"][:6]} == {16 * 320}
     assert [s["mode"] for s in out["streams"]] == ["flash", "exact"]
