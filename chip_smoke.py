@@ -126,9 +126,14 @@ Phases, each fatal on failure:
              step (torch.profiler); each program's warm-up, capture and
              instantiate seconds and pool bytes; the other unit (the draws
              and 32 steps as one program, bf16): its capture readings and
-             replay wall beside the step unit's; then ``tests/goldens.json``
-             exactly through the graphed static and continuous engines,
-             each having replayed its programs;
+             replay wall beside the step unit's; the prefill and the
+             parity step graphed against eager; every window and
+             detokenize bucket at B = 1 and 8 through
+             ``bicodec.DecodeGraphs``, a program within
+             ``DECODE_GRAPH_MAX_LATENTS`` latents and eager (counted in
+             ``eager_calls``) past it, each bit for bit the eager decode;
+             then ``tests/goldens.json`` exactly through the graphed static
+             and continuous engines, each having replayed its programs;
   parity    the reference-RNG parity engine
              (``runtime/parity.ReferenceRngEngine``: Rust StdRng, the
              Rust-order host sampler) on the card: the goldens model emits
@@ -264,9 +269,22 @@ Phases, each fatal on failure:
              requests, a flash stream and a voice extracted through the
              graph then used, at most 32 semantic tokens a request; one
              64-latent window through the BiCodecDetokenize graph against
-             the native decode (5e-3), both timed; every load step timed;
+             the native decode (5e-3), all three timed (native eager and
+             graphed); every load step timed; ``wkv7_decode`` and
+             ``wkv7_prefill`` launched, as the ``checkpoint`` path. Then,
+             the server closed, the published layout
+             (``published_layout``): the five files of
+             ``utils/download.MODEL_FILES`` (the LM, the repo's
+             tokenizer.json, the two BiCodec exports, the wav2vec2
+             export; no state dict) behind a ``file://`` mirror, the
+             public mirrors patched out, and the port's first-contact
+             validator on an empty model directory at int8, 16 tokens:
+             the five files fetched from the mirror alone and equal to
+             it (size and SHA-256), every stage passed (ALL STAGES
+             PASSED, exit 0) with the codecs served by their exports,
              ``wkv7_decode`` and ``wkv7_prefill`` launched, as the
-             ``checkpoint`` path.
+             ``checkpoint_published`` path; the stages' readings in the
+             summary line.
 
 Prints the card's name and power limit early; before the last lines a
 ``{"kernel_shapes": ...}`` line (each kernel timed at every shape it was
@@ -286,6 +304,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import gc
 import json
 import logging
 import math
@@ -2751,10 +2770,12 @@ def window_graph_check(torch, bc_params, bc_cfg, device, batches=(1, 8),
     """``bicodec.DecodeGraphs`` against the eager ``bicodec.decode`` on
     seeded tokens: every streaming window length
     (``stream_window_lengths``) at B = 1 and every detokenize bucket at
-    each B of ``batches``. Per (B, S): the waveforms equal bit for bit,
-    the launches each way, wall each way, and for the window lengths of
-    ``profile_lengths`` (and on a card) ``profile_steps``' busy ms each
-    way; the programs' capture readings and the cache's turns."""
+    each B of ``batches``. Per (B, S): the path ``DecodeGraphs`` took
+    ("graphed", a program replayed, within ``DECODE_GRAPH_MAX_LATENTS``;
+    "eager" past it, counted in its ``eager_calls``), the waveforms equal
+    bit for bit, the launches each way, wall each way, and for the window
+    lengths of ``profile_lengths`` (and on a card) ``profile_steps``' busy
+    ms each way; the programs' capture readings and the cache's turns."""
     import numpy as np
 
     from rwkv_tts_tpu_torch.models import bicodec
@@ -2780,10 +2801,14 @@ def window_graph_check(torch, bc_params, bc_cfg, device, batches=(1, 8),
         def graphed(g=g, s=s):
             return dg.decode(g, s)
 
+        eager0 = dg.eager_calls
         _, first_ms = timed_call(torch, graphed, device)
         wg, g_ms, g_l = counted(torch, graphed, device)
         we, e_ms, e_l = counted(torch, eager, device)
         r = {"kind": kind, "B": B, "S": S,
+             "path": ("eager" if dg.eager_calls == eager0 + 2 else
+                      "graphed" if dg.eager_calls == eager0
+                      and (B, S) in dg.cache else "mixed"),
              "bitwise": bool(torch.equal(wg, we)),
              "max_abs": float((wg - we).abs().max()),
              "first_use_ms": first_ms,
@@ -2796,6 +2821,8 @@ def window_graph_check(torch, bc_params, bc_cfg, device, batches=(1, 8),
     out["programs"] = {str(k): v for k, v in dg.cache.stats().items()}
     out["turns"], out["wait_s"] = getattr(dg.cache, "turns", 0), \
         getattr(dg.cache, "wait_s", 0.0)
+    out["eager_calls"] = dg.eager_calls
+    out["bound"] = bicodec.DECODE_GRAPH_MAX_LATENTS
     dg.cache.clear()
     return out
 
@@ -2979,6 +3006,13 @@ def graphs(torch, lm_cfg, device: str, root: str,
                      f"({c['B']}, {c['S']}) parts from the eager decode: "
                      f"bitwise {c['bitwise']} (max abs {c['max_abs']:.3g}), "
                      f"launches {c['launches']}")
+            # both sides of the bound: a program within it, eager past it
+            want = ("graphed" if c["B"] * c["S"] <=
+                    bicodec.DECODE_GRAPH_MAX_LATENTS else "eager")
+            if c["path"] != want:
+                fail(f"graphs: the vocoder at (B, S) = ({c['B']}, "
+                     f"{c['S']}) took the {c['path']} path, not {want} "
+                     f"(bound {bicodec.DECODE_GRAPH_MAX_LATENTS} latents)")
         out["windows"] = w
         del bc_params
         if device != "cpu":
@@ -3074,15 +3108,18 @@ def graphs_lines(g, lm_cfg, card: str):
     if w:
         for c in w["cases"]:
             lines.append(
-                f"graphs: vocoder {c['kind']} (B, S) = ({c['B']}, {c['S']}): "
-                f"graphed equal to eager bit for bit {c['bitwise']}; wall "
-                f"eager {c['wall_ms']['eager']:.3f} ms, graphed "
+                f"graphs: vocoder {c['kind']} (B, S) = ({c['B']}, {c['S']}) "
+                f"through DecodeGraphs, {c['path']}: equal to eager bit for "
+                f"bit {c['bitwise']}; wall "
+                f"eager {c['wall_ms']['eager']:.3f} ms, through DecodeGraphs "
                 f"{c['wall_ms']['graphed']:.3f} ms (first use "
                 f"{c['first_use_ms']:.1f} ms); counted launches "
                 f"{c['launches']['graphed']} (eager the same)"
                 + prof(c, "window") + f"; {card}")
         lines.append(f"graphs: vocoder programs ({w['turns']} turns, "
-                     f"{w['wait_s']:.3f} s waiting for a turn): "
+                     f"{w['wait_s']:.3f} s waiting for a turn; "
+                     f"{w['eager_calls']} eager calls past B x S = "
+                     f"{w['bound']} latents): "
                      f"{captures(w['programs'])}; {card}")
     for what in ("static_goldens", "continuous_goldens"):
         lines.append(f"graphs: {g[what]['requests']} goldens requests emit "
@@ -3771,6 +3808,80 @@ def logged_windows(bicodec):
         bicodec.decode_host = real
 
 
+@contextlib.contextmanager
+def host_probe(torch, eng, device: str):
+    """Where the continuous engine ``eng``'s admission spends its host time
+    within the block: admission's wall and its thread's CPU seconds
+    (``time.thread_time``: a thread that waits for the GIL, a lock or the
+    card's driver uses none), its own and the prefill's ``to_card`` calls
+    split into the pinned staging and the copy, Python's cyclic collector
+    (collections and seconds by generation; every thread stops while it
+    runs), and on a card the caching allocator's retries and device
+    frees (each a wait for the whole card) and the live threads at the
+    start. Yields the dict it fills."""
+    import threading
+
+    from rwkv_tts_tpu_torch.runtime import continuous as CT
+    from rwkv_tts_tpu_torch.runtime import engine as E
+
+    out = {"admit_wall_s": 0.0, "admit_cpu_s": 0.0, "calls": 0,
+           "pin_s": 0.0, "to_s": 0.0, "gc": {}, "threads": sorted(
+               t.name for t in threading.enumerate()
+               if t is not threading.main_thread())}
+    reals = {m: m.to_card for m in (CT, E)}
+    admit = eng._admit
+
+    def to_card(host, dev):
+        dev = torch.device(dev)
+        if dev.type != "cuda":
+            return host.to(dev)
+        t0 = time.perf_counter()
+        pinned = host.pin_memory()
+        t1 = time.perf_counter()
+        got = pinned.to(dev, non_blocking=True)
+        out["pin_s"] += t1 - t0
+        out["to_s"] += time.perf_counter() - t1
+        out["calls"] += 1
+        return got
+
+    def timed_admit():
+        w, c = time.perf_counter(), time.thread_time()
+        try:
+            admit()
+        finally:
+            out["admit_wall_s"] += time.perf_counter() - w
+            out["admit_cpu_s"] += time.thread_time() - c
+
+    started = {}
+
+    def on_gc(phase, info):
+        if phase == "start":
+            started[threading.get_ident()] = time.perf_counter()
+        elif threading.get_ident() in started:
+            n, sec = out["gc"].get(info["generation"], (0, 0.0))
+            out["gc"][info["generation"]] = (n + 1, sec + time.perf_counter()
+                                             - started.pop(
+                                                 threading.get_ident()))
+
+    keys = ("num_alloc_retries", "num_device_free", "num_sync_all_streams")
+    before = (torch.cuda.memory_stats() if device == "cuda" else {})
+    out["reserved_mib"] = (torch.cuda.memory_reserved() / 2**20
+                           if device == "cuda" else 0.0)
+    for m in reals:
+        m.to_card = to_card
+    eng._admit = timed_admit
+    gc.callbacks.append(on_gc)
+    try:
+        yield out
+    finally:
+        gc.callbacks.remove(on_gc)
+        del eng._admit
+        for m, real in reals.items():
+            m.to_card = real
+        after = (torch.cuda.memory_stats() if device == "cuda" else {})
+        out["cuda"] = {k: after.get(k, 0) - before.get(k, 0) for k in keys}
+
+
 def exact_mode_chain(torch, bicodec, C1, StreamingVocoder, params, cfg, g,
                      sem):
     """Where an exact-mode stream and the one-shot decode of the same tokens
@@ -4248,7 +4359,8 @@ def streaming(torch, lm_cfg, bc_cfg, device: str, engine_cfg=None,
         t0 = time.perf_counter()
         threads = [threading.Thread(target=consume, args=(i,))
                    for i in range(len(requests))]
-        with logged_windows(bicodec) as window_log:
+        with logged_windows(bicodec) as window_log, \
+                host_probe(torch, eng, device) as probe:
             for t in threads:
                 t.start()
             for t in threads:
@@ -4457,7 +4569,7 @@ def streaming(torch, lm_cfg, bc_cfg, device: str, engine_cfg=None,
         goldens = continuous_goldens(device, goldens_root)["requests"]
 
     return {"runs": runs, "launches": launches, "stats": stats,
-            "hist": hist,
+            "hist": hist, "probe": probe,
             "wall_s": wall_s, "init_s": init_s, "windows": n_windows,
             "buckets": bucket_set, "exact": exact, "same": same,
             "agree": agree, "solo": solo, "block": profiled,
@@ -4897,26 +5009,30 @@ def card_memory(torch, pool=None):
 
 def vocoder_memory(torch, np, bicodec, pipe, reserved):
     """What the pipeline's vocoder programs keep reserved on the card after
-    the longest detokenize bucket's decode at B = 1 (``vocode`` decodes a
-    request alone; ~2000 semantic tokens reach that bucket) and at B = 8,
-    graphed, against the same B = 8 decode eager, whose memory goes back to
-    the caching allocator: ``reserved()`` readings (``pool``: the vocoder
-    programs' own) and each decode's wall ms, a graphed one's first use
-    (its capture) included."""
+    the longest detokenize bucket's decode through its ``DecodeGraphs`` at
+    B = 1 (``vocode`` decodes a request alone; ~2000 semantic tokens reach
+    that bucket: a program, within ``DECODE_GRAPH_MAX_LATENTS``) and at
+    B = 8 (past the bound: eager), against the same B = 8 decode eager
+    without it, whose memory goes back to the caching allocator:
+    ``reserved()`` readings (``pool``: the vocoder programs' own), each
+    decode's wall ms (a captured one's first use included) and the eager
+    calls ``DecodeGraphs`` counted."""
     cfg, dg = pipe.bicodec_cfg, pipe.decode_graphs
     S = bicodec.DETOKENIZE_BUCKETS[-1] - bicodec.receptive_latents(cfg)
     rng = np.random.default_rng(SEED + 8)
     out = {"after_requests": reserved(dg), "semantic_tokens": S}
+    eager0 = dg.eager_calls
     for B, graphs in ((1, dg), (8, dg), (8, None)):
         g = rng.integers(0, 4096, (B, 32))
         sem = rng.integers(0, 8192, (B, S))
         t0 = time.perf_counter()
         bicodec.detokenize(pipe.bicodec_params, g, sem, cfg, graphs=graphs)
         ms = (time.perf_counter() - t0) * 1e3
-        key = f"{'graphed' if graphs is not None else 'eager'}_b{B}"
+        key = f"{'via_graphs' if graphs is not None else 'eager'}_b{B}"
         out[key] = reserved(dg)
         out[key + "_ms"] = ms
     out["programs"] = len(dg.cache.programs)
+    out["eager_calls"] = dg.eager_calls - eager0
     return out
 
 
@@ -5169,6 +5285,7 @@ class LogRecords:
 
 
 CHECKPOINT_TEXT = "The server loads its model from files on disk."
+VALIDATOR_TOKENS = 16   # the validator's --max-tokens in the phase
 
 
 def tree_to(tree, device):
@@ -5181,7 +5298,8 @@ def tree_to(tree, device):
 
 
 def checkpoint(torch, lm_cfg, bc_cfg, w2v_cfg, device: str,
-               max_tokens: int = 32, w2v_layers=None):
+               max_tokens: int = 32, w2v_layers=None,
+               validator_tokens: int = VALIDATOR_TOKENS):
     """The ``checkpoint`` phase on ``device``: model files written into a
     temporary directory (the seeded LM of the main path as
     webrwkv.safetensors in BlinkDL's names, a seeded BiCodec as a state
@@ -5192,9 +5310,12 @@ def checkpoint(torch, lm_cfg, bc_cfg, w2v_cfg, device: str,
     parameters bit for bit, the codec resolution and cross-validation, the
     transpiled wav2vec2 against the in-memory extractor, requests over
     HTTP, and one vocoder window through the BiCodec graph against the
-    native decode. ``w2v_layers`` is the layer mix baked into the export
-    (the published (11, 14, 16) by default); the loader serves the graph.
-    Returns a summary."""
+    native decode. Then the server is closed and ``published_layout``
+    runs the port's first-contact validator on the published file layout
+    (at most ``validator_tokens`` semantic tokens a request).
+    ``w2v_layers`` is the layer mix baked into the export (the published
+    (11, 14, 16) by default); the loader serves the graph. Returns a
+    summary."""
     import base64
     import shutil
     import tempfile
@@ -5426,10 +5547,33 @@ def checkpoint(torch, lm_cfg, bc_cfg, w2v_cfg, device: str,
             fail(f"checkpoint: the BiCodec graph's window differs from the "
                  f"native decode by {out['window']['max_abs']:.3g} "
                  f"(tolerance 5e-3, the load gate's)")
+        dgr = pipe.decode_graphs
+        if dgr is not None:
+            g_np, s_np = g.cpu().numpy(), s.cpu().numpy()
+            out["window"]["native_graphed_ms"] = cuda_ms(
+                torch, lambda: dgr.decode(g_np, s_np), 3, 1)
+            del dgr
         with torch.no_grad():
             ref_wav = torch_bc.detokenize(s.cpu(), g.cpu())
         out["window"]["torch_max_abs"] = float(
             (w_onnx.cpu() - ref_wav.reshape(w_onnx.shape)).abs().max())
+
+        # 7. the published layout: the server gone, the five published
+        # files behind a file:// mirror, fetched and validated end to end
+        for srv, app in servers:
+            srv.shutdown()
+            srv.server_close()
+            app.close()
+        servers.clear()
+        del srv, app, pipe, native, graphs, w_onnx, w_nat
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out["published"] = published_layout(torch, model_dir, tmp, device,
+                                            max_tokens=validator_tokens)
+        times["published layout, fetched and validated"] = \
+            time.perf_counter() - t0
     finally:
         for srv, app in servers:
             srv.shutdown()
@@ -5441,13 +5585,123 @@ def checkpoint(torch, lm_cfg, bc_cfg, w2v_cfg, device: str,
     return out
 
 
+def file_digest(path: str) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for block in iter(lambda: f.read(1 << 24), b""):
+            h.update(block)
+    return h.hexdigest()
+
+
+def published_layout(torch, model_dir: str, tmp: str, device: str,
+                     max_tokens: int = VALIDATOR_TOKENS):
+    """The five published files (``utils/download.MODEL_FILES``: the LM,
+    the repo's tokenizer.json, the two BiCodec exports and the wav2vec2
+    export; no BiCodec state dict) linked under ``<tmp>/hub/<repo>/resolve/
+    main/``, then the port's first-contact validator
+    (``tools/validate_real_assets.main``) on ``device`` with ``HF_ENDPOINT``
+    that ``file://`` mirror and the public mirrors patched out, on an empty
+    model directory, at ``--quant-type int8`` and ``--max-tokens
+    max_tokens``, on a copy of the shipped voices. Fails unless it exits 0
+    with ALL STAGES PASSED, the five files were fetched from the mirror
+    alone and equal it byte for byte, both codecs were served by their
+    exported graphs, and (on a card) ``wkv7_decode`` and ``wkv7_prefill``
+    launched. Returns the stages' readings, seconds and launches."""
+    import io
+    import shutil
+
+    from rwkv_tts_tpu_torch.tools import validate_real_assets as V
+    from rwkv_tts_tpu_torch.utils import download
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    hub = os.path.join(tmp, "hub")
+    mirror = os.path.join(hub, download.HF_REPO, "resolve", "main")
+    os.makedirs(mirror)
+    for f in download.MODEL_FILES:
+        src = (os.path.join(root, "assets", "model", f)
+               if f == "tokenizer.json" else os.path.join(model_dir, f))
+        os.symlink(os.path.abspath(src), os.path.join(mirror, f))
+    fetched = os.path.join(tmp, "published")
+    raf = os.path.join(tmp, "published_raf")
+    shutil.copytree(os.path.join(root, "assets", "raf"), raf)
+    report_dir = os.path.join(tmp, "validate_out")
+    endpoint = "file://" + hub
+    saved = download.MIRRORS, os.environ.get("HF_ENDPOINT")
+    download.MIRRORS = ()
+    os.environ["HF_ENDPOINT"] = endpoint
+    text = io.StringIO()
+    try:
+        if download.endpoints() != [endpoint]:
+            fail(f"checkpoint: endpoints {download.endpoints()}, not the "
+                 f"mirror alone")
+        reset_launch_counts()
+        with LogRecords() as logs, contextlib.redirect_stdout(text):
+            rc = V.main(["--model-dir", fetched, "--raf-dir", raf,
+                         "--out", report_dir, "--quant-type", "int8",
+                         "--max-tokens", str(max_tokens)], device=device)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        launches = launch_counts()
+    finally:
+        download.MIRRORS = saved[0]
+        if saved[1] is None:
+            os.environ.pop("HF_ENDPOINT", None)
+        else:
+            os.environ["HF_ENDPOINT"] = saved[1]
+    lines = text.getvalue().splitlines()
+    for line in lines:
+        print(f"checkpoint: validator| {line}", flush=True)
+    with open(os.path.join(report_dir, "report.json")) as f:
+        report = json.load(f)
+    with open(os.path.join(report_dir, "stage_seconds.json")) as f:
+        seconds = json.load(f)
+    if rc != 0 or not lines or not lines[-1].startswith("ALL STAGES PASSED"):
+        fail(f"checkpoint: the validator exited {rc}: "
+             f"{lines[-1] if lines else 'no output'}")
+    sources = [r.args for r in logs.records
+               if r.msg.startswith("downloading %s from %s")]
+    if sorted(a[0] for a in sources) != sorted(download.MODEL_FILES) or \
+            any(a[1] != endpoint for a in sources):
+        fail(f"checkpoint: the validator fetched {sources}, not the five "
+             f"files from {endpoint} alone")
+    digests = {}
+    for f in download.MODEL_FILES:
+        a, b = os.path.join(mirror, f), os.path.join(fetched, f)
+        if os.path.islink(b) or os.path.getsize(a) != os.path.getsize(b):
+            fail(f"checkpoint: {f} fetched as {os.path.getsize(b)} bytes, "
+                 f"the mirror's {os.path.getsize(a)}")
+        digests[f] = file_digest(a)
+        if file_digest(b) != digests[f]:
+            fail(f"checkpoint: {f} fetched differs from the mirror's bytes")
+    served = {"bicodec_onnx": logs.args_of("BiCodec: ONNX graphs") is not None
+              and logs.args_of("BiCodec: native import") is None,
+              "wav2vec2_onnx": logs.args_of("wav2vec2: ONNX graph")
+              is not None}
+    if not all(served.values()):
+        fail(f"checkpoint: the validator's codecs were not served by their "
+             f"exported graphs: {served}")
+    if device == "cuda":
+        zero = [k for k in ("wkv7_decode", "wkv7_prefill") if not launches[k]]
+        if zero:
+            fail(f"checkpoint: kernels not launched by the validator: "
+                 f"{zero} ({launches})")
+    return {"report": report, "seconds": seconds, "launches": launches,
+            "served": served, "fetched_bytes": {
+                f: os.path.getsize(os.path.join(fetched, f))
+                for f in download.MODEL_FILES},
+            "sha256": {f: d[:16] for f, d in digests.items()},
+            "max_tokens": max_tokens}
+
+
 def checkpoint_lines(ck, lm_cfg, card: str):
     """The ``checkpoint`` phase's report lines from its summary."""
     def ms(x):
         return "not measured" if x is None else f"{x:.2f} ms"
 
     p, w, s = ck["parity"], ck["window"], ck["stream"]
-    return [
+    lines = [
         f"checkpoint: model files written ({lm_cfg.n_layer} layers x "
         f"{lm_cfg.n_embd}, V = {lm_cfg.vocab_size}; BiCodec state dict and 2 "
         f"exports; wav2vec2 export only), bytes {ck['file_bytes']}; the "
@@ -5473,9 +5727,42 @@ def checkpoint_lines(ck, lm_cfg, card: str):
         f"launches {ck['launches']}; {card}",
         f"checkpoint: one {w['latents']}-latent window ({w['samples']} "
         f"samples) through the BiCodecDetokenize graph: {ms(w['onnx_ms'])}, "
-        f"native decode {ms(w['native_ms'])}, max abs diff "
+        f"native decode {ms(w['native_ms'])} eager, "
+        f"{ms(w.get('native_graphed_ms'))} graphed, max abs diff "
         f"{w['max_abs']:.3g} (tolerance 5e-3); the graph against the torch "
         f"reference module on the CPU {w['torch_max_abs']:.3g}; {card}"]
+    pub = ck["published"]
+    r = validator_readings(pub)
+    lines += [
+        f"checkpoint: published layout: the five files of "
+        f"utils/download.MODEL_FILES (no BiCodec state dict) fetched by the "
+        f"port's downloader from a file:// mirror alone into an empty "
+        f"directory, equal to the mirror's bytes (sizes "
+        f"{pub['fetched_bytes']}, sha256 prefixes {pub['sha256']}); codecs "
+        f"served by their exported graphs {pub['served']}; the validator at "
+        f"--quant-type int8 --max-tokens {pub['max_tokens']}, stages (ok, "
+        f"s) {r['stages']}; launches "
+        f"{ {k: v for k, v in pub['launches'].items() if v} }; {card}",
+        f"checkpoint: validator readings: pipeline_load {r['load_s']} s, "
+        f"normal_synth RTF {r['rtf']}, cached-speaker token overlap "
+        f"{r['overlap']} and log-mel L1 {r['logmel_l1']}, continuous "
+        f"replay mismatched seeds {r['mismatched_seeds']}, streaming "
+        f"max abs deviation by mode {r['max_abs_dev']}; {card}"]
+    return lines
+
+
+def validator_readings(pub):
+    """The summary's readings of ``published_layout``: each stage's ok and
+    wall seconds, and the stages' key numbers."""
+    rep, sec = pub["report"], pub["seconds"]
+    return {"stages": {k: [v["ok"], round(sec[k], 3)]
+                       for k, v in rep.items()},
+            "load_s": rep["pipeline_load"]["seconds"],
+            "rtf": rep["normal_synth"]["rtf"],
+            "overlap": rep["cached_speaker_ab"]["speaker_token_overlap"],
+            "logmel_l1": rep["cached_speaker_ab"]["logmel_l1"],
+            "mismatched_seeds": rep["continuous_replay"]["mismatched_seeds"],
+            "max_abs_dev": rep["streaming_replay"]["max_abs_dev"]}
 
 
 # every function of the JAX package that reaches pl.pallas_call (the
@@ -5944,6 +6231,16 @@ def main(argv=None) -> None:
                   f"{k}: n {n}, mean {1e3 * tot / max(n, 1):.1f} ms, bucket "
                   f"counts {counts}" for k, (n, tot, counts)
                   in st["hist"].items()) + f"; {card}", flush=True)
+        pr = st["probe"]
+        print(f"streaming: admission's host time over the 8 staggered "
+              f"requests (host_probe): wall {pr['admit_wall_s']:.4f} s, its "
+              f"thread's CPU {pr['admit_cpu_s']:.4f} s; {pr['calls']} "
+              f"to_card calls (its own and the prefill's): pinned staging "
+              f"{pr['pin_s']:.4f} s, copy {pr['to_s']:.4f} s; cyclic "
+              f"collector by generation (collections, s) {pr['gc']}; "
+              f"allocator {pr['cuda']}, reserved at the start "
+              f"{pr['reserved_mib']:.0f} MiB; threads alive at the start "
+              f"{pr['threads']}; {card}", flush=True)
         if st["turns"] is not None:
             print(f"streaming: the 8 streams took {st['turns'][0]} turns at "
                   f"the shared vocoder graphs, {st['turns'][1]:.3f} s of "
@@ -6011,7 +6308,15 @@ def main(argv=None) -> None:
              vocoder_turns=st["turns"],
              burst_same=wit["burst"]["same"],
              staggered_same=wit["staggered"]["same"],
-             goldens=st["goldens"], block_busy_ms=st["block"][1])
+             goldens=st["goldens"], block_busy_ms=st["block"][1],
+             prefill_s=st["stats"]["prefill_s"],
+             copy_s=st["stats"]["copy_s"],
+             admitted=st["stats"]["admitted"],
+             admit_s=st["stats"]["admit_s"],
+             dispatch_s=st["stats"]["dispatch_s"],
+             admit_cpu_s=st["probe"]["admit_cpu_s"],
+             gc_s=sum(sec for _, sec in st["probe"]["gc"].values()),
+             alloc_retries=st["probe"]["cuda"]["num_alloc_retries"])
         del st
         torch.cuda.empty_cache()
 
@@ -6044,9 +6349,11 @@ def main(argv=None) -> None:
               f"programs' pool), at: the phase's start, the cold server "
               f"closed, the measured pipeline loaded, warmed, after its "
               f"requests, after a detokenize of {mem.get('semantic_tokens')}"
-              f" semantic tokens (the 2048-latent bucket) graphed at B = 1 "
-              f"and 8 and eager at B = 8 (*_ms: that decode's wall ms, a "
-              f"capture included): {mem}; {card}", flush=True)
+              f" semantic tokens (the 2048-latent bucket) through the "
+              f"pipeline's DecodeGraphs at B = 1 (a program) and B = 8 (past "
+              f"its bound, eager: eager_calls) and without it at B = 8 "
+              f"(*_ms: that decode's wall ms, a capture included): {mem}; "
+              f"{card}", flush=True)
         for r in sv["requests"]:
             print(f"server: /api/tts {r['what']}: {r['status']}, "
                   f"{r['samples']} samples, wall {r['wall_ms']:.1f} ms, RTF "
@@ -6074,8 +6381,13 @@ def main(argv=None) -> None:
              cold_rtf=[r["rtf"] for r in sv["cold"]["requests"]],
              first_line_ms=[r["first_line_ms"] for r in sv["streams"]],
              vocoder_pool_mib={k: round(sv["memory"][k]["pool"] / 2**20)
-                               for k in ("warmed", "graphed_b1",
-                                         "graphed_b8", "eager_b8")})
+                               for k in ("warmed", "via_graphs_b1",
+                                         "via_graphs_b8", "eager_b8")},
+             reserved_mib={k: round(sv["memory"][k]["total"] / 2**20)
+                           for k in ("via_graphs_b1", "via_graphs_b8")},
+             detok_b8_ms=[sv["memory"]["via_graphs_b8_ms"],
+                          sv["memory"]["eager_b8_ms"]],
+             vocoder_eager_calls=sv["memory"]["eager_calls"])
 
     if "checkpoint" in selected:
         torch.cuda.empty_cache()
@@ -6083,8 +6395,14 @@ def main(argv=None) -> None:
         for line in checkpoint_lines(ck, lm_cfg, card):
             print(line, flush=True)
         paths["checkpoint"] = ck["launches"]
-        note("checkpoint", times_s=ck["times_s"],
-             lm_equal=ck["lm_equal"], rtf=[r["rtf"] for r in ck["requests"]])
+        paths["checkpoint_published"] = ck["published"]["launches"]
+        t = ck["times_s"]
+        note("checkpoint",
+             files_s=sum(v for k, v in t.items() if k.startswith("write")),
+             start_s=t["build_pipeline_from_args"],
+             published_s=t["published layout, fetched and validated"],
+             lm_equal=ck["lm_equal"], rtf=[r["rtf"] for r in ck["requests"]],
+             validator=validator_readings(ck["published"]))
 
     # each kernel's timings at every shape it was timed at, on a line of
     # their own: the kernels line keeps each entry's figure at its path's

@@ -49,6 +49,7 @@ streaming vocoder take it in place of a parameter tree. ``ecapa_embedding``
 
 from __future__ import annotations
 
+import threading
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -60,11 +61,18 @@ from ..ops.conv1d import PackedWeight, pack_weight
 from ..ops.conv1d import conv1d as conv1d_kernel
 from ..ops.conv1d import snake as snake_f32
 from ..runtime import graphs
-from ..utils.device import resolve_device
+from ..utils.device import resolve_device, to_card
 
 Params = Dict[str, Any]
 
 DETOKENIZE_BUCKETS = (64, 128, 256, 512, 1024, 2048)
+# the largest B · S (latents in a call) that DecodeGraphs captures: B = 1
+# up to the 2048 bucket (vocode, the streams' windows), B = 8 up to 256.
+# A program's pool holds what its decode needed for the pipeline's life;
+# past this the memory costs more than the replay saves (PERF.md §6: B = 8
+# at 2048 latents pinned ~10 GiB for ~1% of its wall), so larger
+# calls decode eagerly, their memory back to the caching allocator after
+DECODE_GRAPH_MAX_LATENTS = 2048
 
 
 # --------------------------------------------------------------------------
@@ -735,13 +743,18 @@ class DecodeGraphs:
     device copy of the waveform, and the caller reads that copy back after
     the turn. The programs' pool stays reserved while the owner keeps them,
     unlike eager memory, which goes back to the caching allocator; the
-    largest shapes hold the most (``cache.clear()`` returns it)."""
+    largest shapes hold the most (``cache.clear()`` returns it), so a call
+    of more than ``DECODE_GRAPH_MAX_LATENTS`` latents (B · S) runs
+    ``decode`` eagerly on the card, through the same kernels, and adds one
+    to ``eager_calls``."""
 
     def __init__(self, params: Params, cfg: BiCodecConfig, device):
         self.params, self.cfg = params, cfg
         self.device = torch.device(device)
         self.cache = graphs.GraphCache(self.device)
         self.sets: Dict[Tuple[int, int], Dict[str, torch.Tensor]] = {}
+        self.eager_calls = 0
+        self._count_lock = threading.Lock()    # the streams share the count
 
     def _buffers(self, B: int, S: int) -> Dict[str, torch.Tensor]:
         bufs = self.sets.get((B, S))
@@ -764,8 +777,15 @@ class DecodeGraphs:
                semantic_tokens: np.ndarray) -> torch.Tensor:
         """Host tokens (int64 [B, 32], [B, S], checked in range) → a device
         copy of the waveform [B, S·hop] f32."""
-        g = torch.from_numpy(global_tokens).to(self.device)
-        s = torch.from_numpy(semantic_tokens).to(self.device)
+        # pinned and non-blocking: the host does not wait for the work
+        # already on the stream (a decode block, another window)
+        g = to_card(torch.from_numpy(global_tokens), self.device)
+        s = to_card(torch.from_numpy(semantic_tokens), self.device)
+        if s.numel() > DECODE_GRAPH_MAX_LATENTS:
+            # eager, outside the turn: no program buffer is touched
+            with self._count_lock:
+                self.eager_calls += 1
+            return decode_body(self.params, g, s, self.cfg)
         with self.cache.exclusive():
             bufs = self._buffers(*s.shape)
             bufs["g"].copy_(g)

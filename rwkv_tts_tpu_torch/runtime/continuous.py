@@ -78,7 +78,7 @@ from .. import constants as C
 from ..config import EngineConfig, RwkvConfig, TtsArgs
 from ..models import rwkv7
 from ..utils import threefry
-from ..utils.device import resolve_device
+from ..utils.device import resolve_device, to_card
 from ..utils.metrics import STAGE_BUCKETS, Histogram
 from . import graphs
 from .engine import (SEMANTIC_SLICE, GenerationResult, PrefillGraphs,
@@ -359,10 +359,11 @@ class BlockGraphs:
 
 def _idle_slots(slots, idx):
     """``slots`` with the slots ``idx`` idled (new stage and limit
-    tensors)."""
-    stage, limit = slots["stage"].clone(), slots["limit"].clone()
-    stage[idx] = IDLE
-    limit[idx] = 0
+    tensors). Constants go in with ``index_fill_``: ``t[idx] = scalar`` on a
+    card makes the scalar a host tensor and copies it from pageable
+    memory, which waits for the work queued on the stream."""
+    stage = slots["stage"].clone().index_fill_(0, idx, IDLE)
+    limit = slots["limit"].clone().index_fill_(0, idx, 0)
     return dict(slots, stage=stage, limit=limit)
 
 
@@ -382,12 +383,13 @@ def _relocate(state, logits, slots, src, dst):
 
 
 def _take(x: torch.Tensor, rows: List[int], dim: int) -> torch.Tensor:
-    """``x``'s entries ``rows`` along ``dim``; all of them in order is
-    ``x`` itself (no copy)."""
-    if rows == list(range(x.shape[dim])):
-        return x
-    return x.index_select(dim, torch.tensor(rows, dtype=torch.int64,
-                                            device=x.device))
+    """``x``'s entries ``rows`` along ``dim``; a prefix in order is a view
+    of ``x`` (no copy, no index sent to the card), other rows an
+    ``index_select``."""
+    if rows == list(range(len(rows))):
+        return x.narrow(dim, 0, len(rows))
+    return x.index_select(dim, to_card(
+        torch.tensor(rows, dtype=torch.int64), x.device))
 
 
 def _insert_burst(state, logits, new_state, new_logits, idx):
@@ -409,7 +411,8 @@ def _admit_update(slots, idx, stage, limit, hard_min, zs, gkeys, skeys):
                  ("nwin", zero), ("zs", zs), ("gkey", gkeys),
                  ("skey", skeys)):
         out[k][idx] = v
-    out["win"][idx] = False
+    # not ``out["win"][idx] = False``: see ``_idle_slots``
+    out["win"].index_fill_(0, idx, False)
     return out
 
 
@@ -491,10 +494,11 @@ class ContinuousEngine:
         # where each block's wall clock goes on the host: ``dispatch_s``
         # enqueues a block (eager: every launch of its K steps; graphed:
         # K + 1 replays), ``process_s`` waits for the previous block's readback and
-        # routes its tokens
+        # routes its tokens; of ``admit_s``, ``prefill_s`` runs the burst's
+        # prefill and ``copy_s`` copies the slot fields to the card
         self.stats = {"blocks": 0, "dispatch_s": 0.0, "process_s": 0.0,
                       "admit_s": 0.0, "admitted": 0, "relocations": 0,
-                      "compact_s": 0.0, "prefill_s": 0.0}
+                      "compact_s": 0.0, "prefill_s": 0.0, "copy_s": 0.0}
         # per-request serving stages: queue_wait = submit → admission,
         # first_emit = admission → first semantic token on the host
         # (prefill, the global stage, the first decode blocks and the
@@ -633,8 +637,8 @@ class ContinuousEngine:
         """Idle the slots ``slot_ids`` (the cancel path)."""
         for d, (_, local) in self._by_row(slot_ids).items():
             _, _, logits, slots, _ = self._row(d)
-            self._set_row(d, logits, _idle_slots(slots, torch.tensor(
-                local, dtype=torch.int64, device=logits.device)))
+            self._set_row(d, logits, _idle_slots(slots, to_card(
+                torch.tensor(local, dtype=torch.int64), logits.device)))
 
     # -- public API -----------------------------------------------------
 
@@ -905,29 +909,32 @@ class ContinuousEngine:
             skeys.append(threefry.raw_key(seed + C.SEMANTIC_SEED_OFFSET))
 
         self.stats["admitted"] += m
-        gwords = threefry.as_words(np.stack(gkeys))
-        swords = threefry.as_words(np.stack(skeys))
+        # the slot fields by burst entry: stage, limit, hard_min, zs, then
+        # the global and semantic keys' threefry words
+        fields = np.concatenate(
+            [np.array([stages, limits, hmins, zss], dtype=np.int64),
+             np.stack(gkeys).T.astype(np.int64),
+             np.stack(skeys).T.astype(np.int64)])
         burst = self._burst_state(stb)
         # one scatter per tensor and data row: burst entries js land at the
         # row's local slots
         for d, (js, local) in self._by_row(slot_ids).items():
             _, _, logits, slots, _ = self._row(d)
             dev = logits.device
-
-            def on(values, dtype=torch.int64, js=js, dev=dev):
-                return torch.tensor([values[j] for j in js], dtype=dtype,
-                                    device=dev)
-
-            idx = torch.tensor(local, dtype=torch.int64, device=dev)
+            # the row's slots and fields as one host matrix, one copy
+            t1 = time.perf_counter()
+            host = np.concatenate([np.array([local], dtype=np.int64),
+                                   fields[:, js]])
+            p = to_card(torch.from_numpy(host), dev)
+            self.stats["copy_s"] += time.perf_counter() - t1
+            idx = p[0]
             row_state = self._row_state(d)
             new = {k: _take(v, js, 1).to(row_state[k].device)
                    for k, v in burst.items()}
             row_state, logits = _insert_burst(
                 row_state, logits, new, _take(lgb, js, 0).to(dev), idx)
-            slots = _admit_update(
-                slots, idx, on(stages), on(limits), on(hmins),
-                on(zss, torch.bool), _take(gwords, js, 0).to(dev),
-                _take(swords, js, 0).to(dev))
+            slots = _admit_update(slots, idx, p[1], p[2], p[3], p[4].bool(),
+                                  p[5:7].T, p[7:9].T)
             self._set_row(d, logits, slots)
 
         for j, (slot, (args, result_cb, chunk_cb, t_sub, _)) in enumerate(

@@ -47,7 +47,7 @@ from ..tokenizer import load_tokenizer
 from ..tokenizer.properties import convert_standard_properties_to_tokens
 from ..tokenizer.rwkv_tokenizer import CachedEncoder
 from ..utils import threefry
-from ..utils.device import resolve_device
+from ..utils.device import resolve_device, to_card
 from . import graphs
 
 # both sampling domains are prefixes of the unified vocab, so the decode
@@ -457,9 +457,10 @@ class PrefillGraphs:
         """``chunks`` (``prefill_chunks``) from ``state`` replayed; returns
         copies of (logits [B, V], state)."""
         B = chunks[0][0].shape[0]
-        # the host-to-card copies before the turn: they wait on the stream
-        dev_chunks = [(torch.from_numpy(t).to(self.device),
-                       torch.from_numpy(n).to(self.device))
+        # the host-to-card copies before the turn, from pinned memory: the
+        # host does not wait for the work already on the stream
+        dev_chunks = [(to_card(torch.from_numpy(t), self.device),
+                       to_card(torch.from_numpy(n), self.device))
                       for t, n in chunks]
         with self.cache.exclusive():
             for j, (tok, lengths) in enumerate(dev_chunks):
@@ -630,8 +631,8 @@ class TtsEngine:
             return prefill_graphs.run(chunks, state)
         logits = None
         for tok_mat, lengths in chunks:
-            lengths_t = torch.from_numpy(lengths).to(self.device)
-            tok_t = torch.from_numpy(tok_mat).to(self.device)
+            lengths_t = to_card(torch.from_numpy(lengths), self.device)
+            tok_t = to_card(torch.from_numpy(tok_mat), self.device)
             if self.tp_mesh is not None:
                 from ..parallel import tp as tplib
                 new_logits, state = tplib.forward_tp(

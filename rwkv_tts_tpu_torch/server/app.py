@@ -44,7 +44,10 @@ the CUDA card, and raises when there is none, unless
 checkpoint (webrwkv.safetensors, a prefab, or a directory holding
 rwkvtts-Int8_22.safetensors or webrwkv.safetensors) and the codecs come from
 its directory; without a checkpoint on disk it serves random weights at
-the JAX package's dev widths. Nothing is downloaded.
+the JAX package's dev widths. At start-up the five published model files
+missing from that directory are downloaded (``utils/download.py``:
+``HF_ENDPOINT``, then the public mirrors), as the JAX server does, unless
+``--no-download`` is given.
 """
 
 from __future__ import annotations
@@ -897,12 +900,19 @@ def build_pipeline_from_args(args) -> TtsPipeline:
     ``TtsPipeline.from_checkpoints`` (``--quant-type``, ``--quant-layers``,
     ``--vocab-path``, ``--allow-random-codec``; the codecs from the same
     directory), and an unreadable one raises. Without a checkpoint on disk
-    it serves random weights (dev mode). The port never downloads
-    (``--no-download`` is accepted and changes nothing). ``--tp`` k > 1
+    it serves random weights (dev mode). First, unless ``--no-download``,
+    the five published model files missing from the checkpoint's directory
+    are downloaded (``utils/download.ensure_models``, soft: a file that
+    stays missing is logged), as the JAX server does. ``--tp`` k > 1
     builds a (data, model = k) mesh over the visible devices
     (``parallel/mesh.visible_devices``: every card) and exits when k does
     not divide them, as the JAX server does: one card alone cannot serve
     ``--tp 2``."""
+    if not args.no_download:
+        from ..utils.download import ensure_models
+        ensure_models(os.path.dirname(args.model_path) or "assets/model")
+    else:
+        log.info("--no-download: skipping model verification/auto-download")
     engine_cfg = EngineConfig().with_token_chunk(args.token_chunk_size)
     device = device_from_env()
     tp_mesh = None
@@ -957,8 +967,7 @@ def parse_args(argv=None):
                         "chunks are delivered per block, so 8 pairs with "
                         "latency_mode=flash (12-token first sound)")
     p.add_argument("--no-download", action="store_true",
-                   help="accepted for the JAX server's command lines; the "
-                        "port never downloads")
+                   help="skip the HF model auto-download check")
     p.add_argument("--allow-random-codec", action="store_true",
                    help="serve with random codec weights when the real "
                         "BiCodec/wav2vec2 files are missing (dev only: "

@@ -1,4 +1,5 @@
-"""Device resolution shared by the port's entry points."""
+"""Device resolution shared by the port's entry points, and the
+host-to-card copy that does not wait for the card (``to_card``)."""
 
 from __future__ import annotations
 
@@ -28,3 +29,21 @@ def resolve_device(device=None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def to_card(host: torch.Tensor, device) -> torch.Tensor:
+    """``host`` copied to ``device`` without waiting for the card.
+
+    CUDA stages a copy from pageable host memory through a buffer of its
+    own, and first waits for the work already queued on the stream: a copy
+    made while a decode block runs holds the host until that block ends.
+    From page-locked ("pinned") memory the copy is queued like a kernel and
+    the host goes on, as the JAX engines' transfers do. The copy runs on
+    the current stream of ``device``, the stream that then consumes it;
+    PyTorch's pinned-memory cache records an event after it and does not
+    hand the buffer out again before that event. The values are the same
+    either way; to the CPU it is a plain ``Tensor.to``."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return host.to(device)
+    return host.pin_memory().to(device, non_blocking=True)

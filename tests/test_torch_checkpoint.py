@@ -182,7 +182,7 @@ def test_server_startup_trees_equal_jax(small_dir, tmp_path, monkeypatch,
         pipe = A.build_pipeline_from_args(A.parse_args([
             "--model-path", str(d), "--raf-dir", str(tmp_path),
             "--quant-type", quant, "--quant-layers", str(layers),
-            "--vocab-path", VOCAB]))
+            "--vocab-path", VOCAB, "--no-download"]))
         assert pipe.engine.tokenizer.encode("vocab") == \
             load_tokenizer(VOCAB).encode("vocab")
         want = jp if quant == "none" else JQ.quantize_rwkv_params(
@@ -268,7 +268,8 @@ def test_directory_rule_and_missing_codecs(model_dir, tmp_path, monkeypatch):
     shutil.copy(model_dir / "webrwkv.safetensors", d / "webrwkv.safetensors")
     write_safetensors(str(d / "rwkvtts-Int8_22.safetensors"),
                       make_rwkv7_checkpoint(L=1, V=77923))
-    argv = ["--model-path", str(d), "--raf-dir", str(tmp_path / "raf")]
+    argv = ["--model-path", str(d), "--raf-dir", str(tmp_path / "raf"),
+            "--no-download"]
     with pytest.raises(FileNotFoundError, match="noise, not speech"):
         A.build_pipeline_from_args(A.parse_args(argv))
     small = {"BiCodecConfig": lambda: BC_CFG,

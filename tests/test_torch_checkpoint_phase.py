@@ -92,7 +92,14 @@ def test_chip_smoke_checkpoint_phase_at_tiny_shapes(monkeypatch):
     assert out["healthz"]["n_layer"] == 2
     assert {"write LM", "LM read, map, to device", "quantize int8",
             "codec resolve in all"} <= set(out["times_s"])
+    # the published layout: fetched from the mirror, every stage passed
+    pub = out["published"]
+    assert all(v["ok"] for v in pub["report"].values()), pub["report"]
+    assert list(pub["seconds"]) == list(pub["report"])
+    assert pub["served"] == {"bicodec_onnx": True, "wav2vec2_onnx": True}
+    assert pub["report"]["continuous_replay"]["mismatched_seeds"] == []
+    assert "published layout, fetched and validated" in out["times_s"]
     lines = chip_smoke.checkpoint_lines(out, lm_cfg, "a card, 700 W")
-    assert len(lines) == 4 and all(ln.startswith("checkpoint: ")
+    assert len(lines) == 6 and all(ln.startswith("checkpoint: ")
                                    for ln in lines)
     print("\n".join(lines))

@@ -146,7 +146,8 @@ def test_server_without_a_card_or_the_cpu_knob_raises(tmp_path):
     env.pop("RWKV_TTS_PLATFORM", None)
     out = subprocess.run(
         [sys.executable, "-m", "rwkv_tts_tpu_torch.server.app", "--port",
-         "0", "--raf-dir", str(tmp_path / "raf")], cwd=tmp_path, env=env,
+         "0", "--raf-dir", str(tmp_path / "raf"), "--no-download"],
+        cwd=tmp_path, env=env,
         capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert "RWKV_TTS_PLATFORM=cpu" in out.stderr

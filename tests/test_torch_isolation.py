@@ -119,7 +119,8 @@ def test_entry_points_refuse_the_cpu_without_asking(no_card):
     from rwkv_tts_tpu_torch.server import app as server_app
     from rwkv_tts_tpu_torch.tools import (profile_prefill_pieces,
                                           profile_stack_kernel,
-                                          profile_step_pieces)
+                                          profile_step_pieces,
+                                          validate_real_assets)
     from rwkv_tts_tpu_torch.utils import bridge
 
     cfg = RwkvConfig(n_layer=1, n_embd=64, vocab_size=300,
@@ -160,6 +161,7 @@ def test_entry_points_refuse_the_cpu_without_asking(no_card):
                  lambda: profile_stack_kernel.main([]),
                  lambda: profile_step_pieces.main([]),
                  lambda: profile_prefill_pieces.main([]),
+                 lambda: validate_real_assets.main([]),
                  lambda: server_app.build_dev_pipeline(),
                  lambda: server_app.device_from_env(),
                  lambda: convert.load_rwkv7("absent.safetensors"),

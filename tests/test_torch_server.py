@@ -493,6 +493,10 @@ def test_tts_engine_modes_audio_identical(jax_weights, tmp_path):
 
 def test_build_pipeline_honors_flags(tmp_path, monkeypatch):
     monkeypatch.setenv("RWKV_TTS_PLATFORM", "cpu")
+    # the start-up download check, stubbed: nothing leaves the machine
+    calls = []
+    monkeypatch.setattr("rwkv_tts_tpu_torch.utils.download.ensure_models",
+                        lambda model_dir, **kw: calls.append(model_dir) or [])
 
     def ns(**kw):
         return P.parse_args(["--model-path",
@@ -501,6 +505,7 @@ def test_build_pipeline_honors_flags(tmp_path, monkeypatch):
                              "--token-chunk-size", "96"] + kw.pop("argv", []))
 
     pipe = P.build_pipeline_from_args(ns())
+    assert calls == [str(tmp_path)]          # the download check ran
     assert pipe.engine.engine_cfg.prefill_buckets[-1] == 96
     assert pipe.device.type == "cpu" and pipe.engine.cfg.n_embd == 256
     pipe = P.build_pipeline_from_args(ns(argv=["--no-download",
@@ -508,6 +513,7 @@ def test_build_pipeline_honors_flags(tmp_path, monkeypatch):
                                                "--cached-speaker"]))
     assert pipe.engine.engine_cfg.prefill_buckets == (40,)
     assert pipe.cached_speaker_default is True
+    assert calls == [str(tmp_path)]          # --no-download gates it
     # a checkpoint on disk that is neither safetensors nor a prefab raises
     # and does not fall back to random weights
     ckpt = tmp_path / "webrwkv.safetensors"

@@ -236,7 +236,8 @@ def serve_once(monkeypatch, tmp_path, tp: int):
                         lambda: EngineConfig(max_semantic_tokens=12))
     pipe = A.build_pipeline_from_args(A.parse_args([
         "--model-path", str(tmp_path / "absent.safetensors"),
-        "--raf-dir", str(tmp_path / "raf"), "--tp", str(tp)]))
+        "--raf-dir", str(tmp_path / "raf"), "--tp", str(tp),
+        "--no-download"]))
     app = A.create_app(pipe, BatchConfig(max_batch_size=4,
                                          collect_timeout_ms=5))
     srv = A.make_server(app, "127.0.0.1", 0)
@@ -290,4 +291,4 @@ def test_tp_that_does_not_divide_the_devices_exits(monkeypatch, tmp_path,
                                          f"{devices} visible devices"):
         A.build_pipeline_from_args(A.parse_args([
             "--model-path", str(tmp_path / "absent.safetensors"),
-            "--raf-dir", str(tmp_path), "--tp", str(tp)]))
+            "--raf-dir", str(tmp_path), "--tp", str(tp), "--no-download"]))
