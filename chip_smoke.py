@@ -9,7 +9,8 @@ Run from the root of a checkout on a machine with one CUDA card:
 Without ``--phases`` every phase runs and the last line is the ok line.
 With it, the build runs and then only the named phases (``PHASES``: kernels,
 quant_kernels, conv_kernels, rest_kernels, sweep, tools, goldens, graphs,
-parity, tp, main_path, cloning, quantized, streaming, server, checkpoint), and the
+parity, tp, main_path, cloning, quantized, streaming, server, soak,
+checkpoint), and the
 last line is ``{"partial": [...]}``: a partial run never prints the ok
 line, and the all-kernels check of the kernels line runs only in a whole
 run. An unknown name fails.
@@ -108,8 +109,14 @@ Phases, each fatal on failure:
              (``rwkv_tts_tpu_torch/tools``) at full width with few steps:
              ``profile_stack_kernel`` (B = 128 and 8, bf16 state),
              ``profile_step_pieces`` (B = 128 and 8) and
-             ``profile_prefill_pieces`` (B = 8, T = 64 and 256); their JSON
-             lines, and their launches as the ``tools`` path;
+             ``profile_prefill_pieces`` (B = 8, T = 64 and 256); then the
+             decode tools in the JAX serving layout (int8 weights, bf16
+             state) at B = 128: ``profile_buckets`` (slots 128, block 8,
+             cut from 32: eager and graphed block per occupancy bucket)
+             and ``profile_decode`` (batch 128, 16 steps, cut from 128:
+             the stage eager and graphed, the raw step, the WKV and the
+             weight products alone); their JSON lines, and their launches
+             as the ``tools`` path;
   goldens   the goldens model (2 layers × 128, weights rebuilt from the
              JAX package's seeded numpy stream) on the card must emit
              exactly the tokens of ``tests/goldens.json``;
@@ -251,6 +258,25 @@ Phases, each fatal on failure:
              ``/debug/trace`` after the requests; ``wkv7_decode``,
              ``wkv7_prefill``, ``conv1d`` and ``conv1d_prologue``
              launched, as the ``server`` path;
+  soak       the port's serving tools on the JAX serving layout
+             (``tools/soak_serving``, ``tools/probe_stream_latency``):
+             the soak tool's full configuration (32 × 2048 int8 weights
+             with a bf16 state, ``BiCodecConfig()``, the tool's 2-layer
+             wav2vec2, the shipped voices; its server's continuous engine
+             at 16 slots, bucket 8, block 16), a cold server, 6 clients
+             for 45 s (cut from 31 minutes), snapshots every 15 s (180),
+             at most 64 semantic tokens a request (256): soak_ok (no
+             error, ``/healthz`` 200, the slots drained, no crash), every
+             request kind completed and a stream abandoned; then the probe
+             against the drained app: a cold stream, 2 zero-load streams a
+             mode (cut from 3) and a burst of 6; the card's reserved MiB,
+             graph pools and captured programs at each snapshot and after
+             the drain; ``wkv7_decode`` and ``wkv7_prefill`` launched, as
+             the ``soak`` path; then a 16-slot block in that layout at
+             bucket 8 and at 16 slots graphed bit for bit its eager oracle
+             with the same launches a step, ``StageGraphs`` at batch 8 the
+             eager stages' tokens, rows 1 and 2 at the soak's shapes
+             against their plain versions;
   checkpoint  the port's server started on model files: in a temporary
              directory, the main path's seeded LM (32 × 2048, bf16
              matrices, f32 vectors, V = 77923) as webrwkv.safetensors in
@@ -1420,12 +1446,22 @@ def prefill_sweep(torch, W, H, N):
     return rows
 
 
+# the decode tools' depths in the tools phase: profile_buckets' block cut
+# from 32 to 8, profile_decode's steps from 128 to 16 (and their repeats)
+TOOLS_BUCKETS_ARGV = [str(TOOLS_BATCH), "8", "--iters", "1"]
+TOOLS_DECODE_ARGV = [str(TOOLS_BATCH), "16", "--iters", "1",
+                     "--profile-steps", "1"]
+
+
 def phase_tools(torch):
     """The three kernel-attribution tools on the card at their full-width
-    shapes, with few steps: their JSON lines, and the launches they made
+    shapes, with few steps, then the two decode tools in the JAX serving
+    layout (int8, bf16 state) at B = 128 (``TOOLS_BUCKETS_ARGV``,
+    ``TOOLS_DECODE_ARGV``): their JSON lines, and the launches they made
     (the ``tools`` path). Each entry that only this path reaches, and the
     in-place decode the tools compare with, must have launched."""
-    from rwkv_tts_tpu_torch.tools import (profile_prefill_pieces,
+    from rwkv_tts_tpu_torch.tools import (profile_buckets, profile_decode,
+                                          profile_prefill_pieces,
                                           profile_stack_kernel,
                                           profile_step_pieces)
 
@@ -1438,16 +1474,29 @@ def phase_tools(torch):
             ("profile_step_pieces", profile_step_pieces,
              ["--steps", "2", "--iters", "1"]),
             ("profile_prefill_pieces", profile_prefill_pieces,
-             ["--iters", "1"])):
+             ["--iters", "1"]),
+            ("profile_buckets", profile_buckets, TOOLS_BUCKETS_ARGV),
+            ("profile_decode", profile_decode, TOOLS_DECODE_ARGV)):
+        t1 = time.perf_counter()
         outs[name] = mod.main(argv, device="cuda")
+        outs[name]["tool_s"] = time.perf_counter() - t1
         torch.cuda.empty_cache()
     launches = launch_counts()
     for k in ("wkv7_decode_out", "wkv7_decode_layers", "wkv7_seq",
               "wkv7_chunk_pair", "wkv7_decode"):
         if not launches[k]:
             fail(f"tools: {k} was not launched ({launches})")
-    print(f"tools: three tools in {time.perf_counter() - t0:.1f} s, launches "
-          f"{launches}", flush=True)
+    for name in ("profile_buckets", "profile_decode"):
+        o = outs[name]
+        if o["state_dtype"] != "bfloat16" or o.get("slots", o.get(
+                "batch")) != TOOLS_BATCH:
+            fail(f"tools: {name} did not run at B = {TOOLS_BATCH} with a "
+                 f"bf16 state: {o}")
+    print(f"tools: five tools in {time.perf_counter() - t0:.1f} s ("
+          + ", ".join(f"{k} {v['tool_s']:.1f} s" for k, v in outs.items())
+          + f"); the decode tools cut: profile_buckets {TOOLS_BUCKETS_ARGV}"
+          f" (block 8 of the tool's 32), profile_decode {TOOLS_DECODE_ARGV}"
+          f" (16 steps of 128); launches {launches}", flush=True)
     return outs, launches
 
 
@@ -2471,7 +2520,7 @@ def first_emit_difference(torch, a, b):
 
 def graph_block_check(torch, params, cfg, device, B: int = GRAPH_SLOTS,
                       block: int = GRAPH_BLOCK, seed: int = SEED + 17,
-                      profile: bool = True):
+                      profile: bool = True, bucket: int = None):
     """One ``decode_block`` of ``block`` steps eager and one replayed as
     graphs (``continuous.BlockGraphs``) from the same seeded slots
     (``seeded_slots``): whether the emits, logits, state and slot tensors
@@ -2479,8 +2528,17 @@ def graph_block_check(torch, params, cfg, device, B: int = GRAPH_SLOTS,
     differences otherwise), each block's wall and counted launches per
     step, the capture's readings per program, and on a card, over a block
     of ``GRAPH_PROFILE_STEPS`` both ways, ``profile_steps``' wall, device
-    busy ms and kernels per step."""
+    busy ms and kernels per step. With ``bucket`` both blocks run on the
+    first ``bucket`` slots (``decode_block_bucketed`` and the bucket's
+    programs)."""
     from rwkv_tts_tpu_torch.runtime import continuous as CT
+
+    b = bucket or B
+
+    def eager_block(st, lg, sl, steps):
+        if b < B:
+            return CT.decode_block_bucketed(params, st, lg, sl, cfg, steps, b)
+        return CT.decode_block(params, st, lg, sl, cfg, steps)
 
     def sync():
         if device != "cpu":
@@ -2493,20 +2551,20 @@ def graph_block_check(torch, params, cfg, device, B: int = GRAPH_SLOTS,
     bg = CT.BlockGraphs(params, cfg, state, logits, slots, block)
     sync()
     t0 = time.perf_counter()
-    bg.programs(B)
+    bg.programs(b)
     sync()
     first_s = time.perf_counter() - t0
 
     reset_launch_counts()
     t0 = time.perf_counter()
-    g_emits = bg.run(B).clone()
+    g_emits = bg.run(b).clone()
     sync()
     g_wall = (time.perf_counter() - t0) * 1e3 / block
     g_launches = launch_counts()
     reset_launch_counts()
     t0 = time.perf_counter()
-    _, e_logits, e_slots, e_emits = CT.decode_block(
-        params, e_state, e_logits, e_slots, cfg, block)
+    _, e_logits, e_slots, e_emits = eager_block(e_state, e_logits, e_slots,
+                                                block)
     sync()
     e_wall = (time.perf_counter() - t0) * 1e3 / block
     e_launches = launch_counts()
@@ -2532,11 +2590,10 @@ def graph_block_check(torch, params, cfg, device, B: int = GRAPH_SLOTS,
            "first_use_s": first_s,
            "programs": {k[0]: v for k, v in bg.cache.stats().items()}}
     if profile and device != "cpu":
-        draws, step = bg.programs(B)
+        draws, step = bg.programs(b)
 
         def eager_run():
-            CT.decode_block(params, e_state, e_logits, e_slots, cfg,
-                            GRAPH_PROFILE_STEPS)
+            eager_block(e_state, e_logits, e_slots, GRAPH_PROFILE_STEPS)
             torch.cuda.synchronize()
 
         def graphed_run():
@@ -4992,6 +5049,234 @@ def server(torch, lm_cfg, bc_cfg, w2v_cfg, device: str, engine_cfg=None,
     return out
 
 
+# --------------------------------------------------------------------------
+# soak: the serving tools on the JAX serving layout (int8, bf16 state)
+# --------------------------------------------------------------------------
+
+# the soak phase's depths: about 45 s of traffic (the tool's default 31
+# minutes), snapshots every 15 s (180), at most 64 semantic tokens a
+# request (256), then the probe's 2 zero-load streams a mode (3); the
+# tool's concurrency (6) and the probe's burst (6) are kept
+SOAK_MINUTES, SOAK_SNAPSHOT_S, SOAK_CONCURRENCY = 0.75, 15.0, 6
+SOAK_MAX_TOKENS, SOAK_BURST, SOAK_ZERO_LOAD = 64, 6, 2
+SOAK_SLOTS, SOAK_BUCKET = 16, 8     # the soak server's continuous engine
+SOAK_STAGE_BATCH = 8
+
+
+def soak_blocks(torch, params, cfg, device):
+    """The soak server's decode block in its layout: a 16-slot block at
+    bucket 8 and at all 16 slots, eager and replayed as graphs from the
+    same seeded slots (``graph_block_check``): bit for bit, with the same
+    counted launches a step."""
+    out = {}
+    for b in (SOAK_BUCKET, SOAK_SLOTS):
+        r = graph_block_check(torch, params, cfg, device, B=SOAK_SLOTS,
+                              block=8, profile=False, bucket=b)
+        lp = r["launches_per_step"]
+        if not r["bitwise"] or lp["eager"] != lp["graphed"]:
+            fail(f"soak: the {SOAK_SLOTS}-slot int8 bf16-state block at "
+                 f"{b} slots graphed is not its eager oracle: equal "
+                 f"{r['equal']}, first differing emit "
+                 f"{r['first_emit_diff']}, launches a step {lp}")
+        out[b] = r
+    return out
+
+
+def soak_stage(torch, params, cfg, device, max_tokens: int = 16):
+    """The static engine's stages in the soak's layout at batch 8:
+    ``StageGraphs`` (and the graphed prefill) against the eager stages on
+    the same 8 property requests: the same tokens."""
+    from rwkv_tts_tpu_torch.config import EngineConfig, TtsArgs
+    from rwkv_tts_tpu_torch.runtime.engine import TtsEngine
+
+    ecfg = EngineConfig(max_semantic_tokens=max_tokens,
+                        batch_size=SOAK_STAGE_BATCH)
+    reqs = [TtsArgs(text=TEXTS[i % len(TEXTS)], seed=300 + i,
+                    max_tokens=max_tokens) for i in range(SOAK_STAGE_BATCH)]
+    graphed = TtsEngine(params, cfg, ecfg, device=device)
+    eager = TtsEngine(params, cfg, ecfg, device=device)
+    eager.graphs = eager.prefill_graphs = None
+    got = graphed.generate_batch(reqs)
+    want = eager.generate_batch(reqs)
+    same = sum(g.global_tokens == w.global_tokens
+               and g.semantic_tokens == w.semantic_tokens
+               for g, w in zip(got, want))
+    if same != len(reqs):
+        fail(f"soak: StageGraphs at batch {len(reqs)} with a bf16 state "
+             f"gave the eager stages' tokens for {same} of {len(reqs)}")
+    return {"same": same, "programs": None if graphed.graphs is None
+            else sorted(map(str, graphed.graphs.cache.programs))}
+
+
+def soak_kernels(torch, W, cfg):
+    """Rows 1 and 2 at the soak's shapes against their plain versions: the
+    decode update on a 16-slot bf16 stack, whole and on the bucket's slot
+    prefix, and the sequential prefill at the admission bursts' (4, 64)
+    and (16, 64). Returns each kernel's max abs error."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 40)
+    H, N = cfg.n_head, cfg.head_size
+    dec = max(check_decode(torch, W, SOAK_SLOTS, H, N, 4, torch.bfloat16,
+                           gen, 2e-2, bucket=b)
+              for b in (SOAK_BUCKET, None))
+    pre = max(check_seq_kernel(torch, W, "wkv7_prefill", B, 64, H, N, gen, 5)
+              for B in (4, SOAK_SLOTS))
+    return {"wkv7_decode": dec, "wkv7_prefill": pre}
+
+
+def soak(torch, device: str, light: bool = False,
+         minutes: float = SOAK_MINUTES,
+         snapshot_every: float = SOAK_SNAPSHOT_S,
+         concurrency: int = SOAK_CONCURRENCY,
+         max_tokens: int = SOAK_MAX_TOKENS, burst: int = SOAK_BURST,
+         zero_load: int = SOAK_ZERO_LOAD, need_abort: bool = True):
+    """The ``soak`` phase on ``device``: the port's soak tool
+    (``tools/soak_serving``) on its full configuration (``light``: its
+    tiny one) with a cold server, then the probe (``probe_stream_latency``)
+    against the same app once it has drained; then, on a card, the
+    server's block, the stages and rows 1 and 2 in the soak's layout
+    (``soak_blocks``, ``soak_stage``, ``soak_kernels``). Fails unless
+    ``soak_ok``, every request kind completed, a stream was abandoned
+    (``need_abort``) and the checks hold. Returns the readings; the
+    launches from the traffic's start to the probe's end are the ``soak``
+    path."""
+    from rwkv_tts_tpu_torch.ops import wkv7 as W
+    from rwkv_tts_tpu_torch.tools import probe_stream_latency as PR
+    from rwkv_tts_tpu_torch.tools import soak_serving as S
+
+    t0 = time.perf_counter()
+    app = S.build_app(light, device, max_tokens)
+    pipe = app["pipeline"]
+    params, cfg = pipe.engine.params, pipe.engine.cfg
+    out = {"init_s": time.perf_counter() - t0,
+           "card_before": S.card_readings(app),
+           "config": {"light": light, "minutes": minutes,
+                      "snapshot_every": snapshot_every,
+                      "concurrency": concurrency, "max_tokens": max_tokens,
+                      "burst": burst, "zero_load": zero_load}}
+    reset_launch_counts()
+    try:
+        t1 = time.perf_counter()
+        stats, snaps, health, drained = S.soak(app, minutes, 0,
+                                               snapshot_every, concurrency)
+        out["soak_s"] = time.perf_counter() - t1
+        doc = out["doc"] = S.document(minutes, stats, snaps, health,
+                                      drained)
+        out["kinds_ok"] = stats["kinds"]
+        if not doc["soak_ok"]:
+            fail(f"soak: soak_ok is false: errors {doc['errors']}, healthz "
+                 f"{doc['healthz']}, slots after the drain {drained}, "
+                 f"crashed {[s['crashed'] for s in snaps]}")
+        if not all(stats["kinds"].values()):
+            fail(f"soak: a request kind never completed: {stats['kinds']}")
+        if need_abort and not stats["aborted_streams"]:
+            fail("soak: no stream was abandoned after its first chunk")
+        out["card_after_drain"] = S.card_readings(app)
+        out["graphs"] = {k: len(c.programs)
+                         for k, c in S.graph_caches(app).items()}
+        cont = app["runtime"]["continuous"]
+        out["engine"] = {"slots": cont.B, "buckets": list(cont.buckets),
+                         "block": cont.block,
+                         **{k: cont.stats[k] for k in (
+                             "blocks", "admitted", "relocations")}}
+        t1 = time.perf_counter()
+        out["probe"] = PR.run(app, 0, burst, zero_load)
+        out["probe_s"] = time.perf_counter() - t1
+        out["launches"] = launch_counts()
+    finally:
+        app.close()
+    if any(ms is None for line in out["probe"].values()
+           for ms in line["first_chunk_ms"]):
+        fail(f"soak: a probe stream sent no audio: {out['probe']}")
+    if device != "cpu":
+        for k in ("wkv7_decode", "wkv7_prefill"):
+            if not out["launches"][k]:
+                fail(f"soak: {k} was not launched: {out['launches']}")
+        t1 = time.perf_counter()
+        out["blocks"] = soak_blocks(torch, params, cfg, device)
+        out["stage"] = soak_stage(torch, params, cfg, device)
+        out["kernels"] = soak_kernels(torch, W, cfg)
+        out["checks_s"] = time.perf_counter() - t1
+    del app, pipe, params
+    gc.collect()
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    return out
+
+
+def soak_lines(sk, card: str):
+    """The ``soak`` phase's printed lines."""
+    doc, e, c = sk["doc"], sk["engine"], sk["config"]
+    what = ("its light configuration (2 x 256 f32, the tiny codec)"
+            if c["light"] else "its full configuration (32 x 2048 int8, "
+            "bf16 state, BiCodecConfig(), 2-layer wav2vec2)")
+    yield (f"soak: the soak tool on {what}, the shipped voices; "
+           f"{e['slots']} slots, buckets {e['buckets']}, block "
+           f"{e['block']}; a cold server, {c['concurrency']} clients for "
+           f"{c['minutes']} min (cut from 31), snapshots every "
+           f"{c['snapshot_every']} s (180), at most {c['max_tokens']} "
+           f"semantic tokens a request (256): soak_ok {doc['soak_ok']}, "
+           f"{doc['requests_ok']} requests ok by kind {sk['kinds_ok']}, "
+           f"{doc['aborted_streams']} streams abandoned, healthz "
+           f"{doc['healthz'][0]}, slots after the drain "
+           f"{doc['slots_after_drain']}; blocks {e['blocks']}, admitted "
+           f"{e['admitted']}, relocations {e['relocations']}; init "
+           f"{sk['init_s']:.1f} s, traffic and drain {sk['soak_s']:.1f} s; "
+           f"{card}")
+    for s in doc["snapshots"]:
+        yield f"soak: snapshot {json.dumps(s)}"
+    yield (f"soak: card memory before traffic {sk['card_before']}, after the "
+           f"drain {sk['card_after_drain']}; graphs captured during the "
+           f"traffic by cache {sk['graphs']}; {card}")
+    yield (f"soak: the probe on the drained app, {c['zero_load']} zero-load "
+           f"streams a mode (cut from 3), a burst of {c['burst']}, "
+           f"{sk['probe_s']:.1f} s:")
+    for line in sk["probe"].values():
+        yield f"soak: probe {json.dumps(line)}"
+    yield (f"soak: launches from the traffic's start to the probe's end "
+           f"{ {k: v for k, v in sk['launches'].items() if v} }")
+    for b, r in sk.get("blocks", {}).items():
+        yield (f"soak: {SOAK_SLOTS}-slot int8 bf16-state block of 8 steps at "
+               f"{b} slots, graphed against eager: bit for bit "
+               f"{r['bitwise']}, launches a step {r['launches_per_step']['graphed']}"
+               f" (eager the same), wall ms a step graphed "
+               f"{r['wall_ms']['graphed']:.3f}, eager "
+               f"{r['wall_ms']['eager']:.3f}; {card}")
+    if "stage" in sk:
+        yield (f"soak: StageGraphs at batch {SOAK_STAGE_BATCH}, bf16 state: "
+               f"{sk['stage']['same']} of {SOAK_STAGE_BATCH} requests the "
+               f"eager stages' tokens; rows 1 and 2 at the soak's shapes "
+               f"against their plain versions, max abs err {sk['kernels']}; "
+               f"checks {sk['checks_s']:.1f} s")
+
+
+def soak_summary(sk):
+    """The ``soak`` phase's key readings for the summary line (the full
+    ones are on its lines): the last snapshot's first-chunk and latency
+    p50/p99, the card's reserved MiB and graph pools at the first snapshot
+    and after the drain, the programs captured, the probes' first chunks
+    and the checks."""
+    snaps = sk["doc"]["snapshots"]
+    last, first = snaps[-1], snaps[0]
+
+    def card(r, k):
+        return (r or {}).get(k)
+
+    return dict(
+        ok=sk["doc"]["soak_ok"], reqs=sk["doc"]["requests_ok"],
+        aborted=sk["doc"]["aborted_streams"],
+        first_ms=[last["first_chunk_p50"], last["first_chunk_p99"]],
+        lat_ms=[last["latency_p50"], last["latency_p99"]],
+        mib=[card(first.get("card"), "reserved_mib"),
+             card(sk["card_after_drain"], "reserved_mib"),
+             card(first.get("card"), "graph_pools_mib"),
+             card(sk["card_after_drain"], "graph_pools_mib")],
+        graphs=sum(sk["graphs"].values()),
+        probe=[v["first_chunk_ms"] for v in sk["probe"].values()],
+        bitwise=[r["bitwise"] for r in sk.get("blocks", {}).values()],
+        stage_same=sk.get("stage", {}).get("same"))
+
+
 def card_memory(torch, pool=None):
     """Bytes the caching allocator reserves on the card: in all
     (``total``), in the CUDA graphs' private pools (``graphs``, every
@@ -5809,7 +6094,8 @@ KERNEL_ENTRIES = {
 
 PHASES = ("kernels", "quant_kernels", "conv_kernels", "rest_kernels",
           "sweep", "tools", "goldens", "graphs", "parity", "tp", "main_path",
-          "cloning", "quantized", "streaming", "server", "checkpoint")
+          "cloning", "quantized", "streaming", "server", "soak",
+          "checkpoint")
 
 # the summary line's bytes: with the kernels line and the ok line it stays
 # well inside the last 24 KB of output a run's record keeps (about 12 KB)
@@ -5988,9 +6274,17 @@ def main(argv=None) -> None:
         note("sweep")
         print(f"sweep: {summary['sweep']['s']:.1f} s; {card}", flush=True)
     if "tools" in selected:
-        _, paths["tools"] = phase_tools(torch)
+        outs, paths["tools"] = phase_tools(torch)
         print(f"tools: {card}", flush=True)
-        note("tools")
+        pb, pd = outs["profile_buckets"], outs["profile_decode"]["pieces"]
+        note("tools",
+             buckets_ms={b: r.get("graphed_ms_per_step")
+                         for b, r in pb["buckets"].items()},
+             buckets_busy_ms=[pb["buckets"][b].get("device_ms_per_step")
+                              for b in ("8", str(TOOLS_BATCH))],
+             decode_ms={k: [pd[k]["wall_ms"], pd[k]["device_ms"]]
+                        for k in ("semantic_stage_graphed", "raw_step_kernel",
+                                  "wkv_only_kernel", "matmul_only")})
     if "goldens" in selected:
         phase_goldens(root)
         note("goldens", exact=True)
@@ -6388,6 +6682,15 @@ def main(argv=None) -> None:
              detok_b8_ms=[sv["memory"]["via_graphs_b8_ms"],
                           sv["memory"]["eager_b8_ms"]],
              vocoder_eager_calls=sv["memory"]["eager_calls"])
+
+    if "soak" in selected:
+        torch.cuda.empty_cache()
+        sk = soak(torch, "cuda")
+        for line in soak_lines(sk, card):
+            print(line, flush=True)
+        paths["soak"] = sk["launches"]
+        note("soak", **soak_summary(sk))
+        del sk
 
     if "checkpoint" in selected:
         torch.cuda.empty_cache()

@@ -28,6 +28,9 @@ recipe:
   * then it is captured on that stream with ``capture_error_mode =
     "thread_local"``: other threads (the streaming vocoders) keep
     launching while the decode thread captures;
+  * one thread of the process warms up and captures at a time: torch
+    synchronizes the device and empties its caches as a capture begins,
+    which would invalidate a capture under way in another thread;
   * every program of a cache shares one memory pool
     (``torch.cuda.graph_pool_handle``): programs of one cache replay one
     at a time, so their intermediates may share memory. A cache that one
@@ -68,6 +71,14 @@ from ..ops import _build
 _collector_lock = threading.Lock()
 _collector = {"holds": 0, "was_on": False}
 
+# One capture at a time in the process. Entering ``torch.cuda.graph``
+# synchronizes the device and empties the allocator's and the pinned host
+# memory's caches, and a warm-up may create a library's handle; done while
+# another thread captures, either invalidates that capture (the serving
+# threads capture their shapes at first use: the decode thread its blocks
+# and admission prefills, the connections their vocoder windows)
+_capture_lock = threading.Lock()
+
 
 @contextlib.contextmanager
 def collector_off():
@@ -105,7 +116,8 @@ class Program:
     """One captured body: its graph, the buffers it addresses (kept alive
     as long as the graph), the launches one replay makes, and what the
     capture took: ``capture_s`` (the body recorded, after the warm-up),
-    ``instantiate_s`` (the graph ended and instantiated), ``warmup_s`` and
+    ``instantiate_s`` (the graph ended and instantiated), ``warmup_s``,
+    ``wait_s`` (waiting for another thread's capture to end) and
     ``pool_bytes`` (memory the pool reserved for it)."""
 
     def __init__(self, graph, buffers, launches, stats):
@@ -183,31 +195,36 @@ class GraphCache:
 
     def capture(self, body: Callable[[Any], None], buffers) -> Program:
         """Warm ``body`` up on a copy of ``buffers``, then capture
-        ``body(buffers)``; raises if either fails."""
+        ``body(buffers)``; raises if either fails. Both run while no other
+        thread of the process captures (``_capture_lock``); ``wait_s`` is
+        the wait for that turn."""
         dev = self.device
         cur = torch.cuda.current_stream(dev)
-        t0 = time.perf_counter()
-        self.stream.wait_stream(cur)
-        with torch.cuda.stream(self.stream):
-            body(clone_tree(buffers))
-        self.stream.synchronize()
-        t1 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
-        with collector_off(), _build.record_launches() as noted:
-            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
-                                  capture_error_mode="thread_local"):
-                reserved = torch.cuda.memory_reserved(dev)
-                body(buffers)
-                pool_bytes = torch.cuda.memory_reserved(dev) - reserved
-                t2 = time.perf_counter()
-        t3 = time.perf_counter()
+        t = time.perf_counter()
+        with _capture_lock:
+            t0 = time.perf_counter()
+            self.stream.wait_stream(cur)
+            with torch.cuda.stream(self.stream):
+                body(clone_tree(buffers))
+            self.stream.synchronize()
+            t1 = time.perf_counter()
+            graph = torch.cuda.CUDAGraph()
+            with collector_off(), _build.record_launches() as noted:
+                with torch.cuda.graph(graph, pool=self.pool,
+                                      stream=self.stream,
+                                      capture_error_mode="thread_local"):
+                    reserved = torch.cuda.memory_reserved(dev)
+                    body(buffers)
+                    pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+                    t2 = time.perf_counter()
+            t3 = time.perf_counter()
         # the replays run on the caller's stream, after what it enqueued
         cur.wait_stream(self.stream)
         counts = collections.Counter((id(t), n) for t, n in noted)
         tables = {id(t): t for t, _ in noted}
         launches = [(tables[i], n, c) for (i, n), c in counts.items()]
         return Program(graph, buffers, launches, {
-            "warmup_s": t1 - t0, "capture_s": t2 - t1,
+            "wait_s": t0 - t, "warmup_s": t1 - t0, "capture_s": t2 - t1,
             "instantiate_s": t3 - t2, "pool_bytes": pool_bytes})
 
     def clear(self) -> None:

@@ -64,6 +64,7 @@ import logging
 import mimetypes
 import os
 import socketserver
+import sys
 import tempfile
 import threading
 import time
@@ -833,6 +834,19 @@ class _Server(http.server.ThreadingHTTPServer):
         # (a resolver lookup); the name is only used in CGI variables
         socketserver.TCPServer.server_bind(self)
         self.server_name, self.server_port = self.server_address[:2]
+
+    def handle_error(self, request, client_address):
+        """A connection its client reset or closed while the handler read
+        from it (the next request on a keep-alive connection after an
+        abandoned stream) is ordinary traffic, as a failed write is in
+        ``_Handler._send``: logged, not printed as a traceback. Any other
+        error gets the base class's report."""
+        if isinstance(sys.exc_info()[1], (ConnectionResetError,
+                                          ConnectionAbortedError,
+                                          BrokenPipeError)):
+            log.info("client %s disconnected", client_address)
+            return
+        super().handle_error(request, client_address)
 
 
 def make_server(app: App, host: str = "127.0.0.1", port: int = 0

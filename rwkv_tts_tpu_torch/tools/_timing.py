@@ -17,24 +17,51 @@ from typing import Callable, Dict, Optional
 import torch
 
 from ..ops import wkv7 as W
-from ..utils.timing import device_ms, event_ms
+from ..utils.timing import device_ms, device_ms_by_kernel, event_ms
 
 
 def timed(fn: Callable[[], object], iters: int, device: torch.device,
           per: int = 1) -> Dict[str, Optional[float]]:
     """ms of ``fn`` per call divided by ``per`` (the steps or layers one
-    call runs), after one warmup call."""
+    call runs), after one warmup call: ``wall`` and, on a card, the device
+    time of ``iters`` more calls."""
+    out = {"wall_ms": wall(fn, iters, device, per), "device_ms": None}
+    if device.type == "cuda":
+        dev = device_ms(fn, iters, warmup=0)
+        out["device_ms"] = None if dev is None else dev / per
+    return out
+
+
+def wall(fn: Callable[[], object], iters: int, device: torch.device,
+         per: int = 1) -> float:
+    """Wall ms of ``fn`` per call divided by ``per``, after one warmup
+    call: CUDA events around ``iters`` calls on a card (its idle gaps
+    included), the host clock on the CPU. No profiler runs."""
     if device.type != "cuda":
         fn()
         t0 = time.perf_counter()
         for _ in range(iters):
             fn()
-        return {"wall_ms": (time.perf_counter() - t0) * 1e3 / iters / per,
-                "device_ms": None}
-    wall = event_ms(fn, iters, warmup=1)
-    dev = device_ms(fn, iters, warmup=0)
-    return {"wall_ms": wall / per,
-            "device_ms": None if dev is None else dev / per}
+        return (time.perf_counter() - t0) * 1e3 / iters / per
+    return event_ms(fn, iters, warmup=1) / per
+
+
+def busy(fn: Callable[[], object], device: torch.device, per: int = 1
+         ) -> Dict[str, Optional[float]]:
+    """Device busy ms and kernels of one call of ``fn`` divided by ``per``,
+    after one warmup call (``torch.profiler``; a window in which the
+    profiler saw no kernel is measured again, up to 3 times). Both are None
+    on the CPU. The profiler spends ~0.5 ms of host time a kernel, so
+    profile a few steps, not a stage."""
+    if device.type != "cuda":
+        return {"device_ms": None, "kernels": None}
+    for warm in (1, 0, 0):
+        counts: Dict[str, float] = {}
+        by = device_ms_by_kernel(fn, 1, warmup=warm, counts=counts)
+        if by:
+            return {"device_ms": sum(by.values()) / per,
+                    "kernels": sum(counts.values()) / per}
+    return {"device_ms": None, "kernels": None}
 
 
 def minus(a: Dict[str, Optional[float]], b: Dict[str, Optional[float]]
