@@ -8,8 +8,8 @@ Run from the root of a checkout on a machine with one CUDA card:
 
 Without ``--phases`` every phase runs and the last line is the ok line.
 With it, the build runs and then only the named phases (``PHASES``: kernels,
-quant_kernels, conv_kernels, rest_kernels, sweep, tools, goldens, graphs,
-parity, tp, main_path, cloning, quantized, streaming, server, soak,
+quant_kernels, conv_kernels, rest_kernels, sweep, tools, lm_tools, goldens,
+graphs, parity, tp, main_path, cloning, quantized, streaming, server, soak,
 checkpoint), and the
 last line is ``{"partial": [...]}``: a partial run never prints the ok
 line, and the all-kernels check of the kernels line runs only in a whole
@@ -109,14 +109,29 @@ Phases, each fatal on failure:
              (``rwkv_tts_tpu_torch/tools``) at full width with few steps:
              ``profile_stack_kernel`` (B = 128 and 8, bf16 state),
              ``profile_step_pieces`` (B = 128 and 8) and
-             ``profile_prefill_pieces`` (B = 8, T = 64 and 256); then the
-             decode tools in the JAX serving layout (int8 weights, bf16
-             state) at B = 128: ``profile_buckets`` (slots 128, block 8,
-             cut from 32: eager and graphed block per occupancy bucket)
-             and ``profile_decode`` (batch 128, 16 steps, cut from 128:
-             the stage eager and graphed, the raw step, the WKV and the
-             weight products alone); their JSON lines, and their launches
-             as the ``tools`` path;
+             ``profile_prefill_pieces`` (B = 8, T = 64, cut from 64 and
+             256); then the decode tools in the JAX serving layout (int8
+             weights, bf16 state) at B = 128: ``profile_buckets`` (slots
+             128, block 8, cut from 32: eager and graphed block per
+             occupancy bucket) and ``profile_decode`` (batch 128, 16
+             steps, cut from 128: the stage eager and graphed, the raw
+             step, the WKV and the weight products alone); their JSON
+             lines, and their launches as the ``tools`` path;
+  lm_tools   the static engine's one-call LM program and the tools that
+             time the LM end to end, in the JAX serving layout (int8
+             weights, bf16 state) at full width: a check of
+             ``TtsEngine.lm_program``'s wiring at batch 8 (the engine's
+             prefill and graphed stages called one by one on the same 8
+             one-chunk prompts, normal and zero-shot: 8 of 8 the same
+             tokens, its own launches 32 a decode step and 32 a prefill
+             chunk); then at cut depths (``LM_TOOLS_ARGV``)
+             ``profile_first_chunk`` (its configuration, 2 timed calls of
+             5), ``profile_int4_b8`` (64 semantic steps of 512, 1 timed
+             call of 3), ``profile_fused_ab`` (128 x 16 steps of 256, 1
+             timed call of 3) and ``bench_continuous`` (64 requests on 128
+             slots, block 32, caps 32/64/96/128 of 128/256/384/512, padded
+             to 128 of 512, warm-up bursts up to 1 of 64): their JSON
+             lines, and their launches as the ``lm_tools`` path;
   goldens   the goldens model (2 layers × 128, weights rebuilt from the
              JAX package's seeded numpy stream) on the card must emit
              exactly the tokens of ``tests/goldens.json``;
@@ -264,7 +279,7 @@ Phases, each fatal on failure:
              with a bf16 state, ``BiCodecConfig()``, the tool's 2-layer
              wav2vec2, the shipped voices; its server's continuous engine
              at 16 slots, bucket 8, block 16), a cold server, 6 clients
-             for 45 s (cut from 31 minutes), snapshots every 15 s (180),
+             for 30 s (cut from 31 minutes), snapshots every 10 s (180),
              at most 64 semantic tokens a request (256): soak_ok (no
              error, ``/healthz`` 200, the slots drained, no crash), every
              request kind completed and a stream abandoned; then the probe
@@ -1446,8 +1461,11 @@ def prefill_sweep(torch, W, H, N):
     return rows
 
 
-# the decode tools' depths in the tools phase: profile_buckets' block cut
-# from 32 to 8, profile_decode's steps from 128 to 16 (and their repeats)
+# the tools' depths in the tools phase: profile_prefill_pieces at T = 64
+# alone (the tool: 64 and 256; the sweep phase times every formulation at
+# (8, 256)), profile_buckets' block cut from 32 to 8, profile_decode's
+# steps from 128 to 16 (and their repeats)
+TOOLS_PREFILL_ARGV = ["--iters", "1", "--T", "64"]
 TOOLS_BUCKETS_ARGV = [str(TOOLS_BATCH), "8", "--iters", "1"]
 TOOLS_DECODE_ARGV = [str(TOOLS_BATCH), "16", "--iters", "1",
                      "--profile-steps", "1"]
@@ -1474,7 +1492,7 @@ def phase_tools(torch):
             ("profile_step_pieces", profile_step_pieces,
              ["--steps", "2", "--iters", "1"]),
             ("profile_prefill_pieces", profile_prefill_pieces,
-             ["--iters", "1"]),
+             TOOLS_PREFILL_ARGV),
             ("profile_buckets", profile_buckets, TOOLS_BUCKETS_ARGV),
             ("profile_decode", profile_decode, TOOLS_DECODE_ARGV)):
         t1 = time.perf_counter()
@@ -1494,10 +1512,248 @@ def phase_tools(torch):
                  f"bf16 state: {o}")
     print(f"tools: five tools in {time.perf_counter() - t0:.1f} s ("
           + ", ".join(f"{k} {v['tool_s']:.1f} s" for k, v in outs.items())
-          + f"); the decode tools cut: profile_buckets {TOOLS_BUCKETS_ARGV}"
-          f" (block 8 of the tool's 32), profile_decode {TOOLS_DECODE_ARGV}"
-          f" (16 steps of 128); launches {launches}", flush=True)
+          + f"); cut: profile_prefill_pieces {TOOLS_PREFILL_ARGV} (T = 64 "
+          f"of 64 and 256), profile_buckets {TOOLS_BUCKETS_ARGV} (block 8 "
+          f"of the tool's 32), profile_decode {TOOLS_DECODE_ARGV} (16 steps "
+          f"of 128); launches {launches}", flush=True)
     return outs, launches
+
+
+# --------------------------------------------------------------------------
+# lm_tools: the static engine's one-call LM program and the tools that time
+# the LM end to end, in the JAX serving layout (int8 weights, bf16 state)
+# --------------------------------------------------------------------------
+
+# the lm_tools phase's depths, the tools' own in brackets: the first chunk
+# at its configuration over 2 timed calls (5); profile_int4_b8 64 semantic
+# steps (512) and 1 timed call (3); profile_fused_ab 128 x 16 steps (256),
+# 1 timed call (3); bench_continuous 64 requests on 128 slots, block 32,
+# its caps / 4: 32, 64, 96, 128 (128, 256, 384, 512), padded to 128 (512),
+# its warm-up at bursts of 1 (1 to 64 by powers of two). Each warm-up
+# burst runs two 32-step blocks: the tool's default warm-up took 67.3 s on
+# an NVIDIA H100 80GB HBM3 at a 700 W limit, about 4.8 s a burst at each
+# of two prefill buckets; the larger bursts' prefill programs are then
+# captured in the timed region (its ``timed_captures``)
+LM_TOOLS_ARGV = {
+    "profile_first_chunk": ["8", "48", "--iters", "2"],
+    "profile_int4_b8": ["--steps", "64", "--iters", "1"],
+    "profile_fused_ab": ["128", "16", "--iters", "1"],
+    "bench_continuous": ["64", "128", "32", "--caps", "32,64,96,128",
+                         "--pad", "128", "--warm-burst", "1"]}
+LM_CHECK_BATCH, LM_CHECK_TOKENS = 8, 8
+
+
+def lm_program_check(torch, device: str, layers: int, embd: int):
+    """A check of ``TtsEngine.lm_program``'s wiring at batch 8 in the JAX
+    serving layout (int8, bf16 state): the engine's own calls made one by
+    one (``TtsEngine.prefill``, then the global and the semantic stage; on
+    a card the same graphs ``lm_program`` replays) on the same 8 ragged
+    one-chunk prompts, in both modes: each request's tokens and length bit
+    for bit (8 of 8), zeros for the zero-shot global tokens, and the
+    program's own launches 32 decode updates a step and 32 prefill
+    launches a chunk (the calls one by one ran first, so its captures are
+    not in them). The graphs against their eager oracle are the
+    ``graphs`` and ``soak`` phases' checks."""
+    import numpy as np
+
+    from rwkv_tts_tpu_torch import constants as CC
+    from rwkv_tts_tpu_torch.config import EngineConfig
+    from rwkv_tts_tpu_torch.runtime import engine as E
+    from rwkv_tts_tpu_torch.tools.profile_buckets import (serving_cfg,
+                                                          serving_params)
+    from rwkv_tts_tpu_torch.utils import threefry
+
+    dev = torch.device(device)
+    cfg = serving_cfg(layers, embd)
+    eng = E.TtsEngine(serving_params(cfg, dev), cfg, EngineConfig(
+        batch_size=LM_CHECK_BATCH, max_semantic_tokens=LM_CHECK_TOKENS,
+        prefill_buckets=(64, 128)), device=device)
+    B = LM_CHECK_BATCH
+    prompts = seeded_prompts(np.random.default_rng(SEED + 50), B, 64,
+                             cfg.vocab_size)
+
+    def keys(offset):
+        return threefry.as_words(np.stack(
+            [threefry.raw_key(500 + b + offset) for b in range(B)])).to(dev)
+
+    gk, sk = keys(CC.GLOBAL_SEED_OFFSET), keys(CC.SEMANTIC_SEED_OFFSET)
+    limits = torch.tensor([LM_CHECK_TOKENS - (b % 3) for b in range(B)],
+                          dtype=torch.int64, device=dev)
+    L = cfg.n_layer
+    out = {"same": {}, "launches": {}, "ms": {}}
+    for zs in (False, True):
+        mode = "zs" if zs else "normal"
+        hard_min = (limits // 2) if zs else torch.zeros_like(limits)
+
+        def staged():
+            logits, state = eng.prefill(prompts, eng.init_state(B))
+            with eng.stage_lock:
+                g = torch.zeros((B, 32), dtype=torch.int64, device=dev)
+                if not zs:
+                    g, state, logits = eng.run_global(state, logits, gk)
+                s, n, _, _ = eng.run_semantic(state, logits, sk, limits,
+                                              hard_min, zs, not zs)
+            return g, s, n
+
+        want, ms_staged = timed_call(torch, staged, device)
+        c0, l0 = dict(eng.counters), launch_counts()
+        got, ms_lm = timed_call(torch, lambda: eng.lm_program(
+            prompts, gk, sk, limits, hard_min, zs), device)
+        steps = eng.counters["decode_steps"] - c0["decode_steps"]
+        chunks = eng.counters["prefill_chunks"] - c0["prefill_chunks"]
+        delta = {k: v - l0[k] for k, v in launch_counts().items() if v - l0[k]}
+        g, s, n = (x.cpu().numpy() for x in got)
+        wg, ws, wn = (x.cpu().numpy() for x in want)
+        same = sum(int(n[b] == wn[b] and (g[b] == wg[b]).all()
+                       and (s[b, :n[b]] == ws[b, :wn[b]]).all())
+                   for b in range(B))
+        out["same"][mode], out["ms"][mode] = same, [ms_lm, ms_staged]
+        out["launches"][mode] = dict(delta, steps=steps, chunks=chunks)
+        if same != B:
+            fail(f"lm_tools: lm_program ({mode}) gave the staged chain's "
+                 f"tokens for {same} of {B} requests")
+        if device != "cpu" and (
+                delta.get("wkv7_decode") != L * steps
+                or delta.get("wkv7_prefill") != L * chunks or chunks != 1):
+            fail(f"lm_tools: lm_program ({mode}) launched {delta} for "
+                 f"{steps} decode steps and {chunks} prefill chunks")
+    out["graphs"] = None if eng.graphs is None else sorted(
+        map(str, list(eng.graphs.cache.programs)
+            + list(eng.prefill_graphs.cache.programs)))
+    del eng
+    return out
+
+
+def lm_tools(torch, device: str, argv=None, widths=None):
+    """The ``lm_tools`` phase on ``device``: ``lm_program_check``, then the
+    four LM tools (``rwkv_tts_tpu_torch/tools``: ``profile_first_chunk``,
+    ``profile_int4_b8``, ``profile_fused_ab``, ``bench_continuous``) at the
+    depths of ``argv`` (default ``LM_TOOLS_ARGV``, full width; ``widths``
+    (layers, embd) and toy ``argv`` rehearse it on the CPU). Fails where a
+    tool's readings contradict its configuration or, on a card, a kernel
+    of its path was not launched. Returns the readings; the phase's
+    launches are the ``lm_tools`` path."""
+    from rwkv_tts_tpu_torch.tools import (bench_continuous,
+                                          profile_first_chunk,
+                                          profile_fused_ab, profile_int4_b8)
+
+    argv = LM_TOOLS_ARGV if argv is None else argv
+    layers, embd = (32, 2048) if widths is None else widths
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = {"check": lm_program_check(torch, device, layers, embd),
+           "times_s": {"check": time.perf_counter() - t0}}
+    for name, mod in (("profile_first_chunk", profile_first_chunk),
+                      ("profile_int4_b8", profile_int4_b8),
+                      ("profile_fused_ab", profile_fused_ab),
+                      ("bench_continuous", bench_continuous)):
+        t1 = time.perf_counter()
+        out[name] = mod.main(argv[name], device=device)
+        out["times_s"][name] = time.perf_counter() - t1
+        if device != "cpu":
+            torch.cuda.empty_cache()
+    out["launches"] = launch_counts()
+    fc, i4, ab, bc = (out[n] for n in ("profile_first_chunk",
+                                       "profile_int4_b8", "profile_fused_ab",
+                                       "bench_continuous"))
+    card = device != "cpu"
+    if min(i4[q]["wall_s_lm"] for q in ("int8", "int4")) <= 0:
+        fail(f"lm_tools: profile_int4_b8's walls {i4}")
+    if any((v["busy_ms"] is None) == card for k, v in fc["stages"].items()
+           if k != "lm_program"):
+        fail(f"lm_tools: profile_first_chunk's busy ms {fc['stages']}")
+    if (bc["requests"] != len(bc["tokens_by_request"])
+            or bc["tokens_total"] != sum(bc["tokens_by_request"])
+            or any(n > c for n, c in zip(
+                bc["tokens_by_request"],
+                bc["token_caps"] * bc["requests"]))):
+        fail(f"lm_tools: bench_continuous's tokens {bc['tokens_by_request']}"
+             f" against its caps {bc['token_caps']}")
+    if card:
+        want = {"wkv7_decode", "wkv7_prefill", "qmm4"}
+        if any(not out["launches"][k] for k in want):
+            fail(f"lm_tools: not launched: {out['launches']}")
+        if "block_step" not in bc or ab["raw"]["step_busy_ms"] is None:
+            fail("lm_tools: a device reading is missing")
+    return out
+
+
+def lm_tools_lines(lt, card: str):
+    """The ``lm_tools`` phase's printed lines."""
+    c, t = lt["check"], lt["times_s"]
+    fc, i4, ab, bc = (lt[n] for n in ("profile_first_chunk",
+                                      "profile_int4_b8", "profile_fused_ab",
+                                      "bench_continuous"))
+    st = fc["stages"]
+
+    def r(x, n=3):
+        return None if x is None else round(x, n)
+
+    yield (f"lm_tools: TtsEngine.lm_program's wiring at batch "
+           f"{LM_CHECK_BATCH} (int8, bf16 state, {LM_CHECK_TOKENS} semantic "
+           f"tokens) against the engine's prefill and graphed stages called "
+           f"one by one: {c['same']} of {LM_CHECK_BATCH} the same tokens; "
+           f"wall ms [lm_program, one by one with the captures] {c['ms']}; "
+           f"its launches {c['launches']}; programs {c['graphs']}; {card}")
+    yield (f"lm_tools: profile_first_chunk (batch {fc['batch']}, prefill "
+           f"{fc['prefill']}, {fc['sem_steps']} semantic steps, window "
+           f"{fc['window']}, {fc['iters']} timed calls of 5) wall / busy ms "
+           f"and kernels: " + "; ".join(
+               f"{k} {r(v['wall_ms'])} / {r(v.get('busy_ms'))} "
+               f"({r(v.get('kernels'), 0)})" for k, v in st.items())
+           + f"; lm_program {r(fc['fused_lm_ms'])} vs staged "
+           f"{r(fc['staged_lm_ms'])} (glue {r(fc['glue_ms'])} ms); first "
+           f"calls s " + str({k: r(v['first_s'], 2) for k, v in st.items()})
+           + f"; {card}")
+    yield (f"lm_tools: profile_int4_b8 (batch 8, {i4['steps']} steps of 512,"
+           f" {i4['iters']} timed call of 3): " + "; ".join(
+               f"{q} " + json.dumps({k: r(v, 4) if isinstance(v, float)
+                                     else v for k, v in i4[q].items()})
+               for q in ("int8", "int4"))
+           + f"; int4_wins {i4['int4_wins']}, meets_rtf_limit "
+           f"{i4['meets_rtf_limit']}; {card}")
+    yield (f"lm_tools: profile_fused_ab ({ab['batch']} x {ab['steps']} steps"
+           f" of 256): ms a step fused {r(ab['fused_ms_step'])}, raw "
+           f"{r(ab['raw_ms_step'])}, raw_speedup {r(ab['raw_speedup'])}; "
+           f"busy ms / kernels a step fused {r(ab['fused']['step_busy_ms'])}"
+           f" / {r(ab['fused']['step_kernels'], 0)}, raw "
+           f"{r(ab['raw']['step_busy_ms'])} / {r(ab['raw']['step_kernels'], 0)}"
+           f"; weights GB {r(ab['fused']['weights_gb'])}, "
+           f"{r(ab['raw']['weights_gb'])}; {card}")
+    yield (f"lm_tools: bench_continuous ({bc['requests']} requests, "
+           f"{bc['slots']} slots, block {bc['block']}, caps "
+           f"{bc['token_caps']}, pad {bc['pad']}): tokens "
+           f"{bc['tokens_total']}, audio {r(bc['audio_sec'], 2)} s, LM "
+           f"{r(bc['wall_s_llm'])} s, detok {r(bc['wall_s_detok'])} s, "
+           f"xRT llm {r(bc['xrt_continuous_llm'], 2)} e2e "
+           f"{r(bc['xrt_continuous_e2e'], 2)}; warm-ups "
+           f"{r(bc['warmup_s'], 1)} + {r(bc['vocoder_warmup_s'], 1)} s "
+           f"(bursts up to {bc['warm_burst']}; programs captured in the "
+           f"timed region {bc.get('timed_captures')}); "
+           f"buckets {bc['block_buckets']}; graph pools "
+           f"{r(bc.get('graph_pool_mib'), 1)} MiB in {bc.get('graphs')} "
+           f"programs; block step {bc.get('block_step')}; loop "
+           + json.dumps({k: r(v) if isinstance(v, float) else v
+                         for k, v in bc["loop_stats"].items()})
+           + f"; {card}")
+    yield (f"lm_tools: seconds by part {json.dumps({k: round(v, 1) for k, v in t.items()})}; "
+           f"launches {lt['launches']}")
+
+
+def lm_tools_summary(lt):
+    """The ``lm_tools`` entry of the summary line (under ~350 bytes)."""
+    fc, i4, ab, bc = (lt[n] for n in ("profile_first_chunk",
+                                      "profile_int4_b8", "profile_fused_ab",
+                                      "bench_continuous"))
+    st = fc["stages"]
+    return {"same": list(lt["check"]["same"].values()),
+            "fc_ms": [st[k]["wall_ms"] for k in ("prefill", "global",
+                                                 "semantic", "vocode")]
+            + [fc["glue_ms"]],
+            "i4b8_step_ms": [i4[q]["step_ms"] for q in ("int8", "int4")],
+            "ab_ms": [ab["fused_ms_step"], ab["raw_ms_step"]],
+            "cont_xrt": [bc["xrt_continuous_llm"], bc["xrt_continuous_e2e"]],
+            "cont_warm_s": bc["warmup_s"]}
 
 
 # --------------------------------------------------------------------------
@@ -4108,19 +4364,6 @@ def bucketed_block_check(torch, CT, rwkv7, params, cfg, device, B, bucket,
     return same, steps * live, diff, untouched
 
 
-def log_block_slots(eng):
-    """A list that grows by the slots each of ``eng``'s decode blocks runs
-    on (its bucket, or all of them), eager or graphed."""
-    slots, real = [], eng._decode
-
-    def logged(bucket):
-        slots.append(min(bucket, eng.B))
-        return real(bucket)
-
-    eng._decode = logged
-    return slots
-
-
 def same_tokens(a, b) -> bool:
     return (list(a.global_tokens) == list(b.global_tokens)
             and list(a.semantic_tokens) == list(b.semantic_tokens))
@@ -4201,6 +4444,7 @@ def token_witnesses(torch, pipe, lm_cfg, ecfg, device, block, requests,
     from rwkv_tts_tpu_torch.config import EngineConfig, RwkvConfig
     from rwkv_tts_tpu_torch.models import rwkv7
     from rwkv_tts_tpu_torch.runtime import continuous as CT
+    from rwkv_tts_tpu_torch.tools.bench_continuous import log_block_slots
     from rwkv_tts_tpu_torch.utils import bridge
 
     out = {}
@@ -4294,6 +4538,7 @@ def streaming(torch, lm_cfg, bc_cfg, device: str, engine_cfg=None,
     from rwkv_tts_tpu_torch.runtime.pipeline import TtsPipeline
     from rwkv_tts_tpu_torch.runtime.streaming import (StreamingVocoder,
                                                       stream_synthesize)
+    from rwkv_tts_tpu_torch.tools.bench_continuous import log_block_slots
     from rwkv_tts_tpu_torch.runtime.voice_store import VoiceStore
     from rwkv_tts_tpu_torch.utils import bridge
 
@@ -5053,11 +5298,11 @@ def server(torch, lm_cfg, bc_cfg, w2v_cfg, device: str, engine_cfg=None,
 # soak: the serving tools on the JAX serving layout (int8, bf16 state)
 # --------------------------------------------------------------------------
 
-# the soak phase's depths: about 45 s of traffic (the tool's default 31
-# minutes), snapshots every 15 s (180), at most 64 semantic tokens a
+# the soak phase's depths: about 30 s of traffic (the tool's default 31
+# minutes), snapshots every 10 s (180), at most 64 semantic tokens a
 # request (256), then the probe's 2 zero-load streams a mode (3); the
 # tool's concurrency (6) and the probe's burst (6) are kept
-SOAK_MINUTES, SOAK_SNAPSHOT_S, SOAK_CONCURRENCY = 0.75, 15.0, 6
+SOAK_MINUTES, SOAK_SNAPSHOT_S, SOAK_CONCURRENCY = 0.5, 10.0, 6
 SOAK_MAX_TOKENS, SOAK_BURST, SOAK_ZERO_LOAD = 64, 6, 2
 SOAK_SLOTS, SOAK_BUCKET = 16, 8     # the soak server's continuous engine
 SOAK_STAGE_BATCH = 8
@@ -6093,8 +6338,8 @@ KERNEL_ENTRIES = {
 
 
 PHASES = ("kernels", "quant_kernels", "conv_kernels", "rest_kernels",
-          "sweep", "tools", "goldens", "graphs", "parity", "tp", "main_path",
-          "cloning", "quantized", "streaming", "server", "soak",
+          "sweep", "tools", "lm_tools", "goldens", "graphs", "parity", "tp",
+          "main_path", "cloning", "quantized", "streaming", "server", "soak",
           "checkpoint")
 
 # the summary line's bytes: with the kernels line and the ok line it stays
@@ -6285,6 +6530,14 @@ def main(argv=None) -> None:
              decode_ms={k: [pd[k]["wall_ms"], pd[k]["device_ms"]]
                         for k in ("semantic_stage_graphed", "raw_step_kernel",
                                   "wkv_only_kernel", "matmul_only")})
+    if "lm_tools" in selected:
+        lt = lm_tools(torch, "cuda")
+        for line in lm_tools_lines(lt, card):
+            print(line, flush=True)
+        paths["lm_tools"] = lt["launches"]
+        note("lm_tools", **lm_tools_summary(lt))
+        del lt
+        torch.cuda.empty_cache()
     if "goldens" in selected:
         phase_goldens(root)
         note("goldens", exact=True)
@@ -6294,14 +6547,8 @@ def main(argv=None) -> None:
         for line in graphs_lines(g, lm_cfg, card):
             print(line, flush=True)
         wb = g["whole_block"]
-
-        def walls(r):
-            return [r["wall_ms"]["eager"], r["wall_ms"]["graphed"]] + [
-                r["profile"][k][1] for k in ("eager", "graphed")
-                if k in r.get("profile", {})]
-
-        win = {f"{c['B']}x{c['S']}": walls(c) for c in g["windows"]["cases"]
-               if "profile" in c or (c["B"], c["S"]) == (8, 2048)}
+        # the prefill's, the parity step's and the windows' readings are on
+        # the phase's own lines: the summary line has no room for them
         note("graphs", **{
             lay: {"bitwise": r["bitwise"],
                   "wall_ms": [r["wall_ms"]["eager"], r["wall_ms"]["graphed"]],
@@ -6318,13 +6565,7 @@ def main(argv=None) -> None:
             block_replay_ms=[wb["block_replay_ms"], wb["step_replay_ms"]],
             goldens=[g["static_goldens"]["requests"],
                      g["continuous_goldens"]["requests"],
-                     g["parity_goldens"]["requests"]],
-            prefill_ms={f"{lay}_{case}": walls(c)
-                        for lay, pf in g["prefill"].items()
-                        for case, c in pf.items() if "x" in case},
-            parity_ms=walls(g["parity_step"]), window_ms=win,
-            vocoder_pool_mb=sum(v["pool_bytes"] for v in
-                                g["windows"]["programs"].values()) / 2 ** 20)
+                     g["parity_goldens"]["requests"]])
         del g
         torch.cuda.empty_cache()
 
@@ -6375,15 +6616,13 @@ def main(argv=None) -> None:
             print(line, flush=True)
         paths["tp"] = tq["launches"]
         sm = tq["smoke"]
+        # the planted faults' readings are on the phase's lines
         note("tp", goldens_exact=tq["goldens"]["exact"],
              parted=len(tq["goldens"]["parted"]),
              step_err={f"{lay} tp{k}": max(r["logits_rel_err"],
                                            r["state_rel_err"])
                        for lay, rows in tq["steps"].items()
                        for k, r in rows.items()},
-             fault_err={f"{lay} {n}": max(f) for lay, v in
-                        tq["separation"].items()
-                        for n, f in v["faults"].items()},
              tax_ms={k: sm["tp11_minus_plain"][k]
                      for k in ("wall_ms", "device_ms", "kernels")},
              tp2_ms=[sm["tp2"]["wall_ms"], sm["tp2"]["device_ms"]],
@@ -6594,6 +6833,7 @@ def main(argv=None) -> None:
 
         paths["streaming"] = st["launches"]
         win_ms = [1e3 * sec for r in st["runs"] for _, sec in r["windows"]]
+        # admission's parts and the host probe are on the phase's lines
         note("streaming", solo_first_ms=[r["first_chunk_ms"]
                                          for r in st["solo"]],
              first_ms=[min(r["first_chunk_ms"] for r in st["runs"]),
@@ -6603,14 +6843,7 @@ def main(argv=None) -> None:
              burst_same=wit["burst"]["same"],
              staggered_same=wit["staggered"]["same"],
              goldens=st["goldens"], block_busy_ms=st["block"][1],
-             prefill_s=st["stats"]["prefill_s"],
-             copy_s=st["stats"]["copy_s"],
-             admitted=st["stats"]["admitted"],
-             admit_s=st["stats"]["admit_s"],
-             dispatch_s=st["stats"]["dispatch_s"],
-             admit_cpu_s=st["probe"]["admit_cpu_s"],
-             gc_s=sum(sec for _, sec in st["probe"]["gc"].values()),
-             alloc_retries=st["probe"]["cuda"]["num_alloc_retries"])
+             admit_s=st["stats"]["admit_s"])
         del st
         torch.cuda.empty_cache()
 
@@ -6700,12 +6933,12 @@ def main(argv=None) -> None:
         paths["checkpoint"] = ck["launches"]
         paths["checkpoint_published"] = ck["published"]["launches"]
         t = ck["times_s"]
+        # the validator's readings are on the phase's lines
         note("checkpoint",
              files_s=sum(v for k, v in t.items() if k.startswith("write")),
              start_s=t["build_pipeline_from_args"],
              published_s=t["published layout, fetched and validated"],
-             lm_equal=ck["lm_equal"], rtf=[r["rtf"] for r in ck["requests"]],
-             validator=validator_readings(ck["published"]))
+             lm_equal=ck["lm_equal"], rtf=[r["rtf"] for r in ck["requests"]])
 
     # each kernel's timings at every shape it was timed at, on a line of
     # their own: the kernels line keeps each entry's figure at its path's

@@ -26,7 +26,10 @@ of the JAX engine's jitted stage programs, and each prefill chunk as one
 (``PrefillGraphs``, per batch and prompt-length bucket), the counterpart of
 the jitted ``rwkv7.forward``; the eager ``global_stage``,
 ``semantic_stage`` and ``rwkv7.forward`` stay the CPU's and the meshes'
-path and the graphs' oracle.
+path and the graphs' oracle. Every batch is served by
+``TtsEngine.lm_program``, the counterpart of the JAX engine's one-dispatch
+``lm_program`` (this module's ``lm_program`` is its eager composition) and
+of its staged chain for longer prompts.
 """
 
 from __future__ import annotations
@@ -244,6 +247,38 @@ def semantic_stage(params, state, first_logits, base_keys, limits, hard_min,
         if (n + 1) % decode_block == 0 and bool(carry["done"].all()):
             break
     return carry["buf"], carry["lens"], state, n_steps
+
+
+def lm_program(params, tokens, lengths, glob_keys, sem_keys, limits,
+               hard_min, cfg: RwkvConfig, max_steps: int, zero_shot: bool,
+               decode_block: int = 16):
+    """The JAX engine's one-dispatch LM program (``engine.py:255``): one
+    prefill chunk from a fresh state, then in normal mode the global stage
+    and the semantic stage with TAG_1 fed in first (``feed_tag1``), in
+    zero-shot mode the semantic stage alone.
+
+    tokens [B, T] and lengths [B] (int64), the stages' keys [B, 2], limits
+    and hard_min [B], all on the parameters' device. Returns (glob [B, 32],
+    zeros for zero-shot; sem [B, max_steps]; lens [B]).
+
+    The eager composition of ``rwkv7.forward``, ``global_stage`` and
+    ``semantic_stage``: the CPU's path and the oracle of
+    ``TtsEngine.lm_program``, which runs the same chain through the
+    engine's graphs on a card."""
+    B = tokens.shape[0]
+    state = rwkv7.init_state(cfg, B, device=tokens.device)
+    logits, state = rwkv7.forward(params, tokens, state, cfg,
+                                  lengths=lengths)
+    if zero_shot:
+        glob = torch.zeros((B, C.GLOBAL_TOKENS_SIZE), dtype=torch.int64,
+                           device=tokens.device)
+    else:
+        glob, state, logits = global_stage(params, state, logits, glob_keys,
+                                           cfg)
+    sem, lens, _, _ = semantic_stage(
+        params, state, logits, sem_keys, limits, hard_min, cfg, max_steps,
+        zero_shot, feed_tag1=not zero_shot, decode_block=decode_block)
+    return glob, sem, lens
 
 
 class StageGraphs:
@@ -562,6 +597,46 @@ class TtsEngine:
                               decode_block=ecfg.decode_block,
                               step_fn=self._step_fn)
 
+    def lm_program(self, prompts, glob_keys, sem_keys, limits, hard_min,
+                   zero_shot: bool):
+        """The LM chain of a batch at the engine's ``max_semantic_tokens``
+        and ``decode_block``: ``prefill`` of ``prompts`` (lists of token
+        ids) from a fresh state, then in normal mode the global stage and
+        the semantic stage with TAG_1 fed in first, in zero-shot mode the
+        semantic stage alone; the keys, ``limits`` and ``hard_min`` are on
+        the engine's device. The returns of the module's ``lm_program``
+        (glob [B, 32], zeros for zero-shot; sem; lens); adds the prefill's
+        chunks and the decode steps to ``counters``.
+
+        ``generate_batch`` and the pipeline's warm-up run every batch
+        through it. The JAX engine keeps its one-dispatch ``lm_program``
+        for prompts that fit one prefill chunk and a staged chain for the
+        rest and for a mesh; here both are the same calls: on a card one
+        ``PrefillGraphs`` replay a chunk (one for such a prompt), then
+        ``StageGraphs``' global stage, TAG_1 step and semantic stage;
+        eager on the CPU (for a one-chunk prompt the module function's
+        composition) and under a mesh. No program of its own is captured:
+        the JAX program's ``while_loop`` leaves the semantic stage as soon
+        as every slot is done, which one CUDA graph of the whole stage
+        could not without conditional nodes, so the host still reads
+        ``done`` every ``decode_block`` steps."""
+        with self.stage_lock:
+            logits, state = self.prefill(prompts,
+                                         self.init_state(len(prompts)))
+            steps = 0
+            if zero_shot:
+                glob = torch.zeros((len(prompts), C.GLOBAL_TOKENS_SIZE),
+                                   dtype=torch.int64, device=self.device)
+            else:
+                glob, state, logits = self.run_global(state, logits,
+                                                      glob_keys)
+                steps = C.GLOBAL_TOKENS_SIZE
+            sem, lens, _, n = self.run_semantic(
+                state, logits, sem_keys, limits, hard_min, zero_shot,
+                not zero_shot)
+            self.counters["decode_steps"] += steps + n
+        return glob, sem, lens
+
     def _shard_tp(self, params, cfg: RwkvConfig, mesh, device):
         """The JAX engine's refusals in its order, then the head-sharded
         parameters and the step hook."""
@@ -692,20 +767,11 @@ class TtsEngine:
             [zs_hard_min(len(t)) if zero_shot else 0 for t in texts],
             dtype=torch.int64, device=dev)
         sem_keys = self._keys(seeds, C.SEMANTIC_SEED_OFFSET)
+        glob_keys = self._keys(seeds, C.GLOBAL_SEED_OFFSET)
 
-        logits, state = self.prefill(prompts, self.init_state(B))
         with self.stage_lock:
-            if zero_shot:
-                glob = None
-                sem, lens, _, n = self.run_semantic(
-                    state, logits, sem_keys, limits, hard_min, True, False)
-            else:
-                glob, state, logits = self.run_global(
-                    state, logits, self._keys(seeds, C.GLOBAL_SEED_OFFSET))
-                self.counters["decode_steps"] += C.GLOBAL_TOKENS_SIZE
-                sem, lens, _, n = self.run_semantic(
-                    state, logits, sem_keys, limits, hard_min, False, True)
-            self.counters["decode_steps"] += n
+            glob, sem, lens = self.lm_program(prompts, glob_keys, sem_keys,
+                                              limits, hard_min, zero_shot)
             sem_np, len_np = sem.cpu().numpy(), lens.cpu().numpy()
             glob_np = None if zero_shot else glob.cpu().numpy()
         out = []

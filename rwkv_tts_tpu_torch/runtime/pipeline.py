@@ -416,12 +416,13 @@ class TtsPipeline:
         {batch_size}. ``budget_s``: once this much wall time has passed,
         the remaining steps are skipped and listed under ``"skipped"``.
         The steps run in the JAX order: the batch ladder over the first two
-        prefill buckets and both modes, a prompt longer than the largest
-        bucket through prefill, the global and the semantic stage, the
-        speaker cache (when it is the default), the detokenize buckets,
-        then both vocoder windows of every streaming latency mode. Under a
-        ``tp_mesh`` every batch pads to the data axis, so the LM steps run
-        the staged TP path at that batch (``batch_ladder`` is ignored)."""
+        prefill buckets and both modes (``TtsEngine.lm_program``), a
+        prompt longer than the largest bucket through prefill, the global
+        and the semantic stage, the speaker cache (when it is the
+        default), the detokenize buckets, then both vocoder windows of
+        every streaming latency mode. Under a ``tp_mesh`` every batch pads
+        to the data axis, so the LM steps run the TP path at that batch
+        (``batch_ladder`` is ignored)."""
         from .streaming import StreamingVocoder
 
         eng = self.engine
@@ -452,14 +453,12 @@ class TtsPipeline:
                              ones(B) - 1, zs, not zs)
 
         def lm(B, T, zs):
-            # the static engine's serving chain at (B, T) on zero tokens;
-            # on a card it captures the stages' graphs of batch B
-            logits, st = eng.prefill([[0] * T] * B, eng.init_state(B))
-            with eng.stage_lock:
-                if not zs:
-                    _, st, logits = eng.run_global(st, logits,
-                                                   eng._keys([0] * B, 0))
-                semantic(st, logits, B, zs)
+            # the static engine's serving chain at (B, T) on zero tokens:
+            # lm_program as in the JAX warm-up; on a card it captures the
+            # prefill's and the stages' graphs of batch B
+            keys = eng._keys([0] * B, 0)
+            eng.lm_program([[0] * T] * B, keys, keys, ones(B), ones(B) - 1,
+                           zs)
 
         modes = (False, True) if zero_shot_too else (False,)
         buckets = prefill_buckets or ecfg.prefill_buckets[:2]

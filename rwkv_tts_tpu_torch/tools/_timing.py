@@ -16,6 +16,8 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from ..ops import conv1d as C1
+from ..ops import quant as Q
 from ..ops import wkv7 as W
 from ..utils.timing import device_ms, device_ms_by_kernel, event_ms
 
@@ -33,17 +35,18 @@ def timed(fn: Callable[[], object], iters: int, device: torch.device,
 
 
 def wall(fn: Callable[[], object], iters: int, device: torch.device,
-         per: int = 1) -> float:
-    """Wall ms of ``fn`` per call divided by ``per``, after one warmup
-    call: CUDA events around ``iters`` calls on a card (its idle gaps
+         per: int = 1, warmup: int = 1) -> float:
+    """Wall ms of ``fn`` per call divided by ``per``, after ``warmup``
+    calls: CUDA events around ``iters`` calls on a card (its idle gaps
     included), the host clock on the CPU. No profiler runs."""
     if device.type != "cuda":
-        fn()
+        for _ in range(warmup):
+            fn()
         t0 = time.perf_counter()
         for _ in range(iters):
             fn()
         return (time.perf_counter() - t0) * 1e3 / iters / per
-    return event_ms(fn, iters, warmup=1) / per
+    return event_ms(fn, iters, warmup=warmup) / per
 
 
 def busy(fn: Callable[[], object], device: torch.device, per: int = 1
@@ -76,12 +79,16 @@ def card_name(device: torch.device) -> str:
             else "cpu")
 
 
+def _counts() -> Dict[str, int]:
+    return {**W.LAUNCHES, **Q.LAUNCHES, **C1.LAUNCHES}
+
+
 class Launches:
-    """The WKV wrappers' launches while a tool runs (the counters are the
-    process's; this takes the difference)."""
+    """Every kernel wrapper's launches while a tool runs (the counters are
+    the process's; this takes the difference)."""
 
     def __init__(self):
-        self.before = dict(W.LAUNCHES)
+        self.before = _counts()
 
     def delta(self) -> Dict[str, int]:
-        return {k: v - self.before.get(k, 0) for k, v in W.LAUNCHES.items()}
+        return {k: v - self.before.get(k, 0) for k, v in _counts().items()}
