@@ -8,9 +8,9 @@ Run from the root of a checkout on a machine with one CUDA card:
 
 Without ``--phases`` every phase runs and the last line is the ok line.
 With it, the build runs and then only the named phases (``PHASES``: kernels,
-quant_kernels, conv_kernels, rest_kernels, sweep, tools, lm_tools, goldens,
-graphs, parity, tp, main_path, cloning, quantized, streaming, server, soak,
-checkpoint), and the
+quant_kernels, conv_kernels, rest_kernels, sweep, tools, lm_tools,
+vocoder_tools, goldens, graphs, parity, tp, main_path, cloning, quantized,
+streaming, server, soak, checkpoint), and the
 last line is ``{"partial": [...]}``: a partial run never prints the ok
 line, and the all-kernels check of the kernels line runs only in a whole
 run. An unknown name fails.
@@ -113,7 +113,7 @@ Phases, each fatal on failure:
              256); then the decode tools in the JAX serving layout (int8
              weights, bf16 state) at B = 128: ``profile_buckets`` (slots
              128, block 8, cut from 32: eager and graphed block per
-             occupancy bucket) and ``profile_decode`` (batch 128, 16
+             occupancy bucket) and ``profile_decode`` (batch 128, 8
              steps, cut from 128: the stage eager and graphed, the raw
              step, the WKV and the weight products alone); their JSON
              lines, and their launches as the ``tools`` path;
@@ -132,6 +132,21 @@ Phases, each fatal on failure:
              slots, block 32, caps 32/64/96/128 of 128/256/384/512, padded
              to 128 of 512, warm-up bursts up to 1 of 64): their JSON
              lines, and their launches as the ``lm_tools`` path;
+  vocoder_tools  the vocoder tools at full size (``BiCodecConfig()``,
+             seed 1, batch 8 x 512 tokens unless said): ``profile_vocoder
+             shapes`` (the 10 wave-generator conv shapes, native f32 convs,
+             the conv1d kernel on packed bf16 weights, held against
+             ``conv1d_plain`` at 2e-5 of the output's largest value, and
+             cuDNN's bf16 ``F.conv1d`` timed beside them), ``decode`` under
+             the subsets all, k1, wide, narrow and native and ``impl``
+             under native, mxu and mxu_fused (2 timed decodes each:
+             finite waveforms in [-1, 1], conv1d launched under every
+             kernel subset and impl and not under native, rel RMS against
+             native printed), ``profile_vocoder_batch`` at 32 x 512 with
+             sub-batches 4 (graphed), 8 and 16 (eager; every size
+             completes) and ``profile_vocoder_gemm``'s four variants (2
+             timed decodes); depths in ``VOCODER_TOOLS_ARGV``; their JSON
+             lines, and their launches as the ``vocoder_tools`` path;
   goldens   the goldens model (2 layers × 128, weights rebuilt from the
              JAX package's seeded numpy stream) on the card must emit
              exactly the tokens of ``tests/goldens.json``;
@@ -198,7 +213,13 @@ Phases, each fatal on failure:
              through ``ContinuousEngine(mesh=)``, every slot freed, their
              ``wkv7_decode`` and ``wkv7_prefill`` launches as the ``tp``
              path; ``tools/tp_smoke.py`` (4 steps) at (1, 1) and tp 2: wall,
-             device busy and kernels a step, and the (1, 1) tax;
+             device busy and kernels a step, and the (1, 1) tax (the
+             virtual tp 2 step in ``tools/profile_tp.py``'s line);
+             ``tools/profile_tp.py --virtual 2 8 8`` (32 x 2048 int8): the
+             plain step, ``step_tp`` and the psum-only program timed, the
+             step's logits against the plain step's reported; the same
+             tool in f32 at 2 layers, 1 step, its logits within 1e-4 of
+             the plain step's;
   main_path  8 property-controlled requests through
              ``TtsPipeline.synthesize_batch`` at full width (32 × 2048 LM,
              bf16 weights, f32 state; full-size BiCodec; random weights
@@ -1464,10 +1485,11 @@ def prefill_sweep(torch, W, H, N):
 # the tools' depths in the tools phase: profile_prefill_pieces at T = 64
 # alone (the tool: 64 and 256; the sweep phase times every formulation at
 # (8, 256)), profile_buckets' block cut from 32 to 8, profile_decode's
-# steps from 128 to 16 (and their repeats)
+# steps from 128 to 8 (and their repeats; 16 until the vocoder_tools phase
+# came, whose time this cut gives back)
 TOOLS_PREFILL_ARGV = ["--iters", "1", "--T", "64"]
 TOOLS_BUCKETS_ARGV = [str(TOOLS_BATCH), "8", "--iters", "1"]
-TOOLS_DECODE_ARGV = [str(TOOLS_BATCH), "16", "--iters", "1",
+TOOLS_DECODE_ARGV = [str(TOOLS_BATCH), "8", "--iters", "1",
                      "--profile-steps", "1"]
 
 
@@ -1514,7 +1536,7 @@ def phase_tools(torch):
           + ", ".join(f"{k} {v['tool_s']:.1f} s" for k, v in outs.items())
           + f"); cut: profile_prefill_pieces {TOOLS_PREFILL_ARGV} (T = 64 "
           f"of 64 and 256), profile_buckets {TOOLS_BUCKETS_ARGV} (block 8 "
-          f"of the tool's 32), profile_decode {TOOLS_DECODE_ARGV} (16 steps "
+          f"of the tool's 32), profile_decode {TOOLS_DECODE_ARGV} (8 steps "
           f"of 128); launches {launches}", flush=True)
     return outs, launches
 
@@ -1754,6 +1776,170 @@ def lm_tools_summary(lt):
             "ab_ms": [ab["fused_ms_step"], ab["raw_ms_step"]],
             "cont_xrt": [bc["xrt_continuous_llm"], bc["xrt_continuous_e2e"]],
             "cont_warm_s": bc["warmup_s"]}
+
+
+# --------------------------------------------------------------------------
+# vocoder_tools: the vocoder's conv formulations by shape and in whole
+# decodes, the detokenize sub-batch sweep, the shifted-sum products
+# --------------------------------------------------------------------------
+
+# the vocoder_tools phase's depths, the tools' own in brackets:
+# profile_vocoder's shapes as the tool runs them (all 10 at B = 8, n =
+# max(3, 3000 / GFLOP) calls), its decode subsets and conv_impls at 2
+# timed decodes each (10); profile_vocoder_batch's leg at 32 x 512 (128 x
+# 512), sub-batches 4, 8, 16 (4, 8, 16, 32), 1 timed leg (3);
+# profile_vocoder_gemm's four variants at 2 timed decodes (5)
+VOCODER_TOOLS_ARGV = {
+    "shapes": ["shapes"],
+    "decode": ["decode", "all", "k1", "wide", "narrow", "native", "--iters",
+               "2"],
+    "impl": ["impl", "native", "mxu", "mxu_fused", "--iters", "2"],
+    "batch": ["--batch", "32", "--subs", "4", "8", "16", "--iters", "1"],
+    "gemm": ["--iters", "2"]}
+
+
+def vocoder_tools(torch, device: str, argv=None):
+    """The ``vocoder_tools`` phase on ``device``: the three vocoder tools
+    (``rwkv_tts_tpu_torch/tools``: ``profile_vocoder`` in its three modes,
+    ``profile_vocoder_batch``, ``profile_vocoder_gemm``) at the depths of
+    ``argv`` (default ``VOCODER_TOOLS_ARGV``; toy ``argv`` rehearse it on
+    the CPU). ``profile_vocoder shapes`` holds each kernel output against
+    ``conv1d_plain`` (2e-5 of its largest value) and times cuDNN's bf16
+    ``F.conv1d`` beside it (CUDA events; device busy ms where the profiler
+    kept the window). Fails where a waveform is not finite or leaves
+    [-1, 1], where a kernel subset or ``conv_impl`` launched no conv1d (on
+    the CPU: routed no conv) or native launched one, where a sub-batch
+    size did not complete or, on a card, the sweep had no graphed and no
+    eager size. Returns the readings; the phase's launches are the
+    ``vocoder_tools`` path."""
+    from rwkv_tts_tpu_torch.tools import (profile_vocoder,
+                                          profile_vocoder_batch,
+                                          profile_vocoder_gemm)
+
+    argv = VOCODER_TOOLS_ARGV if argv is None else argv
+    card = device != "cpu"
+    reset_launch_counts()
+    out = {"times_s": {}}
+    for name, mod in (("shapes", profile_vocoder),
+                      ("decode", profile_vocoder),
+                      ("impl", profile_vocoder),
+                      ("batch", profile_vocoder_batch),
+                      ("gemm", profile_vocoder_gemm)):
+        t1 = time.perf_counter()
+        out[name] = mod.main(argv[name], device=device)
+        out["times_s"][name] = time.perf_counter() - t1
+        if card:
+            torch.cuda.empty_cache()
+    out["launches"] = launch_counts()
+    sh = out["shapes"]["shapes"]
+    if len(sh) != len(profile_vocoder.SHAPES):
+        fail(f"vocoder_tools: {len(sh)} of {len(profile_vocoder.SHAPES)} "
+             f"shapes")
+    # the walls are the shapes' times; a busy reading is None where the
+    # profiler lost the window's events (it drops some in a long process)
+    for label, r in sh.items():
+        if not r["max_rel_err"] <= profile_vocoder.SHAPE_TOL:
+            fail(f"vocoder_tools: conv1d {label}: rel err "
+                 f"{r['max_rel_err']:.3g}")
+
+    if list(out["decode"]["decode"]) != ["all", "k1", "wide", "narrow",
+                                         "native"]:
+        fail(f"vocoder_tools: decode subsets {list(out['decode']['decode'])}")
+    for mode in ("decode", "impl"):
+        for which, r in out[mode][mode].items():
+            if not r["finite"] or r["max_abs"] > 1.0:
+                fail(f"vocoder_tools: {mode} {which}: waveform finite "
+                     f"{r['finite']}, max |x| {r['max_abs']}")
+            # the CPU runs the kernel's plain version, which counts no
+            # launch: there the subsets' routed calls stand in for them
+            n = r["conv1d_launches"] if card else r["routed_calls"]
+            if n is not None and (n > 0) != (which != "native"):
+                fail(f"vocoder_tools: {mode} {which}: {n} conv1d "
+                     f"{'launches' if card else 'routed calls'}")
+    vb = out["batch"]["voc_b"]
+    if not vb or any("failed" in r for r in vb.values()):
+        fail(f"vocoder_tools: the sub-batch sweep: {vb}")
+    modes = {r["mode"] for r in vb.values()}
+    if card and modes != {"graphed", "eager"}:
+        fail(f"vocoder_tools: the sweep ran {modes}, not one size graphed "
+             f"and one eager")
+    for which, r in out["gemm"]["variants"].items():
+        if not r["finite"] or (r["routed_calls"] > 0) != (which != "native"):
+            fail(f"vocoder_tools: gemm {which}: finite {r['finite']}, "
+                 f"{r['routed_calls']} shifted-sum calls")
+    if card and not (out["launches"]["conv1d"]
+                     and out["launches"]["conv1d_prologue"]):
+        fail(f"vocoder_tools: not launched: {out['launches']}")
+    return out
+
+
+def vocoder_tools_lines(vt, card: str):
+    """The ``vocoder_tools`` phase's printed lines."""
+    def r(x, n=3):
+        return None if x is None else round(x, n)
+
+    sh = vt["shapes"]
+    yield (f"vocoder_tools: profile_vocoder shapes (B = {sh['batch']}, T / "
+           f"{sh['t_div']}) ms: native f32 wall, kernel bf16 wall / busy, "
+           f"cuDNN bf16 wall / busy; the kernel's bound and rel err against "
+           f"conv1d_plain (tolerance 2e-5): " + "; ".join(
+               f"{k.strip()}: {r(v['native_ms'])}, {r(v['mxu_ms'])} / "
+               f"{r(v['mxu_busy_ms'])}, "
+               f"{r(v['cudnn_bf16_ms'])} / {r(v['cudnn_bf16_busy_ms'])}; "
+               f"bound {r(v['bound_ms'])} by {v['bound_by']}, err "
+               f"{v['max_rel_err']:.2g}" for k, v in sh["shapes"].items())
+           + f"; {card}")
+    for mode in ("decode", "impl"):
+        d = vt[mode]
+        yield (f"vocoder_tools: profile_vocoder {mode} ({d['batch']} x "
+               f"{d['latents']}, eager, {d['iters']} timed) wall / busy ms,"
+               f" kernels, conv1d launches, routed calls, rel RMS vs native,"
+               f" max |x|: " + "; ".join(
+                   f"{k} {r(v['wall_ms'], 2)} / {r(v['busy_ms'], 2)}, "
+                   f"{r(v['kernels'], 0)}, {v['conv1d_launches']}, "
+                   f"{v['routed_calls']}, {r(v['rel_rms_vs_native'], 4)}, "
+                   f"{r(v['max_abs'], 4)}" for k, v in d[mode].items())
+               + f"; {card}")
+    yield ("vocoder_tools: profile_vocoder impl, the costliest kernels of "
+           "one decode (device ms, launches): " + "; ".join(
+               f"{k}: " + ", ".join(f"{n} {r(ms)} ({r(c, 0)})"
+                                    for n, ms, c in v["top_kernels"] or [])
+               for k, v in vt["impl"]["impl"].items()) + f"; {card}")
+    b = vt["batch"]
+    yield (f"vocoder_tools: profile_vocoder_batch ({b['batch']} x "
+           f"{b['latents']}, {b['iters']} timed leg) by voc_b: s, xRT, "
+           f"mode, eager calls, peak allocated MiB, graph pool MiB: "
+           + "; ".join(f"{k}: {r(v['seconds'], 4)}, {r(v['xrt'], 1)}, "
+                       f"{v['mode']}, {v['eager_calls']}, "
+                       f"{r(v['peak_allocated_mib'], 0)}, "
+                       f"{r(v['graph_pool_mib'], 0)}"
+                       for k, v in b["voc_b"].items())
+           + f"; best {b.get('best')}; {card}")
+    g = vt["gemm"]
+    yield (f"vocoder_tools: profile_vocoder_gemm ({g['batch']} x "
+           f"{g['latents']}, {g['iters']} timed) wall / busy ms, kernels, "
+           f"first call s, shifted-sum calls, rel RMS vs native: "
+           + "; ".join(f"{k} {r(v['wall_ms'], 2)} / {r(v['busy_ms'], 2)}, "
+                       f"{r(v['kernels'], 0)}, {r(v['first_call_s'], 2)}, "
+                       f"{v['routed_calls']}, {r(v['rel_rms_vs_native'], 4)}"
+                       for k, v in g["variants"].items()) + f"; {card}")
+    yield (f"vocoder_tools: seconds by part "
+           f"{json.dumps({k: round(v, 1) for k, v in vt['times_s'].items()})}"
+           f"; launches {vt['launches']}")
+
+
+def vocoder_tools_summary(vt):
+    """The ``vocoder_tools`` entry of the summary line (with its seconds
+    and launches under 250 bytes): wall ms of each decode subset and
+    ``conv_impl``, seconds of each sub-batch size, wall ms of each
+    shifted-sum variant."""
+    return {"dec_ms": [v["wall_ms"] for v in vt["decode"]["decode"]
+                       .values()],
+            "impl_ms": [v["wall_ms"] for v in vt["impl"]["impl"].values()],
+            "vb_s": [v.get("seconds") for v in vt["batch"]["voc_b"]
+                     .values()],
+            "gemm_ms": [v["wall_ms"] for v in vt["gemm"]["variants"]
+                        .values()]}
 
 
 # --------------------------------------------------------------------------
@@ -2487,12 +2673,29 @@ def tp_kernels(torch, W, lm_cfg, heads=(16, 8), batch: int = 8,
     return out
 
 
+# tools/profile_tp in the tp phase: tp 2 on a virtual mesh, B = 8, 8 steps
+# (64), 32 x 2048 int8, timed, its step_tp logits reported (at 32 layers
+# the random-init stack moves them by the size of a value; an int8 shard
+# quantizes by its own absmax, as in JAX, so no int8 limit holds across
+# draws); and in f32 at TP_LOW_LAYERS layers, 1 step, whose logits are
+# held to 1e-4, the floor of the f32 limit tp_steps computes
+PROFILE_TP_ARGV = ["--virtual", "2", "8", "8"]
+PROFILE_TP_CHECK_ARGV = ["--virtual", "--weights", "f32", "--layers",
+                         str(TP_LOW_LAYERS), "2", "8", "1"]
+PROFILE_TP_TOL = 1e-4
+
+
 def tp(torch, lm_cfg, device: str, root: str, max_tokens: int = 8,
        tps=(1, 2, 4), smoke_argv=None):
     """The ``tp`` phase on ``device``: ``tp_goldens``, ``tp_steps``, the
-    serving runs (``tp_serving``, their launches read as the ``tp`` path)
-    and ``tools/tp_smoke.py`` at (1, 1) and tp 2. Returns a summary."""
-    from rwkv_tts_tpu_torch.tools import tp_smoke
+    serving runs (``tp_serving``, their launches read as the ``tp`` path),
+    ``tools/tp_smoke.py`` at (1, 1) (tp 2 too where ``smoke_argv`` asks)
+    and ``tools/profile_tp.py`` on a virtual (1, 2) mesh (on a card 32 x
+    2048 int8, on the CPU the tool's small f32 model): timed at
+    ``PROFILE_TP_ARGV``, and at ``PROFILE_TP_CHECK_ARGV`` (f32) its
+    ``step_tp`` logits held within ``PROFILE_TP_TOL`` of the plain
+    step's. Returns a summary."""
+    from rwkv_tts_tpu_torch.tools import profile_tp, tp_smoke
 
     t_phase = time.perf_counter()
     times = {}
@@ -2515,8 +2718,19 @@ def tp(torch, lm_cfg, device: str, root: str, max_tokens: int = 8,
                                                         device, max_tokens))
     out["launches"] = launch_counts()
     out["smoke"] = part("smoke", lambda: tp_smoke.main(
-        smoke_argv or ["--steps", "4", "--iters", "2", "--tp", "2"],
-        device=device))
+        smoke_argv or ["--steps", "4", "--iters", "2"], device=device))
+    out["profile_tp"] = part("profile_tp", lambda: profile_tp.main(
+        PROFILE_TP_ARGV, device=device))
+    chk = out["profile_tp_check"] = part("profile_tp_check", lambda:
+                                         profile_tp.main(
+                                             PROFILE_TP_CHECK_ARGV,
+                                             device=device))
+    tol = chk["tolerance"] = PROFILE_TP_TOL
+    if not chk["logits_rel_err"] <= tol:
+        fail(f"tp: profile_tp's step_tp logits at tp {chk['tp']} "
+             f"({chk['weights']}, {chk['L']} layers) against the plain "
+             f"step's: rel err {chk['logits_rel_err']:.3g} (tolerance "
+             f"{tol})")
     out["times_s"] = times
     out["wall_s"] = time.perf_counter() - t_phase
     return out
@@ -2574,15 +2788,44 @@ def tp_lines(tq, tpk, lm_cfg, card: str):
         f"{ms(sm['plain']['device_ms'])} / {ms(sm['plain']['kernels'])}; "
         f"tp (1, 1) {ms(sm['tp1']['wall_ms'])} / "
         f"{ms(sm['tp1']['device_ms'])} / {ms(sm['tp1']['kernels'])}; "
-        f"virtual tp 2 {ms(sm['tp2']['wall_ms'])} / "
-        f"{ms(sm['tp2']['device_ms'])} / {ms(sm['tp2']['kernels'])}; the "
-        f"(1, 1) tax {ms(sm['tp11_minus_plain']['wall_ms'])} / "
+        + (f"virtual tp 2 {ms(sm['tp2']['wall_ms'])} / "
+           f"{ms(sm['tp2']['device_ms'])} / {ms(sm['tp2']['kernels'])}; "
+           if "tp2" in sm else "virtual tp 2: tools/profile_tp's line; ")
+        + f"the (1, 1) tax {ms(sm['tp11_minus_plain']['wall_ms'])} / "
         f"{ms(sm['tp11_minus_plain']['device_ms'])} / "
         f"{ms(sm['tp11_minus_plain']['kernels'])}; wkv7_decode per step "
         f"plain {sm['plain']['wkv7_decode_per_step']:.0f}, tp (1, 1) "
-        f"{sm['tp1']['wkv7_decode_per_step']:.0f}, tp 2 "
-        f"{sm['tp2']['wkv7_decode_per_step']:.0f}; {card}"]
+        f"{sm['tp1']['wkv7_decode_per_step']:.0f}"
+        + (f", tp 2 {sm['tp2']['wkv7_decode_per_step']:.0f}"
+           if "tp2" in sm else "") + f"; {card}"]
     return lines
+
+
+def profile_tp_line(ptp, chk, card: str) -> str:
+    """The ``tp`` phase's line of ``tools/profile_tp.py``: the timed run
+    ``ptp`` and the check ``chk``."""
+    def ms(x):
+        return "not measured" if x is None else f"{x:.3f}"
+
+    return (f"tp: tools/profile_tp ({'virtual ' if ptp['virtual'] else ''}"
+            f"(1, {ptp['tp']}) mesh, {ptp['L']} x {ptp['C']} "
+            f"{ptp['weights']}, B = {ptp['batch']}, {ptp['steps']} steps; "
+            f"psums across a link: {ptp['psums_cross_a_link']}), ms a step "
+            f"wall / device busy / kernels: " + "; ".join(
+                f"{k} {ms(ptp[k]['wall_ms'])} / {ms(ptp[k]['busy_ms'])} / "
+                f"{ms(ptp[k]['kernels'])}"
+                for k in ("single", "step_tp", "psums_only"))
+            + f" ({ptp['psums_per_step']} psums); wkv7_decode a step per "
+            f"shard: single {ptp['single']['wkv7_decode_per_shard']:.0f}, "
+            f"step_tp {ptp['step_tp']['wkv7_decode_per_shard']:.0f}; "
+            f"step_tp's logits against the plain step's, rel err (argmax "
+            f"agree): {ptp['weights']} {ptp['L']} layers "
+            f"{ptp['logits_rel_err']:.3g} "
+            f"({100 * ptp['argmax_agree']:.0f}%, reported), "
+            f"{chk['weights']} {chk['L']} layers "
+            f"{chk['logits_rel_err']:.3g} "
+            f"({100 * chk['argmax_agree']:.0f}%; tolerance "
+            f"{chk['tolerance']}); {card}")
 
 
 # --------------------------------------------------------------------------
@@ -6338,9 +6581,9 @@ KERNEL_ENTRIES = {
 
 
 PHASES = ("kernels", "quant_kernels", "conv_kernels", "rest_kernels",
-          "sweep", "tools", "lm_tools", "goldens", "graphs", "parity", "tp",
-          "main_path", "cloning", "quantized", "streaming", "server", "soak",
-          "checkpoint")
+          "sweep", "tools", "lm_tools", "vocoder_tools", "goldens", "graphs",
+          "parity", "tp", "main_path", "cloning", "quantized", "streaming",
+          "server", "soak", "checkpoint")
 
 # the summary line's bytes: with the kernels line and the ok line it stays
 # well inside the last 24 KB of output a run's record keeps (about 12 KB)
@@ -6538,6 +6781,14 @@ def main(argv=None) -> None:
         note("lm_tools", **lm_tools_summary(lt))
         del lt
         torch.cuda.empty_cache()
+    if "vocoder_tools" in selected:
+        vt = vocoder_tools(torch, "cuda")
+        for line in vocoder_tools_lines(vt, card):
+            print(line, flush=True)
+        paths["vocoder_tools"] = vt["launches"]
+        note("vocoder_tools", **vocoder_tools_summary(vt))
+        del vt
+        torch.cuda.empty_cache()
     if "goldens" in selected:
         phase_goldens(root)
         note("goldens", exact=True)
@@ -6614,6 +6865,8 @@ def main(argv=None) -> None:
         tq["times_s"] = {"kernels": tk, **tq["times_s"]}
         for line in tp_lines(tq, tpk, lm_cfg, card):
             print(line, flush=True)
+        print(profile_tp_line(tq["profile_tp"], tq["profile_tp_check"],
+                              card), flush=True)
         paths["tp"] = tq["launches"]
         sm = tq["smoke"]
         # the planted faults' readings are on the phase's lines
@@ -6625,7 +6878,11 @@ def main(argv=None) -> None:
                        for k, r in rows.items()},
              tax_ms={k: sm["tp11_minus_plain"][k]
                      for k in ("wall_ms", "device_ms", "kernels")},
-             tp2_ms=[sm["tp2"]["wall_ms"], sm["tp2"]["device_ms"]],
+             tp2_ms=[tq["profile_tp"]["step_tp"][k]
+                     for k in ("wall_ms", "busy_ms")],
+             psums_ms=tq["profile_tp"]["psums_only"]["wall_ms"],
+             tp_err=[tq[k]["logits_rel_err"]
+                     for k in ("profile_tp", "profile_tp_check")],
              kernels_ms={k: v["ms"] for k, v in tpk.items()},
              serving_s=[tq["serving"]["static_s"],
                         tq["serving"]["continuous_s"]])

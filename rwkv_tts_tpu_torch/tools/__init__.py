@@ -5,6 +5,10 @@ JAX package's ``tools/profile_stack_kernel.py``,
 ``validate_real_assets`` (``tools/validate_real_assets.py``), and the
 serving tools in the JAX serving layout (int8 weights, bf16 state):
 ``soak_serving``, ``probe_stream_latency``, ``profile_buckets`` and
-``profile_decode`` (the JAX ``tools/`` of the same names). Each runs as
+``profile_decode`` (the JAX ``tools/`` of the same names), the LM tools
+``profile_first_chunk``, ``profile_int4_b8``, ``profile_fused_ab`` and
+``bench_continuous``, the vocoder tools ``profile_vocoder``,
+``profile_vocoder_batch`` and ``profile_vocoder_gemm``, and
+``profile_tp`` (the JAX ``tools/`` of the same names). Each runs as
 ``python -m rwkv_tts_tpu_torch.tools.<name>`` on a card, or through its
 ``main(argv, device="cpu")`` on the CPU."""

@@ -49,22 +49,34 @@ def wall(fn: Callable[[], object], iters: int, device: torch.device,
     return event_ms(fn, iters, warmup=warmup) / per
 
 
-def busy(fn: Callable[[], object], device: torch.device, per: int = 1
-         ) -> Dict[str, Optional[float]]:
-    """Device busy ms and kernels of one call of ``fn`` divided by ``per``,
-    after one warmup call (``torch.profiler``; a window in which the
-    profiler saw no kernel is measured again, up to 3 times). Both are None
-    on the CPU. The profiler spends ~0.5 ms of host time a kernel, so
-    profile a few steps, not a stage."""
+def busy(fn: Callable[[], object], device: torch.device, per: int = 1,
+         iters: int = 1, top: int = 0, expect: int = 1) -> Dict:
+    """Device busy ms and kernels of a call of ``fn`` divided by ``per``,
+    over ``iters`` calls after one warmup call (``torch.profiler``; a
+    window in which the profiler saw fewer than ``expect`` kernels a call
+    is measured again, up to 3 times, and then read as None); with
+    ``top``, also the ``top`` kernels by device time, each [name (cut to
+    80 characters), ms, launches], per call over ``per``. The readings
+    are None on the CPU. The profiler spends ~0.5 ms of host time a
+    kernel, so profile a few steps, not a stage; a call of a kernel or two
+    alone is better profiled over several calls."""
+    out: Dict = {"device_ms": None, "kernels": None}
+    if top:
+        out["top"] = None
     if device.type != "cuda":
-        return {"device_ms": None, "kernels": None}
+        return out
     for warm in (1, 0, 0):
         counts: Dict[str, float] = {}
-        by = device_ms_by_kernel(fn, 1, warmup=warm, counts=counts)
-        if by:
-            return {"device_ms": sum(by.values()) / per,
-                    "kernels": sum(counts.values()) / per}
-    return {"device_ms": None, "kernels": None}
+        by = device_ms_by_kernel(fn, iters, warmup=warm, counts=counts)
+        if by and sum(counts.values()) >= expect - 1e-6:
+            out["device_ms"] = sum(by.values()) / per
+            out["kernels"] = sum(counts.values()) / per
+            if top:
+                out["top"] = [[k[:80], v / per, counts[k] / per]
+                              for k, v in sorted(by.items(),
+                                                 key=lambda kv: -kv[1])[:top]]
+            return out
+    return out
 
 
 def minus(a: Dict[str, Optional[float]], b: Dict[str, Optional[float]]

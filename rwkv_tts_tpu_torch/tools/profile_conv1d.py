@@ -1,7 +1,8 @@
 """Where conv1d's time goes: the attribution tool of ``csrc/conv1d.cu``,
-the port of the TPU kernel ``rwkv_tts_tpu/ops/conv1d.py:112 conv1d_mxu``.
-The JAX package has no counterpart: it timed its convs inside whole
-decodes.
+the port of the TPU kernel ``rwkv_tts_tpu/ops/conv1d.py:112 conv1d_mxu``,
+call by call at one window's shapes. The JAX package timed its convs by
+shape and inside whole decodes (``tools/profile_vocoder.py``, ported as
+``profile_vocoder``); it has no per-plan counterpart of this tool.
 
 For each distinct call of one vocoder window under
 ``conv_impl="mxu_fused"`` (``bicodec.kernel_conv_calls``: ``--window``
