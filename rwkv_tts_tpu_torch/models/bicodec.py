@@ -61,6 +61,7 @@ from ..ops.conv1d import PackedWeight, pack_weight
 from ..ops.conv1d import conv1d as conv1d_kernel
 from ..ops.conv1d import snake as snake_f32
 from ..runtime import graphs
+from ..utils import trace
 from ..utils.device import resolve_device, to_card
 
 Params = Dict[str, Any]
@@ -883,7 +884,11 @@ def detokenize(params: Params, global_tokens, semantic_tokens,
     s_pad = np.pad(s, ((0, 0), (0, padded - S)), mode="edge")
     # checked on the host, before any token reaches the device's gather
     wav = decode_host(params, g, s_pad, cfg, graphs)
-    return wav[:, :S * cfg.hop].cpu().numpy().astype(np.float32)
+    t0 = trace.now() if trace.on else 0
+    out = wav[:, :S * cfg.hop].cpu().numpy().astype(np.float32)
+    if t0:
+        trace.child("vocode.readback", t0, n=S)
+    return out
 
 
 # --------------------------------------------------------------------------

@@ -77,7 +77,7 @@ import torch
 from .. import constants as C
 from ..config import EngineConfig, RwkvConfig, TtsArgs
 from ..models import rwkv7
-from ..utils import threefry
+from ..utils import threefry, trace
 from ..utils.device import resolve_device, to_card
 from ..utils.metrics import STAGE_BUCKETS, Histogram
 from . import graphs
@@ -425,9 +425,9 @@ class _Live:
     semantic_tokens: List[int]
     zero_shot: bool
     prefill_tokens: int
-    t_start: float
-    t_submit: float = 0.0      # submit() wall clock (queue-wait accounting)
-    t_first_emit: float = 0.0  # first semantic token routed to the host
+    t_admit: int               # admission (``trace.now()``, ns)
+    trace_id: int = 0          # ``submit``'s return (``utils/trace``)
+    t_first_emit: int = 0      # first semantic token routed to the host
     admit_seq: int = 0         # blocks dispatched at admission
     cancelled: bool = False    # set by cancel(); the loop retires it
 
@@ -494,8 +494,11 @@ class ContinuousEngine:
         # where each block's wall clock goes on the host: ``dispatch_s``
         # enqueues a block (eager: every launch of its K steps; graphed:
         # K + 1 replays), ``process_s`` waits for the previous block's readback and
-        # routes its tokens; of ``admit_s``, ``prefill_s`` runs the burst's
-        # prefill and ``copy_s`` copies the slot fields to the card
+        # routes its tokens; of ``admit_s`` (an admission burst, from its
+        # requests' leaving the queue), ``prefill_s`` runs the burst's
+        # prefill and ``copy_s`` copies the slot fields to the card. Each
+        # is summed from the ``trace.now()`` stamps that the recorder's
+        # spans of the same name take (``utils/trace``)
         self.stats = {"blocks": 0, "dispatch_s": 0.0, "process_s": 0.0,
                       "admit_s": 0.0, "admitted": 0, "relocations": 0,
                       "compact_s": 0.0, "prefill_s": 0.0, "copy_s": 0.0}
@@ -676,15 +679,18 @@ class ContinuousEngine:
                 self._thread = None
 
     def submit(self, args: TtsArgs, result_cb: Callable,
-               chunk_cb: Optional[Callable] = None):
+               chunk_cb: Optional[Callable] = None) -> int:
         """Non-blocking; ``result_cb`` gets a ``GenerationResult`` or an
-        exception on completion.
+        exception on completion. Returns the request's trace id, under
+        which the recorder (``utils/trace``) files its spans and which its
+        ``GenerationResult`` carries as ``trace_id``.
 
         Voice resolution happens upstream (``TtsPipeline.resolve_voice``):
         a zero-shot request must already carry its ``ref_global_tokens``."""
-        self._enqueue(args, result_cb, chunk_cb)
+        tid = self._enqueue(args, result_cb, chunk_cb)
         self._wake.set()
         self.start()
+        return tid
 
     def submit_burst(self, requests):
         """Enqueue several (args, result_cb, chunk_cb) on an idle engine so
@@ -700,16 +706,19 @@ class ContinuousEngine:
             self._enqueue(args, result_cb, chunk_cb)
         self.start()
 
-    def _enqueue(self, args, result_cb, chunk_cb):
+    def _enqueue(self, args, result_cb, chunk_cb) -> int:
         if self._crashed is not None:
             raise RuntimeError(
                 "continuous decode loop crashed and is offline"
             ) from self._crashed
-        # entry layout: [args, result_cb, chunk_cb, t_submit, cancelled]
-        entry = [args, result_cb, chunk_cb, time.perf_counter(), False]
+        # entry layout: [args, result_cb, chunk_cb, t_submit (ns),
+        # cancelled, trace id]
+        tid = trace.new_id()
+        entry = [args, result_cb, chunk_cb, trace.now(), False, tid]
         with self._lock:
             self._queued[id(args)] = entry
         self._queue.put(entry)
+        return tid
 
     def cancel(self, args: TtsArgs) -> bool:
         """Abort a live or still-queued request. A live slot is idled and
@@ -869,10 +878,18 @@ class ContinuousEngine:
         if not incoming:
             return
         # one masked prefill for the whole burst (ragged lengths), then one
-        # scatter per tensor
-        t_admit = time.perf_counter()
+        # scatter per tensor. One stamp a boundary: the requests' queue
+        # waits end where the burst begins (``t_admit``), then its prompts,
+        # prefill and scatter
+        rec = trace.on
+        t_admit = trace.now()
+        c0 = time.thread_time_ns() if rec else 0
+        sid = trace.new_id() if rec else 0
         for _, entry in incoming:
-            self.hist["queue_wait"].observe(t_admit - entry[3])
+            self.hist["queue_wait"].observe((t_admit - entry[3]) * 1e-9)
+            if rec:
+                trace.span("queue", entry[3], t_admit, req=entry[5],
+                           cause=sid)
         prompts, texts = zip(*(self.inner.build_prompt(e[0])
                                for _, e in incoming))
         m = len(incoming)
@@ -884,12 +901,13 @@ class ContinuousEngine:
         mb = min(1 << (m - 1).bit_length(), self.B)
         if self.mesh is not None and self.mesh.mp > 1:
             mb = -(-mb // self.mesh.dp) * self.mesh.dp
-        t0 = time.perf_counter()
+        t_prompt = trace.now()
         lgb, stb = self.inner.prefill_on(
             self.prefill_graphs, list(prompts) + [prompts[-1]] * (mb - m),
             self.inner.init_state(mb))
         lgb = lgb[..., :min(SEMANTIC_SLICE, self.cfg.padded_vocab_size)]
-        self.stats["prefill_s"] += time.perf_counter() - t0
+        t_prefill = trace.now()
+        self.stats["prefill_s"] += (t_prefill - t_prompt) * 1e-9
 
         slot_ids, stages, limits, hmins, zss, gkeys, skeys = \
             [], [], [], [], [], [], []
@@ -922,11 +940,11 @@ class ContinuousEngine:
             _, _, logits, slots, _ = self._row(d)
             dev = logits.device
             # the row's slots and fields as one host matrix, one copy
-            t1 = time.perf_counter()
+            t1 = trace.now()
             host = np.concatenate([np.array([local], dtype=np.int64),
                                    fields[:, js]])
             p = to_card(torch.from_numpy(host), dev)
-            self.stats["copy_s"] += time.perf_counter() - t1
+            self.stats["copy_s"] += (trace.now() - t1) * 1e-9
             idx = p[0]
             row_state = self._row_state(d)
             new = {k: _take(v, js, 1).to(row_state[k].device)
@@ -937,7 +955,7 @@ class ContinuousEngine:
                                   p[5:7].T, p[7:9].T)
             self._set_row(d, logits, slots)
 
-        for j, (slot, (args, result_cb, chunk_cb, t_sub, _)) in enumerate(
+        for j, (slot, (args, result_cb, chunk_cb, _, _, tid)) in enumerate(
                 incoming):
             ref_g = [min(max(int(t), 0), C.GLOBAL_VOCAB - 1)
                      for t in (args.ref_global_tokens or [])] if zss[j] else []
@@ -946,8 +964,16 @@ class ContinuousEngine:
                     request=args, result_cb=result_cb, chunk_cb=chunk_cb,
                     global_tokens=ref_g, semantic_tokens=[],
                     zero_shot=zss[j], prefill_tokens=len(prompts[j]),
-                    t_start=time.perf_counter(),
-                    t_submit=t_sub, admit_seq=self._block_seq)
+                    t_admit=t_admit, trace_id=tid,
+                    admit_seq=self._block_seq)
+        t_end = trace.now()
+        self.stats["admit_s"] += (t_end - t_admit) * 1e-9
+        if rec:
+            trace.span("admit.prompt", t_admit, t_prompt, cause=sid, n=m)
+            trace.span("admit.prefill", t_prompt, t_prefill, cause=sid, n=mb)
+            trace.span("admit.scatter", t_prefill, t_end, cause=sid, n=m)
+            trace.span("admit", t_admit, t_end, n=m,
+                       cpu=time.thread_time_ns() - c0, sid=sid)
 
     def _decode(self, bucket: int):
         """One decode block on every data row (on the first ``bucket``
@@ -1000,11 +1026,11 @@ class ContinuousEngine:
         if b_n >= self._bucket_for(hi):
             return pending
         if pending is not None:
-            t0 = time.perf_counter()
             self._process_block(*pending)
-            self.stats["process_s"] += time.perf_counter() - t0
             pending = None
-        t0 = time.perf_counter()
+        rec = trace.on
+        t0 = trace.now()
+        c0 = time.thread_time_ns() if rec else 0
         with self._lock:
             # again under the lock: _process_block may have retired slots
             src = sorted((s for s in self._live if s >= b_n), reverse=True)
@@ -1022,7 +1048,11 @@ class ContinuousEngine:
                     live.admit_seq = self._block_seq
                     self._live[d] = live
             self.stats["relocations"] += len(src)
-        self.stats["compact_s"] += time.perf_counter() - t0
+        t1 = trace.now()
+        self.stats["compact_s"] += (t1 - t0) * 1e-9
+        if rec:
+            trace.span("compact", t0, t1, n=len(src),
+                       cpu=time.thread_time_ns() - c0)
         return pending
 
     def _retire(self, slot: int):
@@ -1044,7 +1074,8 @@ class ContinuousEngine:
             semantic_tokens=live.semantic_tokens,
             prefill_tokens=live.prefill_tokens,
             decode_steps=len(live.semantic_tokens)
-            + (0 if live.zero_shot else C.GLOBAL_TOKENS_SIZE)))
+            + (0 if live.zero_shot else C.GLOBAL_TOKENS_SIZE),
+            trace_id=live.trace_id))
 
     def _readback(self, emits, stage):
         """Start one block's transfer to the host: emits [K, B] and the
@@ -1069,9 +1100,7 @@ class ContinuousEngine:
         pending = None      # (host tensor, event, block seq)
         while not self._stop:
             self._apply_cancels()
-            t0 = time.perf_counter()
             self._admit()
-            self.stats["admit_s"] += time.perf_counter() - t0
             pending = self._compact(pending)
             with self._lock:
                 hi = (max(self._live) + 1) if self._live else 0
@@ -1082,17 +1111,22 @@ class ContinuousEngine:
 
             nxt = None
             if hi:
-                t0 = time.perf_counter()
-                emits, stage = self._decode(self._bucket_for(hi))
+                bucket = self._bucket_for(hi)
+                rec = trace.on
+                t0 = trace.now()
+                c0 = time.thread_time_ns() if rec else 0
+                emits, stage = self._decode(bucket)
                 self._block_seq += 1
                 nxt = (*self._readback(emits, stage), self._block_seq)
-                self.stats["dispatch_s"] += time.perf_counter() - t0
+                t1 = trace.now()
+                self.stats["dispatch_s"] += (t1 - t0) * 1e-9
                 self.stats["blocks"] += 1
+                if rec:
+                    trace.span("dispatch", t0, t1, n=bucket,
+                               cpu=time.thread_time_ns() - c0)
 
             if pending is not None:
-                t0 = time.perf_counter()
                 self._process_block(*pending)
-                self.stats["process_s"] += time.perf_counter() - t0
             pending = nxt
 
         if pending is not None:
@@ -1143,19 +1177,30 @@ class ContinuousEngine:
             self._stream.synchronize()
 
     def _process_block(self, host, done, seq):
+        """Wait for block ``seq``'s readback, then route its tokens to the
+        live requests (callbacks included) and retire the finished ones."""
+        rec = trace.on
+        t0 = trace.now()
+        c0 = time.thread_time_ns() if rec else 0
         if done is not None:
             done.synchronize()
+        # the readback's end stamps what the block delivered: the marks of
+        # the 32nd global and the first semantic token, and ``first_emit``
+        t_read = trace.now()
+        c_read = time.thread_time_ns() if rec else 0
         both = host.numpy()
         emits_np, stages_np = both[:-1], both[-1]
 
         with self._lock:
             live_slots = list(self._live.items())
+        routed = 0
         for slot, live in live_slots:
             if live.admit_seq >= seq:
                 # dispatched before this occupant was admitted: the emits
                 # and stage belong to the previous occupant (or to idle)
                 continue
             new_sem = []
+            had = len(live.global_tokens) if rec else 0
             for e in emits_np[:, slot].tolist():
                 if e == NO_EMIT or e == FINISHED:
                     continue
@@ -1164,13 +1209,26 @@ class ContinuousEngine:
                     live.global_tokens.append(e)
                 else:
                     new_sem.append(e)
+            if rec:
+                routed += len(live.global_tokens) - had + len(new_sem)
+                if had < C.GLOBAL_TOKENS_SIZE == len(live.global_tokens):
+                    trace.mark("globals_done", t_read, req=live.trace_id)
             if new_sem:
                 if not live.semantic_tokens and not live.t_first_emit:
-                    live.t_first_emit = time.perf_counter()
+                    live.t_first_emit = t_read
                     self.hist["first_emit"].observe(
-                        live.t_first_emit - live.t_start)
+                        (t_read - live.t_admit) * 1e-9)
+                    if rec:
+                        trace.mark("first_semantic", t_read,
+                                   req=live.trace_id)
                 live.semantic_tokens.extend(new_sem)
                 if live.chunk_cb is not None:
                     self._call(live.chunk_cb, live.request, list(new_sem))
             if stages_np[slot] == IDLE:
                 self._retire(slot)
+        t1 = trace.now()
+        self.stats["process_s"] += (t1 - t0) * 1e-9
+        if rec:
+            trace.span("readback.wait", t0, t_read, n=seq, cpu=c_read - c0)
+            trace.span("readback.route", t_read, t1, n=routed,
+                       cpu=time.thread_time_ns() - c_read)

@@ -518,12 +518,15 @@ class GenerationResult:
     """A request's tokens, with the JAX engines' accounting:
     ``prefill_tokens`` is the prompt's length (padding excluded) and
     ``decode_steps`` the tokens the request itself decoded (32 globals in
-    normal mode plus its semantic tokens)."""
+    normal mode plus its semantic tokens). ``trace_id``: the id
+    ``ContinuousEngine.submit`` returned, under which the recorder
+    (``utils/trace``) filed its spans; 0 from the static engines."""
 
     global_tokens: List[int]
     semantic_tokens: List[int]
     prefill_tokens: int
     decode_steps: int
+    trace_id: int = 0
 
 
 class TtsEngine:

@@ -66,6 +66,7 @@ from typing import Any, Callable, Dict, Hashable, List, Tuple
 import torch
 
 from ..ops import _build
+from ..utils import trace
 
 
 _collector_lock = threading.Lock()
@@ -157,7 +158,9 @@ class GraphCache:
         self._turn = threading.Lock()
         self._last_turn = None      # the event that ends the last turn
         self.turns = 0
-        self.wait_s = 0.0           # host seconds spent waiting for a turn
+        # host seconds spent waiting for a turn, from the stamps of the
+        # recorder's ``turn.wait`` spans (``utils/trace``)
+        self.wait_s = 0.0
 
     @contextlib.contextmanager
     def exclusive(self):
@@ -168,10 +171,15 @@ class GraphCache:
         turn's end is recorded on the caller's stream. Inside a turn copy
         the inputs into the buffers, replay, and copy the outputs out on
         the device; read them back on the host after the turn, so that no
-        caller holds another behind its read-back."""
-        t0 = time.perf_counter()
+        caller holds another behind its read-back.
+
+        While the recorder is on, the wait and the turn are its
+        ``turn.wait`` and ``turn`` spans, under the request and parent span
+        the caller's thread has bound (``trace.request``, ``trace.scope``)."""
+        t0 = trace.now()
         with self._turn:
-            self.wait_s += time.perf_counter() - t0
+            t1 = trace.now()
+            self.wait_s += (t1 - t0) * 1e-9
             self.turns += 1
             cur = torch.cuda.current_stream(self.device)
             if self._last_turn is not None:
@@ -181,6 +189,11 @@ class GraphCache:
             finally:
                 self._last_turn = torch.cuda.Event()
                 self._last_turn.record(cur)
+                if trace.on:
+                    req, parent = trace.bound()
+                    trace.span("turn.wait", t0, t1, req=req, cause=parent)
+                    trace.span("turn", t1, trace.now(), req=req,
+                               cause=parent)
 
     def __contains__(self, key) -> bool:
         return key in self.programs

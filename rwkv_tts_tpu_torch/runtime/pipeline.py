@@ -40,6 +40,7 @@ from ..audio.frontend import load_and_process, zero_mean_unit_variance
 from ..config import (BiCodecConfig, EngineConfig, RwkvConfig, TtsArgs,
                       Wav2Vec2Config)
 from ..models import bicodec, rwkv7, wav2vec2
+from ..utils import trace
 from ..utils.device import resolve_device
 from ..utils.rtf import StageTimer
 from .engine import GenerationResult, TtsEngine
@@ -325,13 +326,16 @@ class TtsPipeline:
     def vocode(self, g: GenerationResult) -> np.ndarray:
         """One request's tokens → f32 waveform @16 kHz (bucketed BiCodec
         detokenize; an empty generation gives 1 s of silence,
-        lightweight_tts_pipeline.rs:828-830)."""
-        if g.semantic_tokens:
+        lightweight_tts_pipeline.rs:828-830). While the recorder is on the
+        call is its ``vocode`` span (n = latents) under ``g.trace_id``."""
+        if not g.semantic_tokens:
+            return np.zeros(C.SAMPLE_RATE, np.float32)
+        with trace.scope("vocode", g.trace_id, len(g.semantic_tokens)) \
+                if trace.on else trace.OFF:
             return bicodec.detokenize(
                 self.bicodec_params, g.global_tokens or [0] * 32,
                 g.semantic_tokens, self.bicodec_cfg,
                 graphs=self.decode_graphs)[0]
-        return np.zeros(C.SAMPLE_RATE, np.float32)
 
     def assemble_result(self, g: GenerationResult, wav: np.ndarray,
                         timings_ms: Dict[str, float]) -> SynthesisResult:

@@ -40,6 +40,7 @@ import numpy as np
 from .. import constants as C
 from ..config import BiCodecConfig
 from ..models import bicodec
+from ..utils import trace
 
 
 @dataclasses.dataclass
@@ -119,6 +120,14 @@ class StreamingVocoder:
         return np.concatenate(out)
 
     def _vocode_next(self, n_emit: int, flush: bool) -> np.ndarray:
+        """One window; while the recorder is on, its ``window`` span (n =
+        the padded latents: the flush or the interior bucket) under the
+        request the thread has bound."""
+        padded = self.flush_bucket if flush else self.window_bucket
+        with trace.scope("window", n=padded) if trace.on else trace.OFF:
+            return self._window(n_emit, flush, padded)
+
+    def _window(self, n_emit: int, flush: bool, padded: int) -> np.ndarray:
         end = self._emitted + n_emit + (0 if flush else self.lookahead)
         start = max(0, self._emitted - self.context)
         ctx = self._emitted - start
@@ -127,15 +136,18 @@ class StreamingVocoder:
         # padding ``detokenize`` applies past the utterance's end, so the
         # tail matches the full decode; an interior chunk's real lookahead
         # covers the emitted region and the filler beyond it is not heard
-        padded = self.flush_bucket if flush else self.window_bucket
-        # checked on the host; with graphs, the window length's program
+        # (``padded``). Checked on the host; with graphs, the window
+        # length's program
         wav = bicodec.decode_host(
             self.params, [self.global_tokens],
             [window + [window[-1]] * (padded - len(window))], self.cfg,
             self.graphs)
         hop = C.LATENT_HOP_LENGTH
+        t0 = trace.now() if trace.on else 0
         audio = wav[0, ctx * hop:(ctx + n_emit) * hop].cpu().numpy().astype(
             np.float32)
+        if t0:
+            trace.child("vocode.readback", t0, n=n_emit)
         self._emitted += n_emit
         return audio
 
@@ -153,7 +165,11 @@ def stream_synthesize(continuous_engine, bicodec_params, bicodec_cfg,
 
     A property-controlled request's speaker tokens exist only once its
     global stage ends, so vocoding starts at the first semantic chunk; a
-    zero-shot request vocodes from its first block."""
+    zero-shot request vocodes from its first block.
+
+    While the recorder (``utils/trace``) is on, the windows are vocoded
+    under the trace id ``submit`` returned, and each chunk is marked
+    (``chunk``, n = samples) as it is yielded."""
     q: "queue.Queue" = queue.Queue()
     done = threading.Event()
     box = {}
@@ -166,7 +182,17 @@ def stream_synthesize(continuous_engine, bicodec_params, bicodec_cfg,
         done.set()
         q.put(None)
 
-    continuous_engine.submit(args, result_cb, chunk_cb=chunk_cb)
+    # an engine wrapper that drops ``submit``'s return leaves the id 0
+    tid = continuous_engine.submit(args, result_cb, chunk_cb=chunk_cb) or 0
+
+    def push(tokens, flush=False) -> np.ndarray:
+        with trace.request(tid) if trace.on else trace.OFF:
+            return vocoder.push(tokens, flush=flush)
+
+    def chunk(audio, final) -> StreamChunk:
+        if trace.on:
+            trace.mark("chunk", trace.now(), req=tid, n=len(audio))
+        return StreamChunk(seq=seq, audio=audio, final=final)
 
     def vocoder_for(global_tokens):
         return StreamingVocoder(bicodec_params, bicodec_cfg, global_tokens,
@@ -191,16 +217,15 @@ def stream_synthesize(continuous_engine, bicodec_params, bicodec_cfg,
                 raise res
             if vocoder is None:
                 vocoder = vocoder_for(res.global_tokens)
-            yield StreamChunk(seq=seq, audio=vocoder.push([], flush=True),
-                              final=True)
+            yield chunk(push([], flush=True), True)
             return
         if vocoder is None:
             # the global tokens are final once semantic tokens arrive
             vocoder = vocoder_for(_resolve_globals(continuous_engine, args,
                                                    box, done))
-        audio = vocoder.push(item)
+        audio = push(item)
         if audio.size:
-            yield StreamChunk(seq=seq, audio=audio, final=False)
+            yield chunk(audio, False)
             seq += 1
 
 

@@ -21,7 +21,7 @@ from rwkv_tts_tpu_torch.runtime import continuous as CT
 from rwkv_tts_tpu_torch.runtime.continuous import (ContinuousEngine,
                                                    RequestCancelled)
 from rwkv_tts_tpu_torch.runtime.engine import TtsEngine
-from rwkv_tts_tpu_torch.utils import bridge
+from rwkv_tts_tpu_torch.utils import bridge, trace
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -176,7 +176,7 @@ def test_compaction_relocates_straggler(params, static_engine):
         # enqueue all three before the loop starts, so they admit as one
         # burst into slots 0, 1, 2: the straggler lands above bucket 2
         results, done = collect(eng, reqs, submit=lambda r, cb: eng._queue.put(
-            [r, cb, None, time.perf_counter(), False]))
+            [r, cb, None, trace.now(), False, 0]))
         eng.start()
         assert done.wait(WAIT), f"only {len(results)}/3 finished"
         assert eng.stats["relocations"] >= 1
@@ -361,7 +361,7 @@ def test_crashed_loop_fast_fails_submits(params, monkeypatch):
         eng.stop()
         for i in range(2):              # one admits, one stays queued
             eng._queue.put([TtsArgs(text=f"x{i}", seed=i), cb, None,
-                            time.perf_counter(), False])
+                            trace.now(), False, 0])
         eng.start()
         assert done.wait(WAIT)
         assert all(isinstance(r, RuntimeError) and "boom" in str(r)
@@ -428,7 +428,7 @@ def test_block_keeps_its_stage_snapshot(params):
     eng = engine(params)
     try:
         eng._queue.put([TtsArgs(text="snap", seed=1, max_tokens=3),
-                        lambda r: None, None, time.perf_counter(), False])
+                        lambda r: None, None, trace.now(), False, 0])
         eng._admit()
         before = {k: v.clone() for k, v in eng.slots.items()}
         held = dict(eng.slots)
@@ -545,7 +545,7 @@ def test_bucketed_block_on_card_matches_whole_block(cuda_card):
     eng = ContinuousEngine(p, CFG, ECFG, block=8, slots=8, buckets=(2, 4),
                            device="cuda")
     eng._queue.put([TtsArgs(text="view", seed=1, max_tokens=20),
-                    lambda r: None, None, time.perf_counter(), False])
+                    lambda r: None, None, trace.now(), False, 0])
     eng._admit()
     state2 = {k: v.clone() for k, v in eng.state.items()}
     state2["wkv"][:, 2:] = 7.0
